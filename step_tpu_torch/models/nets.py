@@ -1,0 +1,98 @@
+"""Detection networks: feature extractor, scene context, two-branch head.
+
+Port of `step_tpu/models/nets.py`: `FeatureNet` (RGB, the I3D stem over
+the whole clip), `ContextNet` (:84-97) and `TwoBranchHead` with the "grid"
+regression head (:100-206).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from step_tpu_torch.models.i3d import I3DStem, I3DTail
+
+EPS = 1e-6
+CONTEXT_DIM = 256
+REG_CHANNELS = 64     # 1x1x1 reduction before the regression Dense
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+class FeatureNet(nn.Module):
+    """Shared backbone features: the RGB I3D stem over the whole clip,
+    `[B, 3, T, H, W]` → `[B, C, T', H', W']`."""
+
+    def __init__(self, depth: str = "full", bn_folded: bool = False):
+        super().__init__()
+        self.stem_rgb = I3DStem(depth, bn_folded)
+        self.out_channels = self.stem_rgb.out_channels
+
+    def forward(self, rgb: torch.Tensor) -> torch.Tensor:
+        return self.stem_rgb(rgb)
+
+
+class ContextNet(nn.Module):
+    """Global scene context: the mean of the feature map over time and
+    space, projected and rectified, `[B, C, T', H', W']` → `[B, CONTEXT_DIM]`."""
+
+    def __init__(self, cin: int):
+        super().__init__()
+        self.proj = nn.Linear(cin, CONTEXT_DIM)
+
+    def forward(self, feat: torch.Tensor) -> torch.Tensor:
+        return F.relu(_linear(self.proj, feat.mean(dim=(2, 3, 4))))
+
+
+class TwoBranchHead(nn.Module):
+    """One refinement step's head.
+
+    Classification: I3D tail → spatial mean → mean over the active feature
+    slices → (concat context) → logits. Regression: I3D tail → 1x1x1
+    reduction to `REG_CHANNELS` → ReLU → Dense(4) over the flattened 7x7
+    grid of each slice → linear temporal resize from T' to T frames.
+    """
+
+    def __init__(self, cin: int, num_cls_outputs: int, num_frames: int,
+                 pooled_size: int = 7, depth: str = "full",
+                 bn_folded: bool = False, ctx_dim: int = 0):
+        super().__init__()
+        self.num_frames = num_frames
+        self.tail = I3DTail(cin, depth, bn_folded)
+        c = self.tail.out_channels
+        self.cls = nn.Linear(c + ctx_dim, num_cls_outputs)
+        self.reg_reduce = nn.Conv3d(c, REG_CHANNELS, (1, 1, 1))
+        self.reg = nn.Linear(pooled_size * pooled_size * REG_CHANNELS, 4)
+
+    def forward(self, pooled: torch.Tensor, ctx: torch.Tensor | None = None,
+                tprime_mask: torch.Tensor | None = None):
+        """pooled `[N, T', P, P, C]` channels-last; ctx `[N, D]`;
+        tprime_mask `[T']` → (cls_logits `[N, ncls]`, deltas `[N, T, 4]`),
+        both float32."""
+        N, Tp = pooled.shape[0], pooled.shape[1]
+        x = self.tail(pooled.permute(0, 4, 1, 2, 3))          # [N, C, T', P, P]
+
+        spatial = x.mean(dim=(3, 4))                            # [N, C, T']
+        if tprime_mask is None:
+            cls_feat = spatial.mean(dim=2)
+        else:
+            w = tprime_mask.to(spatial.dtype)
+            w = w / torch.clamp(w.sum(), min=EPS)
+            cls_feat = torch.einsum("nct,t->nc", spatial, w)
+        if ctx is not None:
+            cls_feat = torch.cat([cls_feat, ctx.to(cls_feat.dtype)], dim=-1)
+        cls_logits = _linear(self.cls, cls_feat)
+
+        r = F.relu(F.conv3d(x, self.reg_reduce.weight.to(x.dtype),
+                            self.reg_reduce.bias.to(x.dtype)))
+        # The JAX head flattens each slice's grid in (h, w, c) order, so the
+        # channels move last before the reshape.
+        r = r.permute(0, 2, 3, 4, 1).reshape(N, Tp, -1)
+        deltas = _linear(self.reg, r).to(torch.float32)        # [N, T', 4]
+        # jax.image.resize "linear" == F.interpolate(align_corners=False).
+        deltas = F.interpolate(deltas.transpose(1, 2), size=self.num_frames,
+                               mode="linear", align_corners=False)
+        return cls_logits.to(torch.float32), deltas.transpose(1, 2)
