@@ -15,27 +15,48 @@ Phases, each fatal on failure (exit code 1, no result line):
   5. a tiny float32 detector on the card against the same detector on the
      CPU (plain versions of both kernels);
   6. the main path: `ucf_3step` at full width and depth, seeded weights,
-     BN folded, bfloat16, serving uint8 clips through `detect_clip` at
-     B=1 and B=8 — output shapes, finite values, and both kernels'
-     launch counters above zero.
+     made ready for serving by `optimize_for_inference` (BN folded, the
+     Inception 1x1x1 convs fused, as the JAX package serves it), bfloat16,
+     serving uint8 clips through `detect_clip` at B=1 and B=8 — output
+     shapes, finite values, and both kernels' launch counters above zero;
+  7. K5, 3x3x3 max pool: kernel against its plain version at the Mixed_3b,
+     Mixed_4b and tail Mixed_5b pool shapes, float32 and bfloat16 — exactly
+     equal;
+  8. K4, BN + ReLU: at the Conv3d_1a output and a tail shape — float32
+     within 1e-6, bfloat16 within one rounding step;
+  9. K3, 3x3x3 conv + BN + ReLU: at Conv3d_2c_3x3 and the tail's Mixed_5b
+     b1b — float32 within 1e-4, bfloat16 within one rounding step;
+ 10. the kernel path: the same `ucf_3step` at full width and depth, seeded
+     weights left unfolded, `fused_bn_relu=True` and
+     `STEP_TPU_POOL3D=pallas`, bfloat16, serving B=1 and B=8 — the checks of
+     phase 6, and all five launch counters above zero;
+ 11. the same weights in float32 at B=1: the kernel path against the main
+     path (folded, cuDNN, PyTorch pools) — tube scores within 1e-3, tubes
+     within 1e-2 px.
 
-The second-to-last line is a JSON object describing each kernel; the last
-is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
+The second-to-last line is a JSON object describing each kernel (launches
+counted on the path that runs it: K1 and K2 on the main path, phase 6; K3,
+K4 and K5 on the kernel path, phase 10); the last is
+{"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SEED = 0
 SERVE_BATCHES = (1, 8)
 REQUESTS_PER_BATCH = 4          # the first of each batch size warms up
-ROI_BF16_RTOL = 2.0 ** -7       # one bf16 rounding step (8-bit significand)
+KERNEL_PATH_REQUESTS = 3        # the kernel path is slower: fewer requests
+BF16_RTOL = 2.0 ** -7           # one bf16 rounding step (8-bit significand)
+PATH_SCORE_TOL, PATH_TUBE_TOL = 1e-3, 1e-2
 
 
 def fail(msg: str) -> None:
@@ -82,6 +103,13 @@ def nms_inputs(rng, N: int, P: int):
     return boxes, scores, valid
 
 
+def randn_cl(rng, shape, dev) -> torch.Tensor:
+    """A float32 NCDHW tensor on the card from `rng`, in channels_last_3d
+    order, as the backbone keeps its activations."""
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dev)
+    return x.contiguous(memory_format=torch.channels_last_3d)
+
+
 def roi_inputs(rng, B: int, Tp: int, H: int, C: int, N: int, T: int, image: int):
     feat = rng.randn(B, Tp, H, H, C).astype(np.float32)
     base = rng.uniform(-0.2, 1.0, (B, N, 1, 2)) * image
@@ -95,6 +123,44 @@ def roi_inputs(rng, B: int, Tp: int, H: int, C: int, N: int, T: int, image: int)
     return feat, tubes.astype(np.float32)
 
 
+def serve(model, cfg, clips, dev, label: str) -> None:
+    """Serve each batch size's clips through `detect_clip`, timing each
+    request, and check the outputs as a client would read them."""
+    from step_tpu_torch.inference import detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+
+    T, C, P = cfg.total_frames, cfg.num_classes, cfg.max_proposals
+    K = min(cfg.max_detections, P)
+    for b, batch in clips.items():
+        props, pmask = STEPDetector.initial_proposals(cfg, b, device=dev)
+        times = []
+        for clip in batch:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = detect_clip(model, clip.to(dev), props, pmask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            shapes = {"tubes": (b, P, T, 4), "tube_scores": (b, P, C),
+                      "frame_boxes": (b, T, C, K, 4), "frame_scores": (b, T, C, K),
+                      "frame_mask": (b, T, C, K)}
+            for key, shape in shapes.items():
+                check(tuple(out[key].shape) == shape,
+                      f"{label}: {key} shape {tuple(out[key].shape)}, expected {shape}")
+                check(bool(torch.isfinite(out[key]).all()), f"{label}: {key} not finite")
+            check(float(out["tube_scores"][:, cfg.num_proposals:].abs().max()) == 0.0,
+                  f"{label}: padding proposals scored")
+            check(bool(((out["tubes"] >= 0) & (out["tubes"] <= cfg.image_size)).all()),
+                  f"{label}: tubes outside the image")
+        print(f"    B={b}: request wall ms {', '.join(f'{t:.2f}' for t in times)} "
+              f"(first warms up); {int(out['frame_mask'].sum())} survivors in the "
+              f"last", flush=True)
+
+
+def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Within one bf16 rounding step of each other."""
+    return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
@@ -102,7 +168,11 @@ def main() -> None:
     from step_tpu_torch.inference import detect_clip, nms_surface
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
+    from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
+                                                  fused_scale_bias_relu_plain)
     from step_tpu_torch.ops.nms import nms_many, nms_many_plain, premask_scores
+    from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
     from step_tpu_torch.utils.init import init_detector_
 
@@ -177,7 +247,7 @@ def main() -> None:
     torch.cuda.synchronize()
     check(out_k.dtype == torch.bfloat16, f"K2 bf16 output dtype {out_k.dtype}")
     err16 = float((out_k.float() - out_p.float()).abs().max())
-    check(torch.allclose(out_k.float(), out_p.float(), rtol=ROI_BF16_RTOL, atol=1e-5),
+    check(bf16_close(out_k, out_p),
           f"K2 roi_align bfloat16 differs from plain: max |err| {err16}")
     roi_ms = cuda_ms(lambda: roi(feat16))
     roi_plain_ms = cuda_ms(lambda: plain(feat16))
@@ -217,48 +287,173 @@ def main() -> None:
     model = model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[6] ucf_3step {cfg.backbone_depth}, {n_params} params, BN folded, "
-          f"{cfg.compute_dtype}: built in {time.time() - t0:.1f} s", flush=True)
-    clips = {b: [torch.from_numpy(rng.randint(0, 256, (b, T, cfg.image_size,
-                                                       cfg.image_size, 3)
-                                              ).astype(np.uint8))
-                 for _ in range(REQUESTS_PER_BATCH)] for b in SERVE_BATCHES}
-    nms_many.launches = 0
-    tube_roi_align.launches = 0
-    torch.cuda.reset_peak_memory_stats(dev)
-    for b in SERVE_BATCHES:
-        props, pmask = STEPDetector.initial_proposals(cfg, b, device=dev)
-        times = []
-        for clip in clips[b]:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = detect_clip(model, clip.to(dev), props, pmask)
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-            shapes = {"tubes": (b, P, T, 4), "tube_scores": (b, P, C),
-                      "frame_boxes": (b, T, C, K, 4), "frame_scores": (b, T, C, K),
-                      "frame_mask": (b, T, C, K)}
-            for key, shape in shapes.items():
-                check(tuple(out[key].shape) == shape,
-                      f"{key} shape {tuple(out[key].shape)}, expected {shape}")
-                check(bool(torch.isfinite(out[key]).all()), f"{key} not finite")
-            check(float(out["tube_scores"][:, cfg.num_proposals:].abs().max()) == 0.0,
-                  "padding proposals scored")
-            check(bool(((out["tubes"] >= 0) & (out["tubes"] <= cfg.image_size)).all()),
-                  "tubes outside the image")
-        print(f"    B={b}: request wall ms {', '.join(f'{t:.2f}' for t in times)} "
-              f"(first warms up); {int(out['frame_mask'].sum())} survivors in the "
-              f"last", flush=True)
-    launches = {"nms_many": nms_many.launches,
-                "tube_roi_align": tube_roi_align.launches}
-    print(f"    launches during serving: {launches}; peak memory "
-          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+          f"fused_inception={cfg_opt.fused_inception}, {cfg.compute_dtype}: built "
+          f"in {time.time() - t0:.1f} s", flush=True)
 
+    def new_clips(batches, n):
+        return {b: [torch.from_numpy(rng.randint(0, 256, (b, T, cfg.image_size,
+                                                          cfg.image_size, 3)
+                                                 ).astype(np.uint8))
+                    for _ in range(n)] for b in batches}
+
+    os.environ["STEP_TPU_POOL3D"] = "direct"
+    counters = {"nms_many": nms_many, "tube_roi_align": tube_roi_align,
+                "max_pool3x3_same": max_pool3x3_same,
+                "fused_scale_bias_relu": fused_scale_bias_relu,
+                "conv3x3x3_bn_relu": conv3x3x3_bn_relu}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve(model, cfg, new_clips(SERVE_BATCHES, REQUESTS_PER_BATCH), dev, "main path")
+    main_launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"    launches during serving: {main_launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    for name in ("nms_many", "tube_roi_align"):
+        check(main_launches[name] > 0, f"kernel {name} never launched on the main path")
+    del model
+
+    # ---- 7. K5: 3x3x3 max pool ------------------------------------------
+    for shape in ((8, 192, 9, 28, 28), (8, 480, 5, 14, 14), (128, 832, 5, 7, 7)):
+        x32 = randn_cl(rng, shape, dev)
+        x32[0, 0, 0, 0, :3] = float("nan")
+        for x in (x32, x32.to(torch.bfloat16)):
+            got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
+            torch.cuda.synchronize()
+            check(torch.equal(got.isnan(), want.isnan()), f"K5 NaN differ at {shape}")
+            ok = ~want.isnan()
+            check(torch.equal(got[ok], want[ok]),
+                  f"K5 pool {x.dtype} {shape} differs from plain: "
+                  f"{int((got[ok] != want[ok]).sum())} elements")
+        x16 = x32.to(torch.bfloat16)
+        pool_ms = cuda_ms(lambda: max_pool3x3_same(x16))
+        pool_plain_ms = cuda_ms(lambda: max_pool3x3_same_plain(x16))
+        print(f"[7] K5 max_pool3x3 {list(shape)}: exact in f32 and bf16; bf16 kernel "
+              f"{pool_ms:.4f} ms, plain {pool_plain_ms:.4f} ms", flush=True)
+    results["max_pool3x3_same"] = dict(max_abs_err=0.0, ms=pool_ms,
+                                       plain_ms=pool_plain_ms)
+
+    # ---- 8. K4: BN + ReLU -----------------------------------------------
+    for shape in ((8, 64, 9, 112, 112), (128, 384, 5, 7, 7)):
+        x32 = randn_cl(rng, shape, dev)
+        scale = torch.rand(shape[1], device=dev) * 2 + 0.1
+        bias = torch.randn(shape[1], device=dev)
+        got, want = fused_scale_bias_relu(x32, scale, bias), \
+            fused_scale_bias_relu_plain(x32, scale, bias)
+        torch.cuda.synchronize()
+        err32 = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+              f"K4 bn_relu f32 {shape} differs from plain: max |err| {err32}")
+        x16 = x32.to(torch.bfloat16)
+        got, want = fused_scale_bias_relu(x16, scale, bias), \
+            fused_scale_bias_relu_plain(x16, scale, bias)
+        torch.cuda.synchronize()
+        err16 = float((got.float() - want.float()).abs().max())
+        check(got.dtype == torch.bfloat16 and bf16_close(got, want),
+              f"K4 bn_relu bf16 {shape} differs from plain: max |err| {err16}")
+        bn_ms = cuda_ms(lambda: fused_scale_bias_relu(x16, scale, bias))
+        bn_plain_ms = cuda_ms(lambda: fused_scale_bias_relu_plain(x16, scale, bias))
+        print(f"[8] K4 bn_relu {list(shape)}: max |err| f32 {err32:.3g} (tol 1e-6), "
+              f"bf16 {err16:.3g} (one bf16 step); bf16 kernel {bn_ms:.4f} ms, "
+              f"plain {bn_plain_ms:.4f} ms", flush=True)
+        if shape[0] == 8:
+            results["fused_scale_bias_relu"] = dict(max_abs_err=err16, ms=bn_ms,
+                                                    plain_ms=bn_plain_ms)
+
+    # ---- 9. K3: 3x3x3 conv + BN + ReLU -----------------------------------
+    for shape, K in (((8, 64, 9, 56, 56), 192), ((128, 160, 5, 7, 7), 320)):
+        x32 = randn_cl(rng, shape, dev)
+        w = torch.randn(K, shape[1], 3, 3, 3, device=dev) / (27 * shape[1]) ** 0.5
+        scale = torch.rand(K, device=dev) + 0.5
+        bias = torch.randn(K, device=dev) * 0.1
+        got, want = conv3x3x3_bn_relu(x32, w, scale, bias), \
+            conv3x3x3_bn_relu_plain(x32, w, scale, bias)
+        torch.cuda.synchronize()
+        err32 = float((got - want).abs().max())
+        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+              f"K3 conv f32 {shape}->{K} differs from plain: max |err| {err32}")
+        x16, w16 = x32.to(torch.bfloat16), w.to(torch.bfloat16)
+        got, want = conv3x3x3_bn_relu(x16, w16, scale, bias), \
+            conv3x3x3_bn_relu_plain(x16, w16, scale, bias)
+        torch.cuda.synchronize()
+        err16 = float((got.float() - want.float()).abs().max())
+        check(got.dtype == torch.bfloat16 and bf16_close(got, want),
+              f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
+        conv_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w16, scale, bias), iters=10)
+        conv_plain_ms = cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w16, scale, bias),
+                                iters=10)
+        cudnn_ms = cuda_ms(lambda: fused_scale_bias_relu_plain(
+            F.conv3d(x16, w16, None, 1, 1), scale, bias), iters=10)
+        flop = 2 * shape[0] * np.prod(shape[2:]) * 27 * shape[1] * K
+        print(f"[9] K3 conv3x3x3_bn_relu {list(shape)}->{K}: max |err| f32 "
+              f"{err32:.3g} (tol 1e-4), bf16 {err16:.3g} (one bf16 step); bf16 "
+              f"kernel {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s), plain "
+              f"(f32 conv) {conv_plain_ms:.4f} ms, cuDNN bf16 conv + affine "
+              f"{cudnn_ms:.4f} ms", flush=True)
+        if shape[0] == 128:
+            results["conv3x3x3_bn_relu"] = dict(max_abs_err=err16, ms=conv_ms,
+                                                plain_ms=conv_plain_ms)
+
+    # ---- 10. the kernel path: unfolded, fused_bn_relu, K5 pools, bf16 ----
+    os.environ["STEP_TPU_POOL3D"] = "pallas"
+    kcfg = cfg.replace(fused_bn_relu=True)
+    t0 = time.time()
+    seeded = init_detector_(STEPDetector(cfg).eval(), SEED).state_dict()
+    kmodel = STEPDetector(kcfg).eval()
+    kmodel.load_state_dict(seeded)
+    kmodel = kmodel.to(dev)        # float32 parameters, bf16 activations
+    print(f"[10] ucf_3step {cfg.backbone_depth}, unfolded, fused_bn_relu, "
+          f"STEP_TPU_POOL3D=pallas, {cfg.compute_dtype}: built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    serve(kmodel, kcfg, new_clips(SERVE_BATCHES, KERNEL_PATH_REQUESTS), dev,
+          "kernel path")
+    kernel_launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"    launches during serving: {kernel_launches}; peak memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+    for name, n in kernel_launches.items():
+        check(n > 0, f"kernel {name} never launched on the kernel path")
+
+    # ---- 11. float32, B=1: the kernel path against the main path ---------
+    del kmodel
+    cfg32 = cfg.replace(compute_dtype="float32")
+    kmodel = STEPDetector(cfg32.replace(fused_bn_relu=True)).eval()
+    kmodel.load_state_dict(seeded)
+    kmodel = kmodel.to(dev)
+    cfg_opt32, folded32 = optimize_for_inference(cfg32, seeded)
+    mmodel = STEPDetector(cfg_opt32).eval()
+    mmodel.load_state_dict(folded32)
+    mmodel = mmodel.to(dev)
+    props, pmask = STEPDetector.initial_proposals(cfg, 1, device=dev)
+    clip = new_clips((1,), 1)[1][0].to(dev)
+    got = detect_clip(kmodel, clip, props, pmask)
+    os.environ["STEP_TPU_POOL3D"] = "direct"
+    want = detect_clip(mmodel, clip, props, pmask)
+    torch.cuda.synchronize()
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    print(f"[11] f32 B=1 kernel path vs main path: tube scores max |d| "
+          f"{d_scores:.3g} (tol {PATH_SCORE_TOL}), tubes {d_tubes:.3g} px "
+          f"(tol {PATH_TUBE_TOL})", flush=True)
+    check(d_scores <= PATH_SCORE_TOL and d_tubes <= PATH_TUBE_TOL,
+          f"kernel path differs from the main path: scores {d_scores}, "
+          f"tubes {d_tubes} px")
+
+    launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
+                **{k: kernel_launches[k] for k in ("max_pool3x3_same",
+                                                   "fused_scale_bias_relu",
+                                                   "conv3x3x3_bn_relu")}}
     meta = {
         "nms_many": ("step_tpu_torch/csrc/nms.cu", "step_tpu/ops/nms_pallas.py:38"),
         "tube_roi_align": ("step_tpu_torch/csrc/roi_align.cu",
                            "step_tpu/ops/roi_align_pallas.py:55"),
+        "max_pool3x3_same": ("step_tpu_torch/csrc/pool3d.cu",
+                             "step_tpu/ops/pool_pallas.py:42"),
+        "fused_scale_bias_relu": ("step_tpu_torch/csrc/bn_relu.cu",
+                                  "step_tpu/ops/fused_bn_relu.py:32"),
+        "conv3x3x3_bn_relu": ("step_tpu_torch/csrc/conv3d.cu",
+                              "step_tpu/ops/conv3d_pallas.py:45"),
     }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

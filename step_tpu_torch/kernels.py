@@ -1,10 +1,11 @@
 """Build and bind the CUDA kernels in `csrc/`.
 
-The sources are compiled by `nvcc` for Hopper (`sm_90a`) into one shared
-library with a plain C interface, loaded with ctypes (no PyTorch headers in
-the build, so it takes seconds). The build runs on first use and lands in
-`_build/` beside this file, named by a hash of the sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+The sources are compiled by `nvcc` for Hopper (`sm_90a`), one process per
+source, all at once, and linked into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers in the build, so it takes
+seconds). The build runs on first use and lands in `_build/` beside this
+file, named by a hash of the sources and flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with no `nvcc` and no card.
@@ -29,12 +30,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("nms.cu", "roi_align.cu", "errors.cu")
+SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "bn_relu.cu", "conv3d.cu",
+           "errors.cu")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
-# no multiply-add may be contracted into an FMA. -Xptxas -v prints each
-# kernel's registers and spills into the build log.
+# no multiply-add may be contracted into an FMA (the conv kernel asks for
+# its FMAs explicitly, with fmaf). -Xptxas -v prints each kernel's registers
+# and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -62,27 +65,42 @@ def build() -> tuple[Path, str]:
     """Compile the sources if no library for them exists yet.
 
     Returns (library path, compiler log; empty when nothing was built).
-    Raises with the compiler's output if nvcc fails. Concurrent builders
-    each write a private temporary file and rename it into place.
+    Raises with the compiler's output if nvcc fails. Each source compiles
+    in its own nvcc process, all started together; concurrent builders
+    each work in a private temporary directory and rename the library into
+    place.
     """
     target = library_path()
     if target.exists():
         return target, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-               *(str(CSRC / name) for name in SOURCES)]
+    nvcc = nvcc_path()
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for name in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(tmp) / f"{name}.o"),
+                   str(CSRC / name)]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT,
+                                               text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = Path(tmp) / target.name
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib),
+               *(str(Path(tmp) / f"{name}.o") for name in SOURCES)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return target, proc.stdout + proc.stderr
+        os.replace(lib, target)
+    return target, "".join(log)
 
 
 @functools.lru_cache(maxsize=None)
@@ -95,6 +113,12 @@ def library() -> ctypes.CDLL:
     lib.step_nms_many.restype = i
     lib.step_tube_roi_align.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
     lib.step_tube_roi_align.restype = i
+    lib.step_max_pool3x3.argtypes = [p, p, i, i, i, i, i, i, p]
+    lib.step_max_pool3x3.restype = i
+    lib.step_scale_bias_relu.argtypes = [p, p, p, p, i, ctypes.c_int64, i, p]
+    lib.step_scale_bias_relu.restype = i
+    lib.step_conv3x3x3_bn_relu.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.step_conv3x3x3_bn_relu.restype = i
     lib.step_cuda_error_string.argtypes = [i]
     lib.step_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -111,6 +135,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _need_cuda(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} kernel needs CUDA tensors, got {t.device}")
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         text = library().step_cuda_error_string(err).decode()
@@ -122,9 +155,8 @@ def nms_many_forward(live: torch.Tensor, boxes: torch.Tensor,
                      iou_threshold: float) -> None:
     """Launch `csrc/nms.cu` on pre-masked live scores `[N, P]` f32 and boxes
     `[N, P, 4]` f32, writing keep_idx `[N, K]` int32 and keep_mask f32."""
+    _need_cuda(live, "nms")
     dev = live.device
-    if dev.type != "cuda":
-        raise ValueError(f"nms kernel needs CUDA tensors, got {dev}")
     N, P = live.shape
     K = keep_idx.shape[1]
     if not 1 <= P <= 32:
@@ -135,10 +167,9 @@ def nms_many_forward(live: torch.Tensor, boxes: torch.Tensor,
     _check(keep_mask, "keep_mask", torch.float32, (N, K), dev)
     lib = library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.step_nms_many(live.data_ptr(), boxes.data_ptr(),
                                 keep_idx.data_ptr(), keep_mask.data_ptr(),
-                                N, P, K, iou_threshold, stream)
+                                N, P, K, iou_threshold, _stream(dev))
     _raise_on(err, "nms kernel launch")
 
 
@@ -148,9 +179,8 @@ def tube_roi_align_forward(features: torch.Tensor, boxes: torch.Tensor,
     """Launch `csrc/roi_align.cu`: features `[B, T', H, W, C]` (f32 or
     bf16), per-slice boxes `[B, N, T', 4]` f32, out
     `[B, N, T', pooled, pooled, C]` in the feature dtype."""
+    _need_cuda(features, "roi_align")
     dev = features.device
-    if dev.type != "cuda":
-        raise ValueError(f"roi_align kernel needs CUDA tensors, got {dev}")
     if sampling_ratio <= 0:
         raise ValueError("roi_align kernel: adaptive sampling "
                          "(sampling_ratio <= 0) is not implemented")
@@ -161,9 +191,94 @@ def tube_roi_align_forward(features: torch.Tensor, boxes: torch.Tensor,
     _check(out, "out", features.dtype, (B, N, Tp, pooled, pooled, C), dev)
     lib = library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.step_tube_roi_align(
             features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
             _DTYPE_CODE[features.dtype], B, N, Tp, H, W, C, pooled,
-            float(spatial_scale), int(sampling_ratio), stream)
+            float(spatial_scale), int(sampling_ratio), _stream(dev))
     _raise_on(err, "roi_align kernel launch")
+
+
+def ndhwc(x: torch.Tensor) -> torch.Tensor:
+    """The contiguous channels-last `[N, T, H, W, C]` view of an NCDHW
+    tensor, which is what the backbone kernels read. The backbone keeps its
+    tensors in `channels_last_3d` order, where this is a free permute; a
+    tensor in another order is first copied into it, explicitly
+    (`x.contiguous(memory_format=torch.channels_last_3d)`), so no kernel
+    ever reads strided memory."""
+    if x.dim() != 5:
+        raise ValueError(f"expected an NCDHW tensor, got shape {tuple(x.shape)}")
+    view = x.permute(0, 2, 3, 4, 1)
+    if not view.is_contiguous():
+        view = x.contiguous(memory_format=torch.channels_last_3d).permute(0, 2, 3, 4, 1)
+    return view
+
+
+def empty_ncdhw(shape, like: torch.Tensor) -> torch.Tensor:
+    """An uninitialized NCDHW tensor in `channels_last_3d` order, with
+    `like`'s dtype and device."""
+    return torch.empty(shape, dtype=like.dtype, device=like.device,
+                       memory_format=torch.channels_last_3d)
+
+
+def max_pool3x3_forward(x: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch `csrc/pool3d.cu`: x and out `[N, T, H, W, C]`, f32 or bf16."""
+    _need_cuda(x, "max_pool3x3")
+    dev = x.device
+    if x.dim() != 5:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected [N, T, H, W, C]")
+    _check(x, "x", tuple(_DTYPE_CODE), x.shape, dev)
+    _check(out, "out", x.dtype, x.shape, dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.step_max_pool3x3(x.data_ptr(), out.data_ptr(),
+                                   _DTYPE_CODE[x.dtype], *x.shape, _stream(dev))
+    _raise_on(err, "max_pool3x3 kernel launch")
+
+
+def scale_bias_relu_forward(x: torch.Tensor, scale: torch.Tensor,
+                            bias: torch.Tensor, out: torch.Tensor) -> None:
+    """Launch `csrc/bn_relu.cu`: x and out `[rows, C]` (f32 or bf16),
+    scale and bias `[C]` f32."""
+    _need_cuda(x, "scale_bias_relu")
+    dev = x.device
+    if x.dim() != 2:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected [rows, C]")
+    rows, C = x.shape
+    _check(x, "x", tuple(_DTYPE_CODE), (rows, C), dev)
+    _check(scale, "scale", torch.float32, (C,), dev)
+    _check(bias, "bias", torch.float32, (C,), dev)
+    _check(out, "out", x.dtype, (rows, C), dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.step_scale_bias_relu(x.data_ptr(), scale.data_ptr(),
+                                       bias.data_ptr(), out.data_ptr(),
+                                       _DTYPE_CODE[x.dtype], rows, C, _stream(dev))
+    _raise_on(err, "scale_bias_relu kernel launch")
+
+
+def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
+                              scale: torch.Tensor, bias: torch.Tensor,
+                              out: torch.Tensor) -> None:
+    """Launch `csrc/conv3d.cu`: x `[N, T, H, W, C]` (f32 or bf16), tap-major
+    weights `[27, C, K]` and out `[N, T, H, W, K]` in x's dtype, scale and
+    bias `[K]` f32."""
+    _need_cuda(x, "conv3x3x3_bn_relu")
+    dev = x.device
+    if x.dim() != 5 or w.dim() != 3:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: expected "
+                         "[N, T, H, W, C] and [27, C, K]")
+    N, T, H, W, C = x.shape
+    K = w.shape[2]
+    if C < 1:
+        raise ValueError("conv3x3x3_bn_relu kernel needs at least one input channel")
+    _check(x, "x", tuple(_DTYPE_CODE), (N, T, H, W, C), dev)
+    _check(w, "w", x.dtype, (27, C, K), dev)
+    _check(scale, "scale", torch.float32, (K,), dev)
+    _check(bias, "bias", torch.float32, (K,), dev)
+    _check(out, "out", x.dtype, (N, T, H, W, K), dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.step_conv3x3x3_bn_relu(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], N, T, H, W, C, K, _stream(dev))
+    _raise_on(err, "conv3x3x3_bn_relu kernel launch")

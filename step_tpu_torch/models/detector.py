@@ -11,11 +11,15 @@ the S per-step heads are an `nn.ModuleList` and the steps a Python loop:
       decoded      = clip(decode(deltas, tubes)) on the active frames
       tubes        = linear-motion extrapolation into the inactive frames
 
-The TPU-only variants of the reference (`stem_s2d`, `conv3d_impl`,
-`roi_impl`, `scan_unroll`, `scan_broadcast_inputs`, `head_compact`,
-`fused_bn_relu`, `nms_impl`) compute the same function by other means and
-are ignored. Two-stream input, `chunk_stem`, the flow-input detector,
-`fused_inception` and the "frame_fc" regression head are not ported yet.
+The inference variants `fused_bn_relu`, `fused_inception` and
+`fused_inception3` are carried over (`models/i3d.py`): the stem takes
+`fused_inception3 == "all"`, the heads `"tail"` or `"all"`, as in the JAX
+package (`step_tpu/models/detector.py:115-119, 232-236`). The TPU-only
+variants of the reference (`stem_s2d`, `conv3d_impl`, `roi_impl`,
+`scan_unroll`, `scan_broadcast_inputs`, `head_compact`, `nms_impl`)
+compute the same function by other means and are ignored. Two-stream
+input, `chunk_stem`, the flow-input detector and the "frame_fc" regression
+head are not ported yet.
 """
 
 from __future__ import annotations
@@ -38,8 +42,6 @@ def _check_supported(cfg: StepConfig) -> None:
         "two_stream": cfg.two_stream,
         "chunk_stem": cfg.chunk_stem,
         "input_stream='flow'": cfg.input_stream != "rgb",
-        "fused_inception": cfg.fused_inception,
-        "fused_inception3": cfg.fused_inception3 != "none",
         "reg_head='frame_fc'": cfg.reg_head != "grid",
     }
     missing = [name for name, on in unported.items() if on]
@@ -54,14 +56,17 @@ class STEPDetector(nn.Module):
         super().__init__()
         _check_supported(cfg)
         self.cfg = cfg
-        self.features = FeatureNet(cfg.backbone_depth, cfg.bn_folded)
+        variants = (cfg.bn_folded, cfg.fused_bn_relu, cfg.fused_inception)
+        self.features = FeatureNet(cfg.backbone_depth, *variants,
+                                   cfg.fused_inception3 == "all")
         c = self.features.out_channels
         self.context = ContextNet(c) if cfg.use_context else None
         ctx_dim = CONTEXT_DIM if cfg.use_context else 0
         self.steps = nn.ModuleList(
             TwoBranchHead(c, cfg.num_cls_outputs, cfg.total_frames,
                           cfg.pooled_size, cfg.backbone_depth, cfg.bn_folded,
-                          ctx_dim)
+                          ctx_dim, *variants[1:],
+                          cfg.fused_inception3 in ("tail", "all"))
             for _ in range(cfg.num_steps))
 
     def forward(self, rgb: torch.Tensor, proposals: torch.Tensor):

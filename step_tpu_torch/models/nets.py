@@ -26,9 +26,12 @@ class FeatureNet(nn.Module):
     """Shared backbone features: the RGB I3D stem over the whole clip,
     `[B, 3, T, H, W]` → `[B, C, T', H', W']`."""
 
-    def __init__(self, depth: str = "full", bn_folded: bool = False):
+    def __init__(self, depth: str = "full", bn_folded: bool = False,
+                 fused_bn_relu: bool = False, fused_inception: bool = False,
+                 fused_inception3: bool = False):
         super().__init__()
-        self.stem_rgb = I3DStem(depth, bn_folded)
+        self.stem_rgb = I3DStem(depth, bn_folded, fused_bn_relu,
+                                fused_inception, fused_inception3)
         self.out_channels = self.stem_rgb.out_channels
 
     def forward(self, rgb: torch.Tensor) -> torch.Tensor:
@@ -58,10 +61,13 @@ class TwoBranchHead(nn.Module):
 
     def __init__(self, cin: int, num_cls_outputs: int, num_frames: int,
                  pooled_size: int = 7, depth: str = "full",
-                 bn_folded: bool = False, ctx_dim: int = 0):
+                 bn_folded: bool = False, ctx_dim: int = 0,
+                 fused_bn_relu: bool = False, fused_inception: bool = False,
+                 fused_inception3: bool = False):
         super().__init__()
         self.num_frames = num_frames
-        self.tail = I3DTail(cin, depth, bn_folded)
+        self.tail = I3DTail(cin, depth, bn_folded, fused_bn_relu,
+                            fused_inception, fused_inception3)
         c = self.tail.out_channels
         self.cls = nn.Linear(c + ctx_dim, num_cls_outputs)
         self.reg_reduce = nn.Conv3d(c, REG_CHANNELS, (1, 1, 1))

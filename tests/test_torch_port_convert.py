@@ -138,9 +138,13 @@ def test_fold_bn_matches_jax_fold(tiny_vars):
 
 
 def test_optimize_for_inference_sets_bn_folded_only(tiny_vars):
+    """Without Inception fusion, only the BN fold changes the weights; the
+    config is the JAX package's serving config."""
     sd = from_jax_variables(tiny_vars, TINY)
-    cfg_f, folded = optimize_for_inference(TINY, sd)
-    assert cfg_f == TINY.replace(bn_folded=True)
+    cfg_f, folded = optimize_for_inference(TINY, sd, fuse_inception=False)
+    assert cfg_f == jax_optimize(TINY, tiny_vars, fuse_inception=False)[0]
+    assert cfg_f.bn_folded and not cfg_f.fused_inception
+    assert folded.keys() == fold_bn(sd).keys()
     assert not any(".bn." in k for k in folded)
     STEPDetector(cfg_f).load_state_dict(folded)
     with pytest.raises(ValueError, match="already folded"):

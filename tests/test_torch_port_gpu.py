@@ -4,11 +4,13 @@ run these without the JAX test configuration:
 
     python -m pytest --noconftest -m gpu tests/test_torch_port_gpu.py
 
-NMS must be exactly equal. ROI-align: 1e-4 in float32 (the kernel sums
-the bilinear samples in another order than the plain contraction); in
-bfloat16 one bf16 rounding step (both accumulate in float32 and round
-once at the end, so they differ only where the two float32 sums straddle a
-bf16 rounding boundary).
+NMS and the 3x3x3 max pool must be exactly equal. ROI-align: 1e-4 in
+float32 (the kernel sums the bilinear samples in another order than the
+plain contraction); in bfloat16 one bf16 rounding step (both accumulate in
+float32 and round once at the end, so they differ only where the two
+float32 sums straddle a bf16 rounding boundary). BN + ReLU: 1e-6 in float32,
+one bf16 step in bfloat16. Conv + BN + ReLU: 1e-4 in float32 (summation
+order over 27 * C products), one bf16 step in bfloat16.
 """
 
 import numpy as np
@@ -18,7 +20,11 @@ import torch
 from step_tpu.config import PRESETS
 from step_tpu_torch.inference import detect_clip, nms_surface
 from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
+from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
+                                              fused_scale_bias_relu_plain)
 from step_tpu_torch.ops.nms import nms_many, nms_many_plain, premask_scores
+from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 from step_tpu_torch.utils.init import init_detector_
 
@@ -115,3 +121,120 @@ def test_tiny_detector_on_card_matches_cpu(cuda):
                           pmask.to(cuda), cfg)
     for key in ("frame_boxes", "frame_scores", "frame_mask"):
         assert torch.equal(surface[key].cpu(), ref[key]), key
+
+
+def _ncdhw(seed, shape, dtype, channels_last=True):
+    """A random NCDHW tensor on the card, channels_last_3d unless asked."""
+    x = torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32))
+    x = x.to("cuda", dtype)
+    return x.contiguous(memory_format=torch.channels_last_3d) if channels_last else x
+
+
+def _close(got, want, dtype, f32_tol):
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=f32_tol, atol=f32_tol)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 192, 9, 28, 28), (3, 13, 5, 7, 7),
+                                   (1, 1, 1, 1, 1), (1, 8, 1, 1, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_equals_plain(cuda, shape, dtype):
+    x = _ncdhw(5, shape, dtype)
+    before = max_pool3x3_same.launches
+    got = max_pool3x3_same(x)
+    assert max_pool3x3_same.launches == before + 1
+    want = max_pool3x3_same_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_propagates_nan_and_inf(cuda, dtype):
+    x = _ncdhw(6, (2, 16, 4, 6, 6), dtype)
+    x[0, 3, 1, 2, 2] = float("nan")
+    x[1, :, :, :, :] = float("-inf")
+    x[1, 5, 0, 0, 0] = float("inf")
+    got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
+    torch.cuda.synchronize()
+    nan = want.isnan()
+    assert int(nan.sum()) == 27 and torch.equal(got.isnan(), nan)
+    assert torch.equal(got[~nan], want[~nan])
+    assert bool((got[1] == float("-inf")).any()) and bool((got[1] == float("inf")).any())
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 9, 28, 28), (3, 13, 5, 7, 7), (1, 5, 1, 1, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_kernel_matches_plain(cuda, shape, dtype):
+    C = shape[1]
+    x = _ncdhw(7, shape, dtype)
+    rng = np.random.RandomState(8)
+    scale = torch.from_numpy((rng.rand(C) * 2 + 0.1).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
+    before = fused_scale_bias_relu.launches
+    got = fused_scale_bias_relu(x, scale, bias)
+    assert fused_scale_bias_relu.launches == before + 1
+    want = fused_scale_bias_relu_plain(x, scale, bias)
+    torch.cuda.synchronize()
+    _close(got, want, dtype, 1e-6)
+
+
+@pytest.mark.parametrize("N,C,T,H,W,K", [(2, 64, 5, 14, 14, 192), (3, 13, 3, 5, 7, 70),
+                                         (1, 1, 1, 1, 1, 1), (1, 17, 2, 3, 1, 65)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_bn_relu_kernel_matches_plain(cuda, N, C, T, H, W, K, dtype):
+    x = _ncdhw(9, (N, C, T, H, W), dtype)
+    rng = np.random.RandomState(10)
+    w = torch.from_numpy((rng.randn(K, C, 3, 3, 3) / np.sqrt(27 * C)).astype(np.float32))
+    scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
+    w, scale, bias = w.cuda(), scale.cuda(), bias.cuda()
+    before = conv3x3x3_bn_relu.launches
+    got = conv3x3x3_bn_relu(x, w, scale, bias)
+    assert conv3x3x3_bn_relu.launches == before + 1
+    want = conv3x3x3_bn_relu_plain(x, w, scale, bias)
+    torch.cuda.synchronize()
+    _close(got, want, dtype, 1e-4)
+
+
+def test_kernels_copy_inputs_that_are_not_channels_last(cuda):
+    """The wrappers document an explicit channels_last_3d copy of an input
+    in another memory order; the result is the plain version's."""
+    x = _ncdhw(11, (2, 24, 3, 5, 6), torch.float32, channels_last=False)
+    assert not x.is_contiguous(memory_format=torch.channels_last_3d)
+    s, b = torch.rand(24, device="cuda") + 0.5, torch.randn(24, device="cuda")
+    w = torch.randn(10, 24, 3, 3, 3, device="cuda") * 0.05
+    assert torch.equal(max_pool3x3_same(x), max_pool3x3_same_plain(x))
+    torch.testing.assert_close(fused_scale_bias_relu(x, s, b),
+                               fused_scale_bias_relu_plain(x, s, b), rtol=1e-6, atol=1e-6)
+    s, b = s[:10], b[:10]
+    torch.testing.assert_close(conv3x3x3_bn_relu(x, w, s, b),
+                               conv3x3x3_bn_relu_plain(x, w, s, b), rtol=1e-4, atol=1e-4)
+    strided = x[:, ::2]                                 # neither memory order
+    assert torch.equal(max_pool3x3_same(strided), max_pool3x3_same_plain(strided))
+
+
+def test_kernel_path_detector_on_card_matches_cpu(cuda, monkeypatch):
+    """The tiny detector with fused_bn_relu and the K5 pools, float32: the
+    card (K3, K4, K5) against the CPU (their plain versions)."""
+    monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
+                                       image_size=64, compute_dtype="float32",
+                                       fused_bn_relu=True)
+    model = init_detector_(STEPDetector(cfg).eval(), seed=3)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2)
+    rgb = torch.from_numpy(np.random.RandomState(4).randint(
+        0, 256, (2, cfg.total_frames, 64, 64, 3)).astype(np.uint8))
+    ref = detect_clip(model, rgb, props, pmask)
+    counts = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
+                                   max_pool3x3_same)]
+    got = detect_clip(model.to(cuda), rgb.to(cuda), props.to(cuda), pmask.to(cuda))
+    after = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
+                                  max_pool3x3_same)]
+    assert [a - b for a, b in zip(after, counts)] == [10, 21, 5]
+    torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
+                               rtol=0, atol=1e-4)
