@@ -4,14 +4,17 @@
 
 Phases, each fatal on failure (exit code 1, no result line):
   1. the device, and its name and power limit from nvidia-smi;
-  2. build the CUDA kernels from step_tpu_torch/csrc with nvcc (sm_90a);
+  2. build the CUDA kernels from step_tpu_torch/csrc with nvcc (sm_90a),
+     and count the HGMMA (tensor-core) instructions in K3's SASS;
   3. K1, batched NMS: kernel against its plain PyTorch version at the
      serving shape (B=8 → 8*18*24 problems, P=16, K=16), with exact ties,
      zero-area boxes, all-invalid problems and problems that run out
      before K — required exactly equal;
   4. K2, tube ROI-align: kernel against its plain version on features
      [8, 5, 14, 14, 832] with boxes partly and wholly outside the map, in
-     float32 (tolerance 1e-4) and bfloat16 (one bf16 rounding step);
+     float32 (tolerance 1e-4) and bfloat16 (one bf16 rounding step), at
+     sampling_ratio 2 and at 0 (adaptive, with boxes larger than the map so
+     that the sample cap bites);
   5. a tiny float32 detector on the card against the same detector on the
      CPU (plain versions of both kernels);
   6. the main path: `ucf_3step` at full width and depth, seeded weights,
@@ -24,8 +27,12 @@ Phases, each fatal on failure (exit code 1, no result line):
      equal;
   8. K4, BN + ReLU: at the Conv3d_1a output and a tail shape — float32
      within 1e-6, bfloat16 within one rounding step;
-  9. K3, 3x3x3 conv + BN + ReLU: at Conv3d_2c_3x3 and the tail's Mixed_5b
-     b1b — float32 within 1e-4, bfloat16 within one rounding step;
+  9. K3, 3x3x3 conv + BN + ReLU: at Conv3d_2c_3x3, the tail's Mixed_5b
+     b1b, Mixed_4c b2b (C = 24) and Mixed_4b b1b (K = 208) — float32 within
+     1e-4, bfloat16 (the tensor-core kernel, which must hold HGMMA
+     instructions) within one rounding step and 2^-15 (K3_BF16_ATOL); times
+     against cuDNN in bf16 and the bound, and the per-call weight
+     re-layout;
  10. the kernel path: the same `ucf_3step` at full width and depth, seeded
      weights left unfolded, `fused_bn_relu=True` and
      `STEP_TPU_POOL3D=pallas`, bfloat16, serving B=1 and B=8 — the checks of
@@ -34,9 +41,13 @@ Phases, each fatal on failure (exit code 1, no result line):
      path (folded, cuDNN, PyTorch pools) — tube scores within 1e-3, tubes
      within 1e-2 px.
 
-The second-to-last line is a JSON object describing each kernel (launches
-counted on the path that runs it: K1 and K2 on the main path, phase 6; K3,
-K4 and K5 on the kernel path, phase 10); the last is
+At the end it checks that nothing of JAX or of the JAX package was
+imported. The second-to-last line is a JSON object describing each kernel:
+launches counted on the path that runs it (K1 and K2 on the main path,
+phase 6; K3, K4 and K5 on the kernel path, phase 10), max error, kernel and
+plain times, the bound (the larger of the bytes it must move over 3.35 TB/s
+and its operations over the peak rate for their type) and the time of one
+PyTorch call for the same function where there is one. The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -56,7 +67,43 @@ SERVE_BATCHES = (1, 8)
 REQUESTS_PER_BATCH = 4          # the first of each batch size warms up
 KERNEL_PATH_REQUESTS = 3        # the kernel path is slower: fewer requests
 BF16_RTOL = 2.0 ** -7           # one bf16 rounding step (8-bit significand)
+# K3's tensor cores add each 16-deep group of products into the float32
+# accumulator aligned to the largest exponent and truncated, so over 27 * C
+# terms the sum drifts from the plain version's rounded float32 sum. Where
+# BN and ReLU bring the output near 0 that drift is more than one bf16 step
+# of the output: about 1e-5 beyond it at the Inception widths on an H100
+# (step_tpu_torch/conv_tune.py measures it). Hence an absolute floor of
+# 2^-15 for K3 in bf16, and 1e-5 elsewhere.
+K3_BF16_ATOL = 2.0 ** -15
 PATH_SCORE_TOL, PATH_TUBE_TOL = 1e-3, 1e-2
+# The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+BF16_TENSOR_FLOPS = 989e12
+F32_FLOPS = 67e12               # float32 outside the tensor cores
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def hgmma_count(library, nvcc: str) -> int:
+    """HGMMA instructions in the SASS of the bf16 conv kernels, read with
+    the cuobjdump beside nvcc."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    n, in_conv = 0, False
+    for line in sass.stdout.splitlines():
+        if "Function :" in line:
+            in_conv = "conv_bf16_kernel" in line
+        elif in_conv and "HGMMA" in line:
+            n += 1
+    return n
 
 
 def fail(msg: str) -> None:
@@ -156,9 +203,9 @@ def serve(model, cfg, clips, dev, label: str) -> None:
               f"last", flush=True)
 
 
-def bf16_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+def bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float = 1e-5) -> bool:
     """Within one bf16 rounding step of each other."""
-    return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
+    return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=atol)
 
 
 def main() -> None:
@@ -168,7 +215,8 @@ def main() -> None:
     from step_tpu_torch.inference import detect_clip, nms_surface
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
-    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
+    from step_tpu_torch.ops.conv3d import (conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
+                                           pack_conv3x3x3_weight)
     from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                                   fused_scale_bias_relu_plain)
     from step_tpu_torch.ops.nms import nms_many, nms_many_plain, premask_scores
@@ -194,8 +242,11 @@ def main() -> None:
     kernels.library()
     print(f"[2] kernels built in {time.time() - t0:.1f} s → {path.name}", flush=True)
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
+        if ("registers" in line or "spill" in line or "Compiling entry" in line
+                or "wgmma" in line):
             print("    " + line.strip())
+    n_hgmma = hgmma_count(path, kernels.nvcc_path())
+    print(f"    HGMMA instructions in K3's bf16 kernels: {n_hgmma}", flush=True)
 
     rng = np.random.RandomState(SEED)
     results = {}
@@ -222,7 +273,12 @@ def main() -> None:
           f"{int((kept == 0).sum())} empty, {int(((kept > 0) & (kept < K)).sum())} "
           f"exhausted before K, {int((kept == K).sum())} full; "
           f"kernel {nms_ms:.4f} ms, plain {nms_plain_ms:.4f} ms", flush=True)
-    results["nms_many"] = dict(max_abs_err=0.0, ms=nms_ms, plain_ms=nms_plain_ms)
+    # Bytes: boxes, scores and valid read, indices and mask written; each
+    # kept box takes one IoU pass over the problem's P boxes (~13 f32 ops).
+    results["nms_many"] = dict(
+        max_abs_err=0.0, ms=nms_ms, plain_ms=nms_plain_ms, library_ms=None,
+        **bound(B * T * C * P * 4 * 6 + B * T * C * K * 8,
+                float(kept.sum()) * P * 13, F32_FLOPS))
 
     # ---- 4. K2: tube ROI-align ------------------------------------------
     Tp, Hf = 5, cfg.image_size // cfg.feature_stride
@@ -251,18 +307,42 @@ def main() -> None:
           f"K2 roi_align bfloat16 differs from plain: max |err| {err16}")
     roi_ms = cuda_ms(lambda: roi(feat16))
     roi_plain_ms = cuda_ms(lambda: plain(feat16))
+    # Bytes: the feature map and the boxes read once, the output written
+    # once; operations: 4 corners x 2 f32 ops per sample per output element.
+    roi_bound = bound(feat16.numel() * 2 + tubes.numel() * 4 + out_k.numel() * 2,
+                      out_k.numel() * cfg.sampling_ratio ** 2 * 8, F32_FLOPS)
     print(f"[4] K2 roi_align on [{B},{Tp},{Hf},{Hf},832]: max |err| f32 {err32:.3g} "
           f"(tol 1e-4), bf16 {err16:.3g} (rtol 2^-7); bf16 kernel {roi_ms:.4f} ms, "
-          f"plain {roi_plain_ms:.4f} ms", flush=True)
+          f"plain {roi_plain_ms:.4f} ms, bound {roi_bound['bound_ms']:.4f} ms "
+          f"({roi_bound['bound_ms'] / roi_ms:.1%} of it)", flush=True)
     results["tube_roi_align"] = dict(max_abs_err=err16, ms=roi_ms,
-                                     plain_ms=roi_plain_ms)
+                                     plain_ms=roi_plain_ms, library_ms=None,
+                                     **roi_bound)
+    # The adaptive branch: boxes up to 800 px wide, 50 feature cells, so
+    # ceil(50 / 7) = 8 samples per axis are capped at adaptive_max_ratio = 2.
+    big = tubes.clone()
+    big[:, 4:8] = torch.tensor([-300.0, -200.0, 500.0, 450.0], device=dev)
+    for f, tol in ((feat32, 1e-4), (feat16, None)):
+        got = tube_roi_align(f, big, cfg.pooled_size, 1.0 / cfg.feature_stride, 0)
+        want = tube_roi_align_plain(f, big, cfg.pooled_size, 1.0 / cfg.feature_stride, 0)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = (torch.allclose(got, want, rtol=tol, atol=tol) if tol
+              else bf16_close(got, want))
+        check(ok and got.dtype == f.dtype,
+              f"K2 roi_align {f.dtype} sampling_ratio=0 differs from plain: "
+              f"max |err| {err}")
+        print(f"    sampling_ratio=0, {f.dtype}: max |err| {err:.3g}", flush=True)
+    roi0_ms = cuda_ms(lambda: tube_roi_align(feat16, big, cfg.pooled_size,
+                                             1.0 / cfg.feature_stride, 0))
+    print(f"    sampling_ratio=0, bf16 kernel {roi0_ms:.4f} ms", flush=True)
 
     # ---- 5. tiny float32 detector: card against CPU ---------------------
     tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
                        compute_dtype="float32")
     model_cpu = init_detector_(STEPDetector(tiny).eval(), SEED)
     model_gpu = init_detector_(STEPDetector(tiny).eval(), SEED).to(dev)
-    props, pmask = STEPDetector.initial_proposals(tiny, 2)
+    props, pmask = STEPDetector.initial_proposals(tiny, 2, device="cpu")
     clip = torch.from_numpy(rng.randint(0, 256, (2, T, 64, 64, 3)).astype(np.uint8))
     ref = detect_clip(model_cpu, clip, props, pmask)
     got = detect_clip(model_gpu, clip.to(dev), props.to(dev), pmask.to(dev))
@@ -329,8 +409,13 @@ def main() -> None:
         pool_plain_ms = cuda_ms(lambda: max_pool3x3_same_plain(x16))
         print(f"[7] K5 max_pool3x3 {list(shape)}: exact in f32 and bf16; bf16 kernel "
               f"{pool_ms:.4f} ms, plain {pool_plain_ms:.4f} ms", flush=True)
-    results["max_pool3x3_same"] = dict(max_abs_err=0.0, ms=pool_ms,
-                                       plain_ms=pool_plain_ms)
+    # The plain version is one PyTorch call, F.max_pool3d, so it is also
+    # the library's time. Bytes: x read once, out written once; 26 compares
+    # per element.
+    results["max_pool3x3_same"] = dict(
+        max_abs_err=0.0, ms=pool_ms, plain_ms=pool_plain_ms,
+        library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)),
+        **bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS))
 
     # ---- 8. K4: BN + ReLU -----------------------------------------------
     for shape in ((8, 64, 9, 112, 112), (128, 384, 5, 7, 7)):
@@ -356,11 +441,15 @@ def main() -> None:
               f"bf16 {err16:.3g} (one bf16 step); bf16 kernel {bn_ms:.4f} ms, "
               f"plain {bn_plain_ms:.4f} ms", flush=True)
         if shape[0] == 8:
-            results["fused_scale_bias_relu"] = dict(max_abs_err=err16, ms=bn_ms,
-                                                    plain_ms=bn_plain_ms)
+            results["fused_scale_bias_relu"] = dict(
+                max_abs_err=err16, ms=bn_ms, plain_ms=bn_plain_ms, library_ms=None,
+                **bound(2 * x16.numel() * 2 + 2 * shape[1] * 4, 3 * x16.numel(),
+                        F32_FLOPS))
 
     # ---- 9. K3: 3x3x3 conv + BN + ReLU -----------------------------------
-    for shape, K in (((8, 64, 9, 56, 56), 192), ((128, 160, 5, 7, 7), 320)):
+    check(n_hgmma > 0, "K3's bf16 kernels hold no HGMMA instruction")
+    for shape, K in (((8, 64, 9, 56, 56), 192), ((128, 160, 5, 7, 7), 320),
+                     ((8, 24, 5, 14, 14), 64), ((8, 96, 5, 14, 14), 208)):
         x32 = randn_cl(rng, shape, dev)
         w = torch.randn(K, shape[1], 3, 3, 3, device=dev) / (27 * shape[1]) ** 0.5
         scale = torch.rand(K, device=dev) + 0.5
@@ -376,22 +465,38 @@ def main() -> None:
             conv3x3x3_bn_relu_plain(x16, w16, scale, bias)
         torch.cuda.synchronize()
         err16 = float((got.float() - want.float()).abs().max())
-        check(got.dtype == torch.bfloat16 and bf16_close(got, want),
+        check(got.dtype == torch.bfloat16 and bf16_close(got, want, K3_BF16_ATOL),
               f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
-        conv_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w16, scale, bias), iters=10)
-        conv_plain_ms = cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w16, scale, bias),
+        # As a Unit3D calls it: the float32 parameter, its bf16 layout cached.
+        cache = {}
+        conv_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w, scale, bias,
+                                                    weight_cache=cache), iters=10)
+        conv_plain_ms = cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w, scale, bias),
                                 iters=10)
-        cudnn_ms = cuda_ms(lambda: fused_scale_bias_relu_plain(
-            F.conv3d(x16, w16, None, 1, 1), scale, bias), iters=10)
-        flop = 2 * shape[0] * np.prod(shape[2:]) * 27 * shape[1] * K
+        # The library's yardstick: cuDNN's bf16 conv with the BN affine
+        # folded into its weight and bias (as the main path serves a unit),
+        # then an in-place ReLU.
+        w_fold = (w * scale.view(-1, 1, 1, 1, 1)).to(torch.bfloat16)
+        b_fold = bias.to(torch.bfloat16)
+        cudnn_ms = cuda_ms(lambda: F.relu_(F.conv3d(x16, w_fold, b_fold, 1, 1)),
+                           iters=10)
+        pack_ms = cuda_ms(lambda: pack_conv3x3x3_weight(w, torch.bfloat16))
+        M = shape[0] * int(np.prod(shape[2:]))
+        flop = 2 * M * 27 * shape[1] * K
+        conv_bound = bound(x16.numel() * 2 + w16.numel() * 2 + M * K * 2 + 2 * K * 4,
+                           flop, BF16_TENSOR_FLOPS)
         print(f"[9] K3 conv3x3x3_bn_relu {list(shape)}->{K}: max |err| f32 "
               f"{err32:.3g} (tol 1e-4), bf16 {err16:.3g} (one bf16 step); bf16 "
-              f"kernel {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s), plain "
-              f"(f32 conv) {conv_plain_ms:.4f} ms, cuDNN bf16 conv + affine "
-              f"{cudnn_ms:.4f} ms", flush=True)
+              f"kernel {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s, "
+              f"{conv_bound['bound_ms'] / conv_ms:.1%} of the "
+              f"{conv_bound['bound_ms']:.4f} ms bound); weight re-layout from the "
+              f"f32 parameter (cached per unit) {pack_ms:.4f} ms; cuDNN bf16 (BN "
+              f"folded) + ReLU {cudnn_ms:.4f} ms; "
+              f"plain (f32 conv) {conv_plain_ms:.4f} ms", flush=True)
         if shape[0] == 128:
-            results["conv3x3x3_bn_relu"] = dict(max_abs_err=err16, ms=conv_ms,
-                                                plain_ms=conv_plain_ms)
+            results["conv3x3x3_bn_relu"] = dict(
+                max_abs_err=err16, ms=conv_ms, plain_ms=conv_plain_ms,
+                library_ms=cudnn_ms, **conv_bound)
 
     # ---- 10. the kernel path: unfolded, fused_bn_relu, K5 pools, bf16 ----
     os.environ["STEP_TPU_POOL3D"] = "pallas"
@@ -455,6 +560,9 @@ def main() -> None:
         "conv3x3x3_bn_relu": ("step_tpu_torch/csrc/conv3d.cu",
                               "step_tpu/ops/conv3d_pallas.py:45"),
     }
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] == "step_tpu" or m.startswith("jax"))
+    check(not foreign, f"JAX or the JAX package was imported: {foreign[:5]}")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name]}

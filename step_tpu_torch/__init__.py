@@ -4,11 +4,14 @@ for NVIDIA Hopper (sm_90a).
 A port of the JAX package `step_tpu`, which stays the reference: module
 names mirror it (`step_tpu/ops/nms.py` ↔ `step_tpu_torch/ops/nms.py`), and
 the public functions keep its channels-last layout (`[B, T, H, W, C]` clips,
-`[B, T', H, W, C]` features). The configuration is shared: `StepConfig` and
-`PRESETS` come from `step_tpu.config`, which imports no JAX.
+`[B, T', H, W, C]` features). The package imports nothing of `step_tpu`
+and nothing of JAX: it carries its own copy of the configuration,
+`StepConfig` and `PRESETS` (`config.py`), with the JAX package's fields and
+defaults.
 
 Layers, entry point first:
 
+  config.py        StepConfig and the five presets
   inference.py     detect_clip → class scores → nms_surface
   models/          STEPDetector, FeatureNet / ContextNet / TwoBranchHead,
                    I3D, BN folding (optimize.py)
@@ -21,7 +24,7 @@ Layers, entry point first:
 
 import torch
 
-from step_tpu.config import PRESETS, StepConfig  # noqa: F401
+from step_tpu_torch.config import PRESETS, StepConfig  # noqa: F401
 
 # float32 means float32. The serving path computes in bfloat16, where these
 # flags change nothing; float32 is the parity mode, held against the JAX

@@ -26,7 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from step_tpu.config import StepConfig
+from step_tpu_torch.config import StepConfig
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from step_tpu.config import StepConfig
+from step_tpu_torch.config import StepConfig
 from step_tpu_torch.ops.nms import nms_many
 
 

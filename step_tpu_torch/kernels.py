@@ -32,10 +32,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "bn_relu.cu", "conv3d.cu",
            "errors.cu")
+HEADERS = ("wgmma.cuh",)
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
-# no multiply-add may be contracted into an FMA (the conv kernel asks for
-# its FMAs explicitly, with fmaf). -Xptxas -v prints each kernel's registers
-# and spills into the build log.
+# no multiply-add may be contracted into an FMA (the float32 conv and the
+# ROI-align kernels ask for their FMAs explicitly, with fmaf). -Xptxas -v
+# prints each kernel's registers and spills into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,7 +57,7 @@ def nvcc_path() -> str:
 def library_path() -> Path:
     """Where the library built from the current sources and flags lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return BUILD_DIR / f"libstep_kernels_{h.hexdigest()[:16]}.so"
 
@@ -111,14 +112,16 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.step_nms_many.argtypes = [p, p, p, p, i, i, i, f, p]
     lib.step_nms_many.restype = i
-    lib.step_tube_roi_align.argtypes = [p, p, p, i, i, i, i, i, i, i, i, f, i, p]
+    lib.step_tube_roi_align.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
     lib.step_tube_roi_align.restype = i
     lib.step_max_pool3x3.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.step_max_pool3x3.restype = i
     lib.step_scale_bias_relu.argtypes = [p, p, p, p, i, ctypes.c_int64, i, p]
     lib.step_scale_bias_relu.restype = i
-    lib.step_conv3x3x3_bn_relu.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
-    lib.step_conv3x3x3_bn_relu.restype = i
+    lib.step_conv3x3x3_bn_relu_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.step_conv3x3x3_bn_relu_f32.restype = i
+    lib.step_conv3x3x3_bn_relu_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
+    lib.step_conv3x3x3_bn_relu_bf16.restype = i
     lib.step_cuda_error_string.argtypes = [i]
     lib.step_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,27 +176,26 @@ def nms_many_forward(live: torch.Tensor, boxes: torch.Tensor,
     _raise_on(err, "nms kernel launch")
 
 
-def tube_roi_align_forward(features: torch.Tensor, boxes: torch.Tensor,
+def tube_roi_align_forward(features: torch.Tensor, tubes: torch.Tensor,
                            out: torch.Tensor, spatial_scale: float,
                            sampling_ratio: int) -> None:
     """Launch `csrc/roi_align.cu`: features `[B, T', H, W, C]` (f32 or
-    bf16), per-slice boxes `[B, N, T', 4]` f32, out
-    `[B, N, T', pooled, pooled, C]` in the feature dtype."""
+    bf16), tubes `[B, N, T, 4]` f32 (slice t' pools the boxes of frame
+    `ops/roi_align.py::feature_time_indices(T, T')[t']`), out
+    `[B, N, T', pooled, pooled, C]` in the feature dtype. `sampling_ratio
+    <= 0` is the adaptive branch."""
     _need_cuda(features, "roi_align")
     dev = features.device
-    if sampling_ratio <= 0:
-        raise ValueError("roi_align kernel: adaptive sampling "
-                         "(sampling_ratio <= 0) is not implemented")
     B, Tp, H, W, C = features.shape
-    N, pooled = boxes.shape[1], out.shape[3]
+    N, T, pooled = tubes.shape[1], tubes.shape[2], out.shape[3]
     _check(features, "features", tuple(_DTYPE_CODE), (B, Tp, H, W, C), dev)
-    _check(boxes, "boxes", torch.float32, (B, N, Tp, 4), dev)
+    _check(tubes, "tubes", torch.float32, (B, N, T, 4), dev)
     _check(out, "out", features.dtype, (B, N, Tp, pooled, pooled, C), dev)
     lib = library()
     with torch.cuda.device(dev):
         err = lib.step_tube_roi_align(
-            features.data_ptr(), boxes.data_ptr(), out.data_ptr(),
-            _DTYPE_CODE[features.dtype], B, N, Tp, H, W, C, pooled,
+            features.data_ptr(), tubes.data_ptr(), out.data_ptr(),
+            _DTYPE_CODE[features.dtype], B, N, T, Tp, H, W, C, pooled,
             float(spatial_scale), int(sampling_ratio), _stream(dev))
     _raise_on(err, "roi_align kernel launch")
 
@@ -256,29 +258,70 @@ def scale_bias_relu_forward(x: torch.Tensor, scale: torch.Tensor,
     _raise_on(err, "scale_bias_relu kernel launch")
 
 
+# The bf16 conv kernel's tiles (csrc/conv3d.cu): 64 reduction elements per
+# chunk, and the output-channel tile widths it is built for (csrc/wgmma.cuh).
+CONV_TILE_K = 64
+CONV_TILE_N = (32, 48, 64, 96, 128, 144, 160, 192, 208, 224, 256)
+
+
+def conv_tile_n(K: int) -> int:
+    """The bf16 conv kernel's output-channel tile for K channels: the
+    widest tile that divides K (K itself up to 256: 192, 208, 224; else a
+    divisor: 288 → 144, 320 → 160, 384 → 192), so no lane is wasted; for a
+    K that no tile divides, the narrowest tile that holds it, or 128, with
+    the ragged end masked."""
+    exact = [n for n in CONV_TILE_N if K % n == 0]
+    if exact:
+        return max(exact)
+    return min((n for n in CONV_TILE_N if n >= K), default=128)
+
+
+def conv_packed_shape(C: int, K: int) -> tuple[int, int, int]:
+    """(Kw, Rpad, Cpad) of the packed bf16 conv weight: C rounded up to 8,
+    the reduction 27 * Cpad rounded up to CONV_TILE_K, K up to its tile."""
+    cpad = -(-C // 8) * 8
+    rpad = -(-27 * cpad // CONV_TILE_K) * CONV_TILE_K
+    bn = conv_tile_n(K)
+    return -(-K // bn) * bn, rpad, cpad
+
+
 def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
                               scale: torch.Tensor, bias: torch.Tensor,
-                              out: torch.Tensor) -> None:
-    """Launch `csrc/conv3d.cu`: x `[N, T, H, W, C]` (f32 or bf16), tap-major
-    weights `[27, C, K]` and out `[N, T, H, W, K]` in x's dtype, scale and
-    bias `[K]` f32."""
+                              out: torch.Tensor, warpgroups: int = 0) -> None:
+    """Launch `csrc/conv3d.cu`: x `[N, T, H, W, C]` and out
+    `[N, T, H, W, K]` in one dtype, scale and bias `[K]` f32. In float32 w
+    is tap-major `[27, C, K]` (the CUDA-core kernel); in bfloat16 it is the
+    packed `[Kw, Rpad]` matrix of `ops/conv3d.py::pack_conv3x3x3_weight`
+    (the tensor-core kernel), whose block the launcher picks from the shape
+    unless `warpgroups` forces one (2, or the widest for the tile width;
+    `conv_tune.py` compares them)."""
     _need_cuda(x, "conv3x3x3_bn_relu")
     dev = x.device
-    if x.dim() != 5 or w.dim() != 3:
-        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}: expected "
-                         "[N, T, H, W, C] and [27, C, K]")
+    if x.dim() != 5 or w.dim() not in (2, 3) or out.dim() != 5:
+        raise ValueError(f"x {tuple(x.shape)}, w {tuple(w.shape)}, out "
+                         f"{tuple(out.shape)}: expected [N, T, H, W, C], a "
+                         "weight and [N, T, H, W, K]")
     N, T, H, W, C = x.shape
-    K = w.shape[2]
+    K = out.shape[4]
     if C < 1:
         raise ValueError("conv3x3x3_bn_relu kernel needs at least one input channel")
     _check(x, "x", tuple(_DTYPE_CODE), (N, T, H, W, C), dev)
-    _check(w, "w", x.dtype, (27, C, K), dev)
     _check(scale, "scale", torch.float32, (K,), dev)
     _check(bias, "bias", torch.float32, (K,), dev)
     _check(out, "out", x.dtype, (N, T, H, W, K), dev)
     lib = library()
-    with torch.cuda.device(dev):
-        err = lib.step_conv3x3x3_bn_relu(
-            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            out.data_ptr(), _DTYPE_CODE[x.dtype], N, T, H, W, C, K, _stream(dev))
+    if x.dtype == torch.float32:
+        _check(w, "w", x.dtype, (27, C, K), dev)
+        with torch.cuda.device(dev):
+            err = lib.step_conv3x3x3_bn_relu_f32(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), N, T, H, W, C, K, _stream(dev))
+    else:
+        kw, rpad, cpad = conv_packed_shape(C, K)
+        _check(w, "w", x.dtype, (kw, rpad), dev)
+        with torch.cuda.device(dev):
+            err = lib.step_conv3x3x3_bn_relu_bf16(
+                x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                out.data_ptr(), N, T, H, W, C, K, cpad, rpad, conv_tile_n(K),
+                int(warpgroups), _stream(dev))
     _raise_on(err, "conv3x3x3_bn_relu kernel launch")

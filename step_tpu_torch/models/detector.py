@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from step_tpu.config import StepConfig
+from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
                                         TwoBranchHead)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
@@ -115,8 +115,9 @@ class STEPDetector(nn.Module):
         return {k: torch.stack(v) for k, v in outputs.items()}
 
     @staticmethod
-    def initial_proposals(cfg: StepConfig, batch_size: int, device=None):
-        """`[B, P, T, 4]` initial cuboids and the `[B, P]` validity mask."""
+    def initial_proposals(cfg: StepConfig, batch_size: int, device="cuda"):
+        """`[B, P, T, 4]` initial cuboids and the `[B, P]` validity mask, on
+        the card unless the caller asks for another device."""
         tubes, mask = initial_cuboids(cfg.image_size, cfg.total_frames,
                                       cfg.max_proposals, cfg.cuboid_layout,
                                       device=device)

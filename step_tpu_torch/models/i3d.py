@@ -143,10 +143,12 @@ class Unit3D(nn.Module):
         self.fused = fused_bn_relu and not bn_folded
         self.conv_bn_relu = (self.fused and tuple(kernel) == (3, 3, 3)
                              and self.stride == (1, 1, 1))
+        self._kernel_weight = {}    # the conv kernel's weight layout, reused
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.conv_bn_relu:
-            return conv3x3x3_bn_relu(x, self.conv.weight, *self.bn.scale_bias())
+            return conv3x3x3_bn_relu(x, self.conv.weight, *self.bn.scale_bias(),
+                                     weight_cache=self._kernel_weight)
         x = conv3d_same(x, self.conv.weight, self.conv.bias, self.stride)
         if self.fused:
             return fused_scale_bias_relu(x, *self.bn.scale_bias())

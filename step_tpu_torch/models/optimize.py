@@ -22,7 +22,7 @@ from typing import Dict
 
 import torch
 
-from step_tpu.config import StepConfig
+from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.i3d import BN_EPS
 
 

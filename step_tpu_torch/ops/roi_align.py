@@ -127,7 +127,8 @@ def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
     """Tube ROI-align (`tube_roi_align_plain`'s contract).
 
     A CUDA tensor goes to the hand-written kernel (`csrc/roi_align.cu`,
-    which takes `sampling_ratio > 0` only) and a CPU tensor to the plain
+    which takes the fixed and the adaptive sampling grid, and picks each
+    slice's frame of the tubes itself) and a CPU tensor to the plain
     version. `tube_roi_align.launches` counts kernel launches.
     """
     if features.device.type == "cpu":
@@ -143,12 +144,10 @@ def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
     if tubes.dim() != 4 or tubes.shape[0] != B or tubes.shape[3] != 4:
         raise ValueError(f"tube_roi_align: tubes {tuple(tubes.shape)} is not "
                          f"[{B}, N, T, 4]")
-    t_idx = feature_time_indices(tubes.shape[2], Tp, device=tubes.device)
-    boxes = tubes[:, :, t_idx].to(torch.float32).contiguous()   # [B, N, T', 4]
     out = torch.empty((B, tubes.shape[1], Tp, pooled_size, pooled_size, C),
                       dtype=features.dtype, device=features.device)
-    kernels.tube_roi_align_forward(features, boxes, out, spatial_scale,
-                                   sampling_ratio)
+    kernels.tube_roi_align_forward(features, tubes.to(torch.float32).contiguous(),
+                                   out, spatial_scale, sampling_ratio)
     tube_roi_align.launches += 1
     return out
 

@@ -156,7 +156,7 @@ def test_conv_bn_relu_plain_is_the_fused_unit():
 def test_fused_units_route_to_their_kernels(monkeypatch):
     calls = []
     monkeypatch.setattr(i3d, "conv3x3x3_bn_relu",
-                        lambda *a: calls.append("K3") or conv3d.conv3x3x3_bn_relu(*a))
+                        lambda *a, **k: calls.append("K3") or conv3d.conv3x3x3_bn_relu(*a, **k))
     monkeypatch.setattr(i3d, "fused_scale_bias_relu",
                         lambda *a: calls.append("K4") or fused_bn_relu.fused_scale_bias_relu(*a))
     x = torch.randn(1, 8, 4, 6, 6)
@@ -170,6 +170,79 @@ def test_fused_units_route_to_their_kernels(monkeypatch):
         for unit in units.values():
             unit.eval()(x)
     assert calls == ["K3", "K4", "K4"]                   # bn_folded wins
+
+
+@pytest.mark.parametrize("C,K", [(64, 192), (16, 32), (24, 64), (96, 208),
+                                 (144, 288), (160, 320), (13, 70), (1, 1), (17, 65)])
+def test_conv_weight_packing_is_the_kernels_contraction(C, K):
+    """The bf16 kernel's GEMM over the packed weight, written out: an
+    im2col of the SAME-padded input (reduction index tap * Cpad + c, zero
+    past C and past 27 * Cpad) times the packed `[Kw, Rpad]` matrix gives
+    the plain version, in float32."""
+    rng = np.random.RandomState(C * 1000 + K)
+    N, T, H, W = 2, 3, 4, 5
+    x = torch.from_numpy(rng.randn(N, C, T, H, W).astype(np.float32))
+    weight = torch.from_numpy((rng.randn(K, C, 3, 3, 3) / np.sqrt(27 * C)).astype(np.float32))
+    scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
+    packed = conv3d.pack_conv3x3x3_weight(weight, torch.float32)
+    kw, rpad, cpad = kernels.conv_packed_shape(C, K)
+    assert packed.shape == (kw, rpad) and packed.is_contiguous()
+    assert kw % kernels.conv_tile_n(K) == 0 and rpad % kernels.CONV_TILE_K == 0
+    xp = torch.nn.functional.pad(x.permute(0, 2, 3, 4, 1), (0, cpad - C, 1, 1, 1, 1, 1, 1))
+    cols = torch.stack([xp[:, dt:dt + T, dh:dh + H, dw:dw + W]
+                        for dt in range(3) for dh in range(3) for dw in range(3)], dim=4)
+    cols = torch.nn.functional.pad(cols.reshape(N * T * H * W, 27 * cpad),
+                                   (0, rpad - 27 * cpad))
+    y = (cols @ packed.T)[:, :K] * scale + bias
+    got = torch.relu(y).reshape(N, T, H, W, K).permute(0, 4, 1, 2, 3)
+    want = conv3d.conv3x3x3_bn_relu_plain(x, weight, scale, bias)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_tile_widths_fill_the_inception_channels():
+    widths = {K: kernels.conv_tile_n(K) for K in (192, 128, 32, 96, 208, 48, 224,
+                                                  64, 256, 288, 320, 384)}
+    assert all(K % n == 0 for K, n in widths.items())
+    assert widths[288] == 144 and widths[320] == 160 and widths[384] == 192
+    assert all(widths[K] == K for K in (192, 208, 224, 256))
+    assert set(widths.values()) <= set(kernels.CONV_TILE_N)
+    assert kernels.conv_tile_n(70) == 96 and kernels.conv_tile_n(1000) == 128
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_weight_is_cached_until_the_weight_changes(dtype):
+    """The layout a Unit3D hands its conv kernel is made once, and made
+    anew after load_state_dict writes new weights in place."""
+    unit = i3d.Unit3D(8, 16, (3, 3, 3), fused_bn_relu=True).eval()
+    cache = unit._kernel_weight
+    first = conv3d.kernel_weight(unit.conv.weight, dtype, cache)
+    assert conv3d.kernel_weight(unit.conv.weight, dtype, cache) is first
+    state = {k: v.clone() for k, v in unit.state_dict().items()}
+    state["conv.weight"] = torch.randn_like(state["conv.weight"])
+    unit.load_state_dict(state)
+    second = conv3d.kernel_weight(unit.conv.weight, dtype, cache)
+    assert second is not first
+    assert torch.equal(second, conv3d.kernel_weight(state["conv.weight"], dtype))
+    if dtype == torch.bfloat16:
+        assert torch.equal(second, conv3d.pack_conv3x3x3_weight(state["conv.weight"], dtype))
+    else:
+        assert second.shape == (27, 8, 16)
+    other = torch.nn.Parameter(unit.conv.weight.detach().clone())
+    assert conv3d.kernel_weight(other, dtype, cache) is not second
+
+
+def test_wgmma_header_is_generated_for_the_tile_widths(tmp_path, monkeypatch):
+    """csrc/wgmma.cuh is gen_wgmma.py's output, for kernels.CONV_TILE_N."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("gen_wgmma", kernels.CSRC / "gen_wgmma.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    assert tuple(gen.WIDTHS) == kernels.CONV_TILE_N
+    monkeypatch.setattr(gen, "__file__", str(tmp_path / "gen_wgmma.py"))
+    gen.main()
+    assert (tmp_path / "wgmma.cuh").read_text() == (kernels.CSRC / "wgmma.cuh").read_text()
 
 
 # --------------------------------------------------------------- dispatch

@@ -134,7 +134,7 @@ def test_folded_detector_matches_jax_folded(pair):
 def test_bfloat16_detect_clip_is_finite():
     cfg = TINY.replace(compute_dtype="bfloat16", image_size=32)
     model = init_detector_(STEPDetector(cfg).eval(), seed=0)
-    props, pmask = STEPDetector.initial_proposals(cfg, 1)
+    props, pmask = STEPDetector.initial_proposals(cfg, 1, device="cpu")
     rgb = torch.from_numpy(np.random.RandomState(5).randint(
         0, 256, (1, cfg.total_frames, 32, 32, 3)).astype(np.uint8))
     out = detect_clip(model, rgb, props, pmask)

@@ -8,16 +8,18 @@ NMS and the 3x3x3 max pool must be exactly equal. ROI-align: 1e-4 in
 float32 (the kernel sums the bilinear samples in another order than the
 plain contraction); in bfloat16 one bf16 rounding step (both accumulate in
 float32 and round once at the end, so they differ only where the two
-float32 sums straddle a bf16 rounding boundary). BN + ReLU: 1e-6 in float32,
-one bf16 step in bfloat16. Conv + BN + ReLU: 1e-4 in float32 (summation
-order over 27 * C products), one bf16 step in bfloat16.
+float32 sums straddle a bf16 rounding boundary), at the fixed and the
+adaptive sampling grid. BN + ReLU: 1e-6 in float32, one bf16 step in
+bfloat16. Conv + BN + ReLU: 1e-4 in float32 (summation order over 27 * C
+products), one bf16 step in bfloat16 (the tensor cores multiply bf16
+exactly and accumulate in float32, in another order than the plain conv).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from step_tpu.config import PRESETS
+from step_tpu_torch.config import PRESETS
 from step_tpu_torch.inference import detect_clip, nms_surface
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
@@ -94,11 +96,49 @@ def test_roi_kernel_matches_plain(cuda, pooled, ratio, C, dtype):
         torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
 
 
+@pytest.mark.parametrize("C", [832, 13])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_kernel_adaptive_matches_plain(cuda, C, dtype):
+    """sampling_ratio=0: per ROI ceil(extent / pooled) samples per axis,
+    capped at adaptive_max_ratio; the boxes here reach far past the 14x14
+    map, so the cap bites."""
+    feat, tubes = _roi_inputs(3, 2, 5, 14, C, 16, 18, dtype)
+    tubes[:, :4] = torch.tensor([-300.0, -200.0, 500.0, 450.0])
+    tubes[:, 4] = torch.tensor([10.0, 20.0, 30.0, 25.0])
+    feat, tubes = feat.to(cuda), tubes.to(cuda)
+    before = tube_roi_align.launches
+    got = tube_roi_align(feat, tubes, 7, 1 / 16, 0)
+    assert tube_roi_align.launches == before + 1
+    want = tube_roi_align_plain(feat, tubes, 7, 1 / 16, 0)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_kernel_scalar_tail_on_unaligned_features(cuda, dtype):
+    """Features whose pointer is not 16-byte aligned take the one-channel
+    variant of the kernel; the result is the plain version's."""
+    feat, tubes = _roi_inputs(4, 2, 5, 14, 64, 8, 18, dtype)
+    flat = torch.empty(feat.numel() + 1, dtype=dtype, device=cuda)
+    unaligned = flat[1:].view(feat.shape)
+    unaligned.copy_(feat.to(cuda))
+    assert unaligned.data_ptr() % 16 != 0 and unaligned.is_contiguous()
+    tubes = tubes.to(cuda)
+    got = tube_roi_align(unaligned, tubes, 7, 1 / 16, 2)
+    want = tube_roi_align_plain(unaligned, tubes, 7, 1 / 16, 2)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               rtol=1e-4 if dtype == torch.float32 else BF16_RTOL,
+                               atol=1e-4 if dtype == torch.float32 else 1e-5)
+
+
 def test_roi_kernel_refuses_what_it_does_not_take(cuda):
     feat, tubes = (t.to(cuda)
                    for t in _roi_inputs(2, 1, 5, 14, 8, 4, 18, torch.float32))
-    with pytest.raises(ValueError, match="adaptive"):
-        tube_roi_align(feat, tubes, 7, 1 / 16, 0)
     with pytest.raises(ValueError, match="dtype"):
         tube_roi_align(feat.half(), tubes)
     with pytest.raises(ValueError, match="contiguous"):
@@ -109,7 +149,7 @@ def test_tiny_detector_on_card_matches_cpu(cuda):
     cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
                                        image_size=64, compute_dtype="float32")
     model = init_detector_(STEPDetector(cfg).eval(), seed=3)
-    props, pmask = STEPDetector.initial_proposals(cfg, 2)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2, device="cpu")
     rgb = torch.from_numpy(np.random.RandomState(4).randint(
         0, 256, (2, cfg.total_frames, 64, 64, 3)).astype(np.uint8))
     ref = detect_clip(model, rgb, props, pmask)
@@ -200,6 +240,60 @@ def test_conv_bn_relu_kernel_matches_plain(cuda, N, C, T, H, W, K, dtype):
     _close(got, want, dtype, 1e-4)
 
 
+# Every (C, K) of the 3x3x3 units of one request (models/i3d.py
+# INCEPTION_CHANNELS): Conv3d_2c, Mixed_3b/3c, Mixed_4b-4f, Mixed_5b/5c.
+INCEPTION_CONV_CK = [(64, 192), (96, 128), (16, 32), (128, 192), (32, 96),
+                     (96, 208), (16, 48), (112, 224), (24, 64), (128, 256),
+                     (144, 288), (32, 64), (160, 320), (32, 128), (192, 384),
+                     (48, 128)]
+
+
+@pytest.mark.parametrize("C,K", INCEPTION_CONV_CK)
+def test_conv_bf16_tensor_core_kernel_at_every_inception_width(cuda, C, K):
+    """M = 1*3*7*9 = 189 positions: one full 128-row tile and a ragged one."""
+    x = _ncdhw(12, (1, C, 3, 7, 9), torch.bfloat16)
+    rng = np.random.RandomState(C + K)
+    w = torch.from_numpy((rng.randn(K, C, 3, 3, 3) / np.sqrt(27 * C)).astype(np.float32))
+    scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
+    w, scale, bias = w.cuda(), scale.cuda(), bias.cuda()
+    before = conv3x3x3_bn_relu.launches
+    got = conv3x3x3_bn_relu(x, w, scale, bias)
+    assert conv3x3x3_bn_relu.launches == before + 1
+    want = conv3x3x3_bn_relu_plain(x, w, scale, bias)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, None)
+    assert float(want.float().abs().max()) > 0.1          # not a trivial output
+
+
+def test_conv_bf16_kernel_copies_inputs_that_are_not_channels_last(cuda):
+    x = _ncdhw(13, (2, 24, 3, 5, 6), torch.bfloat16, channels_last=False)
+    assert not x.is_contiguous(memory_format=torch.channels_last_3d)
+    w = torch.randn(40, 24, 3, 3, 3, device="cuda") * 0.05
+    s, b = torch.rand(40, device="cuda") + 0.5, torch.randn(40, device="cuda") * 0.1
+    _close(conv3x3x3_bn_relu(x, w, s, b), conv3x3x3_bn_relu_plain(x, w, s, b),
+           torch.bfloat16, None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_unit_weight_cache_follows_load_state_dict(cuda, dtype):
+    """A fused Unit3D keeps its kernel's weight layout between calls; after
+    load_state_dict the kernel gives the new weights' result."""
+    from step_tpu_torch.models.i3d import Unit3D
+
+    unit = Unit3D(16, 48, (3, 3, 3), fused_bn_relu=True).eval().to(cuda)
+    x = _ncdhw(14, (2, 16, 3, 6, 5), dtype)
+    with torch.no_grad():
+        unit(x)
+        state = {k: v.clone() for k, v in unit.state_dict().items()}
+        state["conv.weight"] = torch.randn_like(state["conv.weight"]) * 0.05
+        unit.load_state_dict(state)
+        got = unit(x)
+        want = conv3x3x3_bn_relu_plain(x, state["conv.weight"], *unit.bn.scale_bias())
+    torch.cuda.synchronize()
+    _close(got, want, dtype, 1e-4)
+
+
 def test_kernels_copy_inputs_that_are_not_channels_last(cuda):
     """The wrappers document an explicit channels_last_3d copy of an input
     in another memory order; the result is the plain version's."""
@@ -225,7 +319,7 @@ def test_kernel_path_detector_on_card_matches_cpu(cuda, monkeypatch):
                                        image_size=64, compute_dtype="float32",
                                        fused_bn_relu=True)
     model = init_detector_(STEPDetector(cfg).eval(), seed=3)
-    props, pmask = STEPDetector.initial_proposals(cfg, 2)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2, device="cpu")
     rgb = torch.from_numpy(np.random.RandomState(4).randint(
         0, 256, (2, cfg.total_frames, 64, 64, 3)).astype(np.uint8))
     ref = detect_clip(model, rgb, props, pmask)

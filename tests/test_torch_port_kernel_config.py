@@ -76,9 +76,9 @@ def test_kernel_configuration_matches_jax(setup, monkeypatch):
     calls = {"K3": 0, "K4": 0, "K5": 0}
 
     def counted(name, fn):
-        def wrapper(*args):
+        def wrapper(*args, **kwargs):
             calls[name] += 1
-            return fn(*args)
+            return fn(*args, **kwargs)
         return wrapper
 
     monkeypatch.setattr(i3d, "conv3x3x3_bn_relu", counted("K3", conv3d.conv3x3x3_bn_relu))
