@@ -22,10 +22,11 @@ Phases, each fatal on failure (exit code 1, no result line):
      Inception 1x1x1 convs fused, as the JAX package serves it), bfloat16,
      serving uint8 clips through `detect_clip` at B=1 and B=8 — output
      shapes, finite values, and both kernels' launch counters above zero;
-  7. K5, 3x3x3 max pool: kernel against its plain version at the Mixed_3b,
-     Mixed_4b and tail Mixed_5b pool shapes, float32 and bfloat16 — exactly
-     equal;
-  8. K4, BN + ReLU: at the Conv3d_1a output and a tail shape — float32
+  7. K5, 3x3x3 max pool: kernel against its plain version at each of the
+     six shapes a B=8 request of the kernel configuration pools
+     (`backbone_launches`), float32 and bfloat16, with signed zeros, +-inf
+     and NaN payloads mixed in — the same bits, NaNs included;
+  8. K4, BN + ReLU: at each of the 25 shapes of a B=8 request — float32
      within 1e-6, bfloat16 within one rounding step;
   9. K3, 3x3x3 conv + BN + ReLU: at Conv3d_2c_3x3, the tail's Mixed_5b
      b1b, Mixed_4c b2b (C = 24) and Mixed_4b b1b (K = 208) — float32 within
@@ -42,12 +43,18 @@ Phases, each fatal on failure (exit code 1, no result line):
      within 1e-2 px.
 
 At the end it checks that nothing of JAX or of the JAX package was
-imported. The second-to-last line is a JSON object describing each kernel:
-launches counted on the path that runs it (K1 and K2 on the main path,
-phase 6; K3, K4 and K5 on the kernel path, phase 10), max error, kernel and
-plain times, the bound (the larger of the bytes it must move over 3.35 TB/s
-and its operations over the peak rate for their type) and the time of one
-PyTorch call for the same function where there is one. The last is
+imported. Each kernel's time `ms` is its own device time: 20 launches of
+its launcher on preallocated outputs captured in a CUDA graph and replayed
+between CUDA events (`device_ms`), so the host's cost per call is left
+out; `wrapper_ms` is the Python wrapper's time, back to back. Phases 7 and
+8 also sum launches x device time over a request. The second-to-last line
+is a JSON object describing each kernel: launches counted on the path that
+runs it (K1 and K2 on the main path, phase 6; K3, K4 and K5 on the kernel
+path, phase 10, which must equal the launches phases 7 and 8 list), max
+error, kernel, wrapper and plain times, the bound (the larger of the bytes
+it must move over 3.35 TB/s and its operations over the peak rate for
+their type) and the time of one PyTorch call for the same function where
+there is one. The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -129,6 +136,77 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(launch, n: int = 20, reps: int = 5) -> float:
+    """A kernel's own device time: `n` calls of its launcher (a
+    `kernels.*_forward` on preallocated outputs) captured in a CUDA graph,
+    the graph replayed `reps` times between CUDA events. The host's cost per
+    call, which sets the pace of `cuda_ms` on a short kernel, is outside it."""
+    launch()                    # builds, and allows large shared memory, first
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (n * reps)
+
+
+def backbone_launches(cfg, B: int):
+    """The K4 and K5 launches of one request of the kernel configuration at
+    batch B, as {NCDHW input shape: launches}: every unit whose kernel is
+    not 3x3x3 stride 1 ends in K4 (the stem's Conv3d_1a and Conv3d_2b, and
+    the four 1x1x1 units of each Inception block), and each Inception block
+    pools its input with K5 — the stem's once, each step's tail once per
+    refinement step, on the pooled tubes of all B * max_proposals slots."""
+    from step_tpu_torch.models.i3d import INCEPTION_CHANNELS
+
+    up = lambda n, s: -(-n // s)  # noqa: E731
+    T1, S1 = up(cfg.total_frames, 2), up(cfg.image_size, 2)
+    S3 = up(up(S1, 2), 2)
+    T4, S4 = up(T1, 2), up(S3, 2)
+    k4 = {(B, 64, T1, S1, S1): 1, (B, 64, T1, up(S1, 2), up(S1, 2)): 1}
+    k5 = {}
+    where = {"Mixed_3": (B, T1, S3, 1), "Mixed_4": (B, T4, S4, 1),
+             "Mixed_5": (B * cfg.max_proposals, T4, cfg.pooled_size, cfg.num_steps)}
+    cin = 192
+    for name, c in INCEPTION_CHANNELS.items():
+        N, t, s, n = where[name[:7]]
+        k5[(N, cin, t, s, s)] = k5.get((N, cin, t, s, s), 0) + n
+        for width in (c[0], c[1], c[3], c[5]):
+            k4[(N, width, t, s, s)] = k4.get((N, width, t, s, s), 0) + n
+        cin = c[0] + c[2] + c[4] + c[5]
+    return k4, k5
+
+
+def with_specials(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+    """x with about 0.4% of its elements each set to +0, -0, +inf, -inf and
+    three NaNs with sign and payload, by raw bits: ties of signed zeros and
+    NaNs whose bits the pool must carry."""
+    if x.dtype == torch.float32:
+        ints, pats = torch.int32, (0, -2 ** 31, 0x7F800000, -0x800000, 0x7FC00001,
+                                   -0x3FFEDD, 0x7FA00000)
+    else:
+        ints, pats = torch.int16, (0, -2 ** 15, 0x7F80, -0x80, 0x7FC1, -0x3D, 0x7FA0)
+    code = torch.randint(0, 256, x.shape, device=x.device, generator=gen,
+                         dtype=torch.int16)
+    bits = x.view(ints)
+    for i, p in enumerate(pats):
+        bits.masked_fill_(code == i, p)
+    return x
+
+
+def raw_bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32 if x.element_size() == 4 else torch.int16)
 
 
 def nms_inputs(rng, N: int, P: int):
@@ -219,7 +297,7 @@ def main() -> None:
                                            pack_conv3x3x3_weight)
     from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                                   fused_scale_bias_relu_plain)
-    from step_tpu_torch.ops.nms import nms_many, nms_many_plain, premask_scores
+    from step_tpu_torch.ops.nms import _f32, nms_many, nms_many_plain, premask_scores
     from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
     from step_tpu_torch.utils.init import init_detector_
@@ -266,19 +344,23 @@ def main() -> None:
           f"K1 nms kernel differs from plain: "
           f"{int((idx_k != idx_p).sum())} idx, {int((mask_k != mask_p).sum())} mask")
     kept = mask_k.sum(dim=1)
-    nms_ms = cuda_ms(lambda: nms_many(boxes, scores, thr, K, sthr, valid))
+    nms_ms = device_ms(lambda: kernels.nms_many_forward(
+        live, boxes, torch.empty_like(idx_k), torch.empty_like(mask_k), _f32(thr)))
+    nms_wrapper_ms = cuda_ms(lambda: nms_many(boxes, scores, thr, K, sthr, valid))
     nms_plain_ms = cuda_ms(lambda: nms_many_plain(
         boxes, premask_scores(scores, sthr, valid), thr, K))
-    print(f"[3] K1 nms exact on {B * T * C} problems (P={P}, K={K}): "
-          f"{int((kept == 0).sum())} empty, {int(((kept > 0) & (kept < K)).sum())} "
-          f"exhausted before K, {int((kept == K).sum())} full; "
-          f"kernel {nms_ms:.4f} ms, plain {nms_plain_ms:.4f} ms", flush=True)
     # Bytes: boxes, scores and valid read, indices and mask written; each
     # kept box takes one IoU pass over the problem's P boxes (~13 f32 ops).
-    results["nms_many"] = dict(
-        max_abs_err=0.0, ms=nms_ms, plain_ms=nms_plain_ms, library_ms=None,
-        **bound(B * T * C * P * 4 * 6 + B * T * C * K * 8,
-                float(kept.sum()) * P * 13, F32_FLOPS))
+    nms_bound = bound(B * T * C * P * 4 * 6 + B * T * C * K * 8,
+                      float(kept.sum()) * P * 13, F32_FLOPS)
+    print(f"[3] K1 nms exact on {B * T * C} problems (P={P}, K={K}): "
+          f"{int((kept == 0).sum())} empty, {int(((kept > 0) & (kept < K)).sum())} "
+          f"exhausted before K, {int((kept == K).sum())} full; kernel device "
+          f"{nms_ms:.4f} ms ({nms_bound['bound_ms'] / nms_ms:.1%} of the "
+          f"{nms_bound['bound_ms']:.5f} ms bound), wrapper {nms_wrapper_ms:.4f} ms, "
+          f"plain {nms_plain_ms:.4f} ms", flush=True)
+    results["nms_many"] = dict(max_abs_err=0.0, ms=nms_ms, wrapper_ms=nms_wrapper_ms,
+                               plain_ms=nms_plain_ms, library_ms=None, **nms_bound)
 
     # ---- 4. K2: tube ROI-align ------------------------------------------
     Tp, Hf = 5, cfg.image_size // cfg.feature_stride
@@ -305,17 +387,22 @@ def main() -> None:
     err16 = float((out_k.float() - out_p.float()).abs().max())
     check(bf16_close(out_k, out_p),
           f"K2 roi_align bfloat16 differs from plain: max |err| {err16}")
-    roi_ms = cuda_ms(lambda: roi(feat16))
+    roi_out = torch.empty_like(out_k)
+    roi_ms = device_ms(lambda: kernels.tube_roi_align_forward(
+        feat16, tubes, roi_out, 1.0 / cfg.feature_stride, cfg.sampling_ratio))
+    roi_wrapper_ms = cuda_ms(lambda: roi(feat16))
     roi_plain_ms = cuda_ms(lambda: plain(feat16))
     # Bytes: the feature map and the boxes read once, the output written
     # once; operations: 4 corners x 2 f32 ops per sample per output element.
     roi_bound = bound(feat16.numel() * 2 + tubes.numel() * 4 + out_k.numel() * 2,
                       out_k.numel() * cfg.sampling_ratio ** 2 * 8, F32_FLOPS)
     print(f"[4] K2 roi_align on [{B},{Tp},{Hf},{Hf},832]: max |err| f32 {err32:.3g} "
-          f"(tol 1e-4), bf16 {err16:.3g} (rtol 2^-7); bf16 kernel {roi_ms:.4f} ms, "
-          f"plain {roi_plain_ms:.4f} ms, bound {roi_bound['bound_ms']:.4f} ms "
+          f"(tol 1e-4), bf16 {err16:.3g} (rtol 2^-7); bf16 kernel device "
+          f"{roi_ms:.4f} ms, wrapper {roi_wrapper_ms:.4f} ms, plain "
+          f"{roi_plain_ms:.4f} ms, bound {roi_bound['bound_ms']:.4f} ms "
           f"({roi_bound['bound_ms'] / roi_ms:.1%} of it)", flush=True)
     results["tube_roi_align"] = dict(max_abs_err=err16, ms=roi_ms,
+                                     wrapper_ms=roi_wrapper_ms,
                                      plain_ms=roi_plain_ms, library_ms=None,
                                      **roi_bound)
     # The adaptive branch: boxes up to 800 px wide, 50 feature cells, so
@@ -333,9 +420,9 @@ def main() -> None:
               f"K2 roi_align {f.dtype} sampling_ratio=0 differs from plain: "
               f"max |err| {err}")
         print(f"    sampling_ratio=0, {f.dtype}: max |err| {err:.3g}", flush=True)
-    roi0_ms = cuda_ms(lambda: tube_roi_align(feat16, big, cfg.pooled_size,
-                                             1.0 / cfg.feature_stride, 0))
-    print(f"    sampling_ratio=0, bf16 kernel {roi0_ms:.4f} ms", flush=True)
+    roi0_ms = device_ms(lambda: kernels.tube_roi_align_forward(
+        feat16, big, roi_out, 1.0 / cfg.feature_stride, 0))
+    print(f"    sampling_ratio=0, bf16 kernel device {roi0_ms:.4f} ms", flush=True)
 
     # ---- 5. tiny float32 detector: card against CPU ---------------------
     tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
@@ -392,36 +479,58 @@ def main() -> None:
         check(main_launches[name] > 0, f"kernel {name} never launched on the main path")
     del model
 
-    # ---- 7. K5: 3x3x3 max pool ------------------------------------------
-    for shape in ((8, 192, 9, 28, 28), (8, 480, 5, 14, 14), (128, 832, 5, 7, 7)):
-        x32 = randn_cl(rng, shape, dev)
-        x32[0, 0, 0, 0, :3] = float("nan")
-        for x in (x32, x32.to(torch.bfloat16)):
+    # ---- 7. K5: 3x3x3 max pool, at every launch shape of a B=8 request --
+    k4_shapes, k5_shapes = backbone_launches(cfg, B)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    pool_req = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0)
+    for shape, n in k5_shapes.items():
+        x32 = torch.randn(shape, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last_3d)
+        x16 = x32.to(torch.bfloat16)
+        for x in (with_specials(x32, gen), with_specials(x16, gen)):
             got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
             torch.cuda.synchronize()
-            check(torch.equal(got.isnan(), want.isnan()), f"K5 NaN differ at {shape}")
-            ok = ~want.isnan()
-            check(torch.equal(got[ok], want[ok]),
-                  f"K5 pool {x.dtype} {shape} differs from plain: "
-                  f"{int((got[ok] != want[ok]).sum())} elements")
-        x16 = x32.to(torch.bfloat16)
-        pool_ms = cuda_ms(lambda: max_pool3x3_same(x16))
+            differ = raw_bits(got) != raw_bits(want)
+            check(not bool(differ.any()),
+                  f"K5 pool {x.dtype} {shape} differs from plain in "
+                  f"{int(differ.sum())} elements, {int(differ[want.isnan()].sum())} "
+                  f"of them NaN")
+        out16 = torch.empty_like(x16)
+        pool_ms = device_ms(lambda: kernels.max_pool3x3_forward(kernels.ndhwc(x16),
+                                                                kernels.ndhwc(out16)))
+        pool_wrapper_ms = cuda_ms(lambda: max_pool3x3_same(x16))
         pool_plain_ms = cuda_ms(lambda: max_pool3x3_same_plain(x16))
-        print(f"[7] K5 max_pool3x3 {list(shape)}: exact in f32 and bf16; bf16 kernel "
-              f"{pool_ms:.4f} ms, plain {pool_plain_ms:.4f} ms", flush=True)
-    # The plain version is one PyTorch call, F.max_pool3d, so it is also
-    # the library's time. Bytes: x read once, out written once; 26 compares
-    # per element.
+        # Bytes: x read once, out written once; 26 compares per element.
+        pool_bound = bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS)
+        for key, v in (("ms", pool_ms), ("bound_ms", pool_bound["bound_ms"]),
+                       ("plain_ms", pool_plain_ms)):
+            pool_req[key] += n * v
+        print(f"[7] K5 max_pool3x3 {list(shape)} x{n} a request: the plain version's "
+              f"bits in f32 and bf16, NaN payloads included; bf16 kernel device "
+              f"{pool_ms:.4f} ms ({pool_bound['bound_ms'] / pool_ms:.1%} of the "
+              f"{pool_bound['bound_ms']:.4f} ms bound), wrapper {pool_wrapper_ms:.4f} ms, "
+              f"plain {pool_plain_ms:.4f} ms", flush=True)
+    print(f"    K5 per B={B} request ({sum(k5_shapes.values())} launches): device "
+          f"{pool_req['ms']:.4f} ms, bound {pool_req['bound_ms']:.4f} ms "
+          f"({pool_req['bound_ms'] / pool_req['ms']:.1%}), plain "
+          f"{pool_req['plain_ms']:.4f} ms", flush=True)
+    # The tail shape (the last) stands for K5 in the JSON line. The plain
+    # version is one PyTorch call, F.max_pool3d, so it is also the library's.
     results["max_pool3x3_same"] = dict(
-        max_abs_err=0.0, ms=pool_ms, plain_ms=pool_plain_ms,
-        library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)),
-        **bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS))
+        max_abs_err=0.0, ms=pool_ms, wrapper_ms=pool_wrapper_ms, plain_ms=pool_plain_ms,
+        library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)), **pool_bound,
+        request_ms=pool_req["ms"], request_bound_ms=pool_req["bound_ms"])
+    del x32, x16, out16, got, want
 
-    # ---- 8. K4: BN + ReLU -----------------------------------------------
-    for shape in ((8, 64, 9, 112, 112), (128, 384, 5, 7, 7)):
-        x32 = randn_cl(rng, shape, dev)
-        scale = torch.rand(shape[1], device=dev) * 2 + 0.1
-        bias = torch.randn(shape[1], device=dev)
+    # ---- 8. K4: BN + ReLU, at every launch shape of a B=8 request ---------
+    bn_req = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0)
+    for shape, n in k4_shapes.items():
+        C = shape[1]
+        x32 = torch.randn(shape, device=dev, generator=gen).contiguous(
+            memory_format=torch.channels_last_3d)
+        scale = torch.rand(C, device=dev, generator=gen) * 2 + 0.1
+        bias = torch.randn(C, device=dev, generator=gen)
         got, want = fused_scale_bias_relu(x32, scale, bias), \
             fused_scale_bias_relu_plain(x32, scale, bias)
         torch.cuda.synchronize()
@@ -429,22 +538,38 @@ def main() -> None:
         check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
               f"K4 bn_relu f32 {shape} differs from plain: max |err| {err32}")
         x16 = x32.to(torch.bfloat16)
+        del x32, got, want
         got, want = fused_scale_bias_relu(x16, scale, bias), \
             fused_scale_bias_relu_plain(x16, scale, bias)
         torch.cuda.synchronize()
         err16 = float((got.float() - want.float()).abs().max())
         check(got.dtype == torch.bfloat16 and bf16_close(got, want),
               f"K4 bn_relu bf16 {shape} differs from plain: max |err| {err16}")
-        bn_ms = cuda_ms(lambda: fused_scale_bias_relu(x16, scale, bias))
+        x2d, out16 = kernels.ndhwc(x16).reshape(-1, C), torch.empty_like(got)
+        bn_ms = device_ms(lambda: kernels.scale_bias_relu_forward(
+            x2d, scale, bias, kernels.ndhwc(out16).view(-1, C)))
+        bn_wrapper_ms = cuda_ms(lambda: fused_scale_bias_relu(x16, scale, bias))
         bn_plain_ms = cuda_ms(lambda: fused_scale_bias_relu_plain(x16, scale, bias))
-        print(f"[8] K4 bn_relu {list(shape)}: max |err| f32 {err32:.3g} (tol 1e-6), "
-              f"bf16 {err16:.3g} (one bf16 step); bf16 kernel {bn_ms:.4f} ms, "
+        bn_bound = bound(2 * x16.numel() * 2 + 2 * C * 4, 3 * x16.numel(), F32_FLOPS)
+        for key, v in (("ms", bn_ms), ("bound_ms", bn_bound["bound_ms"]),
+                       ("plain_ms", bn_plain_ms)):
+            bn_req[key] += n * v
+        print(f"[8] K4 bn_relu [{x2d.shape[0]}, {C}] x{n} a request: max |err| f32 "
+              f"{err32:.3g} (tol 1e-6), bf16 {err16:.3g} (one bf16 step); bf16 kernel "
+              f"device {bn_ms:.4f} ms ({bn_bound['bound_ms'] / bn_ms:.1%} of the "
+              f"{bn_bound['bound_ms']:.4f} ms bound), wrapper {bn_wrapper_ms:.4f} ms, "
               f"plain {bn_plain_ms:.4f} ms", flush=True)
-        if shape[0] == 8:
+        if shape == next(iter(k4_shapes)):      # Conv3d_1a's output stands for K4
             results["fused_scale_bias_relu"] = dict(
-                max_abs_err=err16, ms=bn_ms, plain_ms=bn_plain_ms, library_ms=None,
-                **bound(2 * x16.numel() * 2 + 2 * shape[1] * 4, 3 * x16.numel(),
-                        F32_FLOPS))
+                max_abs_err=err16, ms=bn_ms, wrapper_ms=bn_wrapper_ms,
+                plain_ms=bn_plain_ms, library_ms=None, **bn_bound)
+        del x16, got, want, x2d, out16
+    print(f"    K4 per B={B} request ({sum(k4_shapes.values())} launches): device "
+          f"{bn_req['ms']:.4f} ms, bound {bn_req['bound_ms']:.4f} ms "
+          f"({bn_req['bound_ms'] / bn_req['ms']:.1%}), plain "
+          f"{bn_req['plain_ms']:.4f} ms", flush=True)
+    results["fused_scale_bias_relu"].update(request_ms=bn_req["ms"],
+                                            request_bound_ms=bn_req["bound_ms"])
 
     # ---- 9. K3: 3x3x3 conv + BN + ReLU -----------------------------------
     check(n_hgmma > 0, "K3's bf16 kernels hold no HGMMA instruction")
@@ -467,10 +592,13 @@ def main() -> None:
         err16 = float((got.float() - want.float()).abs().max())
         check(got.dtype == torch.bfloat16 and bf16_close(got, want, K3_BF16_ATOL),
               f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
+        packed, out16 = pack_conv3x3x3_weight(w, torch.bfloat16), torch.empty_like(got)
+        conv_ms = device_ms(lambda: kernels.conv3x3x3_bn_relu_forward(
+            kernels.ndhwc(x16), packed, scale, bias, kernels.ndhwc(out16)), n=10)
         # As a Unit3D calls it: the float32 parameter, its bf16 layout cached.
         cache = {}
-        conv_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w, scale, bias,
-                                                    weight_cache=cache), iters=10)
+        conv_wrapper_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w, scale, bias,
+                                                            weight_cache=cache), iters=10)
         conv_plain_ms = cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w, scale, bias),
                                 iters=10)
         # The library's yardstick: cuDNN's bf16 conv with the BN affine
@@ -487,16 +615,17 @@ def main() -> None:
                            flop, BF16_TENSOR_FLOPS)
         print(f"[9] K3 conv3x3x3_bn_relu {list(shape)}->{K}: max |err| f32 "
               f"{err32:.3g} (tol 1e-4), bf16 {err16:.3g} (one bf16 step); bf16 "
-              f"kernel {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s, "
+              f"kernel device {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s, "
               f"{conv_bound['bound_ms'] / conv_ms:.1%} of the "
-              f"{conv_bound['bound_ms']:.4f} ms bound); weight re-layout from the "
+              f"{conv_bound['bound_ms']:.4f} ms bound), wrapper {conv_wrapper_ms:.4f} "
+              f"ms; weight re-layout from the "
               f"f32 parameter (cached per unit) {pack_ms:.4f} ms; cuDNN bf16 (BN "
               f"folded) + ReLU {cudnn_ms:.4f} ms; "
               f"plain (f32 conv) {conv_plain_ms:.4f} ms", flush=True)
         if shape[0] == 128:
             results["conv3x3x3_bn_relu"] = dict(
-                max_abs_err=err16, ms=conv_ms, plain_ms=conv_plain_ms,
-                library_ms=cudnn_ms, **conv_bound)
+                max_abs_err=err16, ms=conv_ms, wrapper_ms=conv_wrapper_ms,
+                plain_ms=conv_plain_ms, library_ms=cudnn_ms, **conv_bound)
 
     # ---- 10. the kernel path: unfolded, fused_bn_relu, K5 pools, bf16 ----
     os.environ["STEP_TPU_POOL3D"] = "pallas"
@@ -519,6 +648,12 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     for name, n in kernel_launches.items():
         check(n > 0, f"kernel {name} never launched on the kernel path")
+    n_req = len(SERVE_BATCHES) * KERNEL_PATH_REQUESTS
+    for name, shapes in (("fused_scale_bias_relu", k4_shapes),
+                         ("max_pool3x3_same", k5_shapes)):
+        check(kernel_launches[name] == n_req * sum(shapes.values()),
+              f"{name}: {kernel_launches[name]} launches in {n_req} requests, but "
+              f"phases 7-8 list {sum(shapes.values())} a request")
 
     # ---- 11. float32, B=1: the kernel path against the main path ---------
     del kmodel

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "bn_relu.cu", "conv3d.cu",
            "errors.cu")
-HEADERS = ("wgmma.cuh",)
+HEADERS = ("wgmma.cuh", "sm_count.cuh")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
 # no multiply-add may be contracted into an FMA (the float32 conv and the
 # ROI-align kernels ask for their FMAs explicitly, with fmaf). -Xptxas -v

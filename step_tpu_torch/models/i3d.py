@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
 from step_tpu_torch.ops.pool import max_pool3x3_same
+from step_tpu_torch.utils.tensor_cache import derived
 
 # Inception-v1 branch widths: (b0_1x1, b1_reduce, b1_3x3, b2_reduce, b2_3x3, b3_pool_proj)
 INCEPTION_CHANNELS = {
@@ -112,6 +113,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._affine = {}           # scale_bias(), reused while the state holds
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -121,9 +123,16 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
     def scale_bias(self):
-        """The float32 affine (scale, bias) `[C]` of this BN."""
-        return bn_scale_bias(self.weight, self.bias, self.running_mean,
-                             self.running_var, BN_EPS)
+        """The float32 affine (scale, bias) `[C]` of this BN.
+
+        With autograd off (serving) it is computed once and reused until
+        one of the four state tensors changes (`utils/tensor_cache.py::
+        derived`): `load_state_dict` and `.to()` recompute it. With
+        autograd on it is computed on every call, so that gradients reach
+        the parameters."""
+        state = (self.weight, self.bias, self.running_mean, self.running_var)
+        make = lambda: bn_scale_bias(*state, BN_EPS)  # noqa: E731
+        return make() if torch.is_grad_enabled() else derived(self._affine, state, make)
 
 
 class Unit3D(nn.Module):

@@ -13,12 +13,11 @@ backbone's: x NCDHW in `channels_last_3d` memory order, the weight in
 
 from __future__ import annotations
 
-import weakref
-
 import torch
 import torch.nn.functional as F
 
 from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu_plain
+from step_tpu_torch.utils.tensor_cache import derived
 
 
 def conv3x3x3_bn_relu_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -54,21 +53,16 @@ def kernel_weight(weight: torch.Tensor, dtype: torch.dtype,
     float32.
 
     With a `cache` (a dict its owner keeps, one per weight), the layout is
-    made once and reused while the weight is the same tensor with the same
-    storage and version counter: an in-place write such as
-    `load_state_dict` bumps the counter, and `.to()` gives new storage, so
-    either makes it anew."""
-    key = (weight.data_ptr(), weight._version, weight.device, weight.dtype, dtype)
-    if cache is not None and cache.get("key") == key and cache["ref"]() is weight:
-        return cache["w"]
-    if dtype == torch.float32:
-        K, C = weight.shape[:2]
-        w = weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, C, K).contiguous()
-    else:
-        w = pack_conv3x3x3_weight(weight, dtype)
-    if cache is not None:
-        cache.update(key=key, ref=weakref.ref(weight), w=w)
-    return w
+    made once and reused until the weight changes
+    (`utils/tensor_cache.py::derived`): `load_state_dict` and `.to()` make
+    it anew."""
+    def make() -> torch.Tensor:
+        if dtype == torch.float32:
+            K, C = weight.shape[:2]
+            return weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, C, K).contiguous()
+        return pack_conv3x3x3_weight(weight, dtype)
+
+    return make() if cache is None else derived(cache, (weight,), make, dtype)
 
 
 def conv3x3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,

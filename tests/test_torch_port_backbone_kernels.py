@@ -27,6 +27,8 @@ from step_tpu.ops.pool_pallas import max_pool3x3_same_pallas
 from step_tpu_torch import kernels
 from step_tpu_torch.models import i3d
 from step_tpu_torch.ops import conv3d, fused_bn_relu, pool
+from tests.test_torch_port_gpu import (pool_scan_model, pool_separable_model, raw_bits,
+                                       special_values)
 
 
 def _ncdhw(a: np.ndarray) -> torch.Tensor:
@@ -47,6 +49,44 @@ def test_pool_plain_equals_pallas_bit_for_bit(shape, dtype):
     xt = _ncdhw(np.asarray(x, np.float32)).to(getattr(torch, dtype))
     got = pool.max_pool3x3_same_plain(xt)
     assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_array_equal(_ndhwc(got), want)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_order_equals_plain_bit_for_bit(seed, dtype):
+    """The CUDA kernel's reduction order (w, then h, then t, three clamped
+    taps each, later value if v > m or v is NaN) gives PyTorch's 27-tap
+    scan bit for bit on +-0 ties, +-inf and NaN payloads, in channels-last
+    and NCDHW order. PyTorch's CPU max_pool3d in bfloat16 returns the
+    canonical NaN, so there its NaNs are held by position."""
+    rng = np.random.RandomState(seed)
+    shape = (2, 5, *rng.randint(1, 7, 3))
+    x = special_values(seed, shape, dtype)
+    for x in (x, x.contiguous(memory_format=torch.channels_last_3d)):
+        got = pool_separable_model(x)
+        assert torch.equal(raw_bits(got), raw_bits(pool_scan_model(x)))
+        want = pool.max_pool3x3_same_plain(x)
+        if dtype == torch.float32:
+            assert torch.equal(raw_bits(got), raw_bits(want))
+        nan = want.isnan()
+        assert torch.equal(got.isnan(), nan)
+        assert torch.equal(raw_bits(got[~nan]), raw_bits(want[~nan]))
+    assert bool(nan.any()) and bool((raw_bits(x) == raw_bits(-torch.zeros(1, dtype=dtype))).any())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_kernel_order_equals_pallas_bit_for_bit(dtype):
+    """Without NaN, the kernel's order also gives the Pallas kernel's
+    result, ties of equal values and +-inf included. Signed zeros are left
+    out: the Pallas kernel takes jnp.maximum, which may pick either of +0
+    and -0."""
+    rng = np.random.RandomState(7)
+    x = rng.choice([0.0, 1.0, -1.0, np.inf, -np.inf, 2.5], size=(3, 5, 7, 7, 24))
+    x = np.where(rng.rand(*x.shape) < 0.5, rng.randn(*x.shape), x).astype(np.float32)
+    xj = jnp.asarray(x, dtype)
+    want = np.asarray(max_pool3x3_same_pallas(xj, block_n=3, interpret=True), np.float32)
+    got = pool_separable_model(_ncdhw(np.asarray(xj, np.float32)).to(getattr(torch, dtype)))
     np.testing.assert_array_equal(_ndhwc(got), want)
 
 
@@ -102,6 +142,36 @@ def test_bn_relu_inference_plain_matches_pallas():
     got = fused_bn_relu.bn_relu_inference(
         _ncdhw(x), *(torch.from_numpy(a) for a in (gamma, beta, mean, var)), 1e-3)
     np.testing.assert_allclose(_ndhwc(got), want, rtol=1e-5, atol=1e-5)
+
+
+def test_bn_scale_bias_is_cached_until_the_state_changes():
+    """With autograd off, a BatchNorm's affine is computed once and reused;
+    an in-place write, load_state_dict and .to() each make it anew. With
+    autograd on it is computed on every call and carries gradients."""
+    bn = i3d.BatchNorm(8)
+    fresh = lambda m: fused_bn_relu.bn_scale_bias(  # noqa: E731
+        m.weight, m.bias, m.running_mean, m.running_var, i3d.BN_EPS)
+    with torch.no_grad():
+        bn.running_var.uniform_(0.5, 1.5)
+        first = bn.scale_bias()
+        assert bn.scale_bias() is first
+        bn.running_mean.add_(0.25)                       # in place
+        second = bn.scale_bias()
+        assert second is not first and bn.scale_bias() is second
+        torch.testing.assert_close(second, fresh(bn), rtol=0, atol=0)
+        state = {k: torch.rand_like(v) + 0.5 for k, v in bn.state_dict().items()}
+        bn.load_state_dict(state)
+        third = bn.scale_bias()
+        assert third is not second
+        torch.testing.assert_close(third, fresh(bn), rtol=0, atol=0)
+        bn.to(torch.float64)
+        fourth = bn.scale_bias()
+        assert fourth is not third and fourth[0].dtype == torch.float32
+        torch.testing.assert_close(fourth, fresh(bn), rtol=0, atol=0)
+    scale, bias = bn.scale_bias()
+    assert bn.scale_bias()[0] is not scale and scale.requires_grad
+    (scale.sum() + bias.sum()).backward()
+    assert bn.weight.grad is not None and bn.bias.grad is not None
 
 
 def test_scale_bias_relu_rounds_once():

@@ -18,6 +18,7 @@ exactly and accumulate in float32, in another order than the plain conv).
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from step_tpu_torch.config import PRESETS
 from step_tpu_torch.inference import detect_clip, nms_surface
@@ -32,6 +33,58 @@ from step_tpu_torch.utils.init import init_detector_
 
 pytestmark = pytest.mark.gpu
 BF16_RTOL = 2.0 ** -7
+
+
+# Models of the 3x3x3 / stride 1 / SAME max pool on NCDHW tensors, written
+# with torch.where so that each keeps the winning value's bits. The CPU tests
+# (test_torch_port_backbone_kernels.py) use them too.
+def _take_later(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """m takes v where v > m or v is NaN: PyTorch's max_pool3d rule."""
+    return torch.where((v.float() > m.float()) | v.isnan(), v, m)
+
+
+def pool_scan_model(x: torch.Tensor) -> torch.Tensor:
+    """PyTorch's max_pool3d as it is written: from -inf, the 27 taps in
+    (t, h, w) order, taps past the border skipped (here: padded with -inf,
+    which never wins)."""
+    T, H, W = x.shape[2:]
+    xp = F.pad(x, (1, 1, 1, 1, 1, 1), value=float("-inf"))
+    m = torch.full_like(x, float("-inf"))
+    for dt in range(3):
+        for dh in range(3):
+            for dw in range(3):
+                m = _take_later(m, xp[:, :, dt:dt + T, dh:dh + H, dw:dw + W])
+    return m
+
+
+def pool_separable_model(x: torch.Tensor) -> torch.Tensor:
+    """K5's order (csrc/pool3d.cu): three taps along w, then h, then t, each
+    in ascending order with the index clamped to the tensor."""
+    def along(t: torch.Tensor, dim: int) -> torch.Tensor:
+        idx = torch.arange(t.shape[dim], device=t.device)
+        a, b, c = (t.index_select(dim, (idx + d).clamp(0, t.shape[dim] - 1))
+                   for d in (-1, 0, 1))
+        return _take_later(_take_later(a, b), c)
+    return along(along(along(x, 4), 3), 2)
+
+
+def special_values(seed: int, shape, dtype: torch.dtype) -> torch.Tensor:
+    """An NCDHW tensor drawn from +-0, +-1, +-inf and NaNs of both signs
+    with varied payloads, as raw bits."""
+    if dtype == torch.float32:
+        bits = np.array([0x00000000, 0x80000000, 0x3F800000, 0xBF800000, 0x7F800000,
+                         0xFF800000, 0x7FC00001, 0xFFC00123, 0x7FC0ABCD], np.uint32)
+        ints = np.int32
+    else:
+        bits = np.array([0x0000, 0x8000, 0x3F80, 0xBF80, 0x7F80, 0xFF80, 0x7FC1,
+                         0xFFC3, 0x7FD5], np.uint16)
+        ints = np.int16
+    drawn = bits[np.random.RandomState(seed).randint(0, len(bits), shape)].view(ints)
+    return torch.from_numpy(drawn).view(dtype)
+
+
+def raw_bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
 
 
 @pytest.fixture
@@ -178,8 +231,13 @@ def _close(got, want, dtype, f32_tol):
         torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", [(2, 192, 9, 28, 28), (3, 13, 5, 7, 7),
-                                   (1, 1, 1, 1, 1), (1, 8, 1, 1, 5)])
+# The Mixed_3 and tail pools, C = 13 (one-element vectors), degenerate
+# frames, and shapes whose H, W and C do not divide the kernel's tiles
+# (17 rows → 3 row tiles, 37 and 70 columns → 2 and 3 column tiles, 40 and
+# 520 channels → a partial slab).
+@pytest.mark.parametrize("shape", [(2, 192, 9, 28, 28), (2, 256, 9, 28, 28),
+                                   (3, 13, 5, 7, 7), (1, 1, 1, 1, 1), (1, 8, 1, 1, 5),
+                                   (1, 40, 3, 17, 37), (2, 520, 2, 9, 70)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_kernel_equals_plain(cuda, shape, dtype):
     x = _ncdhw(5, shape, dtype)
@@ -206,7 +264,25 @@ def test_pool_kernel_propagates_nan_and_inf(cuda, dtype):
     assert bool((got[1] == float("-inf")).any()) and bool((got[1] == float("inf")).any())
 
 
-@pytest.mark.parametrize("shape", [(2, 64, 9, 28, 28), (3, 13, 5, 7, 7), (1, 5, 1, 1, 1)])
+@pytest.mark.parametrize("shape", [(2, 64, 5, 7, 7), (1, 40, 3, 17, 37), (3, 13, 4, 5, 6)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_keeps_nan_payloads_and_signed_zeros(cuda, shape, dtype):
+    """On +-0, +-inf and NaNs with payloads, the kernel's bits are those of
+    PyTorch's 27-tap scan: the first maximum in (t, h, w) order, or the last
+    NaN."""
+    x = special_values(15, shape, dtype).to(cuda)
+    x = x.contiguous(memory_format=torch.channels_last_3d)
+    got = max_pool3x3_same(x)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_bits(got), raw_bits(pool_scan_model(x)))
+    want = max_pool3x3_same_plain(x)
+    nan = want.isnan()
+    assert torch.equal(got.isnan(), nan) and torch.equal(raw_bits(got[~nan]),
+                                                         raw_bits(want[~nan]))
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 9, 28, 28), (3, 13, 5, 7, 7), (1, 5, 1, 1, 1),
+                                   (16, 48, 5, 7, 7), (2, 37, 3, 5, 7)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bn_relu_kernel_matches_plain(cuda, shape, dtype):
     C = shape[1]
@@ -292,6 +368,32 @@ def test_conv_unit_weight_cache_follows_load_state_dict(cuda, dtype):
         want = conv3x3x3_bn_relu_plain(x, state["conv.weight"], *unit.bn.scale_bias())
     torch.cuda.synchronize()
     _close(got, want, dtype, 1e-4)
+
+
+def test_bn_affine_cache_on_the_card(cuda):
+    """A fused Unit3D's BN affine is computed once on the card and made
+    anew after load_state_dict; the kernels then give the new result."""
+    from step_tpu_torch.models.i3d import Unit3D
+    from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias
+
+    unit = Unit3D(16, 24, (1, 1, 1), fused_bn_relu=True).eval().to(cuda)
+    x = _ncdhw(16, (2, 16, 3, 6, 5), torch.bfloat16)
+    with torch.no_grad():
+        unit(x)
+        first = unit.bn.scale_bias()
+        assert unit.bn.scale_bias() is first and first[0].device.type == "cuda"
+        state = {k: v.clone() for k, v in unit.state_dict().items()}
+        state["bn.running_var"] = torch.rand_like(state["bn.running_var"]) + 0.5
+        state["bn.weight"] = torch.randn_like(state["bn.weight"])
+        unit.load_state_dict(state)
+        got = unit(x)
+        assert unit.bn.scale_bias() is not first
+        scale, bias = bn_scale_bias(state["bn.weight"], state["bn.bias"],
+                                    state["bn.running_mean"], state["bn.running_var"])
+        want = fused_scale_bias_relu_plain(
+            F.conv3d(x, unit.conv.weight.to(x.dtype)), scale, bias)
+    torch.cuda.synchronize()
+    _close(got, want, torch.bfloat16, None)
 
 
 def test_kernels_copy_inputs_that_are_not_channels_last(cuda):
