@@ -6,10 +6,17 @@ Phases, each fatal on failure (exit code 1, no result line):
   1. the device, and its name and power limit from nvidia-smi;
   2. build the CUDA kernels from step_tpu_torch/csrc with nvcc (sm_90a),
      and count the HGMMA (tensor-core) instructions in K3's SASS;
-  3. K1, batched NMS: kernel against its plain PyTorch version at the
-     serving shape (B=8 → 8*18*24 problems, P=16, K=16), with exact ties,
-     zero-area boxes, all-invalid problems and problems that run out
-     before K — required exactly equal;
+  3. K1, batched NMS: kernel against its plain PyTorch version, required
+     exactly equal, with exact ties, zero-area boxes, duplicates, boxes
+     with NaN and infinite coordinates, all-invalid problems and problems
+     that run out before K: through `nms_many` at the serving shape (B=8 →
+     8*18*24 problems, P=16, K=16), at B=64, on one problem (the latency
+     floor), at P=64 and P=1024, and with K > P; and `nms_surface` (boxes
+     shared by a frame's 24 classes, one launch) at B=8 and B=64 with
+     float32 and bfloat16 scores, by raw bits. It prints the kernel's
+     device times, the surface's wrapper and plain times, the bound of the
+     compact surface and of the expanded interface, and the kernels one
+     `nms_surface` call launches, counted by torch.profiler (fatal above 2);
   4. K2, tube ROI-align: kernel against its plain version on features
      [8, 5, 14, 14, 832] with boxes partly and wholly outside the map, in
      float32 (tolerance 1e-4) and bfloat16 (one bf16 rounding step), at
@@ -21,7 +28,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      made ready for serving by `optimize_for_inference` (BN folded, the
      Inception 1x1x1 convs fused, as the JAX package serves it), bfloat16,
      serving uint8 clips through `detect_clip` at B=1 and B=8 — output
-     shapes, finite values, and both kernels' launch counters above zero;
+     shapes, finite values, and both kernels' launch counters above zero
+     (K1's counts `nms_many` and `nms_surface` launches);
   7. K5, 3x3x3 max pool: kernel against its plain version at each of the
      six shapes a B=8 request of the kernel configuration pools
      (`backbone_launches`), float32 and bfloat16, with signed zeros, +-inf
@@ -54,7 +62,8 @@ path, phase 10, which must equal the launches phases 7 and 8 list), max
 error, kernel, wrapper and plain times, the bound (the larger of the bytes
 it must move over 3.35 TB/s and its operations over the peak rate for
 their type) and the time of one PyTorch call for the same function where
-there is one. The last is
+there is one; K1's entry also holds its one-problem floor (`floor_ms`) and
+the launches of one `nms_surface` call (`surface_launches`). The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -212,13 +221,16 @@ def raw_bits(x: torch.Tensor) -> torch.Tensor:
 def nms_inputs(rng, N: int, P: int):
     """Boxes [N, P, 4], scores [N, P] and valid [N, P] that exercise every
     rule: exact ties, zero-area boxes, all-invalid problems, problems that
-    exhaust before K, duplicate boxes."""
+    exhaust before K, duplicate boxes, and boxes with NaN and infinite
+    coordinates (which suppress nothing, as in the JAX package)."""
     xy = rng.uniform(0.0, 200.0, (N, P, 2))
     wh = rng.uniform(0.0, 60.0, (N, P, 2))
     wh[rng.rand(N, P) < 0.1] = 0.0                       # zero-area boxes
     boxes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
     dup = rng.rand(N, P) < 0.05                          # exact duplicates
     boxes[dup] = boxes[:, :1].repeat(P, axis=1)[dup]
+    odd = rng.rand(N, P, 4) < 0.01                       # NaN, +inf, -inf
+    boxes[odd] = rng.choice(np.float32([np.nan, np.inf, -np.inf]), int(odd.sum()))
     scores = (rng.randint(0, 8, (N, P)) / 8.0).astype(np.float32)  # ties
     smooth = rng.rand(N) < 0.5
     scores[smooth] = rng.rand(int(smooth.sum()), P).astype(np.float32)
@@ -226,6 +238,18 @@ def nms_inputs(rng, N: int, P: int):
     valid[::7] = 0.0                                     # all-invalid problems
     valid[3::11, 2:] = 0.0                               # at most 2 live boxes
     return boxes, scores, valid
+
+
+def surface_inputs(rng, B: int, P: int, T: int, C: int, dev):
+    """tubes [B, P, T, 4] as `nms_inputs` makes boxes, scores [B, P, C]
+    with ties and zero on padding, and the proposal mask [B, P] with the
+    last quarter of the slots padding, on the card."""
+    boxes, _, _ = nms_inputs(rng, B * T, P)
+    tubes = boxes.reshape(B, T, P, 4).transpose(0, 2, 1, 3).copy()
+    mask = np.ones((B, P), np.float32)
+    mask[:, P - P // 4:] = 0.0
+    scores = (rng.randint(0, 9, (B, P, C)) / 8.0).astype(np.float32) * mask[..., None]
+    return (torch.from_numpy(a).to(dev) for a in (tubes, scores, mask))
 
 
 def randn_cl(rng, shape, dev) -> torch.Tensor:
@@ -290,7 +314,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
     from step_tpu_torch import PRESETS, kernels
-    from step_tpu_torch.inference import detect_clip, nms_surface
+    from step_tpu_torch.inference import detect_clip, nms_surface, nms_surface_plain
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.ops.conv3d import (conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
@@ -333,34 +357,90 @@ def main() -> None:
     cfg = PRESETS["ucf_3step"]
     B, T, C, P = 8, cfg.total_frames, cfg.num_classes, cfg.max_proposals
     K = min(cfg.max_detections, P)
-    boxes, scores, valid = (torch.from_numpy(a).to(dev)
-                            for a in nms_inputs(rng, B * T * C, P))
     thr, sthr = cfg.nms_thresh, cfg.score_thresh
-    idx_k, mask_k = nms_many(boxes, scores, thr, K, sthr, valid)
-    live = premask_scores(scores, sthr, valid)
-    idx_p, mask_p = nms_many_plain(boxes, live, thr, K)
-    torch.cuda.synchronize()
-    check(torch.equal(idx_k, idx_p) and torch.equal(mask_k, mask_p),
-          f"K1 nms kernel differs from plain: "
-          f"{int((idx_k != idx_p).sum())} idx, {int((mask_k != mask_p).sum())} mask")
-    kept = mask_k.sum(dim=1)
-    nms_ms = device_ms(lambda: kernels.nms_many_forward(
-        live, boxes, torch.empty_like(idx_k), torch.empty_like(mask_k), _f32(thr)))
-    nms_wrapper_ms = cuda_ms(lambda: nms_many(boxes, scores, thr, K, sthr, valid))
-    nms_plain_ms = cuda_ms(lambda: nms_many_plain(
-        boxes, premask_scores(scores, sthr, valid), thr, K))
-    # Bytes: boxes, scores and valid read, indices and mask written; each
-    # kept box takes one IoU pass over the problem's P boxes (~13 f32 ops).
-    nms_bound = bound(B * T * C * P * 4 * 6 + B * T * C * K * 8,
-                      float(kept.sum()) * P * 13, F32_FLOPS)
-    print(f"[3] K1 nms exact on {B * T * C} problems (P={P}, K={K}): "
-          f"{int((kept == 0).sum())} empty, {int(((kept > 0) & (kept < K)).sum())} "
-          f"exhausted before K, {int((kept == K).sum())} full; kernel device "
-          f"{nms_ms:.4f} ms ({nms_bound['bound_ms'] / nms_ms:.1%} of the "
-          f"{nms_bound['bound_ms']:.5f} ms bound), wrapper {nms_wrapper_ms:.4f} ms, "
-          f"plain {nms_plain_ms:.4f} ms", flush=True)
-    results["nms_many"] = dict(max_abs_err=0.0, ms=nms_ms, wrapper_ms=nms_wrapper_ms,
-                               plain_ms=nms_plain_ms, library_ms=None, **nms_bound)
+    # Problems apart through nms_many: (a) B=8, (b) B=64, the streaming
+    # batch, (c) one problem, K1's latency floor, at the serving P and K;
+    # (d) P=64 and P=1024; and K > P.
+    nms_ms = {}
+    for label, N, p, k in (("B=8", B * T * C, P, K), ("B=64", 64 * T * C, P, K),
+                           ("N=1", 1, P, K), ("P=64", B * T * C, 64, K),
+                           ("P=1024", B * T, 1024, K), ("K>P", 500, 12, 20)):
+        # (the last of two rows for N=1: the first is all invalid)
+        boxes, scores, valid = (torch.from_numpy(a[-N:]).to(dev)
+                                for a in nms_inputs(rng, max(N, 2), p))
+        idx_k, mask_k = nms_many(boxes, scores, thr, k, sthr, valid)
+        idx_p, mask_p = nms_many_plain(boxes, premask_scores(scores, sthr, valid), thr, k)
+        torch.cuda.synchronize()
+        check(torch.equal(idx_k, idx_p) and torch.equal(mask_k, mask_p),
+              f"K1 nms kernel differs from plain at {label}: "
+              f"{int((idx_k != idx_p).sum())} idx, {int((mask_k != mask_p).sum())} mask")
+        kept = mask_k.sum(dim=1)
+        keep_idx, keep_mask = torch.empty_like(idx_k), torch.empty_like(mask_k)
+        nms_ms[label] = device_ms(lambda: kernels.nms_many_forward(
+            boxes[:, None], scores[:, None, :, None], valid[:, None],
+            keep_mask.view(N, 1, 1, k), _f32(thr), _f32(sthr),
+            keep_idx=keep_idx.view(N, 1, 1, k)))
+        # Bytes: boxes, scores and valid read (24 a box), indices and mask
+        # written (8 a slot).
+        case_bound = bound(N * p * 24 + N * k * 8, float(kept.sum()) * p * 13, F32_FLOPS)
+        print(f"[3] K1 nms exact at {label}: {N} problems (P={p}, K={k}), "
+              f"{int(boxes.isnan().any(-1).sum())} NaN and {int(boxes.isinf().any(-1).sum())} "
+              f"infinite boxes; {int((kept == 0).sum())} empty, "
+              f"{int(((kept > 0) & (kept < k)).sum())} exhausted before K, "
+              f"{int((kept == k).sum())} full; kernel device {nms_ms[label]:.4f} ms, "
+              f"bound {case_bound['bound_ms']:.6f} ms", flush=True)
+    # The surface as the main path calls it, at B=8 and B=64, scores in
+    # float32 and bfloat16: one launch on the compact tubes, scores and mask.
+    # Bytes: those read once, frame_boxes, frame_scores and frame_mask
+    # written once; each kept box takes one IoU pass over its problem's P
+    # boxes (~13 f32 ops). K1's earlier interface read B*T*C expanded copies
+    # of the boxes, scores and valid mask (24 bytes a box) and wrote indices
+    # and mask (8 bytes a slot): its bound is printed beside.
+    surface_bound = {}
+    for b in (B, 64):
+        tubes, tscores, pmask = surface_inputs(rng, b, P, T, C, dev)
+        for scores in (tscores, tscores.to(torch.bfloat16)):
+            got = nms_surface(tubes, scores, pmask, cfg)
+            want = nms_surface_plain(tubes, scores, pmask, cfg)
+            torch.cuda.synchronize()
+            for key in ("frame_boxes", "frame_scores", "frame_mask"):
+                check(got[key].dtype == want[key].dtype
+                      and torch.equal(raw_bits(got[key]), raw_bits(want[key])),
+                      f"K1 nms_surface B={b} {scores.dtype} differs from plain in {key}")
+        out = {key: torch.empty_like(v) for key, v in got.items() if key.startswith("frame")}
+        nms_ms[b] = device_ms(lambda: kernels.nms_many_forward(
+            tubes.transpose(1, 2), tscores[:, None].expand(b, T, P, C),
+            pmask[:, None].expand(b, T, P), out["frame_mask"], _f32(thr), _f32(sthr),
+            out_boxes=out["frame_boxes"], out_scores=out["frame_scores"]))
+        ops = float(got["frame_mask"].sum()) * P * 13
+        surface_bound[b] = bound(tubes.numel() * 4 + tscores.numel() * 4 + pmask.numel() * 4
+                                 + b * T * C * K * (16 + 4 + 4), ops, F32_FLOPS)
+        old_bound = bound(b * T * C * (P * 24 + K * 8), ops, F32_FLOPS)
+        print(f"[3] K1 nms_surface B={b}: the plain version's bits with f32 and bf16 "
+              f"scores; kernel device {nms_ms[b]:.4f} ms "
+              f"({surface_bound[b]['bound_ms'] / nms_ms[b]:.1%} of the "
+              f"{surface_bound[b]['bound_ms']:.6f} ms bound; the expanded interface's "
+              f"{old_bound['bound_ms']:.6f} ms)", flush=True)
+        if b == B:
+            surf = (tubes, tscores, pmask)
+    tubes, tscores, pmask = surf
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        nms_surface(tubes, tscores, pmask, cfg)
+        torch.cuda.synchronize()
+    surface_launches = sum(e.count for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
+    nms_wrapper_ms = cuda_ms(lambda: nms_surface(tubes, tscores, pmask, cfg))
+    nms_plain_ms = cuda_ms(lambda: nms_surface_plain(tubes, tscores, pmask, cfg))
+    print(f"[3] K1 nms_surface B={B}: wrapper {nms_wrapper_ms:.4f} ms, plain "
+          f"{nms_plain_ms:.4f} ms; N=1 floor {nms_ms['N=1']:.4f} ms; {surface_launches} "
+          f"kernel launches in one nms_surface call (profiler)", flush=True)
+    check(1 <= surface_launches <= 2,
+          f"one nms_surface call launched {surface_launches} kernels, more than 2")
+    results["nms_many"] = dict(max_abs_err=0.0, ms=nms_ms[B], wrapper_ms=nms_wrapper_ms,
+                               plain_ms=nms_plain_ms, library_ms=None, **surface_bound[B],
+                               floor_ms=nms_ms["N=1"],
+                               surface_launches=surface_launches)
 
     # ---- 4. K2: tube ROI-align ------------------------------------------
     Tp, Hf = 5, cfg.image_size // cfg.feature_stride
@@ -464,15 +544,25 @@ def main() -> None:
                     for _ in range(n)] for b in batches}
 
     os.environ["STEP_TPU_POOL3D"] = "direct"
-    counters = {"nms_many": nms_many, "tube_roi_align": tube_roi_align,
-                "max_pool3x3_same": max_pool3x3_same,
-                "fused_scale_bias_relu": fused_scale_bias_relu,
-                "conv3x3x3_bn_relu": conv3x3x3_bn_relu}
-    for fn in counters.values():
-        fn.launches = 0
+    # K1 launches through nms_surface on the main path, through nms_many
+    # elsewhere; its count is the sum.
+    counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
+                "max_pool3x3_same": (max_pool3x3_same,),
+                "fused_scale_bias_relu": (fused_scale_bias_relu,),
+                "conv3x3x3_bn_relu": (conv3x3x3_bn_relu,)}
+
+    def reset_counts():
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def read_counts():
+        return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     serve(model, cfg, new_clips(SERVE_BATCHES, REQUESTS_PER_BATCH), dev, "main path")
-    main_launches = {name: fn.launches for name, fn in counters.items()}
+    main_launches = read_counts()
     print(f"    launches during serving: {main_launches}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     for name in ("nms_many", "tube_roi_align"):
@@ -638,12 +728,11 @@ def main() -> None:
     print(f"[10] ucf_3step {cfg.backbone_depth}, unfolded, fused_bn_relu, "
           f"STEP_TPU_POOL3D=pallas, {cfg.compute_dtype}: built in "
           f"{time.time() - t0:.1f} s", flush=True)
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     serve(kmodel, kcfg, new_clips(SERVE_BATCHES, KERNEL_PATH_REQUESTS), dev,
           "kernel path")
-    kernel_launches = {name: fn.launches for name, fn in counters.items()}
+    kernel_launches = read_counts()
     print(f"    launches during serving: {kernel_launches}; peak memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     for name, n in kernel_launches.items():

@@ -110,8 +110,9 @@ def library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.step_nms_many.argtypes = [p, p, p, p, i, i, i, f, p]
-    lib.step_nms_many.restype = i
+    ll = ctypes.c_longlong
+    lib.step_nms.argtypes = [p] * 7 + [i] * 7 + [ll] * 10 + [f, f, p]
+    lib.step_nms.restype = i
     lib.step_tube_roi_align.argtypes = [p, p, p, i, i, i, i, i, i, i, i, i, f, i, p]
     lib.step_tube_roi_align.restype = i
     lib.step_max_pool3x3.argtypes = [p, p, i, i, i, i, i, i, p]
@@ -127,14 +128,15 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def _check(t: torch.Tensor, name: str, dtype, shape, device,
+           contiguous: bool = True) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
 
@@ -153,26 +155,68 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({text})")
 
 
-def nms_many_forward(live: torch.Tensor, boxes: torch.Tensor,
-                     keep_idx: torch.Tensor, keep_mask: torch.Tensor,
-                     iou_threshold: float) -> None:
-    """Launch `csrc/nms.cu` on pre-masked live scores `[N, P]` f32 and boxes
-    `[N, P, 4]` f32, writing keep_idx `[N, K]` int32 and keep_mask f32."""
-    _need_cuda(live, "nms")
-    dev = live.device
-    N, P = live.shape
-    K = keep_idx.shape[1]
-    if not 1 <= P <= 32:
-        raise ValueError(f"nms kernel takes 1..32 boxes per problem, got {P}")
-    _check(live, "live", torch.float32, (N, P), dev)
-    _check(boxes, "boxes", torch.float32, (N, P, 4), dev)
-    _check(keep_idx, "keep_idx", torch.int32, (N, K), dev)
-    _check(keep_mask, "keep_mask", torch.float32, (N, K), dev)
+# The most boxes a problem may have: csrc/nms.cu keeps a group's P x P
+# suppression bits in shared memory (128 KiB at 1024) and a box in 10 bits
+# of its keys.
+NMS_MAX_BOXES = 1024
+_VALID_CODE = {torch.float32: 1, torch.bool: 2}
+
+
+def nms_many_forward(boxes: torch.Tensor, scores: torch.Tensor,
+                     valid: torch.Tensor | None, keep_mask: torch.Tensor,
+                     iou_threshold: float, score_threshold: float,
+                     keep_idx: torch.Tensor | None = None,
+                     out_boxes: torch.Tensor | None = None,
+                     out_scores: torch.Tensor | None = None) -> None:
+    """Launch `csrc/nms.cu` on G1 x G2 groups of P boxes, each group scored
+    by C rows: boxes `[G1, G2, P, 4]` f32 (coordinates contiguous), scores
+    `[G1, G2, P, C]` f32 or bf16, valid `[G1, G2, P]` f32 or bool, or None.
+    The inputs may have any strides, so an expanded view costs nothing. The
+    kernel pre-masks the scores as `ops/nms.py::premask_scores` does, and
+    writes K slots per (group, row) into contiguous outputs: keep_mask
+    `[G1, G2, C, K]` f32 and, where given, keep_idx int32, out_boxes
+    `[G1, G2, C, K, 4]` f32 (the kept boxes) and out_scores f32 (the kept
+    box's score times the mask)."""
+    _need_cuda(boxes, "nms")
+    dev = boxes.device
+    if boxes.dim() != 4 or scores.dim() != 4 or keep_mask.dim() != 4:
+        raise ValueError(f"boxes {tuple(boxes.shape)}, scores {tuple(scores.shape)}, "
+                         f"keep_mask {tuple(keep_mask.shape)}: expected [G1, G2, P, 4], "
+                         "[G1, G2, P, C] and [G1, G2, C, K]")
+    G1, G2, P = boxes.shape[:3]
+    C, K = scores.shape[3], keep_mask.shape[3]
+    if not 1 <= P <= NMS_MAX_BOXES:
+        raise ValueError(f"nms kernel takes 1 to NMS_MAX_BOXES = {NMS_MAX_BOXES} boxes "
+                         f"per problem (a group's P x P suppression bits live in "
+                         f"shared memory), got {P}")
+    _check(boxes, "boxes", torch.float32, (G1, G2, P, 4), dev, contiguous=False)
+    if boxes.stride(3) != 1:
+        raise ValueError("boxes: the 4 coordinates of a box are not contiguous")
+    _check(scores, "scores", tuple(_DTYPE_CODE), (G1, G2, P, C), dev, contiguous=False)
+    if valid is not None:
+        _check(valid, "valid", tuple(_VALID_CODE), (G1, G2, P), dev, contiguous=False)
+    _check(keep_mask, "keep_mask", torch.float32, (G1, G2, C, K), dev)
+    for name, t, dtype, shape in (("keep_idx", keep_idx, torch.int32, (G1, G2, C, K)),
+                                  ("out_boxes", out_boxes, torch.float32,
+                                   (G1, G2, C, K, 4)),
+                                  ("out_scores", out_scores, torch.float32,
+                                   (G1, G2, C, K))):
+        if t is not None:
+            _check(t, name, dtype, shape, dev)
+    if out_boxes is not None and out_boxes.data_ptr() % 16:
+        raise ValueError("out_boxes is not 16-byte aligned")
+    if keep_mask.numel() == 0:
+        return
+    ptr =lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    vs = (0, 0, 0) if valid is None else valid.stride()
     lib = library()
     with torch.cuda.device(dev):
-        err = lib.step_nms_many(live.data_ptr(), boxes.data_ptr(),
-                                keep_idx.data_ptr(), keep_mask.data_ptr(),
-                                N, P, K, iou_threshold, _stream(dev))
+        err = lib.step_nms(
+            boxes.data_ptr(), scores.data_ptr(), ptr(valid), ptr(keep_idx),
+            keep_mask.data_ptr(), ptr(out_boxes), ptr(out_scores),
+            _DTYPE_CODE[scores.dtype], 0 if valid is None else _VALID_CODE[valid.dtype],
+            G1 * G2, G2, P, C, K, *boxes.stride()[:3], *scores.stride(), *vs,
+            iou_threshold, score_threshold, _stream(dev))
     _raise_on(err, "nms kernel launch")
 
 

@@ -8,13 +8,17 @@ iterations per problem:
   * suppress every box with `iou > iou_threshold` against it (the union
     floored at 1e-8), and knock the picked box out explicitly — a
     zero-area box has IoU 0 with itself and would be picked again;
-  * a problem with nothing live left freezes: keep_idx 0, keep_mask 0.
+  * a problem with nothing live left (no live score above NEG/2) freezes:
+    keep_mask 0, keep_idx the lowest index of the maximum of the live
+    scores as they stand (0 when all are NEG).
 
 The box area is `(x2 - x1) * (y2 - y1)` with no clamp at 0, as the Pallas
 kernel computes it (`nms_pallas.py:47`, `:60`); `ops/nms.py` goes through
 `box_area`, which clamps. The two agree wherever x1 <= x2 and y1 <= y2,
 which `decode_boxes` and `clip_boxes` guarantee on the detection path.
-This port follows the Pallas kernel, bit for bit.
+Minimum and maximum propagate NaN, as `jnp.minimum`/`jnp.maximum` do, so
+a box with a NaN coordinate suppresses nothing and is suppressed by
+nothing. This port follows the Pallas kernel, bit for bit.
 """
 
 from __future__ import annotations
@@ -68,9 +72,20 @@ def nms_many_plain(boxes: torch.Tensor, live: torch.Tensor,
         live = torch.where(ok & drop, torch.full_like(live, NEG), live)
         idxs.append(idx[:, 0])
         oks.append(ok[:, 0])
+    if not idxs:
+        return (torch.empty((N, 0), dtype=torch.int32, device=live.device),
+                torch.empty((N, 0), dtype=torch.float32, device=live.device))
     keep_idx = torch.stack(idxs, dim=1).to(torch.int32)
     keep_mask = torch.stack(oks, dim=1).to(torch.float32)
     return keep_idx, keep_mask
+
+
+def kernel_valid(valid: torch.Tensor | None) -> torch.Tensor | None:
+    """`valid` as the kernel reads it: float32 or bool as it is, any other
+    dtype as the bool `valid > 0`."""
+    if valid is None or valid.dtype in (torch.float32, torch.bool):
+        return valid
+    return valid > 0
 
 
 def nms_many(boxes: torch.Tensor, scores: torch.Tensor,
@@ -81,26 +96,37 @@ def nms_many(boxes: torch.Tensor, scores: torch.Tensor,
     boxes `[N, P, 4]`, scores `[N, P]`, valid `[N, P]` (optional)
     → keep_idx `[N, max_keep]` int32, keep_mask `[N, max_keep]` float32.
 
-    Scores are pre-masked here (`premask_scores`); a CUDA tensor then goes
-    to the hand-written kernel (`csrc/nms.cu`, P <= 32), a CPU tensor to
-    `nms_many_plain`. `nms_many.launches` counts kernel launches.
+    A CPU tensor goes to `premask_scores` and `nms_many_plain`; a CUDA
+    tensor to the hand-written kernel (`csrc/nms.cu`: N groups of one
+    problem, P up to `kernels.NMS_MAX_BOXES`), which pre-masks the scores
+    itself. `nms_many.launches` counts kernel launches.
     """
-    live = premask_scores(scores, score_threshold, valid)
-    if live.device.type == "cpu":
-        return nms_many_plain(boxes, live, iou_threshold, max_keep)
-    if live.device.type != "cuda":
-        raise ValueError(f"nms_many: no kernel for device {live.device}")
+    if scores.device.type == "cpu":
+        return nms_many_plain(boxes, premask_scores(scores, score_threshold, valid),
+                              iou_threshold, max_keep)
+    if scores.device.type != "cuda":
+        raise ValueError(f"nms_many: no kernel for device {scores.device}")
     from step_tpu_torch import kernels
 
-    N, P = live.shape
-    if boxes.shape != (N, P, 4) or boxes.device != live.device:
+    N, P = scores.shape
+    if boxes.shape != (N, P, 4) or boxes.device != scores.device:
         raise ValueError(f"nms_many: boxes {tuple(boxes.shape)} on "
-                         f"{boxes.device}, expected [{N}, {P}, 4] on {live.device}")
-    keep_idx = torch.empty((N, max_keep), dtype=torch.int32, device=live.device)
-    keep_mask = torch.empty((N, max_keep), dtype=torch.float32, device=live.device)
-    kernels.nms_many_forward(live.contiguous(),
-                             boxes.to(torch.float32).contiguous(),
-                             keep_idx, keep_mask, _f32(iou_threshold))
+                         f"{boxes.device}, expected [{N}, {P}, 4] on {scores.device}")
+    if scores.dtype not in (torch.float32, torch.bfloat16):
+        scores = scores.to(torch.float32)    # exact: premask_scores does it first
+    boxes = boxes.to(torch.float32)
+    if boxes.stride(-1) != 1:
+        boxes = boxes.contiguous()
+    valid = kernel_valid(valid)
+    keep_idx = torch.empty((N, max_keep), dtype=torch.int32, device=scores.device)
+    keep_mask = torch.empty((N, max_keep), dtype=torch.float32, device=scores.device)
+    if keep_mask.numel() == 0:
+        return keep_idx, keep_mask
+    kernels.nms_many_forward(
+        boxes[:, None], scores[:, None, :, None],
+        None if valid is None else valid[:, None], keep_mask.view(N, 1, 1, max_keep),
+        _f32(iou_threshold), _f32(score_threshold),
+        keep_idx=keep_idx.view(N, 1, 1, max_keep))
     nms_many.launches += 1
     return keep_idx, keep_mask
 

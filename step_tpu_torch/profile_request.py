@@ -36,7 +36,7 @@ import torch
 
 # Kernel name fragments → layer, first match wins.
 LAYERS = (
-    ("K1 nms (csrc/nms.cu)", ("nms_many_kernel",)),
+    ("K1 nms (csrc/nms.cu)", ("nms_groups_kernel", "nms_many_kernel")),
     ("K2 roi_align (csrc/roi_align.cu)", ("tube_roi_align_kernel",)),
     ("K3 conv3x3x3 (csrc/conv3d.cu)", ("conv_bf16_kernel", "conv_f32_kernel",
                                        "conv3x3x3_bn_relu_kernel")),

@@ -21,12 +21,13 @@ import torch
 import torch.nn.functional as F
 
 from step_tpu_torch.config import PRESETS
-from step_tpu_torch.inference import detect_clip, nms_surface
+from step_tpu_torch.inference import detect_clip, nms_surface, nms_surface_plain
+from step_tpu_torch.kernels import NMS_MAX_BOXES
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
 from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                               fused_scale_bias_relu_plain)
-from step_tpu_torch.ops.nms import nms_many, nms_many_plain, premask_scores
+from step_tpu_torch.ops.nms import EPS, NEG, _f32, nms_many, nms_many_plain, premask_scores
 from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 from step_tpu_torch.utils.init import init_detector_
@@ -94,34 +95,165 @@ def cuda():
     return torch.device("cuda")
 
 
-def _nms_inputs(seed, N, P):
+# A model of K1's algorithm (csrc/nms.cu), which the CPU tests hold bit for
+# bit against nms_many_plain and the Pallas kernel.
+def nms_suppression(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The suppression matrix of each group of boxes `[G, P, 4]`:
+    `sup[g, i, j] = iou(i, j) > thr`, i the chosen box, in the Pallas
+    kernel's order, with a NaN coordinate giving a NaN IoU (no suppression).
+    The kernel packs each row into ceil(P / 32) words."""
+    x1, y1, x2, y2 = boxes.to(torch.float32).unbind(-1)        # [G, P]
+    area = (x2 - x1) * (y2 - y1)
+    c, o = (lambda t: t[:, :, None]), (lambda t: t[:, None, :])
+    w = torch.clamp(torch.minimum(c(x2), o(x2)) - torch.maximum(c(x1), o(x1)), min=0.0)
+    h = torch.clamp(torch.minimum(c(y2), o(y2)) - torch.maximum(c(y1), o(y1)), min=0.0)
+    inter = w * h
+    iou = inter / torch.clamp(c(area) + o(area) - inter, min=EPS)
+    return iou > _f32(iou_threshold)
+
+
+def nms_rank_model(boxes: torch.Tensor, live: torch.Tensor, iou_threshold: float,
+                   max_keep: int):
+    """Greedy NMS as K1 runs it: groups of boxes `[G, P, 4]` shared by the
+    C problems of pre-masked live scores `[G, C, P]` → keep_idx
+    `[G, C, K]` int32, keep_mask f32.
+
+    The suppression matrix is computed once per group. Each box's key is
+    its rank in the greedy order (score descending, ties to the lower
+    index) times 1024 plus its index; a step keeps the alive box with the
+    least key and removes it and its row of the matrix from the alive set.
+    When that box's rank is not below the count of scores above NEG/2, the
+    problem freezes: mask 0 and the lowest index of the maximum of the live
+    scores as they stand (alive boxes at their score, removed ones at NEG).
+    A frozen step changes nothing, so every later slot repeats it."""
+    G, C, P = live.shape
+    sup = nms_suppression(boxes, iou_threshold)[:, None].expand(G, C, P, P)
+    iota = torch.arange(P)
+    mine, other = live[..., :, None], live[..., None, :]
+    ahead = (other > mine) | ((other == mine) & (iota[None, :] < iota[:, None]))
+    key = ahead.sum(-1) * 1024 + iota                            # [G, C, P]
+    nsel = (live > NEG / 2).sum(-1, keepdim=True)
+    alive = torch.ones((G, C, P), dtype=torch.bool)
+    idxs, oks = [], []
+    for _ in range(max_keep):
+        least = torch.where(alive, key, 2 ** 31 - 1).min(-1, keepdim=True).values
+        ok = least // 1024 < nsel
+        now = torch.where(alive, live, torch.full_like(live, NEG))
+        top = now.max(-1, keepdim=True).values
+        frozen = torch.where(now == top, iota, P).min(-1, keepdim=True).values
+        idx = torch.where(ok, least % 1024, frozen)              # [G, C, 1]
+        row = torch.gather(sup, 2, idx[..., None].expand(G, C, 1, P))[:, :, 0]
+        alive = alive & ~(ok & (row | (iota == idx)))
+        idxs.append(idx[..., 0])
+        oks.append(ok[..., 0])
+    return (torch.stack(idxs, -1).to(torch.int32), torch.stack(oks, -1).to(torch.float32))
+
+
+def nms_inputs(seed: int, N: int, P: int, case: str = "ties"):
+    """Boxes `[N, P, 4]`, scores and valid `[N, P]` as numpy float32 arrays,
+    and the score threshold. Every case has exact score ties, zero-area
+    boxes, duplicates, invalid slots and an all-invalid problem (row 1);
+    "nonfinite" adds boxes with NaN and +-inf coordinates; "low" draws
+    scores from -2e9 up to 0.5, exact NEG and NEG/2 among them, under a
+    threshold of -1e10, so that problems freeze on live scores at or below
+    NEG/2 and on removed boxes above them."""
     rng = np.random.RandomState(seed)
-    xy = rng.uniform(0, 100, (N, P, 2))
-    wh = rng.uniform(0, 40, (N, P, 2))
-    wh[rng.rand(N, P) < 0.15] = 0.0
+    xy = rng.uniform(-10, 100, (N, P, 2))
+    wh = rng.uniform(0, 50, (N, P, 2))
+    wh[rng.rand(N, P) < 0.15] = 0.0                              # zero-area
     boxes = np.concatenate([xy, xy + wh], -1).astype(np.float32)
-    scores = (rng.randint(0, 5, (N, P)) / 4.0).astype(np.float32)
-    valid = (rng.rand(N, P) > 0.2).astype(np.float32)
-    valid[::5] = 0.0
-    return (torch.from_numpy(a) for a in (boxes, scores, valid))
+    dup = rng.rand(N, P) < 0.1
+    boxes[dup] = np.repeat(boxes[:, :1], P, axis=1)[dup]         # duplicates
+    scores = (rng.randint(0, 6, (N, P)) / 5.0).astype(np.float32)  # ties
+    scores[N // 2:] = rng.rand(N - N // 2, P).astype(np.float32)
+    scores[0, :2] = 0.05                                         # == threshold
+    valid = (rng.rand(N, P) > 0.25).astype(np.float32)
+    valid[1 % N] = 0.0                                           # all invalid
+    score_threshold = 0.05
+    if case == "nonfinite":
+        odd = rng.rand(N, P, 4) < 0.04
+        boxes[odd] = rng.choice(np.float32([np.nan, np.inf, -np.inf]), int(odd.sum()))
+    elif case == "low":
+        levels = np.float32([-2e9, -1.5e9, NEG, -7e8, NEG / 2, -4e8, 0.1, 0.5])
+        scores = levels[rng.randint(0, len(levels), (N, P))]
+        score_threshold = -1e10
+    return boxes, scores, valid, score_threshold
 
 
+@pytest.mark.parametrize("case", ["ties", "nonfinite", "low"])
 @pytest.mark.parametrize("N,P,K,thr", [(3456, 16, 16, 0.5), (100, 32, 40, 0.3),
                                        (7, 1, 4, 0.5), (513, 11, 5, 0.7)])
-def test_nms_kernel_equals_plain(cuda, N, P, K, thr):
-    boxes, scores, valid = (t.to(cuda) for t in _nms_inputs(N, N, P))
+def test_nms_kernel_equals_plain(cuda, N, P, K, thr, case):
+    b, s, v, sthr = nms_inputs(N, N, P, case)
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in (b, s, v))
     before = nms_many.launches
-    idx, mask = nms_many(boxes, scores, thr, K, 0.05, valid)
+    idx, mask = nms_many(boxes, scores, thr, K, sthr, valid)
     assert nms_many.launches == before + 1
-    ridx, rmask = nms_many_plain(boxes, premask_scores(scores, 0.05, valid), thr, K)
+    ridx, rmask = nms_many_plain(boxes, premask_scores(scores, sthr, valid), thr, K)
     torch.cuda.synchronize()
     assert torch.equal(idx, ridx) and torch.equal(mask, rmask)
 
 
-def test_nms_kernel_rejects_more_than_32_boxes(cuda):
-    boxes, scores, _ = (t.to(cuda) for t in _nms_inputs(0, 4, 33))
-    with pytest.raises(ValueError, match="1..32"):
-        nms_many(boxes, scores, 0.5, 4)
+@pytest.mark.parametrize("P", [33, 64, 200, 1024])
+def test_nms_kernel_equals_plain_past_32_boxes(cuda, P):
+    b, s, v, sthr = nms_inputs(P, 24, P, "nonfinite")
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in (b, s, v))
+    idx, mask = nms_many(boxes, scores, 0.5, 40, sthr, valid)
+    ridx, rmask = nms_many_plain(boxes, premask_scores(scores, sthr, valid), 0.5, 40)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, ridx) and torch.equal(mask, rmask)
+    assert float(mask.sum()) > 24                          # not a trivial answer
+
+
+def test_nms_kernel_refuses_more_boxes_than_its_limit(cuda):
+    b, s, _, _ = nms_inputs(0, 2, NMS_MAX_BOXES + 1)
+    with pytest.raises(ValueError, match=f"NMS_MAX_BOXES = {NMS_MAX_BOXES}"):
+        nms_many(torch.from_numpy(b).to(cuda), torch.from_numpy(s).to(cuda), 0.5, 4)
+
+
+def test_nms_kernel_keeps_a_nan_box(cuda):
+    """A box with a NaN coordinate has a NaN IoU with every box, which
+    suppresses nothing, as in the JAX package."""
+    boxes = torch.tensor([[[0, 0, 10, 10], [1, 1, float("nan"), 11],
+                           [0, 0, 10, 10.5]]], device=cuda)
+    idx, mask = nms_many(boxes, torch.tensor([[0.9, 0.8, 0.7]], device=cuda), 0.5, 3, 0.0)
+    assert idx.tolist() == [[0, 1, 0]] and mask.tolist() == [[1.0, 1.0, 0.0]]
+
+
+def surface_inputs(seed: int, B: int, P: int, T: int, C: int, dtype=torch.float32):
+    """tubes `[B, P, T, 4]` with a few NaN and infinite coordinates, scores
+    `[B, P, C]` in `dtype` with ties, zero on padding slots, and the
+    proposal mask `[B, P]` (the last quarter of the slots padding)."""
+    rng = np.random.RandomState(seed)
+    boxes, _, _, _ = nms_inputs(seed, B * T, P, "nonfinite")
+    tubes = torch.from_numpy(boxes.reshape(B, T, P, 4)).transpose(1, 2).contiguous()
+    mask = torch.ones(B, P)
+    mask[:, P - P // 4:] = 0.0
+    scores = torch.from_numpy((rng.randint(0, 9, (B, P, C)) / 8.0).astype(np.float32))
+    return tubes, (scores * mask[..., None]).to(dtype), mask
+
+
+@pytest.mark.parametrize("B,P", [(1, 16), (8, 16), (2, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_surface_kernel_equals_plain(cuda, B, P, dtype):
+    cfg = PRESETS["ucf_3step"].replace(max_proposals=max(P, 16))
+    tubes, scores, mask = (t.to(cuda) for t in surface_inputs(B + P, B, P, 18, 24, dtype))
+    got = nms_surface(tubes, scores, mask, cfg)
+    want = nms_surface_plain(tubes, scores, mask, cfg)
+    torch.cuda.synchronize()
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        assert got[key].dtype == want[key].dtype and got[key].shape == want[key].shape
+        assert torch.equal(raw_bits(got[key]), raw_bits(want[key])), key
+    assert float(want["frame_mask"].sum()) > 0
+
+
+def test_nms_surface_is_one_launch(cuda):
+    cfg = PRESETS["ucf_3step"]
+    tubes, scores, mask = (t.to(cuda) for t in surface_inputs(1, 2, 16, 18, 24))
+    surface, many = nms_surface.launches, nms_many.launches
+    for _ in range(3):
+        nms_surface(tubes, scores, mask, cfg)
+    assert nms_surface.launches == surface + 3 and nms_many.launches == many
 
 
 def _roi_inputs(seed, B, Tp, H, C, N, T, dtype):

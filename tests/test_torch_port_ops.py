@@ -15,6 +15,8 @@ import pytest
 import torch
 
 from step_tpu import preprocess as jpre
+from step_tpu.config import PRESETS as JAX_PRESETS
+from step_tpu.inference import nms_surface as jax_nms_surface
 from step_tpu.ops.roi_align import (batched_tube_roi_align_kron,
                                     feature_time_indices as jax_time_indices,
                                     tube_roi_align as jax_tube_roi_align)
@@ -24,9 +26,12 @@ from step_tpu.tubes import boxes as jboxes
 from step_tpu.tubes import proposals as jprop
 from step_tpu.tubes import tube_ops as jtube
 from step_tpu_torch import kernels
+from step_tpu_torch.config import PRESETS
+from step_tpu_torch.inference import nms_surface
 from step_tpu_torch.ops import nms, roi_align
 from step_tpu_torch.preprocess import device_preprocess
 from step_tpu_torch.tubes import boxes, proposals, tube_ops
+from tests.test_torch_port_gpu import nms_inputs, nms_rank_model, surface_inputs
 
 
 def _np(x):
@@ -209,10 +214,15 @@ def _nms_inputs(seed, N, P):
     return b, scores, valid
 
 
-@pytest.mark.parametrize("N,P,K,thr", [(64, 16, 16, 0.5), (40, 5, 8, 0.3),
-                                       (33, 32, 12, 0.7), (16, 1, 3, 0.5)])
-def test_nms_matches_jax_exactly(N, P, K, thr):
+@pytest.mark.parametrize("N,P,K,thr,nonfinite", [
+    (64, 16, 16, 0.5, False), (40, 5, 8, 0.3, False), (33, 32, 12, 0.7, False),
+    (16, 1, 3, 0.5, False), (20, 33, 16, 0.5, False), (12, 64, 16, 0.4, False),
+    (24, 16, 16, 0.5, True)])
+def test_nms_matches_jax_exactly(N, P, K, thr, nonfinite):
     b, scores, valid = _nms_inputs(N + P, N, P)
+    if nonfinite:                       # NaN and +-inf coordinates
+        odd = np.random.RandomState(N).rand(N, P, 4) < 0.05
+        b[odd] = np.resize(np.float32([np.nan, np.inf, -np.inf]), int(odd.sum()))
     idx, mask = nms.nms_many(_t(b), _t(scores), thr, K, 0.05, _t(valid))
     jidx, jmask = jax_nms_many(jnp.asarray(b), jnp.asarray(scores), thr, K,
                                0.05, jnp.asarray(valid), interpret=True)
@@ -227,6 +237,74 @@ def test_nms_zero_area_box_is_kept_once():
     s = np.asarray([[0.9, 0.8, 0.7]], np.float32)
     idx, mask = nms.nms_many(_t(b), _t(s), 0.5, 3, 0.0)
     assert idx.tolist() == [[0, 1, 0]] and mask.tolist() == [[1.0, 1.0, 0.0]]
+
+
+def test_nms_keeps_a_nan_box_as_jax_does():
+    """A NaN coordinate makes every IoU with the box NaN, and NaN > thr is
+    false: the box suppresses nothing and nothing suppresses it."""
+    b = np.asarray([[[0, 0, 10, 10], [1, 1, np.nan, 11], [0, 0, 10, 10.5]]], np.float32)
+    s = np.asarray([[0.9, 0.8, 0.7]], np.float32)
+    jidx, jmask = jax_nms_many(jnp.asarray(b), jnp.asarray(s), 0.5, 3, 0.0,
+                               interpret=True)
+    for idx, mask in ((_np(jidx), _np(jmask)), nms.nms_many(_t(b), _t(s), 0.5, 3, 0.0),
+                      nms_rank_model(_t(b), _t(s)[:, None], 0.5, 3)):
+        assert np.asarray(idx).reshape(-1).tolist() == [0, 1, 0]
+        assert np.asarray(mask).reshape(-1).tolist() == [1.0, 1.0, 0.0]
+
+
+# K1's algorithm (csrc/nms.cu: suppression bits once per group, keys by
+# rank, an alive mask, the freeze rule), modelled in torch, against the
+# plain version and the Pallas kernel on every edge case.
+@pytest.mark.parametrize("case", ["ties", "nonfinite", "low"])
+@pytest.mark.parametrize("P", [1, 5, 16, 33, 64])
+def test_nms_rank_model_equals_plain_and_jax(P, case):
+    b, s, v, sthr = nms_inputs(P + 7, 12, P, case)
+    live = nms.premask_scores(_t(s), sthr, _t(v))
+    K = 16                                               # K > P for P = 1, 5
+    idx, mask = nms_rank_model(_t(b), live[:, None], 0.5, K)
+    pidx, pmask = nms.nms_many_plain(_t(b), live, 0.5, K)
+    jidx, jmask = jax_nms_many(jnp.asarray(b), jnp.asarray(s), 0.5, K, sthr,
+                               jnp.asarray(v), interpret=True)
+    for want_idx, want_mask in ((pidx.numpy(), pmask.numpy()), (_np(jidx), _np(jmask))):
+        np.testing.assert_array_equal(idx[:, 0].numpy(), want_idx)
+        np.testing.assert_array_equal(mask[:, 0].numpy(), want_mask)
+    if case == "low":                     # some problems froze on a live index
+        frozen = (pmask.numpy() == 0) & (pidx.numpy() != 0)
+        assert P == 1 or frozen.any()
+
+
+@pytest.mark.parametrize("P,C", [(16, 24), (33, 5)])
+def test_nms_rank_model_shares_boxes_across_problems(P, C):
+    """C problems over one group's boxes give what each gives alone."""
+    G = 6
+    b, _, v, _ = nms_inputs(P, G, P, "nonfinite")
+    rng = np.random.RandomState(C)
+    s = (rng.randint(0, 5, (G, C, P)) / 4.0).astype(np.float32)
+    live = nms.premask_scores(_t(s), 0.05, _t(v)[:, None].expand(G, C, P))
+    idx, mask = nms_rank_model(_t(b), live, 0.5, 12)
+    pidx, pmask = nms.nms_many_plain(_t(b)[:, None].expand(G, C, P, 4).reshape(-1, P, 4),
+                                     live.reshape(-1, P), 0.5, 12)
+    np.testing.assert_array_equal(idx.reshape(-1, 12).numpy(), pidx.numpy())
+    np.testing.assert_array_equal(mask.reshape(-1, 12).numpy(), pmask.numpy())
+
+
+def test_nms_surface_matches_jax_past_32_boxes_with_a_nan_box():
+    """The port's surface on the CPU against the JAX package's, whose
+    Pallas branch runs in interpret mode off the TPU: P = 33 proposals,
+    one of them with a NaN coordinate in some frames."""
+    B, P, T, C = 2, 33, 3, 5
+    tubes, scores, pmask = surface_inputs(3, B, P, T, C)
+    tubes[0, 4, 1] = torch.tensor([20.0, 20.0, float("nan"), 60.0])
+    tubes[1, 0, :, 3] = float("nan")
+    port = PRESETS["ucf_3step"].replace(max_detections=16)
+    got = nms_surface(tubes, scores, pmask, port)
+    want = jax_nms_surface(jnp.asarray(tubes.numpy()), jnp.asarray(scores.numpy()),
+                           jnp.asarray(pmask.numpy()),
+                           JAX_PRESETS["ucf_3step"].replace(max_detections=16))
+    assert got["frame_boxes"].shape == (B, T, C, 16, 4)
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        np.testing.assert_array_equal(got[key].numpy(), _np(want[key]), err_msg=key)
+    assert bool(got["frame_boxes"].isnan().any())       # the NaN box was kept
 
 
 # ---------------------------------------------------------------- dispatch
@@ -251,8 +329,9 @@ def test_wrappers_take_plain_path_on_cpu_and_raise_elsewhere():
 def test_kernel_launchers_refuse_cpu_tensors():
     b, s, _ = _nms_inputs(0, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.nms_many_forward(_t(s), _t(b), torch.empty(8, 4, dtype=torch.int32),
-                                 torch.empty(8, 4), 0.5)
+        kernels.nms_many_forward(_t(b)[:, None], _t(s)[:, None, :, None], None,
+                                 torch.empty(8, 1, 1, 4), 0.5, 0.05,
+                                 keep_idx=torch.empty(8, 1, 1, 4, dtype=torch.int32))
     feat, tubes = _roi_inputs(0)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.tube_roi_align_forward(_t(feat), _t(tubes[:, :, :3]),
