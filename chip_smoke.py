@@ -48,7 +48,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      phase 6, and all five launch counters above zero;
  11. the same weights in float32 at B=1: the kernel path against the main
      path (folded, cuDNN, PyTorch pools) — tube scores within 1e-3, tubes
-     within 1e-2 px.
+     within 1e-2 px;
+ 12. the video path: the `streaming` preset at full width on the main
+     path's tree (bf16, the same seeded weights), a 288-frame uint8 video
+     (48 chunks of 6 frames) tiled into 48 windows one chunk apart, through
+     `detect_video` with tiling_stride 6 and None — link outputs [24, 4, 48]
+     finite and node-disjoint per clip, K1 and K2 launched, linking on the
+     card equal to linking on the CPU on the same tubes and scores; every
+     K1 and K2 call of each run recorded (`recorded`) and held against its
+     plain version on that call's own inputs (K1 by raw bits); per-video
+     wall ms (median of 3) of `detect_video` and of its linking alone, with
+     the linking's kernel launches (profiler);
+ 13. the chunk-stem cache on the same video: `detect_video_stream_batched`
+     (clip_batch 16, three batches) and `detect_video_stream` over 4
+     chunks, each K1 and K2 call of both held against its plain version as
+     in phase 12, and the batched form's per-video wall ms; in float32
+     (TF32 off) both forms against `detect_clip` on the assembled window at
+     an interior window and both clamped edges (scores within 1e-4, tubes
+     within 1e-3 px); K2 at [16, 6, 14, 14, 832] with boxes outside the
+     map; and the kernel configuration with chunk stems at B=2, whose K3,
+     K4 and K5 launches, recorded by shape, must equal what
+     `backbone_launches` lists (T = 3 and 2 in the stem, T' = 6 in the
+     tail), each of those shapes then held against its plain version as in
+     phases 7-9; and in float32 that configuration against the main path's
+     chunk-stem tree on the same clips, as in phase 11.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -63,11 +86,17 @@ error, kernel, wrapper and plain times, the bound (the larger of the bytes
 it must move over 3.35 TB/s and its operations over the peak rate for
 their type) and the time of one PyTorch call for the same function where
 there is one; K1's entry also holds its one-problem floor (`floor_ms`) and
-the launches of one `nms_surface` call (`surface_launches`). The last is
+the launches of one `nms_surface` call (`surface_launches`). Each entry
+also holds `video_launches`, its launches on each video path of phases 12
+and 13 (counts set to 0 just before each path and read just after), and
+`video_shapes`: for each path and each shape that path gave the kernel, the
+launches recorded there, the max error against the plain version, and the
+device, plain and bound times. The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -92,6 +121,12 @@ BF16_RTOL = 2.0 ** -7           # one bf16 rounding step (8-bit significand)
 # 2^-15 for K3 in bf16, and 1e-5 elsewhere.
 K3_BF16_ATOL = 2.0 ** -15
 PATH_SCORE_TOL, PATH_TUBE_TOL = 1e-3, 1e-2
+# The video phases: a 288-frame video of the streaming preset, 48 chunks of
+# 6 frames, tiled into 48 windows one chunk apart; refinement batches of 16
+# windows (three batches); each video form timed 3 times after a warm-up.
+VIDEO_CHUNKS, STREAM_BATCH, VIDEO_RUNS = 48, 16, 3
+STREAM_SCORE_TOL, STREAM_TUBE_TOL = 1e-4, 1e-3   # float32, TF32 off
+LINK_VALUE_TOL = 1e-5
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -171,30 +206,43 @@ def device_ms(launch, n: int = 20, reps: int = 5) -> float:
 
 
 def backbone_launches(cfg, B: int):
-    """The K4 and K5 launches of one request of the kernel configuration at
-    batch B, as {NCDHW input shape: launches}: every unit whose kernel is
-    not 3x3x3 stride 1 ends in K4 (the stem's Conv3d_1a and Conv3d_2b, and
-    the four 1x1x1 units of each Inception block), and each Inception block
-    pools its input with K5 — the stem's once, each step's tail once per
-    refinement step, on the pooled tubes of all B * max_proposals slots."""
+    """The K4, K5 and K3 launches of one request of the kernel
+    configuration at batch B: K4 and K5 as {NCDHW input shape: launches},
+    K3 as {(NCDHW input shape, output channels): launches}. Every unit whose
+    kernel is not 3x3x3 stride 1 ends in K4 (the stem's Conv3d_1a and
+    Conv3d_2b, and the four 1x1x1 units of each Inception block); every
+    3x3x3 stride-1 unit is K3 (Conv3d_2c, and b1b and b2b of each block);
+    each Inception block pools its input with K5 — the stem's once, each
+    step's tail once per refinement step, on the pooled tubes of all
+    B * max_proposals slots. With `chunk_stem` the stem runs on the B *
+    num_chunks chunks of frames_per_chunk frames, and the tail on their
+    features side by side in time."""
     from step_tpu_torch.models.i3d import INCEPTION_CHANNELS
 
     up = lambda n, s: -(-n // s)  # noqa: E731
-    T1, S1 = up(cfg.total_frames, 2), up(cfg.image_size, 2)
-    S3 = up(up(S1, 2), 2)
+    chunks = cfg.num_chunks if cfg.chunk_stem else 1
+    N = B * chunks
+    T1, S1 = up(cfg.total_frames // chunks, 2), up(cfg.image_size, 2)
+    S2 = up(S1, 2)
+    S3 = up(S2, 2)
     T4, S4 = up(T1, 2), up(S3, 2)
-    k4 = {(B, 64, T1, S1, S1): 1, (B, 64, T1, up(S1, 2), up(S1, 2)): 1}
+    k4 = {(N, 64, T1, S1, S1): 1, (N, 64, T1, S2, S2): 1}
+    k3 = {((N, 64, T1, S2, S2), 192): 1}
     k5 = {}
-    where = {"Mixed_3": (B, T1, S3, 1), "Mixed_4": (B, T4, S4, 1),
-             "Mixed_5": (B * cfg.max_proposals, T4, cfg.pooled_size, cfg.num_steps)}
+    where = {"Mixed_3": (N, T1, S3, 1), "Mixed_4": (N, T4, S4, 1),
+             "Mixed_5": (B * cfg.max_proposals, chunks * T4, cfg.pooled_size,
+                         cfg.num_steps)}
     cin = 192
     for name, c in INCEPTION_CHANNELS.items():
-        N, t, s, n = where[name[:7]]
-        k5[(N, cin, t, s, s)] = k5.get((N, cin, t, s, s), 0) + n
+        n_, t, s, n = where[name[:7]]
+        k5[(n_, cin, t, s, s)] = k5.get((n_, cin, t, s, s), 0) + n
         for width in (c[0], c[1], c[3], c[5]):
-            k4[(N, width, t, s, s)] = k4.get((N, width, t, s, s), 0) + n
+            k4[(n_, width, t, s, s)] = k4.get((n_, width, t, s, s), 0) + n
+        for cin3, cout in ((c[1], c[2]), (c[3], c[4])):
+            key = ((n_, cin3, t, s, s), cout)
+            k3[key] = k3.get(key, 0) + n
         cin = c[0] + c[2] + c[4] + c[5]
-    return k4, k5
+    return k4, k5, k3
 
 
 def with_specials(x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
@@ -272,6 +320,118 @@ def roi_inputs(rng, B: int, Tp: int, H: int, C: int, N: int, T: int, image: int)
     return feat, tubes.astype(np.float32)
 
 
+def pool_case(shape, gen: torch.Generator) -> dict:
+    """K5 at one NCDHW shape: the kernel against its plain version in
+    float32 and bfloat16, with `with_specials` mixed in, by raw bits; its
+    bf16 device, wrapper, plain and library (`F.max_pool3d`) times and its
+    bound (x read once, out written once; 26 compares an element)."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
+
+    x32 = torch.randn(shape, device=gen.device, generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    x16 = x32.to(torch.bfloat16)
+    for x in (with_specials(x32, gen), with_specials(x16, gen)):
+        got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
+        torch.cuda.synchronize()
+        differ = raw_bits(got) != raw_bits(want)
+        check(not bool(differ.any()),
+              f"K5 pool {x.dtype} {shape} differs from plain in "
+              f"{int(differ.sum())} elements, {int(differ[want.isnan()].sum())} "
+              f"of them NaN")
+    out16 = torch.empty_like(x16)
+    return dict(max_abs_err=0.0,
+                ms=device_ms(lambda: kernels.max_pool3x3_forward(kernels.ndhwc(x16),
+                                                                 kernels.ndhwc(out16))),
+                wrapper_ms=cuda_ms(lambda: max_pool3x3_same(x16)),
+                plain_ms=cuda_ms(lambda: max_pool3x3_same_plain(x16)),
+                library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)),
+                **bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS))
+
+
+def bn_case(shape, gen: torch.Generator) -> dict:
+    """K4 at one NCDHW shape: float32 within 1e-6 and bfloat16 within one
+    rounding step of the plain version; its bf16 device, wrapper and plain
+    times and its bound."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
+                                                  fused_scale_bias_relu_plain)
+
+    C = shape[1]
+    x32 = torch.randn(shape, device=gen.device, generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    scale = torch.rand(C, device=gen.device, generator=gen) * 2 + 0.1
+    bias = torch.randn(C, device=gen.device, generator=gen)
+    got, want = fused_scale_bias_relu(x32, scale, bias), \
+        fused_scale_bias_relu_plain(x32, scale, bias)
+    torch.cuda.synchronize()
+    err32 = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
+          f"K4 bn_relu f32 {shape} differs from plain: max |err| {err32}")
+    x16 = x32.to(torch.bfloat16)
+    del x32, got, want
+    got, want = fused_scale_bias_relu(x16, scale, bias), \
+        fused_scale_bias_relu_plain(x16, scale, bias)
+    torch.cuda.synchronize()
+    err16 = float((got.float() - want.float()).abs().max())
+    check(got.dtype == torch.bfloat16 and bf16_close(got, want),
+          f"K4 bn_relu bf16 {shape} differs from plain: max |err| {err16}")
+    x2d, out16 = kernels.ndhwc(x16).reshape(-1, C), torch.empty_like(got)
+    return dict(max_abs_err=err16, err32=err32, rows=x2d.shape[0],
+                ms=device_ms(lambda: kernels.scale_bias_relu_forward(
+                    x2d, scale, bias, kernels.ndhwc(out16).view(-1, C))),
+                wrapper_ms=cuda_ms(lambda: fused_scale_bias_relu(x16, scale, bias)),
+                plain_ms=cuda_ms(lambda: fused_scale_bias_relu_plain(x16, scale, bias)),
+                library_ms=None,
+                **bound(2 * x16.numel() * 2 + 2 * C * 4, 3 * x16.numel(), F32_FLOPS))
+
+
+def conv_case(shape, K: int, rng, dev) -> dict:
+    """K3 at one NCDHW input shape and K output channels: float32 within
+    1e-4 and bfloat16 (the tensor-core kernel) within one rounding step and
+    K3_BF16_ATOL of the plain version; its bf16 device and wrapper times,
+    the weight re-layout, cuDNN's bf16 conv with the BN folded plus a ReLU
+    (the library's yardstick), the plain version and the bound."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.conv3d import (conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
+                                           pack_conv3x3x3_weight)
+
+    x32 = randn_cl(rng, shape, dev)
+    w = torch.randn(K, shape[1], 3, 3, 3, device=dev) / (27 * shape[1]) ** 0.5
+    scale = torch.rand(K, device=dev) + 0.5
+    bias = torch.randn(K, device=dev) * 0.1
+    got, want = conv3x3x3_bn_relu(x32, w, scale, bias), \
+        conv3x3x3_bn_relu_plain(x32, w, scale, bias)
+    torch.cuda.synchronize()
+    err32 = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"K3 conv f32 {shape}->{K} differs from plain: max |err| {err32}")
+    x16, w16 = x32.to(torch.bfloat16), w.to(torch.bfloat16)
+    got, want = conv3x3x3_bn_relu(x16, w16, scale, bias), \
+        conv3x3x3_bn_relu_plain(x16, w16, scale, bias)
+    torch.cuda.synchronize()
+    err16 = float((got.float() - want.float()).abs().max())
+    check(got.dtype == torch.bfloat16 and bf16_close(got, want, K3_BF16_ATOL),
+          f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
+    packed, out16 = pack_conv3x3x3_weight(w, torch.bfloat16), torch.empty_like(got)
+    cache = {}          # as a Unit3D calls it: its bf16 weight layout cached
+    w_fold = (w * scale.view(-1, 1, 1, 1, 1)).to(torch.bfloat16)
+    b_fold = bias.to(torch.bfloat16)
+    M = shape[0] * int(np.prod(shape[2:]))
+    flop = 2 * M * 27 * shape[1] * K
+    return dict(
+        max_abs_err=err16, err32=err32, flop=flop,
+        ms=device_ms(lambda: kernels.conv3x3x3_bn_relu_forward(
+            kernels.ndhwc(x16), packed, scale, bias, kernels.ndhwc(out16)), n=10),
+        wrapper_ms=cuda_ms(lambda: conv3x3x3_bn_relu(x16, w, scale, bias,
+                                                     weight_cache=cache), iters=10),
+        plain_ms=cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w, scale, bias), iters=10),
+        library_ms=cuda_ms(lambda: F.relu_(F.conv3d(x16, w_fold, b_fold, 1, 1)), iters=10),
+        pack_ms=cuda_ms(lambda: pack_conv3x3x3_weight(w, torch.bfloat16)),
+        **bound(x16.numel() * 2 + w16.numel() * 2 + M * K * 2 + 2 * K * 4, flop,
+                BF16_TENSOR_FLOPS))
+
+
 def serve(model, cfg, clips, dev, label: str) -> None:
     """Serve each batch size's clips through `detect_clip`, timing each
     request, and check the outputs as a client would read them."""
@@ -310,19 +470,423 @@ def bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float = 1e-5) -> boo
     return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=atol)
 
 
+def median_wall_ms(fn, runs: int = VIDEO_RUNS):
+    """(median, all) wall ms of `runs` calls of `fn`, each ending in a
+    synchronize, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def cuda_kernels_in(fn) -> int:
+    """The CUDA kernels one call of `fn` launches, counted by torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def check_links(det, C: int, K: int, L: int, label: str) -> None:
+    """detect_video's link outputs: shapes, finite values, and the emitted
+    (trimmed-in) nodes of each class disjoint in every clip."""
+    for key in ("link_paths", "link_trim"):
+        check(tuple(det[key].shape) == (C, K, L),
+              f"{label}: {key} shape {tuple(det[key].shape)}, expected {(C, K, L)}")
+    for key in ("link_scores", "link_trim", "link_tube_scores"):
+        check(bool(torch.isfinite(det[key]).all()), f"{label}: {key} not finite")
+    paths, trim = det["link_paths"].cpu().numpy(), det["link_trim"].cpu().numpy()
+    for c in range(C):
+        for l in range(L):
+            emitted = paths[c, trim[c, :, l] > 0, l]
+            check(len(set(emitted.tolist())) == len(emitted),
+                  f"{label}: class {c} clip {l} emits node(s) {emitted.tolist()} twice")
+
+
+@contextlib.contextmanager
+def recorded(fn, key, keep: bool = False):
+    """The calls of the kernel wrapper `fn` while the block runs, as the
+    port's modules make them: yields {key(*args): [launches, calls]}, where
+    launches is what those calls added to the wrapper's own count
+    (`fn.launches`) and calls lists each call's (args, output) when `keep`.
+    `fn` is replaced by a recorder in every module of the port that holds
+    it, its own module included; there the wrapper's count lands on the
+    recorder while the block runs and is added to `fn.launches` after."""
+    calls = {}
+
+    def rec(*args, **kwargs):
+        before = fn.launches + rec.launches
+        got = fn(*args, **kwargs)
+        entry = calls.setdefault(key(*args), [0, []])
+        entry[0] += fn.launches + rec.launches - before
+        if keep:
+            entry[1].append((args, got))
+        return got
+
+    rec.launches = 0
+    homes = [m for name, m in list(sys.modules.items())
+             if name.split(".")[0] == "step_tpu_torch"
+             and getattr(m, fn.__name__, None) is fn]
+    for m in homes:
+        setattr(m, fn.__name__, rec)
+    try:
+        yield calls
+    finally:
+        for m in homes:
+            setattr(m, fn.__name__, fn)
+        fn.launches += rec.launches
+
+
+def shape_of(x, *_):
+    return tuple(x.shape)
+
+
+def hold_nms_calls(path: str, calls: dict, out: dict) -> None:
+    """K1 as `path` launched it: each recorded `nms_surface` call against
+    `nms_surface_plain` on the same tubes, scores, mask and config, by raw
+    bits; per shape, its launches on the path, its device time on the first
+    call's inputs, the plain version's time and the bound."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.inference import nms_surface_plain
+    from step_tpu_torch.ops.nms import _f32, kernel_valid
+
+    for shape, (launches, kept) in calls.items():
+        for args, got in kept:
+            want = nms_surface_plain(*args)
+            for key in ("frame_boxes", "frame_scores", "frame_mask"):
+                check(torch.equal(raw_bits(got[key]), raw_bits(want[key])),
+                      f"K1 nms_surface on {path} at {list(shape)} differs from plain "
+                      f"in {key}")
+        (tubes, scores, pmask, cfg), got = kept[0]
+        B, P, T = tubes.shape[:3]
+        C = scores.shape[-1]
+        buf = {key: torch.empty_like(v) for key, v in got.items() if key.startswith("frame")}
+        ms = device_ms(lambda: kernels.nms_many_forward(
+            tubes.transpose(1, 2), scores[:, None].expand(B, T, P, C),
+            kernel_valid(pmask)[:, None].expand(B, T, P), buf["frame_mask"],
+            _f32(cfg.nms_thresh), _f32(cfg.score_thresh), out_boxes=buf["frame_boxes"],
+            out_scores=buf["frame_scores"]))
+        plain_ms = cuda_ms(lambda: nms_surface_plain(*kept[0][0]), iters=3, warmup=1)
+        b = bound(tubes.numel() * 4 + scores.numel() * scores.element_size()
+                  + pmask.numel() * 4 + got["frame_mask"].numel() * 24,
+                  float(got["frame_mask"].sum()) * P * 13, F32_FLOPS)
+        out[f"{path} surface {list(shape)}"] = dict(
+            launches=launches, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+            library_ms=None, **b)
+        print(f"    K1 on {path}, surface {list(shape)} ({B * T * C} problems) x{launches}: "
+              f"all {len(kept)} calls the plain version's bits; kernel device {ms:.4f} ms "
+              f"({b['bound_ms'] / ms:.1%} of the {b['bound_ms']:.6f} ms bound), plain "
+              f"{plain_ms:.3f} ms", flush=True)
+
+
+def hold_roi_calls(path: str, calls: dict, out: dict) -> None:
+    """K2 as `path` launched it: each recorded `tube_roi_align` call against
+    `tube_roi_align_plain` on the same features, tubes and settings (float32
+    within 1e-4, bfloat16 within one rounding step); per feature shape, its
+    launches on the path, its device time on the first call's inputs, the
+    plain version's time and the bound."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.roi_align import tube_roi_align_plain
+
+    for shape, (launches, kept) in calls.items():
+        err = 0.0
+        for args, got in kept:
+            want = tube_roi_align_plain(*args)
+            e = float((got.float() - want.float()).abs().max())
+            err = max(err, e)
+            ok = (bf16_close(got, want) if got.dtype == torch.bfloat16
+                  else torch.allclose(got, want, rtol=1e-4, atol=1e-4))
+            check(ok and got.dtype == want.dtype,
+                  f"K2 roi_align on {path} at {list(shape)} {got.dtype} differs from "
+                  f"plain: max |err| {e}")
+        (feat, tubes, _, scale, ratio), got = kept[0]
+        tubes32, buf = tubes.to(torch.float32).contiguous(), torch.empty_like(got)
+        ms = device_ms(lambda: kernels.tube_roi_align_forward(feat, tubes32, buf, scale,
+                                                               ratio))
+        plain_ms = cuda_ms(lambda: tube_roi_align_plain(*kept[0][0]), iters=5)
+        b = bound(feat.numel() * feat.element_size() + tubes.numel() * 4
+                  + got.numel() * got.element_size(), got.numel() * ratio ** 2 * 8,
+                  F32_FLOPS)
+        out[f"{path} {list(shape)}"] = dict(
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            library_ms=None, **b)
+        print(f"    K2 on {path}, features {list(shape)} {feat.dtype} x{launches}: all "
+              f"{len(kept)} calls within tolerance of plain (max |err| {err:.3g}); kernel "
+              f"device {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of the {b['bound_ms']:.4f} ms "
+              f"bound), plain {plain_ms:.4f} ms", flush=True)
+
+
+def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
+    """Phases 12 and 13, the streaming preset's video path. Returns, per
+    kernel, its launches on each video path and its numbers at the shapes
+    each path gave it, for the JSON line."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.inference import (detect_clip, detect_video, detect_video_stream,
+                                          detect_video_stream_batched, link_video,
+                                          nms_surface, window_centers)
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.models.optimize import optimize_for_inference
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
+    from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
+    from step_tpu_torch.ops.pool import max_pool3x3_same
+    from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
+
+    out = {name: dict(video_launches={}, video_shapes={})
+           for name in ("nms_many", "tube_roi_align", "max_pool3x3_same",
+                        "fused_scale_bias_relu", "conv3x3x3_bn_relu")}
+    scfg = PRESETS["streaming"]
+    C, K, P, T = scfg.num_classes, scfg.link_tubes_per_class, scfg.max_proposals, \
+        scfg.total_frames
+    c, n = scfg.frames_per_chunk, VIDEO_CHUNKS
+    bf16 = getattr(torch, scfg.compute_dtype)
+
+    def served(cfg, dtype):
+        """The main path's tree of `cfg` on the seeded weights."""
+        cfg_opt, folded = optimize_for_inference(cfg, seeded)
+        model = STEPDetector(cfg_opt).eval()
+        model.load_state_dict(folded)
+        return model.to(device=dev, dtype=dtype)
+
+    def held(path: str, run):
+        """Run `path` once with the launch counts set to 0 just before and
+        read just after, K1's and K2's calls recorded; check both launched,
+        and hold every call against its plain version (`hold_nms_calls`,
+        `hold_roi_calls`)."""
+        reset_counts()
+        with recorded(nms_surface, lambda t, *_: tuple(t.shape), keep=True) as k1, \
+                recorded(tube_roi_align, shape_of, keep=True) as k2:
+            result = run()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        for name in ("nms_many", "tube_roi_align"):
+            check(counts[name] > 0, f"{path}: kernel {name} never launched")
+            out[name]["video_launches"][path] = counts[name]
+        check(sum(v[0] for v in k1.values()) == counts["nms_many"]
+              and sum(v[0] for v in k2.values()) == counts["tube_roi_align"],
+              f"{path}: recorded launches differ from the counters {counts}")
+        hold_nms_calls(path, k1, out["nms_many"]["video_shapes"])
+        hold_roi_calls(path, k2, out["tube_roi_align"]["video_shapes"])
+        return result, counts
+
+    # ---- 12. detect_video on the 48 windows, bf16, the main path's tree --
+    t0 = t12 = time.time()
+    model = served(scfg, bf16)
+    video = torch.from_numpy(rng.randint(0, 256, (n * c, scfg.image_size, scfg.image_size,
+                                                  3)).astype(np.uint8)).to(dev)
+    clips = video.reshape(n, c, *video.shape[1:])[window_centers(n, scfg, device=dev)]
+    clips = clips.reshape(n, T, *video.shape[1:])   # [48, 18, 224, 224, 3]
+    print(f"[12] streaming preset, full width, BN folded, {scfg.compute_dtype}: a "
+          f"{n * c}-frame uint8 video, {n} windows one chunk apart; built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    pmask = STEPDetector.initial_proposals(scfg, n, device="cpu")[1]
+    for stride in (c, None):
+        label = f"detect_video_stride_{stride}"
+        torch.cuda.reset_peak_memory_stats(dev)
+        det, counts = held(label, lambda: detect_video(model, clips, tiling_stride=stride))
+        check_links(det, C, K, n, label)
+        check(bool(torch.isfinite(det["tubes"]).all()
+                   and torch.isfinite(det["tube_scores"]).all()), f"{label}: not finite")
+        # the same linking on the CPU, on the same tubes and scores
+        ref = link_video(det["tubes"].cpu(), det["tube_scores"].cpu(), pmask, scfg,
+                         stride=stride)
+        for key, mine in (("link_paths", "paths"), ("link_trim", "trim")):
+            check(torch.equal(det[key].cpu(), ref[mine]),
+                  f"{label}: {key} on the card differs from the CPU's in "
+                  f"{int((det[key].cpu() != ref[mine]).sum())} places")
+        d_link = max(float((det[key].cpu() - ref[mine]).abs().max()) for key, mine in
+                     (("link_scores", "values"), ("link_tube_scores", "tube_scores")))
+        check(d_link <= LINK_VALUE_TOL, f"{label}: link values on the card differ from "
+              f"the CPU's by {d_link}")
+        alive = int((det["link_tube_scores"] > 0).sum())
+        print(f"[12] {label}: launches {counts}; links [{C}, {K}, {n}] finite, "
+              f"node-disjoint, equal to the CPU's (values within {d_link:.3g}); "
+              f"{alive} of {C * K} video tubes alive; peak memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
+
+    tubes, scores = det["tubes"], det["tube_scores"]
+    video_ms, video_runs = median_wall_ms(lambda: detect_video(model, clips, tiling_stride=c))
+    pmask = pmask.to(dev)
+    link_fn = lambda: link_video(tubes, scores, pmask, scfg, stride=c)  # noqa: E731
+    link_ms, link_runs = median_wall_ms(link_fn)
+    link_kernels = cuda_kernels_in(link_fn)
+    print(f"[12] per-video wall, median of {VIDEO_RUNS}: detect_video over {n} windows "
+          f"{video_ms:.2f} ms ({', '.join(f'{t:.2f}' for t in video_runs)}); its linking "
+          f"alone {link_ms:.2f} ms ({', '.join(f'{t:.2f}' for t in link_runs)}), "
+          f"{link_kernels} kernel launches (profiler)", flush=True)
+    del det, clips, tubes, scores
+    print(f"    phase 12 took {time.time() - t12:.1f} s", flush=True)
+
+    # ---- 13. the chunk-stem cache on the same video -----------------------
+    t13 = time.time()
+    ccfg = scfg.replace(chunk_stem=True)
+    cmodel = served(ccfg, bf16)
+    sdet, counts = held("stream_batched", lambda: detect_video_stream_batched(
+        cmodel, video, clip_batch=STREAM_BATCH))
+    sk = min(scfg.max_detections, P)
+    shapes = {"tubes": (n, P, T, 4), "tube_scores": (n, P, C),
+              "frame_mask": (n, T, C, sk)}
+    for key, shape in shapes.items():
+        check(tuple(sdet[key].shape) == shape,
+              f"stream batched: {key} shape {tuple(sdet[key].shape)}, expected {shape}")
+        check(bool(torch.isfinite(sdet[key]).all()), f"stream batched: {key} not finite")
+    print(f"[13] detect_video_stream_batched, chunk stems, clip_batch={STREAM_BATCH} "
+          f"({-(-n // STREAM_BATCH)} batches): outputs [{n}, ...] finite; launches "
+          f"{counts}", flush=True)
+    live, counts = held("stream", lambda: detect_video_stream(cmodel, video[:4 * c]))
+    check(len(live) == 4 and all(bool(torch.isfinite(o["tube_scores"]).all()) for o in live),
+          "detect_video_stream over 4 chunks: not 4 finite results")
+    print(f"[13] detect_video_stream over 4 chunks: 4 finite results; launches {counts}",
+          flush=True)
+    stream_ms, stream_runs = median_wall_ms(
+        lambda: detect_video_stream_batched(cmodel, video, clip_batch=STREAM_BATCH))
+    print(f"[13] per-video wall, median of {VIDEO_RUNS}: detect_video_stream_batched "
+          f"{stream_ms:.2f} ms ({', '.join(f'{t:.2f}' for t in stream_runs)}), against "
+          f"detect_video {video_ms:.2f} ms", flush=True)
+    del cmodel, model, sdet, live
+
+    # float32, TF32 off: both streams against detect_clip on the window
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    fcfg = ccfg.replace(compute_dtype="float32")
+    fmodel = served(fcfg, torch.float32)
+    first = video[:4 * c]
+    live = detect_video_stream(fmodel, first)
+    batched = detect_video_stream_batched(fmodel, first, clip_batch=3)   # 3 + 1
+    props, pm1 = STEPDetector.initial_proposals(ccfg, 1, device=dev)
+    worst = [0.0, 0.0]
+    for center, ids in ((1, [0, 1, 2]), (0, [0, 0, 1]), (3, [2, 3, 3])):
+        ref = detect_clip(fmodel, torch.cat([first[i * c:(i + 1) * c] for i in ids])[None],
+                          props, pm1)
+        for form, got in (("stream", live[center]),
+                          ("batched", {k: v[center:center + 1] for k, v in batched.items()})):
+            d_s = float((got["tube_scores"] - ref["tube_scores"]).abs().max())
+            d_t = float((got["tubes"] - ref["tubes"]).abs().max())
+            worst = [max(worst[0], d_s), max(worst[1], d_t)]
+            check(d_s <= STREAM_SCORE_TOL and d_t <= STREAM_TUBE_TOL,
+                  f"f32 {form} window {ids} differs from detect_clip: scores {d_s}, "
+                  f"tubes {d_t} px")
+    print(f"[13] f32 streams against detect_clip at windows [0,1,2], [0,0,1] and "
+          f"[2,3,3]: scores max |d| {worst[0]:.3g} (tol {STREAM_SCORE_TOL}), tubes "
+          f"{worst[1]:.3g} px (tol {STREAM_TUBE_TOL})", flush=True)
+    del live, batched
+
+    # K2 at T'=6 with boxes partly and wholly outside the map and zero-area
+    # boxes, which the detector's tubes never hold
+    feat_np, tubes_np = roi_inputs(rng, STREAM_BATCH, 6, 14, 832, P, T, scfg.image_size)
+    feat32, rtubes = torch.from_numpy(feat_np).to(dev), torch.from_numpy(tubes_np).to(dev)
+    args = (scfg.pooled_size, 1.0 / scfg.feature_stride, scfg.sampling_ratio)
+    got, want = tube_roi_align(feat32, rtubes, *args), tube_roi_align_plain(feat32, rtubes, *args)
+    err32 = float((got - want).abs().max())
+    check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
+          f"K2 at T'=6 float32 differs from plain: max |err| {err32}")
+    feat16 = feat32.to(torch.bfloat16)
+    got, want = tube_roi_align(feat16, rtubes, *args), tube_roi_align_plain(feat16, rtubes, *args)
+    err16 = float((got.float() - want.float()).abs().max())
+    check(got.dtype == torch.bfloat16 and bf16_close(got, want),
+          f"K2 at T'=6 bfloat16 differs from plain: max |err| {err16}")
+    print(f"[13] K2 roi_align at [{STREAM_BATCH},6,14,14,832], boxes outside the map and "
+          f"zero-area: max |err| f32 {err32:.3g} (tol 1e-4), bf16 {err16:.3g} (one bf16 "
+          f"step)", flush=True)
+    del feat32, feat16, got, want
+
+    # The kernel configuration with chunk stems at B=2: K3, K4 and K5 at
+    # T = 3 and 2, and the tail at T' = 6; each launch recorded by shape.
+    kcfg = ccfg.replace(fused_bn_relu=True)
+    props, pm2 = STEPDetector.initial_proposals(kcfg, 2, device=dev)
+    clips2 = video[:2 * T].reshape(2, T, *video.shape[1:])
+
+    def kernel_path(cfg):
+        model = STEPDetector(cfg).eval()
+        model.load_state_dict(seeded)
+        os.environ["STEP_TPU_POOL3D"] = "pallas"
+        try:
+            return detect_clip(model.to(dev), clips2, props, pm2)
+        finally:
+            os.environ["STEP_TPU_POOL3D"] = "direct"
+
+    wrappers = (("conv3x3x3_bn_relu", conv3x3x3_bn_relu,
+                 lambda x, w, *_: (tuple(x.shape), w.shape[0])),
+                ("fused_scale_bias_relu", fused_scale_bias_relu, shape_of),
+                ("max_pool3x3_same", max_pool3x3_same, shape_of))
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        seen = {name: stack.enter_context(recorded(fn, key)) for name, fn, key in wrappers}
+        kdet = kernel_path(kcfg)
+        torch.cuda.synchronize()
+    counts = read_counts()
+    check(bool(torch.isfinite(kdet["tube_scores"]).all()), "chunk-stem kernel path: not finite")
+    k4s, k5s, k3s = backbone_launches(kcfg, 2)
+    for name, listed in (("conv3x3x3_bn_relu", k3s), ("fused_scale_bias_relu", k4s),
+                         ("max_pool3x3_same", k5s)):
+        measured = {shape: v[0] for shape, v in seen[name].items()}
+        check(counts[name] > 0 and counts[name] == sum(measured.values()),
+              f"chunk-stem kernel path: {counts[name]} {name} launches, "
+              f"{sum(measured.values())} recorded")
+        check(measured == listed, f"chunk-stem kernel path: {name} launched {measured} "
+              f"by shape, backbone_launches lists {listed}")
+        out[name]["video_launches"]["chunk_stem_kernel_path"] = counts[name]
+    print(f"[13] kernel configuration, chunk stems, B=2 (N={2 * kcfg.num_chunks} chunks): "
+          f"launches {counts}, by shape as backbone_launches lists", flush=True)
+    # float32: the chunk-stem kernel configuration against the main path's
+    # chunk-stem tree on the same clips, as phase 11 holds the clip path
+    got = kernel_path(fcfg.replace(fused_bn_relu=True))
+    want = detect_clip(fmodel, clips2, props, pm2)
+    torch.cuda.synchronize()
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    print(f"[13] f32 B=2 chunk-stem kernel path vs main path: tube scores max |d| "
+          f"{d_scores:.3g} (tol {PATH_SCORE_TOL}), tubes {d_tubes:.3g} px "
+          f"(tol {PATH_TUBE_TOL})", flush=True)
+    check(d_scores <= PATH_SCORE_TOL and d_tubes <= PATH_TUBE_TOL,
+          f"chunk-stem kernel path differs from the main path: scores {d_scores}, "
+          f"tubes {d_tubes} px")
+    del kdet, fmodel, got, want
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
+    for name, listed, case in (("max_pool3x3_same", k5s, lambda sh: pool_case(sh, gen)),
+                               ("fused_scale_bias_relu", k4s, lambda sh: bn_case(sh, gen)),
+                               ("conv3x3x3_bn_relu", k3s,
+                                lambda sh: conv_case(sh[0], sh[1], rng, dev))):
+        total = dict(ms=0.0, bound_ms=0.0)
+        for shape, (launches, _) in seen[name].items():
+            r = case(shape)
+            total["ms"] += launches * r["ms"]
+            total["bound_ms"] += launches * r["bound_ms"]
+            out[name]["video_shapes"][f"chunk_stem_kernel_path {shape}"] = dict(
+                ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                max_abs_err=r["max_abs_err"], bound_ms=r["bound_ms"],
+                bound_by=r["bound_by"], launches=launches)
+            print(f"    {name} {shape} x{launches}: held against plain (max |err| "
+                  f"{r['max_abs_err']:.3g}); bf16 device {r['ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}), plain "
+                  f"{r['plain_ms']:.4f} ms", flush=True)
+        print(f"[13] {name} at every chunk-stem shape ({len(listed)} shapes, "
+              f"{sum(listed.values())} launches): within tolerance of plain; device "
+              f"{total['ms']:.4f} ms a B=2 request, bound {total['bound_ms']:.4f} ms",
+              flush=True)
+    print(f"    phase 13 took {time.time() - t13:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
+    t_start = time.time()
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs only on the card")
     from step_tpu_torch import PRESETS, kernels
     from step_tpu_torch.inference import detect_clip, nms_surface, nms_surface_plain
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
-    from step_tpu_torch.ops.conv3d import (conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
-                                           pack_conv3x3x3_weight)
-    from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
-                                                  fused_scale_bias_relu_plain)
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
+    from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
     from step_tpu_torch.ops.nms import _f32, nms_many, nms_many_plain, premask_scores
-    from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
+    from step_tpu_torch.ops.pool import max_pool3x3_same
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
     from step_tpu_torch.utils.init import init_detector_
 
@@ -570,90 +1134,42 @@ def main() -> None:
     del model
 
     # ---- 7. K5: 3x3x3 max pool, at every launch shape of a B=8 request --
-    k4_shapes, k5_shapes = backbone_launches(cfg, B)
+    k4_shapes, k5_shapes, _ = backbone_launches(cfg, B)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     pool_req = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0)
     for shape, n in k5_shapes.items():
-        x32 = torch.randn(shape, device=dev, generator=gen).contiguous(
-            memory_format=torch.channels_last_3d)
-        x16 = x32.to(torch.bfloat16)
-        for x in (with_specials(x32, gen), with_specials(x16, gen)):
-            got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
-            torch.cuda.synchronize()
-            differ = raw_bits(got) != raw_bits(want)
-            check(not bool(differ.any()),
-                  f"K5 pool {x.dtype} {shape} differs from plain in "
-                  f"{int(differ.sum())} elements, {int(differ[want.isnan()].sum())} "
-                  f"of them NaN")
-        out16 = torch.empty_like(x16)
-        pool_ms = device_ms(lambda: kernels.max_pool3x3_forward(kernels.ndhwc(x16),
-                                                                kernels.ndhwc(out16)))
-        pool_wrapper_ms = cuda_ms(lambda: max_pool3x3_same(x16))
-        pool_plain_ms = cuda_ms(lambda: max_pool3x3_same_plain(x16))
-        # Bytes: x read once, out written once; 26 compares per element.
-        pool_bound = bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS)
-        for key, v in (("ms", pool_ms), ("bound_ms", pool_bound["bound_ms"]),
-                       ("plain_ms", pool_plain_ms)):
-            pool_req[key] += n * v
+        r = pool_case(shape, gen)
+        for key in pool_req:
+            pool_req[key] += n * r[key]
         print(f"[7] K5 max_pool3x3 {list(shape)} x{n} a request: the plain version's "
               f"bits in f32 and bf16, NaN payloads included; bf16 kernel device "
-              f"{pool_ms:.4f} ms ({pool_bound['bound_ms'] / pool_ms:.1%} of the "
-              f"{pool_bound['bound_ms']:.4f} ms bound), wrapper {pool_wrapper_ms:.4f} ms, "
-              f"plain {pool_plain_ms:.4f} ms", flush=True)
+              f"{r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of the "
+              f"{r['bound_ms']:.4f} ms bound), wrapper {r['wrapper_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms", flush=True)
     print(f"    K5 per B={B} request ({sum(k5_shapes.values())} launches): device "
           f"{pool_req['ms']:.4f} ms, bound {pool_req['bound_ms']:.4f} ms "
           f"({pool_req['bound_ms'] / pool_req['ms']:.1%}), plain "
           f"{pool_req['plain_ms']:.4f} ms", flush=True)
     # The tail shape (the last) stands for K5 in the JSON line. The plain
     # version is one PyTorch call, F.max_pool3d, so it is also the library's.
-    results["max_pool3x3_same"] = dict(
-        max_abs_err=0.0, ms=pool_ms, wrapper_ms=pool_wrapper_ms, plain_ms=pool_plain_ms,
-        library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)), **pool_bound,
-        request_ms=pool_req["ms"], request_bound_ms=pool_req["bound_ms"])
-    del x32, x16, out16, got, want
+    results["max_pool3x3_same"] = dict(r, request_ms=pool_req["ms"],
+                                       request_bound_ms=pool_req["bound_ms"])
 
     # ---- 8. K4: BN + ReLU, at every launch shape of a B=8 request ---------
     bn_req = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0)
     for shape, n in k4_shapes.items():
-        C = shape[1]
-        x32 = torch.randn(shape, device=dev, generator=gen).contiguous(
-            memory_format=torch.channels_last_3d)
-        scale = torch.rand(C, device=dev, generator=gen) * 2 + 0.1
-        bias = torch.randn(C, device=dev, generator=gen)
-        got, want = fused_scale_bias_relu(x32, scale, bias), \
-            fused_scale_bias_relu_plain(x32, scale, bias)
-        torch.cuda.synchronize()
-        err32 = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=1e-6, atol=1e-6),
-              f"K4 bn_relu f32 {shape} differs from plain: max |err| {err32}")
-        x16 = x32.to(torch.bfloat16)
-        del x32, got, want
-        got, want = fused_scale_bias_relu(x16, scale, bias), \
-            fused_scale_bias_relu_plain(x16, scale, bias)
-        torch.cuda.synchronize()
-        err16 = float((got.float() - want.float()).abs().max())
-        check(got.dtype == torch.bfloat16 and bf16_close(got, want),
-              f"K4 bn_relu bf16 {shape} differs from plain: max |err| {err16}")
-        x2d, out16 = kernels.ndhwc(x16).reshape(-1, C), torch.empty_like(got)
-        bn_ms = device_ms(lambda: kernels.scale_bias_relu_forward(
-            x2d, scale, bias, kernels.ndhwc(out16).view(-1, C)))
-        bn_wrapper_ms = cuda_ms(lambda: fused_scale_bias_relu(x16, scale, bias))
-        bn_plain_ms = cuda_ms(lambda: fused_scale_bias_relu_plain(x16, scale, bias))
-        bn_bound = bound(2 * x16.numel() * 2 + 2 * C * 4, 3 * x16.numel(), F32_FLOPS)
-        for key, v in (("ms", bn_ms), ("bound_ms", bn_bound["bound_ms"]),
-                       ("plain_ms", bn_plain_ms)):
-            bn_req[key] += n * v
-        print(f"[8] K4 bn_relu [{x2d.shape[0]}, {C}] x{n} a request: max |err| f32 "
-              f"{err32:.3g} (tol 1e-6), bf16 {err16:.3g} (one bf16 step); bf16 kernel "
-              f"device {bn_ms:.4f} ms ({bn_bound['bound_ms'] / bn_ms:.1%} of the "
-              f"{bn_bound['bound_ms']:.4f} ms bound), wrapper {bn_wrapper_ms:.4f} ms, "
-              f"plain {bn_plain_ms:.4f} ms", flush=True)
+        r = bn_case(shape, gen)
+        for key in bn_req:
+            bn_req[key] += n * r[key]
+        print(f"[8] K4 bn_relu [{r['rows']}, {shape[1]}] x{n} a request: max |err| f32 "
+              f"{r['err32']:.3g} (tol 1e-6), bf16 {r['max_abs_err']:.3g} (one bf16 "
+              f"step); bf16 kernel device {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} "
+              f"of the {r['bound_ms']:.4f} ms bound), wrapper {r['wrapper_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms", flush=True)
         if shape == next(iter(k4_shapes)):      # Conv3d_1a's output stands for K4
-            results["fused_scale_bias_relu"] = dict(
-                max_abs_err=err16, ms=bn_ms, wrapper_ms=bn_wrapper_ms,
-                plain_ms=bn_plain_ms, library_ms=None, **bn_bound)
-        del x16, got, want, x2d, out16
+            results["fused_scale_bias_relu"] = {k: v for k, v in r.items()
+                                                if k not in ("err32", "rows")}
     print(f"    K4 per B={B} request ({sum(k4_shapes.values())} launches): device "
           f"{bn_req['ms']:.4f} ms, bound {bn_req['bound_ms']:.4f} ms "
           f"({bn_req['bound_ms'] / bn_req['ms']:.1%}), plain "
@@ -665,57 +1181,19 @@ def main() -> None:
     check(n_hgmma > 0, "K3's bf16 kernels hold no HGMMA instruction")
     for shape, K in (((8, 64, 9, 56, 56), 192), ((128, 160, 5, 7, 7), 320),
                      ((8, 24, 5, 14, 14), 64), ((8, 96, 5, 14, 14), 208)):
-        x32 = randn_cl(rng, shape, dev)
-        w = torch.randn(K, shape[1], 3, 3, 3, device=dev) / (27 * shape[1]) ** 0.5
-        scale = torch.rand(K, device=dev) + 0.5
-        bias = torch.randn(K, device=dev) * 0.1
-        got, want = conv3x3x3_bn_relu(x32, w, scale, bias), \
-            conv3x3x3_bn_relu_plain(x32, w, scale, bias)
-        torch.cuda.synchronize()
-        err32 = float((got - want).abs().max())
-        check(torch.allclose(got, want, rtol=1e-4, atol=1e-4),
-              f"K3 conv f32 {shape}->{K} differs from plain: max |err| {err32}")
-        x16, w16 = x32.to(torch.bfloat16), w.to(torch.bfloat16)
-        got, want = conv3x3x3_bn_relu(x16, w16, scale, bias), \
-            conv3x3x3_bn_relu_plain(x16, w16, scale, bias)
-        torch.cuda.synchronize()
-        err16 = float((got.float() - want.float()).abs().max())
-        check(got.dtype == torch.bfloat16 and bf16_close(got, want, K3_BF16_ATOL),
-              f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
-        packed, out16 = pack_conv3x3x3_weight(w, torch.bfloat16), torch.empty_like(got)
-        conv_ms = device_ms(lambda: kernels.conv3x3x3_bn_relu_forward(
-            kernels.ndhwc(x16), packed, scale, bias, kernels.ndhwc(out16)), n=10)
-        # As a Unit3D calls it: the float32 parameter, its bf16 layout cached.
-        cache = {}
-        conv_wrapper_ms = cuda_ms(lambda: conv3x3x3_bn_relu(x16, w, scale, bias,
-                                                            weight_cache=cache), iters=10)
-        conv_plain_ms = cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w, scale, bias),
-                                iters=10)
-        # The library's yardstick: cuDNN's bf16 conv with the BN affine
-        # folded into its weight and bias (as the main path serves a unit),
-        # then an in-place ReLU.
-        w_fold = (w * scale.view(-1, 1, 1, 1, 1)).to(torch.bfloat16)
-        b_fold = bias.to(torch.bfloat16)
-        cudnn_ms = cuda_ms(lambda: F.relu_(F.conv3d(x16, w_fold, b_fold, 1, 1)),
-                           iters=10)
-        pack_ms = cuda_ms(lambda: pack_conv3x3x3_weight(w, torch.bfloat16))
-        M = shape[0] * int(np.prod(shape[2:]))
-        flop = 2 * M * 27 * shape[1] * K
-        conv_bound = bound(x16.numel() * 2 + w16.numel() * 2 + M * K * 2 + 2 * K * 4,
-                           flop, BF16_TENSOR_FLOPS)
+        r = conv_case(shape, K, rng, dev)
         print(f"[9] K3 conv3x3x3_bn_relu {list(shape)}->{K}: max |err| f32 "
-              f"{err32:.3g} (tol 1e-4), bf16 {err16:.3g} (one bf16 step); bf16 "
-              f"kernel device {conv_ms:.4f} ms ({flop / conv_ms / 1e9:.1f} TFLOP/s, "
-              f"{conv_bound['bound_ms'] / conv_ms:.1%} of the "
-              f"{conv_bound['bound_ms']:.4f} ms bound), wrapper {conv_wrapper_ms:.4f} "
-              f"ms; weight re-layout from the "
-              f"f32 parameter (cached per unit) {pack_ms:.4f} ms; cuDNN bf16 (BN "
-              f"folded) + ReLU {cudnn_ms:.4f} ms; "
-              f"plain (f32 conv) {conv_plain_ms:.4f} ms", flush=True)
+              f"{r['err32']:.3g} (tol 1e-4), bf16 {r['max_abs_err']:.3g} (one bf16 "
+              f"step); bf16 kernel device {r['ms']:.4f} ms "
+              f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s, "
+              f"{r['bound_ms'] / r['ms']:.1%} of the {r['bound_ms']:.4f} ms bound), "
+              f"wrapper {r['wrapper_ms']:.4f} ms; weight re-layout from the f32 "
+              f"parameter (cached per unit) {r['pack_ms']:.4f} ms; cuDNN bf16 (BN "
+              f"folded) + ReLU {r['library_ms']:.4f} ms; plain (f32 conv) "
+              f"{r['plain_ms']:.4f} ms", flush=True)
         if shape[0] == 128:
-            results["conv3x3x3_bn_relu"] = dict(
-                max_abs_err=err16, ms=conv_ms, wrapper_ms=conv_wrapper_ms,
-                plain_ms=conv_plain_ms, library_ms=cudnn_ms, **conv_bound)
+            results["conv3x3x3_bn_relu"] = {k: v for k, v in r.items()
+                                            if k not in ("err32", "flop", "pack_ms")}
 
     # ---- 10. the kernel path: unfolded, fused_bn_relu, K5 pools, bf16 ----
     os.environ["STEP_TPU_POOL3D"] = "pallas"
@@ -769,6 +1247,9 @@ def main() -> None:
           f"kernel path differs from the main path: scores {d_scores}, "
           f"tubes {d_tubes} px")
 
+    del kmodel, mmodel, got, want
+    video = video_phases(dev, rng, seeded, reset_counts, read_counts)
+
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
                                                    "fused_scale_bias_relu",
@@ -787,9 +1268,10 @@ def main() -> None:
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] == "step_tpu" or m.startswith("jax"))
     check(not foreign, f"JAX or the JAX package was imported: {foreign[:5]}")
+    print(f"all phases took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": launches[name], **results[name], **video[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -1,11 +1,23 @@
-"""Clip detection: the progressive forward, class scores, per-frame NMS.
+"""Clip and video detection: the progressive forward, class scores,
+per-frame NMS, cross-clip linking and the streaming chunk cache.
 
 Port of `step_tpu/inference.py`: `class_scores_from_logits` (:26-31),
-`nms_surface` (:40-94, the batched-NMS branch) and `detect_clip`
-(:126-151). On the card one kernel (`csrc/nms.cu`) runs the NMS and
-writes the survivors; the plain version gathers them with `torch.gather`.
-The reference's one-hot matmul select for large surfaces (:70-82) gives
-identical values and is a TPU device, not ported.
+`nms_surface` (:40-94, the batched-NMS branch), `detect_clip` (:126-151),
+the streaming forms `detect_video_stream` and `detect_video_stream_batched`
+(:290-422) and `detect_video` (:584-630). On the card one kernel
+(`csrc/nms.cu`) runs the NMS and writes the survivors; the plain version
+gathers them with `torch.gather`. The functions take the port's model,
+which holds its config (`model.cfg`) and weights, where the JAX package
+takes a variables tree and a config; the JAX package's `stem_features`
+and `refine_from_features` (:191-255) are `STEPDetector.stem(x, chunks=1)`
+and `STEPDetector.refine` here.
+
+Not carried over, each a JAX or TPU device that computes nothing: the
+one-hot matmul select for large surfaces (:70-82, identical values); the
+jit memoizers (`_stream_fns`, `make_detect_fn`, `make_detect_video_fn` and
+the others); the relay-stall readbacks `float(jnp.sum(...))` of the
+streaming forms (:347, :394, :416). Flow input (two-stream, late fusion, a
+flow-stream detector) waits for the detector that reads it.
 """
 
 from __future__ import annotations
@@ -13,7 +25,9 @@ from __future__ import annotations
 import torch
 
 from step_tpu_torch.config import StepConfig
+from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.nms import _f32, kernel_valid, nms_many_plain, premask_scores
+from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 
 
 def class_scores_from_logits(cls_logits: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
@@ -98,6 +112,17 @@ def nms_surface(tubes: torch.Tensor, scores: torch.Tensor,
 nms_surface.launches = 0
 
 
+def _detections(outputs, prop_mask: torch.Tensor, cfg: StepConfig):
+    """The last step's tubes and class scores of the detector's outputs,
+    through the NMS surface."""
+    tubes = outputs["tubes"][-1]
+    scores = class_scores_from_logits(outputs["cls_logits"][-1], cfg)
+    # Padding slots are never supervised, so their logits mean nothing:
+    # zero them before anyone reads the scores.
+    scores = scores * prop_mask[..., None].to(scores.dtype)
+    return nms_surface(tubes, scores, prop_mask, cfg)
+
+
 @torch.inference_mode()
 def detect_clip(model, rgb: torch.Tensor, proposals: torch.Tensor,
                 prop_mask: torch.Tensor):
@@ -113,11 +138,130 @@ def detect_clip(model, rgb: torch.Tensor, proposals: torch.Tensor,
       frame_boxes  `[B, T, C, K, 4]`, frame_scores `[B, T, C, K]`,
       frame_mask   `[B, T, C, K]`    — per-frame per-class NMS survivors
     """
+    return _detections(model(rgb, proposals), prop_mask, model.cfg)
+
+
+def window_centers(n: int, cfg: StepConfig, device=None) -> torch.Tensor:
+    """The chunks `[n, cfg.num_chunks]` of the n windows one chunk apart
+    over a video of n chunks: window i is centred on chunk i, and at the
+    video's edges the first or last chunk repeats."""
+    half = cfg.num_chunks // 2
+    return (torch.arange(n, device=device)[:, None]
+            + torch.arange(-half, half + 1, device=device)).clamp(0, n - 1)
+
+
+def link_video(tubes: torch.Tensor, scores: torch.Tensor, prop_mask: torch.Tensor,
+               cfg: StepConfig, clip_mask: torch.Tensor | None = None,
+               stride: int | None = None):
+    """`link_tubes_multiclass_k` with the linking settings of `cfg`: K =
+    cfg.link_tubes_per_class video tubes per class, and the second-actor
+    suppression off where cfg.link_suppress_iou is 0."""
+    return link_tubes_multiclass_k(
+        tubes, scores, prop_mask, cfg.link_iou_weight, cfg.link_tubes_per_class,
+        cfg.link_trim_thresh, clip_mask, stride=stride,
+        suppress_iou=cfg.link_suppress_iou if cfg.link_suppress_iou > 0 else None)
+
+
+def _chunked(frames: torch.Tensor, cfg: StepConfig, caller: str):
+    """(chunk length c, chunk count n) of a video `[F, H, W, 3]`, or the
+    errors of the JAX package's streaming forms."""
+    if not cfg.chunk_stem:
+        raise ValueError(f"{caller} requires cfg.chunk_stem=True")
+    c = cfg.frames_per_chunk
+    if frames.shape[0] % c:
+        raise ValueError(f"video length {frames.shape[0]} not a multiple of "
+                         f"chunk size {c}")
+    return c, frames.shape[0] // c
+
+
+@torch.inference_mode()
+def detect_video_stream(model, frames: torch.Tensor):
+    """Sliding-window video detection with a per-chunk stem-feature cache,
+    one clip at a time (the live form).
+
+    Requires `cfg.chunk_stem`. frames `[F, H, W, 3]`, F a multiple of the
+    chunk size c. Clip i is the window of K = cfg.num_chunks chunks centred
+    on chunk i (stride one chunk); windows at the video's edges repeat the
+    first or last chunk. Each chunk's stem runs once, cached for every
+    window that holds it; each window's features are gathered from the
+    cache and refined. Runs on the device of `frames`. Returns a list of n
+    detection dicts as `detect_clip` returns them, batch 1.
+    """
     cfg = model.cfg
-    outputs = model(rgb, proposals)
-    tubes = outputs["tubes"][-1]
-    scores = class_scores_from_logits(outputs["cls_logits"][-1], cfg)
-    # Padding slots are never supervised, so their logits mean nothing:
-    # zero them before anyone reads the scores.
-    scores = scores * prop_mask[..., None].to(scores.dtype)
-    return nms_surface(tubes, scores, prop_mask, cfg)
+    c, n = _chunked(frames, cfg, "detect_video_stream")
+    cache = {}
+
+    def chunk_feat(i):
+        if i not in cache:      # the chunk stemmed alone, as one chunk
+            cache[i] = model.stem(frames[None, i * c:(i + 1) * c], chunks=1)
+        return cache[i]
+
+    proposals, prop_mask = STEPDetector.initial_proposals(cfg, 1, device=frames.device)
+    results = []
+    for ids in window_centers(n, cfg).tolist():
+        feat = torch.cat([chunk_feat(i) for i in ids], dim=1)
+        results.append(_detections(model.refine(feat, proposals), prop_mask, cfg))
+    return results
+
+
+@torch.inference_mode()
+def detect_video_stream_batched(model, frames: torch.Tensor, clip_batch: int = 64):
+    """`detect_video_stream` for a whole video at once (the offline form).
+
+    The stems of all n chunks run in batches of `clip_batch` chunks; the
+    windows are gathered from the cached features on the device; refinement
+    and NMS run over `clip_batch` windows at a time, the last batch ragged.
+    Runs on the device of `frames`. Returns one detection dict as from
+    `detect_clip`, with leading dimension n (one clip per chunk centre).
+    """
+    cfg = model.cfg
+    c, n = _chunked(frames, cfg, "detect_video_stream_batched")
+    dev = frames.device
+    chunks = frames.reshape(n, c, *frames.shape[1:])
+    feats = torch.cat([model.stem(chunks[i:i + clip_batch], chunks=1)
+                       for i in range(0, n, clip_batch)])      # [n, t', H', W', C]
+    centers = window_centers(n, cfg, device=dev)
+    proposals, prop_mask = STEPDetector.initial_proposals(cfg, min(clip_batch, n),
+                                                          device=dev)
+    outs = []
+    for i in range(0, n, clip_batch):
+        ctr = centers[i:i + clip_batch]
+        b = ctr.shape[0]
+        # the windows' features, gathered from the cache on the device
+        windows = feats[ctr].reshape(b, -1, *feats.shape[2:])
+        outs.append(_detections(model.refine(windows, proposals[:b]), prop_mask[:b], cfg))
+    return {key: torch.cat([o[key] for o in outs]) for key in outs[0]}
+
+
+@torch.inference_mode()
+def detect_video(model, clips: torch.Tensor, clip_mask: torch.Tensor | None = None,
+                 tiling_stride: int | None = None):
+    """Video detection: detect all L clips of a video in one batch, then
+    link the per-clip tubes into K video tubes per class on the device
+    (iterative node-disjoint Viterbi and temporal trim,
+    `tubes/linking.py`).
+
+    clips `[L, T, H, W, 3]`, a video tiled into L clips; runs on their
+    device. `clip_mask` `[L]`, 0 for padded clip slots (a repeat of the
+    last real clip), which add nothing to the link values and are always
+    trimmed out. `tiling_stride`: video frames between consecutive clips;
+    None is the non-overlapping tiling (transition IoU of the last box
+    against the first), a sliding window passes its stride.
+
+    Returns `detect_clip`'s dict plus, with K = cfg.link_tubes_per_class:
+      link_paths       `[C, K, L]` int32 — tube index per clip
+      link_scores      `[C, K]`          — path objective over the trimmed run
+      link_trim        `[C, K, L]`       — 1 where the video tube is active
+      link_tube_scores `[C, K]`          — mean per-clip score over the run
+    """
+    cfg = model.cfg
+    proposals, prop_mask = STEPDetector.initial_proposals(cfg, clips.shape[0],
+                                                          device=clips.device)
+    det = detect_clip(model, clips, proposals, prop_mask)
+    link = link_video(det["tubes"], det["tube_scores"], prop_mask, cfg, clip_mask,
+                      stride=tiling_stride)
+    det["link_paths"] = link["paths"]
+    det["link_scores"] = link["values"]
+    det["link_trim"] = link["trim"]
+    det["link_tube_scores"] = link["tube_scores"]
+    return det

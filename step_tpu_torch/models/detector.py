@@ -14,12 +14,16 @@ the S per-step heads are an `nn.ModuleList` and the steps a Python loop:
 The inference variants `fused_bn_relu`, `fused_inception` and
 `fused_inception3` are carried over (`models/i3d.py`): the stem takes
 `fused_inception3 == "all"`, the heads `"tail"` or `"all"`, as in the JAX
-package (`step_tpu/models/detector.py:115-119, 232-236`). The TPU-only
-variants of the reference (`stem_s2d`, `conv3d_impl`, `roi_impl`,
+package (`step_tpu/models/detector.py:115-119, 232-236`); so is
+`chunk_stem`, the stem run on each chunk alone (`nets.FeatureNet`). The
+TPU-only variants of the reference (`stem_s2d`, `conv3d_impl`, `roi_impl`,
 `scan_unroll`, `scan_broadcast_inputs`, `head_compact`, `nms_impl`)
 compute the same function by other means and are ignored. Two-stream
-input, `chunk_stem`, the flow-input detector and the "frame_fc" regression
-head are not ported yet.
+input, the flow-input detector and the "frame_fc" regression head are not
+ported yet.
+
+`forward` is `stem` (normalize, backbone) then `refine` (context, the S
+steps); the streaming entry points of `inference.py` call the two apart.
 """
 
 from __future__ import annotations
@@ -40,7 +44,6 @@ from step_tpu_torch.tubes.tube_ops import chunk_frame_mask, extrapolate_tubes
 def _check_supported(cfg: StepConfig) -> None:
     unported = {
         "two_stream": cfg.two_stream,
-        "chunk_stem": cfg.chunk_stem,
         "input_stream='flow'": cfg.input_stream != "rgb",
         "reg_head='frame_fc'": cfg.reg_head != "grid",
     }
@@ -58,7 +61,8 @@ class STEPDetector(nn.Module):
         self.cfg = cfg
         variants = (cfg.bn_folded, cfg.fused_bn_relu, cfg.fused_inception)
         self.features = FeatureNet(cfg.backbone_depth, *variants,
-                                   cfg.fused_inception3 == "all")
+                                   cfg.fused_inception3 == "all",
+                                   cfg.chunk_stem, cfg.num_chunks)
         c = self.features.out_channels
         self.context = ContextNet(c) if cfg.use_context else None
         ctx_dim = CONTEXT_DIM if cfg.use_context else 0
@@ -75,15 +79,20 @@ class STEPDetector(nn.Module):
         leading S axis: cls_logits `[S, B, P, ncls]`, deltas, proposals
         (the anchors of each step) and tubes `[S, B, P, T, 4]`, frame_mask
         `[S, T]`."""
-        cfg = self.cfg
-        dtype = getattr(torch, cfg.compute_dtype)
-        # Normalize in float32, compute in cfg.compute_dtype. The permuted
-        # view is NCDHW in channels_last_3d memory order.
-        x = device_preprocess(rgb).to(dtype).permute(0, 4, 1, 2, 3)
-        feat = self.features(x)                                 # [B, C, T', H', W']
-        ctx = self.context(feat) if self.context is not None else None
-        feat = feat.permute(0, 2, 3, 4, 1).contiguous()         # [B, T', H', W', C]
+        return self.refine(self.stem(rgb), proposals)
 
+    def stem(self, rgb: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
+        """rgb `[B, T, H, W, 3]` → the shared feature map `[B, T', H', W',
+        C]`, channels-last. Normalizes in float32 and computes in
+        cfg.compute_dtype; `chunks` as `FeatureNet.forward` takes it."""
+        dtype = getattr(torch, self.cfg.compute_dtype)
+        return self.features(device_preprocess(rgb).to(dtype), chunks)
+
+    def refine(self, feat: torch.Tensor, proposals: torch.Tensor):
+        """The scene context and the S refinement steps on a feature map
+        `[B, T', H', W', C]` from `stem`; returns what `forward` returns."""
+        cfg = self.cfg
+        ctx = self.context(feat) if self.context is not None else None
         tubes = proposals.to(torch.float32)
         B, P, T = tubes.shape[:3]
         if T != cfg.total_frames:

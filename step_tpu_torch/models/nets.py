@@ -1,8 +1,9 @@
 """Detection networks: feature extractor, scene context, two-branch head.
 
 Port of `step_tpu/models/nets.py`: `FeatureNet` (RGB, the I3D stem over
-the whole clip), `ContextNet` (:84-97) and `TwoBranchHead` with the "grid"
-regression head (:100-206).
+the whole clip or, with `chunk_stem`, over each chunk alone, :32-81),
+`ContextNet` (:84-97) and `TwoBranchHead` with the "grid" regression head
+(:100-206).
 """
 
 from __future__ import annotations
@@ -23,31 +24,52 @@ def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 class FeatureNet(nn.Module):
-    """Shared backbone features: the RGB I3D stem over the whole clip,
-    `[B, 3, T, H, W]` → `[B, C, T', H', W']`."""
+    """Shared backbone features: the RGB I3D stem, channels-last
+    `[B, T, H, W, 3]` → `[B, T', H', W', C]`.
+
+    With `chunk_stem` the stem runs on each of the clip's `num_chunks`
+    chunks alone (the reference's BaseNet: no receptive field across a
+    chunk border), the chunks folded into the batch, and the per-chunk
+    features concatenate on T'. The streaming cache relies on it: a
+    chunk's features are the same in every clip that holds the chunk.
+    """
 
     def __init__(self, depth: str = "full", bn_folded: bool = False,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
-                 fused_inception3: bool = False):
+                 fused_inception3: bool = False, chunk_stem: bool = False,
+                 num_chunks: int = 1):
         super().__init__()
         self.stem_rgb = I3DStem(depth, bn_folded, fused_bn_relu,
                                 fused_inception, fused_inception3)
         self.out_channels = self.stem_rgb.out_channels
+        self.chunks = num_chunks if chunk_stem else 1
 
-    def forward(self, rgb: torch.Tensor) -> torch.Tensor:
-        return self.stem_rgb(rgb)
+    def forward(self, x: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
+        """x `[B, T, H, W, 3]`, normalized; `chunks` overrides the number
+        of independent chunks the clip folds into (1: the clip is one
+        chunk, as the streaming cache stems a single chunk)."""
+        B, T = x.shape[:2]
+        k = self.chunks if chunks is None else chunks
+        if T % k:
+            raise ValueError(f"{T} frames do not split into {k} chunks")
+        # The fold and the unfold are views of NDHWC memory, and so is the
+        # NCDHW permute: the backbone runs in channels_last_3d order.
+        x = x.reshape(B * k, T // k, *x.shape[2:]).permute(0, 4, 1, 2, 3)
+        feat = self.stem_rgb(x).permute(0, 2, 3, 4, 1).contiguous()
+        return feat.reshape(B, k * feat.shape[1], *feat.shape[2:])
 
 
 class ContextNet(nn.Module):
-    """Global scene context: the mean of the feature map over time and
-    space, projected and rectified, `[B, C, T', H', W']` → `[B, CONTEXT_DIM]`."""
+    """Global scene context: the mean of the channels-last feature map over
+    time and space, projected and rectified, `[B, T', H', W', C]` →
+    `[B, CONTEXT_DIM]`."""
 
     def __init__(self, cin: int):
         super().__init__()
         self.proj = nn.Linear(cin, CONTEXT_DIM)
 
     def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        return F.relu(_linear(self.proj, feat.mean(dim=(2, 3, 4))))
+        return F.relu(_linear(self.proj, feat.mean(dim=(1, 2, 3))))
 
 
 class TwoBranchHead(nn.Module):

@@ -1,26 +1,33 @@
 """Where the device time of one serving request goes, on the card.
 
-    python3 -m step_tpu_torch.profile_request [--path main|kernel]
+    python3 -m step_tpu_torch.profile_request [--path main|kernel|video|stream]
         [--batch 8] [--requests 10] [--out profile.json]
 
-Builds `ucf_3step` at full width and depth with seeded weights (seed 0), in
-bfloat16, in one of the two serving configurations that `chip_smoke.py`
+Builds the detector at full width and depth with seeded weights (seed 0),
+in bfloat16, in one of the serving configurations that `chip_smoke.py`
 drives:
 
-  main    BN folded and the Inception 1x1x1 convs fused
+  main    `ucf_3step`, BN folded and the Inception 1x1x1 convs fused
           (`optimize_for_inference`): cuDNN convs, PyTorch pools, K1, K2;
-  kernel  weights left unfolded, `fused_bn_relu=True` and
-          `STEP_TPU_POOL3D=pallas`: K3, K4 and K5 as well.
+  kernel  `ucf_3step`, weights left unfolded, `fused_bn_relu=True` and
+          `STEP_TPU_POOL3D=pallas`: K3, K4 and K5 as well;
+  video   `streaming` on the main path's tree: a request is one video of
+          `--batch` chunks (6 frames each) tiled into as many windows one
+          chunk apart, through `detect_video` (tiling_stride 6), linking
+          included;
+  stream  the same video through `detect_video_stream_batched` with chunk
+          stems (`chunk_stem=True`), 16 windows a refinement batch.
 
-It serves two warm-up requests of uint8 clips through `detect_clip`, times
-`--requests` more (host clock around each synchronized request) and prints
-each and their median, then profiles one more with `torch.profiler` and
-prints that request's wall time (the profiler adds to it), the
-summed device time, the busy share (device time / wall time), the number
-of kernels, the device time by layer (each hand-written kernel, cuDNN
-convolutions, PyTorch pools, layout conversions, copies, other
-elementwise work) and the heaviest kernels by name. Needs a CUDA device;
-without one it exits non-zero.
+A request of `main` and `kernel` uploads `--batch` uint8 clips, one of
+`video` and `stream` a uint8 video; then it detects. The script serves two
+warm-up requests, times `--requests` more (host clock around each
+synchronized request) and prints each and their median, then profiles one
+more with `torch.profiler` and prints that request's wall time (the
+profiler adds to it), the summed device time, the busy share (device time
+/ wall time), the number of kernels, the device time by layer (each
+hand-written kernel, cuDNN convolutions, PyTorch pools, layout
+conversions, copies, other elementwise work) and the heaviest kernels by
+name. Needs a CUDA device; without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -63,27 +70,55 @@ def build(path: str, dev: torch.device):
     from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.utils.init import init_detector_
 
-    cfg = PRESETS["ucf_3step"]
+    cfg = PRESETS["ucf_3step" if path in ("main", "kernel") else "streaming"]
+    cfg = cfg.replace(chunk_stem=path == "stream")
     seeded = init_detector_(STEPDetector(cfg).eval(), 0).state_dict()
-    if path == "main":
-        os.environ["STEP_TPU_POOL3D"] = "direct"
-        cfg_run, state = optimize_for_inference(cfg, seeded)
-        model = STEPDetector(cfg_run).eval()
-        model.load_state_dict(state)
-        model = model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
-    else:
+    if path == "kernel":
         os.environ["STEP_TPU_POOL3D"] = "pallas"
         cfg_run = cfg.replace(fused_bn_relu=True)
         model = STEPDetector(cfg_run).eval()
         model.load_state_dict(seeded)
-        model = model.to(dev)      # float32 parameters, bf16 activations
-    return cfg, model
+        return cfg, model.to(dev)      # float32 parameters, bf16 activations
+    os.environ["STEP_TPU_POOL3D"] = "direct"
+    cfg_run, state = optimize_for_inference(cfg, seeded)
+    model = STEPDetector(cfg_run).eval()
+    model.load_state_dict(state)
+    return cfg, model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
+
+
+def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
+    """(one request on an input, a function making one input)."""
+    from step_tpu_torch.inference import (detect_clip, detect_video,
+                                          detect_video_stream_batched, window_centers)
+    from step_tpu_torch.models.detector import STEPDetector
+
+    rng = np.random.RandomState(0)
+    c, S = cfg.frames_per_chunk, cfg.image_size
+    if path in ("main", "kernel"):
+        props, pmask = STEPDetector.initial_proposals(cfg, batch, device=dev)
+        shape = (batch, cfg.total_frames, S, S, 3)
+        return (lambda x: detect_clip(model, x.to(dev), props, pmask),
+                lambda: torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8)))
+    make = lambda: torch.from_numpy(  # noqa: E731
+        rng.randint(0, 256, (batch * c, S, S, 3)).astype(np.uint8))
+    if path == "stream":
+        return (lambda x: detect_video_stream_batched(model, x.to(dev), clip_batch=16),
+                make)
+    centers = window_centers(batch, cfg, device=dev)
+
+    def video(x):
+        chunks = x.to(dev).reshape(batch, c, S, S, 3)
+        windows = chunks[centers].reshape(batch, cfg.total_frames, S, S, 3)
+        return detect_video(model, windows, tiling_stride=c)
+    return video, make
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("main", "kernel"), default="main")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--path", choices=("main", "kernel", "video", "stream"),
+                    default="main")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="clips a request (main, kernel) or chunks a video (video, stream)")
     ap.add_argument("--requests", type=int, default=10)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--out", default=None, help="also write the result as JSON here")
@@ -93,29 +128,23 @@ def main(argv=None) -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from step_tpu_torch.inference import detect_clip
-    from step_tpu_torch.models.detector import STEPDetector
-
     dev = torch.device("cuda", 0)
     cfg, model = build(args.path, dev)
-    rng = np.random.RandomState(0)
-    props, pmask = STEPDetector.initial_proposals(cfg, args.batch, device=dev)
-    clips = [torch.from_numpy(rng.randint(
-        0, 256, (args.batch, cfg.total_frames, cfg.image_size, cfg.image_size, 3)
-    ).astype(np.uint8)) for _ in range(3)]
+    run, make = request_fn(args.path, cfg, model, args.batch, dev)
+    inputs = [make() for _ in range(3)]
     request_ms = []
     with torch.no_grad():
-        for clip in clips[:2]:
-            detect_clip(model, clip.to(dev), props, pmask)
+        for x in inputs[:2]:
+            run(x)
         for i in range(args.requests):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            detect_clip(model, clips[i % 3].to(dev), props, pmask)
+            run(inputs[i % 3])
             torch.cuda.synchronize()
             request_ms.append((time.perf_counter() - t0) * 1e3)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            detect_clip(model, clips[2].to(dev), props, pmask)
+            run(inputs[2])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
 

@@ -146,7 +146,7 @@ def test_bfloat16_detect_clip_is_finite():
 
 
 def test_unported_options_are_refused():
-    for kw in ({"two_stream": True}, {"chunk_stem": True},
-               {"reg_head": "frame_fc"}, {"input_stream": "flow"}):
+    for kw in ({"two_stream": True}, {"reg_head": "frame_fc"},
+               {"input_stream": "flow"}):
         with pytest.raises(NotImplementedError, match="not ported"):
             STEPDetector(TINY.replace(**kw))

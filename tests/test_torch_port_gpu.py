@@ -21,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from step_tpu_torch.config import PRESETS
-from step_tpu_torch.inference import detect_clip, nms_surface, nms_surface_plain
+from step_tpu_torch.inference import (detect_clip, detect_video_stream,
+                                      detect_video_stream_batched, nms_surface,
+                                      nms_surface_plain)
 from step_tpu_torch.kernels import NMS_MAX_BOXES
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
@@ -30,6 +32,7 @@ from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
 from step_tpu_torch.ops.nms import EPS, NEG, _f32, nms_many, nms_many_plain, premask_scores
 from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
+from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 from step_tpu_torch.utils.init import init_detector_
 
 pytestmark = pytest.mark.gpu
@@ -563,6 +566,86 @@ def test_kernel_path_detector_on_card_matches_cpu(cuda, monkeypatch):
     after = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
                                   max_pool3x3_same)]
     assert [a - b for a, b in zip(after, counts)] == [10, 21, 5]
+    torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
+                               rtol=0, atol=1e-4)
+
+
+def _link_inputs(seed: int, L: int, P: int, T: int, C: int):
+    """Tubes `[L, P, T, 4]` with duplicated proposals (exact IoU ties),
+    scores `[L, P, C]` on a coarse grid (exact score ties) with padding
+    slots, and the proposal mask."""
+    rng = np.random.RandomState(seed)
+    xy = rng.uniform(0, 160, (L, P, 1, 2)) + np.arange(T)[:, None] * rng.randn(L, P, 1, 2)
+    wh = rng.uniform(20, 60, (L, P, 1, 2))
+    tubes = np.concatenate([xy, xy + wh], axis=-1).astype(np.float32)
+    tubes[:, 1] = tubes[:, 0]
+    mask = np.ones((L, P), np.float32)
+    mask[:, P - P // 4:] = 0.0
+    scores = (rng.randint(0, 9, (L, P, C)) / 8.0).astype(np.float32) * mask[..., None]
+    return (torch.from_numpy(a) for a in (tubes, scores, mask))
+
+
+@pytest.mark.parametrize("stride", [None, 6])
+def test_linking_on_card_equals_cpu(cuda, stride):
+    """The streaming preset's linking (K=4, suppression 0.5) on the card
+    against the same call on the CPU: the same paths and trims."""
+    tubes, scores, mask = _link_inputs(5, 12, 16, 18, 24)
+    clip_mask = torch.ones(12)
+    clip_mask[-3:] = 0.0
+    args = (1.0, 4, 0.05)
+    kw = dict(stride=stride, suppress_iou=0.5)
+    ref = link_tubes_multiclass_k(tubes, scores, mask, *args, clip_mask, **kw)
+    got = link_tubes_multiclass_k(tubes.to(cuda), scores.to(cuda), mask.to(cuda),
+                                  *args, clip_mask.to(cuda), **kw)
+    assert got["paths"].device == tubes.to(cuda).device
+    for key in ("paths", "trim"):
+        assert torch.equal(got[key].cpu(), ref[key]), key
+    for key in ("values", "tube_scores"):
+        torch.testing.assert_close(got[key].cpu(), ref[key], rtol=0, atol=1e-5)
+
+
+def _stream_setup(cuda, **fields):
+    cfg = PRESETS["streaming"].replace(backbone_depth="tiny", feature_stride=8,
+                                       image_size=64, compute_dtype="float32",
+                                       chunk_stem=True, **fields)
+    model = init_detector_(STEPDetector(cfg).eval(), seed=6).to(cuda)
+    frames = torch.from_numpy(np.random.RandomState(7).randint(
+        0, 256, (5 * cfg.frames_per_chunk, 64, 64, 3)).astype(np.uint8)).to(cuda)
+    return cfg, model, frames
+
+
+def test_stream_matches_detect_clip_on_card(cuda):
+    """float32 with TF32 off: both streaming forms against `detect_clip` on
+    the assembled window, at an interior window and both clamped edges."""
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, model, frames = _stream_setup(cuda)
+    c = cfg.frames_per_chunk
+    stream = detect_video_stream(model, frames)
+    batched = detect_video_stream_batched(model, frames, clip_batch=2)
+    props, pmask = STEPDetector.initial_proposals(cfg, 1, device=cuda)
+    for center, ids in ((2, [1, 2, 3]), (0, [0, 0, 1]), (4, [3, 4, 4])):
+        clip = torch.cat([frames[i * c:(i + 1) * c] for i in ids])[None]
+        ref = detect_clip(model, clip, props, pmask)
+        for got in (stream[center], {k: v[center:center + 1] for k, v in batched.items()}):
+            torch.testing.assert_close(got["tubes"], ref["tubes"], rtol=0, atol=1e-3)
+            torch.testing.assert_close(got["tube_scores"], ref["tube_scores"],
+                                       rtol=0, atol=1e-4)
+
+
+def test_chunk_stem_kernel_path_on_card_matches_cpu(cuda, monkeypatch):
+    """The kernel configuration with chunk stems: K3 and K5 at T = 3 and
+    2 (a 3-tap temporal window over 2 frames), on the card against the CPU."""
+    monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
+    cfg, model, frames = _stream_setup(cuda, fused_bn_relu=True)
+    clips = frames[:cfg.total_frames].reshape(1, cfg.total_frames, 64, 64, 3)
+    props, pmask = STEPDetector.initial_proposals(cfg, 1, device=cuda)
+    fns = (conv3x3x3_bn_relu, fused_scale_bias_relu, max_pool3x3_same)
+    before = [f.launches for f in fns]
+    got = detect_clip(model, clips, props, pmask)
+    assert all(f.launches > n for f, n in zip(fns, before))
+    ref = detect_clip(model.cpu(), clips.cpu(), props.cpu(), pmask.cpu())
     torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
     torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
                                rtol=0, atol=1e-4)
