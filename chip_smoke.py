@@ -73,6 +73,27 @@ Phases, each fatal on failure (exit code 1, no result line):
      phases 7-9; and in float32 that configuration against the main path's
      chunk-stem tree on the same clips, as in phase 11.
 
+ 14. the training path at full width (`training_phases`): `ucf_3step`,
+     bf16 compute on float32 weights, B=8, remat "dots", AdamW (warmup 2,
+     lr 1e-3), the training init; synthetic 224 px clips through the
+     port's `DataLoader` and `fit()` for 12 steps with a checkpoint at
+     step 6 (restored into a fresh state); every loss and `grad_norm`
+     finite; every backbone parameter's gradient at step 1 nonzero (so
+     K2's backward reaches the backbone); K2 and K5 launched in every
+     step (launches counted a step); 8 more steps on one fixed batch
+     lower the loss; the median step ms of the last 8, the peak memory,
+     and the plain backwards alone (`device_ms`): the stride-1 pool's at
+     the tail's [128, 832, 5, 7, 7] and ROI-align's at [8, 5, 14, 14, 832];
+ 15. kernels under autograd against plain on the card: K2's Function
+     against `tube_roi_align_plain` under autograd (forward and
+     dfeatures, float32 within 1e-4, bf16 within one rounding step); the
+     stride-1 and strided pools' forward and backward on the card against
+     the CPU on integer-valued inputs (ties), bit for bit; a tiny float32
+     AdamW `train_step` (2 steps, dropout 0) on the card against the CPU:
+     losses within 1e-5 relative, BatchNorm statistics within 1e-4, every
+     weight within 2 lr and at most 0.1% of them beyond 1e-5 (Adam turns
+     a gradient at the level of float noise into a step of either sign).
+
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
 its launcher on preallocated outputs captured in a CUDA graph and replayed
@@ -88,10 +109,12 @@ their type) and the time of one PyTorch call for the same function where
 there is one; K1's entry also holds its one-problem floor (`floor_ms`) and
 the launches of one `nms_surface` call (`surface_launches`). Each entry
 also holds `video_launches`, its launches on each video path of phases 12
-and 13 (counts set to 0 just before each path and read just after), and
+and 13 (counts set to 0 just before each path and read just after),
 `video_shapes`: for each path and each shape that path gave the kernel, the
 launches recorded there, the max error against the plain version, and the
-device, plain and bound times. The last is
+device, plain and bound times, and `train_launches`, its launches in one
+training step of phase 14 (K2 and K5 also `train_backward_ms`, the device
+time of their plain backward). The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -126,6 +149,8 @@ PATH_SCORE_TOL, PATH_TUBE_TOL = 1e-3, 1e-2
 # windows (three batches); each video form timed 3 times after a warm-up.
 VIDEO_CHUNKS, STREAM_BATCH, VIDEO_RUNS = 48, 16, 3
 STREAM_SCORE_TOL, STREAM_TUBE_TOL = 1e-4, 1e-3   # float32, TF32 off
+# The training phases: B=8 clips at full width, 12 fit() steps.
+TRAIN_BATCH, TRAIN_STEPS = 8, 12
 LINK_VALUE_TOL = 1e-5
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -875,6 +900,239 @@ def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
     return out
 
 
+def far_weights(got: dict, want: dict, lr: float, names) -> tuple[int, int, float]:
+    """(elements beyond 1e-5, elements, max |d|) between two state_dicts
+    over `names`; fatal if any element is more than 2 lr apart."""
+    far = total = 0
+    worst = 0.0
+    for name in names:
+        d = (got[name].float().cpu() - want[name].float().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    check(worst <= 2 * lr * (1 + 1e-3), f"a weight moved {worst} apart, more than 2 lr")
+    return far, total, worst
+
+
+def training_phases(dev, rng, reset_counts, read_counts) -> dict:
+    """Phases 14 and 15, the training path. Returns, per kernel, its
+    launches a training step and, for K2 and K5, the device time of the
+    plain backward, for the JSON line."""
+    import tempfile
+
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.models.i3d import max_pool_3d
+    from step_tpu_torch.ops.pool_grad import max_pool_s1_backward
+    from step_tpu_torch.ops.roi_align import (tube_roi_align, tube_roi_align_backward,
+                                              tube_roi_align_plain)
+    from step_tpu_torch.train import fit as fit_module
+    from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              make_schedule, train_step)
+    from step_tpu_torch.train_eval_synth import SyntheticClips
+    from step_tpu_torch.utils.checkpoint import checkpoint_steps, restore_checkpoint
+    from step_tpu_torch.utils.init import init_detector_train_
+
+    # ---- 14. training at full width --------------------------------------
+    cfg = PRESETS["ucf_3step"].replace(
+        dataset="synthetic", batch_size=TRAIN_BATCH, remat_steps=True, remat_policy="dots",
+        optimizer="adamw", warmup_steps=2, learning_rate=1e-3, total_steps=1000)
+    syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=4)
+    t0 = time.time()
+    model = init_detector_train_(STEPDetector(cfg), cfg, SEED)
+    loader = DataLoader(SyntheticClips(syn, TRAIN_STEPS * cfg.batch_size, SEED * 1000), cfg,
+                        seed=SEED, num_workers=4)
+    # Step 1's gradient of every backbone parameter, kept on the card.
+    first_grads, steps = {}, []
+
+    def keep_first_grad(name):
+        def hook(p):
+            if not steps:
+                first_grads[name] = p.grad.ne(0).any()
+        return hook
+
+    for name, p in model.features.named_parameters():
+        p.register_post_accumulate_grad_hook(keep_first_grad(name))
+
+    def timed_step(state, batch, cfg_):
+        before = read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = train_step(state, batch, cfg_)
+        end.record()
+        after = read_counts()
+        steps.append((start, end, {k: after[k] - before[k] for k in after}, out[1]))
+        return out
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fit_module.train_step = timed_step
+    try:
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            state = fit_module.fit(cfg, loader, num_epochs=1, ckpt_dir=ckpt_dir,
+                                   ckpt_every=TRAIN_STEPS // 2, model=model, device=dev,
+                                   seed=SEED)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            saved = checkpoint_steps(ckpt_dir)
+            check(TRAIN_STEPS // 2 in saved and TRAIN_STEPS in saved,
+                  f"checkpoints at steps {saved}, expected {TRAIN_STEPS // 2} and "
+                  f"{TRAIN_STEPS}")
+            fresh = create_train_state(cfg, seed=SEED + 1, device=dev)
+            fresh, data_iter = restore_checkpoint(ckpt_dir, fresh, step=TRAIN_STEPS // 2)
+            check(fresh.step == TRAIN_STEPS // 2
+                  and data_iter == {"epoch": 0, "batch_index": TRAIN_STEPS // 2},
+                  f"checkpoint {TRAIN_STEPS // 2} restored step {fresh.step}, {data_iter}")
+            del fresh
+    finally:
+        fit_module.train_step = train_step
+    check(len(steps) == TRAIN_STEPS and state.step == TRAIN_STEPS,
+          f"fit ran {len(steps)} steps, state at {state.step}, expected {TRAIN_STEPS}")
+    step_ms = [a.elapsed_time(b) for a, b, _, _ in steps]
+    losses = [float(m["loss"]) for _, _, _, m in steps]
+    norms = [float(m["grad_norm"]) for _, _, _, m in steps]
+    for _, _, _, m in steps:
+        for key, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"training metric {key} not finite: {v}")
+    features = [n for n, _ in model.features.named_parameters()]
+    check(sorted(first_grads) == sorted(features),
+          f"{len(features) - len(first_grads)} backbone parameters got no gradient at step 1")
+    zero = [n for n in features if not bool(first_grads[n])]
+    check(not zero, f"backbone parameters with an all-zero gradient at step 1: {zero[:5]}")
+    per_step = {k: sorted({c[k] for _, _, c, _ in steps}) for k in steps[0][2]}
+    for name in ("tube_roi_align", "max_pool3x3_same"):
+        check(min(per_step[name]) > 0, f"{name} did not launch in every training step: "
+                                       f"{per_step[name]}")
+    median_ms = float(np.median(step_ms[-8:]))
+    print(f"[14] training ucf_3step full width, bf16, B={cfg.batch_size}, remat "
+          f"{cfg.remat_policy}, AdamW, {TRAIN_STEPS} fit() steps from the DataLoader: "
+          f"built and ran in {time.time() - t0:.1f} s; step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 8 "
+          f"{median_ms:.2f} ms ({cfg.batch_size / median_ms * 1e3:.1f} clips/s); peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    print(f"    losses {', '.join(f'{v:.3f}' for v in losses)}; grad_norm "
+          f"{', '.join(f'{v:.3g}' for v in norms)}", flush=True)
+    print(f"    launches a step: {per_step}; all {len(features)} backbone parameters "
+          f"have a nonzero gradient at step 1; checkpoints {saved}, step "
+          f"{TRAIN_STEPS // 2} restored", flush=True)
+
+    # 8 steps on one fixed batch lower the loss.
+    raw = make_batch(SEED * 1000 + 10 ** 6, cfg.batch_size, syn)
+    fixed = batch_to_device(build_model_batch(raw, cfg, train=True, emit_uint8=True), dev)
+    fixed_losses = [float(train_step(state, fixed, cfg)[1]["loss"]) for _ in range(8)]
+    check(fixed_losses[-1] < fixed_losses[0],
+          f"8 steps on one batch did not lower the loss: {fixed_losses}")
+    print(f"    8 steps on one batch: loss {', '.join(f'{v:.3f}' for v in fixed_losses)}",
+          flush=True)
+    del state, model, loader
+
+    # Each backward alone, at the shapes of a training step.
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    tail = torch.randn((128, 832, 5, 7, 7), device=dev, generator=gen,
+                       dtype=torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    g_tail = torch.randn_like(tail)
+    pool_bwd_ms = device_ms(lambda: max_pool_s1_backward(tail, g_tail, (3, 3, 3)))
+    pool_bwd_bound = bound(3 * tail.numel() * 2, 0, F32_FLOPS)
+    B, Tp, Hf = cfg.batch_size, 5, cfg.image_size // cfg.feature_stride
+    feat_np, tubes_np = roi_inputs(rng, B, Tp, Hf, 832, cfg.max_proposals,
+                                   cfg.total_frames, cfg.image_size)
+    feat16 = torch.from_numpy(feat_np).to(dev, torch.bfloat16)
+    tubes = torch.from_numpy(tubes_np).to(dev)
+    args = (cfg.pooled_size, 1.0 / cfg.feature_stride, cfg.sampling_ratio)
+    g_roi = torch.randn((B, cfg.max_proposals, Tp, 7, 7, 832), device=dev,
+                        generator=gen, dtype=torch.bfloat16)
+    roi_bwd_ms = device_ms(lambda: tube_roi_align_backward(feat16, tubes, g_roi, *args))
+    roi_bwd_bound = bound(g_roi.numel() * 2 + tubes.numel() * 4 + feat16.numel() * 2, 0,
+                          F32_FLOPS)
+    print(f"    plain backwards alone (device): pool [128,832,5,7,7] bf16 "
+          f"{pool_bwd_ms:.4f} ms (bytes bound {pool_bwd_bound['bound_ms']:.4f} ms); "
+          f"ROI-align [{B},{Tp},{Hf},{Hf},832] bf16 {roi_bwd_ms:.4f} ms (bytes bound "
+          f"{roi_bwd_bound['bound_ms']:.4f} ms)", flush=True)
+
+    # ---- 15. kernels under autograd against plain, on the card -----------
+    feat32 = torch.from_numpy(feat_np).to(dev)
+    for f, tol in ((feat32, 1e-4), (feat16, None)):
+        fk = f.detach().requires_grad_()
+        fp = f.detach().requires_grad_()
+        out_k = tube_roi_align(fk, tubes, *args)
+        out_p = tube_roi_align_plain(fp, tubes, *args)
+        check(out_k.grad_fn is not None, "K2 under autograd returned no grad_fn")
+        g = torch.randn(out_p.shape, device=dev, generator=gen).to(f.dtype)
+        out_k.backward(g)
+        out_p.backward(g)
+        torch.cuda.synchronize()
+        errs = [float((a.detach().float() - b.detach().float()).abs().max())
+                for a, b in ((out_k, out_p), (fk.grad, fp.grad))]
+        ok = all((torch.allclose(a, b, rtol=tol, atol=tol) if tol else bf16_close(a, b))
+                 for a, b in ((out_k.detach(), out_p.detach()), (fk.grad, fp.grad)))
+        check(ok, f"K2 under autograd {f.dtype} differs from plain: out {errs[0]}, "
+                  f"dfeatures {errs[1]}")
+        print(f"[15] K2 under autograd, {f.dtype}, [{B},{Tp},{Hf},{Hf},832]: out max |err| "
+              f"{errs[0]:.3g}, dfeatures {errs[1]:.3g} "
+              f"({'tol 1e-4' if tol else 'one bf16 step'})", flush=True)
+    for shape, window, stride in (((128, 832, 5, 7, 7), (3, 3, 3), (1, 1, 1)),
+                                  ((8, 192, 9, 28, 28), (3, 3, 3), (1, 1, 1)),
+                                  ((2, 64, 9, 112, 112), (1, 3, 3), (1, 2, 2)),
+                                  ((2, 480, 9, 28, 28), (3, 3, 3), (2, 2, 2))):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randint(0, 3, shape, device=dev, generator=gen).to(dtype).contiguous(
+                memory_format=torch.channels_last_3d)
+            grads = []
+            for d in (dev, "cpu"):
+                xd = x.to(d).detach().requires_grad_()
+                y = max_pool_3d(xd, window, stride)
+                g = torch.arange(y.numel(), device=d).reshape(y.shape).remainder(7).sub(3)
+                y.backward(g.to(dtype))
+                grads.append((y.detach().cpu(), xd.grad.cpu()))
+            same = all(torch.equal(raw_bits(a), raw_bits(b))
+                       for a, b in zip(grads[0], grads[1]))
+            check(same, f"pool {window}/{stride} {list(shape)} {dtype}: the card's "
+                        f"forward or backward differs from the CPU's on ties")
+        print(f"[15] pool {window} stride {stride} {list(shape)}, integer inputs (ties): "
+              f"forward and backward on the card equal the CPU's bit for bit, f32 and "
+              f"bf16", flush=True)
+
+    tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                       compute_dtype="float32", batch_size=2, dropout_rate=0.0,
+                       max_gt_tubes=2)
+    tsyn = SyntheticConfig(image_size=64, num_frames=tiny.total_frames,
+                           num_classes=tiny.num_classes, max_boxes=2)
+    tbatch = build_model_batch(make_batch(SEED, 2, tsyn), tiny, train=True)
+    runs = []
+    for d in (dev, "cpu"):
+        st = create_train_state(tiny, seed=SEED, device=d)
+        b = batch_to_device(tbatch, d)
+        ms = [train_step(st, b, tiny)[1] for _ in range(2)]
+        runs.append(([{k: v.cpu() for k, v in m.items()} for m in ms],
+                     {k: v.cpu() for k, v in st.model.state_dict().items()}))
+    (m_gpu, sd_gpu), (m_cpu, sd_cpu) = runs
+    for a, b in zip(m_gpu, m_cpu):
+        check(torch.allclose(a["loss"], b["loss"], rtol=1e-5, atol=0),
+              f"tiny train_step loss on the card {float(a['loss'])}, CPU {float(b['loss'])}")
+    lr = make_schedule(tiny)(1)
+    weights = [k for k in sd_cpu if "running_" not in k]
+    stats = [k for k in sd_cpu if "running_" in k]
+    far, total, worst = far_weights(sd_gpu, sd_cpu, lr, weights)
+    check(far <= 1e-3 * total, f"tiny train_step: {far} of {total} weights beyond 1e-5")
+    stat_err = max(float((sd_gpu[k] - sd_cpu[k]).abs().max()) for k in stats)
+    check(stat_err <= 1e-4, f"tiny train_step BN statistics differ by {stat_err}")
+    print(f"[15] tiny f32 train_step (AdamW, 2 steps) card vs CPU: loss max rel "
+          f"{max(float((a['loss'] - b['loss']).abs() / b['loss'].abs()) for a, b in zip(m_gpu, m_cpu)):.3g} "
+          f"(tol 1e-5); weights: {far} of {total} beyond 1e-5 (tol 0.1%), max |d| "
+          f"{worst:.3g} (tol 2 lr = {2 * lr:.3g}); BN statistics {stat_err:.3g} (tol 1e-4)",
+          flush=True)
+
+    out = {name: dict(train_launches=max(per_step[name])) for name in per_step}
+    out["tube_roi_align"]["train_backward_ms"] = roi_bwd_ms
+    out["max_pool3x3_same"]["train_backward_ms"] = pool_bwd_ms
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1249,6 +1507,7 @@ def main() -> None:
 
     del kmodel, mmodel, got, want
     video = video_phases(dev, rng, seeded, reset_counts, read_counts)
+    training = training_phases(dev, rng, reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -1271,7 +1530,7 @@ def main() -> None:
     print(f"all phases took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name], **video[name]}
+         "launches": launches[name], **results[name], **video[name], **training[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -15,11 +15,14 @@ Layers, entry point first:
   inference.py     detect_clip → class scores → nms_surface
   models/          STEPDetector, FeatureNet / ContextNet / TwoBranchHead,
                    I3D, BN folding (optimize.py)
-  ops/             tube ROI-align and batched NMS: each a plain PyTorch
-                   version plus a CUDA kernel (kernels.py, csrc/)
+  ops/             tube ROI-align, batched NMS and the backbone kernels:
+                   each a plain PyTorch version plus a CUDA kernel
+                   (kernels.py, csrc/); the pool backward (pool_grad.py)
+  train/           the progressive losses, train_step, fit()
+  data/            batch assembly, the threaded loader, synthetic clips
   tubes/           box and tube math, the initial cuboids
   convert.py       JAX variable tree → this package's state_dict
-  utils/init.py    seeded initializer (no JAX on the GPU machine)
+  utils/           seeded initializers (serving, training), checkpoints
 """
 
 import torch

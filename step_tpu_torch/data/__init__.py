@@ -1,1 +1,2 @@
-"""Host-side data: the synthetic oracle videos and the uint8 wire format."""
+"""Host-side data: batch assembly and the wire formats, the threaded
+loader, and the synthetic oracle clips and videos."""

@@ -24,21 +24,47 @@ ported yet.
 
 `forward` is `stem` (normalize, backbone) then `refine` (context, the S
 steps); the streaming entry points of `inference.py` call the two apart.
+
+Training (`train=True`): BatchNorm on the batch statistics and the heads'
+dropouts, except in the subtrees `cfg.freeze_submodules` names, which run
+in eval mode as the JAX package's do (`step_tpu/models/detector.py:
+150-152, :269-270`). The tubes stay detached between steps (`:142`). With
+`cfg.remat_steps` each step body runs under `torch.utils.checkpoint`
+(`:173-176`): `remat_policy="full"` recomputes it whole in the backward,
+`"dots"` keeps the outputs of the convolutions and matrix products and
+recomputes the rest (`checkpoint_dots`). Dropout masks are drawn before
+the checkpointed body, so its recomputation applies the same masks.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
-                                        TwoBranchHead)
+                                        TwoBranchHead, draw_dropout_masks)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
 from step_tpu_torch.preprocess import device_preprocess
 from step_tpu_torch.tubes.boxes import clip_boxes, decode_boxes
 from step_tpu_torch.tubes.proposals import initial_cuboids
 from step_tpu_torch.tubes.tube_ops import chunk_frame_mask, extrapolate_tubes
+
+
+# The operations whose outputs `remat_policy="dots"` keeps: convolutions and
+# matrix products, as jax.checkpoint_policies.checkpoint_dots keeps dots.
+_DOTS = frozenset(op for op in (
+    torch.ops.aten.convolution.default, torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default, torch.ops.aten.bmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _check_supported(cfg: StepConfig) -> None:
@@ -70,28 +96,50 @@ class STEPDetector(nn.Module):
             TwoBranchHead(c, cfg.num_cls_outputs, cfg.total_frames,
                           cfg.pooled_size, cfg.backbone_depth, cfg.bn_folded,
                           ctx_dim, *variants[1:],
-                          cfg.fused_inception3 in ("tail", "all"))
+                          cfg.fused_inception3 in ("tail", "all"),
+                          cfg.dropout_rate)
             for _ in range(cfg.num_steps))
 
-    def forward(self, rgb: torch.Tensor, proposals: torch.Tensor):
+    def forward(self, rgb: torch.Tensor, proposals: torch.Tensor,
+                train: bool = False, generator: torch.Generator | None = None):
         """rgb `[B, T, H, W, 3]` uint8 (or float in [0, 1]); proposals
         `[B, P, T, 4]`. Returns a dict of per-step outputs stacked on a
         leading S axis: cls_logits `[S, B, P, ncls]`, deltas, proposals
         (the anchors of each step) and tubes `[S, B, P, T, 4]`, frame_mask
-        `[S, T]`."""
-        return self.refine(self.stem(rgb), proposals)
+        `[S, T]`. `train` and `generator` as `refine` takes them."""
+        return self.refine(self.stem(rgb, train=train), proposals, train, generator)
 
-    def stem(self, rgb: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
+    def stem(self, rgb: torch.Tensor, chunks: int | None = None,
+             train: bool = False) -> torch.Tensor:
         """rgb `[B, T, H, W, 3]` → the shared feature map `[B, T', H', W',
         C]`, channels-last. Normalizes in float32 and computes in
-        cfg.compute_dtype; `chunks` as `FeatureNet.forward` takes it."""
+        cfg.compute_dtype; `chunks` as `FeatureNet.forward` takes it;
+        `train` runs the backbone in train mode unless it is frozen."""
         dtype = getattr(torch, self.cfg.compute_dtype)
-        return self.features(device_preprocess(rgb).to(dtype), chunks)
+        train = train and "features" not in self.cfg.freeze_submodules
+        return self.features(device_preprocess(rgb).to(dtype), chunks, train)
 
-    def refine(self, feat: torch.Tensor, proposals: torch.Tensor):
+    def refine(self, feat: torch.Tensor, proposals: torch.Tensor,
+               train: bool = False, generator: torch.Generator | None = None):
         """The scene context and the S refinement steps on a feature map
-        `[B, T', H', W', C]` from `stem`; returns what `forward` returns."""
+        `[B, T', H', W', C]` from `stem`; returns what `forward` returns.
+
+        `train` runs the heads in train mode (unless `steps` is frozen):
+        train-mode BatchNorm, and with `cfg.dropout_rate` > 0 dropout masks
+        drawn from `generator`, which is then required."""
         cfg = self.cfg
+        train = train and "steps" not in cfg.freeze_submodules
+        drop = train and cfg.dropout_rate > 0
+        if drop and generator is None:
+            raise ValueError("training with dropout needs a torch.Generator "
+                             "for its masks (generator=...)")
+        remat = None
+        if train and cfg.remat_steps:
+            context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                            _save_dots)
+                          if cfg.remat_policy == "dots" else None)
+            kw = {"context_fn": context_fn} if context_fn else {}
+            remat = functools.partial(checkpoint, use_reentrant=False, **kw)
         ctx = self.context(feat) if self.context is not None else None
         tubes = proposals.to(torch.float32)
         B, P, T = tubes.shape[:3]
@@ -105,23 +153,36 @@ class STEPDetector(nn.Module):
         for step, head in enumerate(self.steps):
             fmask = chunk_frame_mask(step, cfg.num_chunks, cfg.frames_per_chunk,
                                      cfg.temporal_extension, device=tubes.device)
-            pooled = tube_roi_align(feat, tubes, cfg.pooled_size,
-                                    1.0 / cfg.feature_stride, cfg.sampling_ratio)
-            pooled = pooled.reshape(B * P, *pooled.shape[2:])  # [B*P, T', 7, 7, C]
-            cls_logits, deltas = head(pooled, ctx_flat, fmask[t_idx])
-            cls_logits = cls_logits.reshape(B, P, -1)
-            deltas = deltas.reshape(B, P, T, 4)
-
-            decoded = decode_boxes(deltas, tubes, cfg.box_variances)
-            decoded = clip_boxes(decoded, cfg.image_size, cfg.image_size)
-            filled = extrapolate_tubes(decoded * fmask[:, None], fmask,
-                                       float(cfg.image_size))
+            masks = (draw_dropout_masks(head.dropout_shapes(B * P, feat.shape[1]),
+                                        cfg.dropout_rate, generator, feat.device)
+                     if drop else None)
+            args = (head, feat, tubes, ctx_flat, fmask, t_idx, train, masks)
+            cls_logits, deltas, filled = (remat(self._step, *args) if remat
+                                          else self._step(*args))
             for key, value in (("cls_logits", cls_logits), ("deltas", deltas),
                                ("proposals", tubes), ("tubes", filled),
                                ("frame_mask", fmask)):
                 outputs[key].append(value)
             tubes = filled.detach()
         return {k: torch.stack(v) for k, v in outputs.items()}
+
+    def _step(self, head, feat, tubes, ctx_flat, fmask, t_idx, train, masks):
+        """One refinement step: pool the tubes, run the head, decode, clip
+        and extend in time → (cls_logits `[B, P, ncls]`, deltas `[B, P, T,
+        4]`, the refined tubes `[B, P, T, 4]`)."""
+        cfg = self.cfg
+        B, P, T = tubes.shape[:3]
+        pooled = tube_roi_align(feat, tubes, cfg.pooled_size,
+                                1.0 / cfg.feature_stride, cfg.sampling_ratio)
+        pooled = pooled.reshape(B * P, *pooled.shape[2:])  # [B*P, T', 7, 7, C]
+        cls_logits, deltas = head(pooled, ctx_flat, fmask[t_idx], train, masks)
+        cls_logits = cls_logits.reshape(B, P, -1)
+        deltas = deltas.reshape(B, P, T, 4)
+        decoded = decode_boxes(deltas, tubes, cfg.box_variances)
+        decoded = clip_boxes(decoded, cfg.image_size, cfg.image_size)
+        filled = extrapolate_tubes(decoded * fmask[:, None], fmask,
+                                   float(cfg.image_size))
+        return cls_logits, deltas, filled
 
     @staticmethod
     def initial_proposals(cfg: StepConfig, batch_size: int, device="cuda"):

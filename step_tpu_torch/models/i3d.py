@@ -9,8 +9,18 @@ runs in `channels_last_3d` memory order.
 Padding is TensorFlow's SAME rule, as in the released I3D checkpoints: the
 total pad is max((ceil(n/s) - 1)*s + k - n, 0), with the odd extra cell on
 the high side — asymmetric on every strided conv and pool. Pools pad with
--inf. BatchNorm runs in eval mode with eps 1e-3, or is folded into the conv
-(`bn_folded`, weights from `models/optimize.py::fold_bn`).
+-inf. BatchNorm has eps 1e-3; it runs on its running statistics, or is
+folded into the conv (`bn_folded`, weights from
+`models/optimize.py::fold_bn`), or, with `train=True`, on the batch
+statistics as flax's train-mode BatchNorm does (`BatchNorm.forward`).
+
+Training (`train=True`, passed down every module as flax passes it): each
+unit runs conv → train-mode BN → ReLU, never a fused form (the JAX
+package takes the fused BN + ReLU only in inference, `step_tpu/models/
+i3d.py:186`), and a BN-folded unit refuses. Under autograd every stride-1
+max pool goes through `ops/pool_grad.py::max_pool_3d_s1_sepgrad` (K5 on
+the card for 3x3x3), whose backward credits every tied maximum as the JAX
+package's default does; strided pools keep PyTorch's backward.
 
 Inference variants, as in the JAX package:
   * `fused_bn_relu` (BN not folded): each Unit3D's BN + ReLU runs through
@@ -41,6 +51,7 @@ import torch.nn.functional as F
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
 from step_tpu_torch.ops.pool import max_pool3x3_same
+from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
 from step_tpu_torch.utils.tensor_cache import derived
 
 # Inception-v1 branch widths: (b0_1x1, b1_reduce, b1_3x3, b2_reduce, b2_3x3, b3_pool_proj)
@@ -59,6 +70,7 @@ INCEPTION_CHANNELS = {
 TINY_A = (16, 16, 24, 8, 16, 8)      # out 64
 TINY_B = (32, 24, 48, 8, 24, 24)     # out 128
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.9           # flax's running-average decay (`step_tpu/models/i3d.py:44`)
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -87,11 +99,16 @@ def conv3d_same(x: torch.Tensor, weight: torch.Tensor,
 
 
 def max_pool_3d(x: torch.Tensor, window, stride) -> torch.Tensor:
-    """3-D max pool with TF-SAME padding of -inf. With
-    `STEP_TPU_POOL3D=pallas` (read on every call, as the JAX package reads
-    it) a 3x3x3 stride-1 pool goes to `ops/pool.py::max_pool3x3_same`."""
+    """3-D max pool with TF-SAME padding of -inf. Under autograd a
+    stride-1 pool goes to `ops/pool_grad.py::max_pool_3d_s1_sepgrad`.
+    Otherwise, with `STEP_TPU_POOL3D=pallas` (read on every call, as the
+    JAX package reads it) a 3x3x3 stride-1 pool goes to
+    `ops/pool.py::max_pool3x3_same`."""
+    window, stride = tuple(window), tuple(stride)
+    if stride == (1, 1, 1) and torch.is_grad_enabled() and x.requires_grad:
+        return max_pool_3d_s1_sepgrad(x, window)
     if (os.environ.get("STEP_TPU_POOL3D", "direct") == "pallas"
-            and tuple(window) == (3, 3, 3) and tuple(stride) == (1, 1, 1)):
+            and window == (3, 3, 3) and stride == (1, 1, 1)):
         return max_pool3x3_same(x)
     sym, pad = _same_padding(x, window, stride)
     if sym is not None:
@@ -100,12 +117,22 @@ def max_pool_3d(x: torch.Tensor, window, stride) -> torch.Tensor:
 
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over channel axis 1, eps 1e-3; its state maps
-    one to one onto the JAX package's scale/bias and mean/var.
+    """BatchNorm over channel axis 1, eps 1e-3; its state maps one to one
+    onto the JAX package's scale/bias and mean/var.
 
     It computes in float32 and rounds once to x's dtype, with flax's order
     of operations, (x - mean) * (rsqrt(var + eps) * gamma) + beta
-    (flax `nn.BatchNorm(dtype=...)`, `step_tpu/models/i3d.py:188-194`)."""
+    (flax `nn.BatchNorm(dtype=...)`, `step_tpu/models/i3d.py:188-194`).
+
+    `train=True` normalizes with the batch's statistics as flax does: mean
+    and E[x^2] - mean^2 (flax's fast variance, clamped at 0) reduced in
+    float32 over every axis but the channels, gradients flowing through
+    both. The running statistics are not touched in the forward: it keeps
+    the batch's (mean, biased variance) in `batch_stats`, and
+    `running_updates` gives flax's running update from them. The trainer
+    commits that update after the backward, so a forward that
+    `torch.utils.checkpoint` runs again leaves the same values, not a
+    second update."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -114,12 +141,21 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
         self._affine = {}           # scale_bias(), reused while the state holds
+        self.batch_stats = None     # (mean, var) of the last train-mode batch
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
         f32 = lambda t: t.to(torch.float32).reshape(shape)  # noqa: E731
-        mul = torch.rsqrt(f32(self.running_var) + BN_EPS) * f32(self.weight)
-        y = (x.to(torch.float32) - f32(self.running_mean)) * mul + f32(self.bias)
+        x32 = x.to(torch.float32)
+        if train:
+            dims = (0,) + tuple(range(2, x.dim()))
+            mean = x32.mean(dim=dims)
+            var = torch.clamp((x32 * x32).mean(dim=dims) - mean * mean, min=0.0)
+            self.batch_stats = (mean.detach(), var.detach())
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(f32(var) + BN_EPS) * f32(self.weight)
+        y = (x32 - f32(mean)) * mul + f32(self.bias)
         return y.to(x.dtype)
 
     def scale_bias(self):
@@ -133,6 +169,19 @@ class BatchNorm(nn.Module):
         state = (self.weight, self.bias, self.running_mean, self.running_var)
         make = lambda: bn_scale_bias(*state, BN_EPS)  # noqa: E731
         return make() if torch.is_grad_enabled() else derived(self._affine, state, make)
+
+
+@torch.no_grad()
+def running_updates(bns):
+    """flax's running update of the BatchNorms `bns` from their last
+    train-mode batch: (means, variances), each momentum * running +
+    (1 - momentum) * batch (the biased variance), in multi-tensor ops."""
+    def ema(running, batch):
+        return torch._foreach_add(torch._foreach_mul(running, BN_MOMENTUM),
+                                  torch._foreach_mul(batch, 1 - BN_MOMENTUM))
+
+    return (ema([b.running_mean for b in bns], [b.batch_stats[0] for b in bns]),
+            ema([b.running_var for b in bns], [b.batch_stats[1] for b in bns]))
 
 
 class Unit3D(nn.Module):
@@ -154,7 +203,15 @@ class Unit3D(nn.Module):
                              and self.stride == (1, 1, 1))
         self._kernel_weight = {}    # the conv kernel's weight layout, reused
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            if self.bn is None:
+                raise ValueError(
+                    "a BN-folded unit cannot train: folding (optimize_for_inference) "
+                    "replaces the BatchNorm and its statistics by a conv bias; "
+                    "train the unfolded tree and fold it afterwards")
+            x = conv3d_same(x, self.conv.weight, self.conv.bias, self.stride)
+            return F.relu(self.bn(x, train=True))
         if self.conv_bn_relu:
             return conv3x3x3_bn_relu(x, self.conv.weight, *self.bn.scale_bias(),
                                      weight_cache=self._kernel_weight)
@@ -199,18 +256,18 @@ class InceptionBlock(nn.Module):
         self.b3b = u(cin, c[5], (1, 1, 1))
         self.out_channels = c[0] + c[2] + c[4] + c[5]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c = self.channels
-        b3 = self.b3b(max_pool_3d(x, (3, 3, 3), (1, 1, 1)))
+        b3 = self.b3b(max_pool_3d(x, (3, 3, 3), (1, 1, 1)), train)
         if self.fused_inception:
-            y = self.b012(x)
+            y = self.b012(x, train)
             b0 = y[:, : c[0]]
             if self.fused_inception3:
-                return torch.cat([b0, self.b12(y[:, c[0]:]), b3], dim=1)
+                return torch.cat([b0, self.b12(y[:, c[0]:], train), b3], dim=1)
             b1, b2 = y[:, c[0]: c[0] + c[1]], y[:, c[0] + c[1]:]
         else:
-            b0, b1, b2 = self.b0(x), self.b1a(x), self.b2a(x)
-        return torch.cat([b0, self.b1b(b1), self.b2b(b2), b3], dim=1)
+            b0, b1, b2 = self.b0(x, train), self.b1a(x, train), self.b2a(x, train)
+        return torch.cat([b0, self.b1b(b1, train), self.b2b(b2, train), b3], dim=1)
 
 
 class I3DStem(nn.Module):
@@ -246,21 +303,21 @@ class I3DStem(nn.Module):
             raise ValueError(f"unknown backbone depth {depth!r}")
         self.depth = depth
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.depth == "tiny":
-            x = self.Conv3d_1a_7x7(x)
+            x = self.Conv3d_1a_7x7(x, train)
             x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))
-            x = self.Mixed_3b(x)
+            x = self.Mixed_3b(x, train)
             x = max_pool_3d(x, (3, 3, 3), (2, 2, 2))
-            return self.Mixed_4f(x)
-        x = self.Conv3d_1a_7x7(x)
+            return self.Mixed_4f(x, train)
+        x = self.Conv3d_1a_7x7(x, train)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))
-        x = self.Conv3d_2c_3x3(self.Conv3d_2b_1x1(x))
+        x = self.Conv3d_2c_3x3(self.Conv3d_2b_1x1(x, train), train)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))
-        x = self.Mixed_3c(self.Mixed_3b(x))
+        x = self.Mixed_3c(self.Mixed_3b(x, train), train)
         x = max_pool_3d(x, (3, 3, 3), (2, 2, 2))
         for name in ("Mixed_4b", "Mixed_4c", "Mixed_4d", "Mixed_4e", "Mixed_4f"):
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x
 
 
@@ -287,7 +344,7 @@ class I3DTail(nn.Module):
             raise ValueError(f"unknown backbone depth {depth!r}")
         self.out_channels = self.Mixed_5c.out_channels
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         for name in self.blocks:
-            x = getattr(self, name)(x)
+            x = getattr(self, name)(x, train)
         return x

@@ -4,6 +4,15 @@ Port of `step_tpu/models/nets.py`: `FeatureNet` (RGB, the I3D stem over
 the whole clip or, with `chunk_stem`, over each chunk alone, :32-81),
 `ContextNet` (:84-97) and `TwoBranchHead` with the "grid" regression head
 (:100-206).
+
+Training passes `train=True` down the backbone and the heads (train-mode
+BatchNorm, `models/i3d.py`). The head's dropouts (`step_tpu/models/nets.py:154, :196`)
+take keep-masks drawn beforehand by `draw_dropout_masks` from a
+`torch.Generator` the caller owns, so that a step body that
+`torch.utils.checkpoint` runs again applies the same masks: checkpoint
+restores only the default generators. The masks are Bernoulli draws with
+flax's rule (`keep = uniform < 1 - rate`, kept values divided by
+`1 - rate`), from torch's generator, so they are not JAX's masks.
 """
 
 from __future__ import annotations
@@ -21,6 +30,23 @@ REG_CHANNELS = 64     # 1x1x1 reduction before the regression Dense
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, layer.weight.to(x.dtype), layer.bias.to(x.dtype))
+
+
+def draw_dropout_masks(shapes, rate: float, generator: torch.Generator,
+                       device=None):
+    """Boolean keep-masks of the given shapes, each element kept with
+    probability 1 - `rate`, drawn from `generator` in order."""
+    return tuple(torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+                 for shape in shapes)
+
+
+def _dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.Tensor:
+    """flax's dropout with a given keep-mask: x / (1 - rate) where kept,
+    else 0; no mask, no dropout."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
 
 
 class FeatureNet(nn.Module):
@@ -44,10 +70,12 @@ class FeatureNet(nn.Module):
         self.out_channels = self.stem_rgb.out_channels
         self.chunks = num_chunks if chunk_stem else 1
 
-    def forward(self, x: torch.Tensor, chunks: int | None = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, chunks: int | None = None,
+                train: bool = False) -> torch.Tensor:
         """x `[B, T, H, W, 3]`, normalized; `chunks` overrides the number
         of independent chunks the clip folds into (1: the clip is one
-        chunk, as the streaming cache stems a single chunk)."""
+        chunk, as the streaming cache stems a single chunk); `train` runs
+        the stem's BatchNorms on the batch statistics."""
         B, T = x.shape[:2]
         k = self.chunks if chunks is None else chunks
         if T % k:
@@ -55,7 +83,7 @@ class FeatureNet(nn.Module):
         # The fold and the unfold are views of NDHWC memory, and so is the
         # NCDHW permute: the backbone runs in channels_last_3d order.
         x = x.reshape(B * k, T // k, *x.shape[2:]).permute(0, 4, 1, 2, 3)
-        feat = self.stem_rgb(x).permute(0, 2, 3, 4, 1).contiguous()
+        feat = self.stem_rgb(x, train).permute(0, 2, 3, 4, 1).contiguous()
         return feat.reshape(B, k * feat.shape[1], *feat.shape[2:])
 
 
@@ -76,18 +104,21 @@ class TwoBranchHead(nn.Module):
     """One refinement step's head.
 
     Classification: I3D tail → spatial mean → mean over the active feature
-    slices → (concat context) → logits. Regression: I3D tail → 1x1x1
-    reduction to `REG_CHANNELS` → ReLU → Dense(4) over the flattened 7x7
-    grid of each slice → linear temporal resize from T' to T frames.
+    slices → (concat context) → dropout → logits. Regression: I3D tail →
+    1x1x1 reduction to `REG_CHANNELS` → ReLU → dropout → Dense(4) over the
+    flattened 7x7 grid of each slice → linear temporal resize from T' to T
+    frames.
     """
 
     def __init__(self, cin: int, num_cls_outputs: int, num_frames: int,
                  pooled_size: int = 7, depth: str = "full",
                  bn_folded: bool = False, ctx_dim: int = 0,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
-                 fused_inception3: bool = False):
+                 fused_inception3: bool = False, dropout_rate: float = 0.3):
         super().__init__()
         self.num_frames = num_frames
+        self.pooled_size = pooled_size
+        self.dropout_rate = dropout_rate
         self.tail = I3DTail(cin, depth, bn_folded, fused_bn_relu,
                             fused_inception, fused_inception3)
         c = self.tail.out_channels
@@ -95,13 +126,23 @@ class TwoBranchHead(nn.Module):
         self.reg_reduce = nn.Conv3d(c, REG_CHANNELS, (1, 1, 1))
         self.reg = nn.Linear(pooled_size * pooled_size * REG_CHANNELS, 4)
 
+    def dropout_shapes(self, N: int, Tp: int):
+        """The shapes of the classification and regression dropout masks
+        for N pooled tubes of T' slices."""
+        return ((N, self.cls.in_features),
+                (N, Tp, self.pooled_size * self.pooled_size * REG_CHANNELS))
+
     def forward(self, pooled: torch.Tensor, ctx: torch.Tensor | None = None,
-                tprime_mask: torch.Tensor | None = None):
+                tprime_mask: torch.Tensor | None = None, train: bool = False,
+                keep_masks=None):
         """pooled `[N, T', P, P, C]` channels-last; ctx `[N, D]`;
         tprime_mask `[T']` → (cls_logits `[N, ncls]`, deltas `[N, T, 4]`),
-        both float32."""
+        both float32. `train` runs the tail's BatchNorms on the batch
+        statistics; `keep_masks`, the two masks of `dropout_shapes` (from
+        `draw_dropout_masks`), apply the dropouts."""
         N, Tp = pooled.shape[0], pooled.shape[1]
-        x = self.tail(pooled.permute(0, 4, 1, 2, 3))          # [N, C, T', P, P]
+        keep_cls, keep_reg = keep_masks if keep_masks is not None else (None, None)
+        x = self.tail(pooled.permute(0, 4, 1, 2, 3), train)   # [N, C, T', P, P]
 
         spatial = x.mean(dim=(3, 4))                            # [N, C, T']
         if tprime_mask is None:
@@ -112,13 +153,14 @@ class TwoBranchHead(nn.Module):
             cls_feat = torch.einsum("nct,t->nc", spatial, w)
         if ctx is not None:
             cls_feat = torch.cat([cls_feat, ctx.to(cls_feat.dtype)], dim=-1)
-        cls_logits = _linear(self.cls, cls_feat)
+        cls_logits = _linear(self.cls, _dropout(cls_feat, keep_cls, self.dropout_rate))
 
         r = F.relu(F.conv3d(x, self.reg_reduce.weight.to(x.dtype),
                             self.reg_reduce.bias.to(x.dtype)))
         # The JAX head flattens each slice's grid in (h, w, c) order, so the
         # channels move last before the reshape.
         r = r.permute(0, 2, 3, 4, 1).reshape(N, Tp, -1)
+        r = _dropout(r, keep_reg, self.dropout_rate)
         deltas = _linear(self.reg, r).to(torch.float32)        # [N, T', 4]
         # jax.image.resize "linear" == F.interpolate(align_corners=False).
         deltas = F.interpolate(deltas.transpose(1, 2), size=self.num_frames,

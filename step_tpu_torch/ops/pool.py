@@ -7,6 +7,11 @@ Inception b3-branch pool, which `models/i3d.py::max_pool_3d` takes when
 output is the max over the taps inside the tensor. Tensors are the
 backbone's: NCDHW, in `channels_last_3d` memory order.
 
+Under autograd (an input that requires a gradient) the pool goes through
+`ops/pool_grad.py::max_pool_3d_s1_sepgrad`, whose forward is this kernel
+on the card and whose backward credits every tied maximum, as the JAX
+package's default backward does.
+
 The TPU kernel's VMEM guard (`pool_pallas.py:67-77`, which sends the large
 28x28 Mixed_3 pools back to XLA) is not carried over: the CUDA kernel takes
 every shape.
@@ -24,26 +29,37 @@ def max_pool3x3_same_plain(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool3d(x, 3, 1, 1)
 
 
-def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
-    """3x3x3 / stride 1 / SAME max pool of an NCDHW tensor
-    (`max_pool3x3_same_plain`'s contract), bit for bit.
-
-    A CUDA tensor goes to the hand-written kernel (`csrc/pool3d.cu`), which
-    reads the channels-last view (`kernels.ndhwc`: a tensor not in
-    `channels_last_3d` order is copied into it first) and returns a
-    `channels_last_3d` tensor. A CPU tensor goes to the plain version.
-    `max_pool3x3_same.launches` counts kernel launches.
-    """
-    if x.device.type == "cpu":
-        return max_pool3x3_same_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"max_pool3x3_same: no kernel for device {x.device}")
+def max_pool3x3_kernel(x: torch.Tensor) -> torch.Tensor:
+    """Launch K5 (`csrc/pool3d.cu`) on a CUDA tensor and count the launch
+    in `max_pool3x3_same.launches`. The kernel reads the channels-last
+    view (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is
+    copied into it first) and returns a `channels_last_3d` tensor."""
     from step_tpu_torch import kernels
 
     out = kernels.empty_ncdhw(x.shape, x)
     kernels.max_pool3x3_forward(kernels.ndhwc(x), kernels.ndhwc(out))
     max_pool3x3_same.launches += 1
     return out
+
+
+def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
+    """3x3x3 / stride 1 / SAME max pool of an NCDHW tensor
+    (`max_pool3x3_same_plain`'s contract), bit for bit.
+
+    A CUDA tensor goes to the hand-written kernel (`max_pool3x3_kernel`),
+    a CPU tensor to the plain version; under autograd both go through
+    `pool_grad.max_pool_3d_s1_sepgrad`, so the result has a `grad_fn`.
+    `max_pool3x3_same.launches` counts kernel launches.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"max_pool3x3_same: no kernel for device {x.device}")
+    if torch.is_grad_enabled() and x.requires_grad:
+        from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
+
+        return max_pool_3d_s1_sepgrad(x, (3, 3, 3))
+    if x.device.type == "cpu":
+        return max_pool3x3_same_plain(x)
+    return max_pool3x3_kernel(x)
 
 
 max_pool3x3_same.launches = 0

@@ -13,6 +13,12 @@ inside is clamped to [0, limit - 1].
 
 Layout is channels-last: features `[B, T', H, W, C]`, tubes `[B, N, T, 4]`,
 output `[B, N, T', pooled, pooled, C]`.
+
+Under autograd `tube_roi_align` is a `torch.autograd.Function`, the port
+of `_tube_roi_align_vjp` (`step_tpu/ops/roi_align_pallas.py:130-159`):
+the forward is the kernel on the card (the plain version on the CPU), the
+backward is autograd through `tube_roi_align_plain`, as the JAX package's
+backward is autodiff of its jnp reference.
 """
 
 from __future__ import annotations
@@ -121,16 +127,10 @@ def tube_roi_align_plain(features: torch.Tensor, tubes: torch.Tensor,
     return (out / count).to(features.dtype)
 
 
-def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
-                   pooled_size: int = 7, spatial_scale: float = 1.0 / 16.0,
-                   sampling_ratio: int = 2) -> torch.Tensor:
-    """Tube ROI-align (`tube_roi_align_plain`'s contract).
-
-    A CUDA tensor goes to the hand-written kernel (`csrc/roi_align.cu`,
-    which takes the fixed and the adaptive sampling grid, and picks each
-    slice's frame of the tubes itself) and a CPU tensor to the plain
-    version. `tube_roi_align.launches` counts kernel launches.
-    """
+def _tube_roi_align_forward(features: torch.Tensor, tubes: torch.Tensor,
+                            pooled_size: int, spatial_scale: float,
+                            sampling_ratio: int) -> torch.Tensor:
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if features.device.type == "cpu":
         return tube_roi_align_plain(features, tubes, pooled_size,
                                     spatial_scale, sampling_ratio)
@@ -150,6 +150,53 @@ def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
                                    out, spatial_scale, sampling_ratio)
     tube_roi_align.launches += 1
     return out
+
+
+class _TubeRoiAlign(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, tubes, pooled_size, spatial_scale, sampling_ratio):
+        ctx.args = (pooled_size, spatial_scale, sampling_ratio)
+        ctx.save_for_backward(features, tubes)
+        return _tube_roi_align_forward(features, tubes, *ctx.args)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, tubes = ctx.saved_tensors
+        return (*tube_roi_align_backward(features, tubes, g, *ctx.args,
+                                         need=ctx.needs_input_grad[:2]),
+                None, None, None)
+
+
+def tube_roi_align_backward(features: torch.Tensor, tubes: torch.Tensor,
+                            g: torch.Tensor, pooled_size: int, spatial_scale: float,
+                            sampling_ratio: int, need=(True, False)):
+    """(dfeatures, dtubes) for the cotangent g of the output, by autograd
+    through `tube_roi_align_plain`; each is None where `need` says so."""
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip((features, tubes), need)]
+        out = tube_roi_align_plain(*inputs, pooled_size, spatial_scale, sampling_ratio)
+        grads = iter(torch.autograd.grad(out, [t for t, n in zip(inputs, need) if n], g))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
+                   pooled_size: int = 7, spatial_scale: float = 1.0 / 16.0,
+                   sampling_ratio: int = 2) -> torch.Tensor:
+    """Tube ROI-align (`tube_roi_align_plain`'s contract).
+
+    A CUDA tensor goes to the hand-written kernel (`csrc/roi_align.cu`,
+    which takes the fixed and the adaptive sampling grid, and picks each
+    slice's frame of the tubes itself) and a CPU tensor to the plain
+    version. When an input requires a gradient, the call goes through
+    `_TubeRoiAlign`: the same forward, and autograd through the plain
+    version backward (`dfeatures`, and `dtubes` when the tubes require it).
+    `tube_roi_align.launches` counts kernel launches.
+    """
+    if torch.is_grad_enabled() and (features.requires_grad or tubes.requires_grad):
+        return _TubeRoiAlign.apply(features, tubes, pooled_size, spatial_scale,
+                                   sampling_ratio)
+    return _tube_roi_align_forward(features, tubes, pooled_size, spatial_scale,
+                                   sampling_ratio)
 
 
 tube_roi_align.launches = 0

@@ -1,6 +1,7 @@
-"""Where the device time of one serving request goes, on the card.
+"""Where the device time of one serving request or training step goes,
+on the card.
 
-    python3 -m step_tpu_torch.profile_request [--path main|kernel|video|stream]
+    python3 -m step_tpu_torch.profile_request [--path main|kernel|video|stream|train]
         [--batch 8] [--requests 10] [--out profile.json]
 
 Builds the detector at full width and depth with seeded weights (seed 0),
@@ -16,10 +17,15 @@ drives:
           chunk apart, through `detect_video` (tiling_stride 6), linking
           included;
   stream  the same video through `detect_video_stream_batched` with chunk
-          stems (`chunk_stem=True`), 16 windows a refinement batch.
+          stems (`chunk_stem=True`), 16 windows a refinement batch;
+  train   one `train_step` of `ucf_3step` (the training init, float32
+          weights, bf16 compute, remat "dots", AdamW) on `--batch`
+          synthetic uint8 clips already on the card.
 
 A request of `main` and `kernel` uploads `--batch` uint8 clips, one of
-`video` and `stream` a uint8 video; then it detects. The script serves two
+`video` and `stream` a uint8 video; then it detects. For `train` it also
+prints the device time under each plain backward (the stride-1 pool's and
+ROI-align's autograd Functions, children included). The script serves two
 warm-up requests, times `--requests` more (host clock around each
 synchronized request) and prints each and their median, then profiles one
 more with `torch.profiler` and prints that request's wall time (the
@@ -33,6 +39,7 @@ name. Needs a CUDA device; without one it exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
@@ -70,7 +77,12 @@ def build(path: str, dev: torch.device):
     from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.utils.init import init_detector_
 
-    cfg = PRESETS["ucf_3step" if path in ("main", "kernel") else "streaming"]
+    cfg = PRESETS["ucf_3step" if path in ("main", "kernel", "train") else "streaming"]
+    if path == "train":
+        from step_tpu_torch.train.trainer import create_train_state
+
+        cfg = cfg.replace(dataset="synthetic", warmup_steps=2, total_steps=1000)
+        return cfg, create_train_state(cfg, 0, device=dev)
     cfg = cfg.replace(chunk_stem=path == "stream")
     seeded = init_detector_(STEPDetector(cfg).eval(), 0).state_dict()
     if path == "kernel":
@@ -94,6 +106,19 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
 
     rng = np.random.RandomState(0)
     c, S = cfg.frames_per_chunk, cfg.image_size
+    if path == "train":
+        from step_tpu_torch.data.pipeline import build_model_batch
+        from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+        from step_tpu_torch.train.trainer import batch_to_device, train_step
+
+        cfg = cfg.replace(batch_size=batch)
+        syn = SyntheticConfig(image_size=S, num_frames=cfg.total_frames,
+                              num_classes=cfg.num_classes, max_boxes=4)
+        seeds = iter(range(0, 10 ** 6, batch))
+        return (lambda b: train_step(model, b, cfg),
+                lambda: batch_to_device(build_model_batch(
+                    make_batch(next(seeds), batch, syn), cfg, train=True,
+                    emit_uint8=True), dev))
     if path in ("main", "kernel"):
         props, pmask = STEPDetector.initial_proposals(cfg, batch, device=dev)
         shape = (batch, cfg.total_frames, S, S, 3)
@@ -115,7 +140,7 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("main", "kernel", "video", "stream"),
+    ap.add_argument("--path", choices=("main", "kernel", "video", "stream", "train"),
                     default="main")
     ap.add_argument("--batch", type=int, default=8,
                     help="clips a request (main, kernel) or chunks a video (video, stream)")
@@ -133,7 +158,7 @@ def main(argv=None) -> int:
     run, make = request_fn(args.path, cfg, model, args.batch, dev)
     inputs = [make() for _ in range(3)]
     request_ms = []
-    with torch.no_grad():
+    with torch.no_grad() if args.path != "train" else contextlib.nullcontext():
         for x in inputs[:2]:
             run(x)
         for i in range(args.requests):
@@ -157,6 +182,15 @@ def main(argv=None) -> int:
             ms, n = kernels.get(evt.key, (0.0, 0))
             kernels[evt.key] = (ms + us / 1e3, n + evt.count)
     device_ms = sum(ms for ms, _ in kernels.values())
+    backwards = {}
+    for evt in prof.key_averages():
+        for fn in ("_MaxPoolS1SepGradBackward", "_TubeRoiAlignBackward"):
+            if fn in evt.key and evt.device_type == torch.autograd.DeviceType.CPU:
+                us = getattr(evt, "device_time_total", None)
+                if us is None:
+                    us = evt.cuda_time_total
+                ms, n = backwards.get(fn, (0.0, 0))
+                backwards[fn] = (ms + us / 1e3, n + evt.count)
     if device_ms == 0.0:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
@@ -171,6 +205,7 @@ def main(argv=None) -> int:
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "kernels": sum(n for _, n in kernels.values()),
+        "backwards": {k: {"ms": ms, "calls": n} for k, (ms, n) in backwards.items()},
         "layers": {k: {"ms": ms, "calls": n, "share": ms / device_ms}
                    for k, (ms, n) in sorted(layers.items(), key=lambda kv: -kv[1][0])},
         "top": [{"name": k[:120], "ms": ms, "calls": n}
@@ -185,6 +220,8 @@ def main(argv=None) -> int:
           f"{result['kernels']} kernels")
     for layer, v in result["layers"].items():
         print(f"  {v['ms']:9.3f} ms {v['share']:6.1%} {v['calls']:5d}  {layer}")
+    for fn, v in result["backwards"].items():
+        print(f"  {v['ms']:9.3f} ms        {v['calls']:5d}  under {fn} (children included)")
     print("  heaviest kernels:")
     for k in result["top"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}  {k['name']}")

@@ -1,0 +1,175 @@
+"""The epoch-level training loop.
+
+Port of `step_tpu/train/fit.py` for one card: iterate the loader, run
+`train_step`, log the metrics, checkpoint every `ckpt_every` steps and at
+the end, resume exactly mid-epoch, and on SIGTERM or SIGINT write a last
+checkpoint and return. The step's metrics stay on the card until a log
+window closes (`MetricsLogger.print_every` steps), so the host runs ahead
+of the card between windows. Not ported yet: `pretrained_i3d` (it waits
+for the torch-I3D checkpoint reader of `models/convert.py`) and the
+`mesh` argument (data parallelism, ROADMAP.md M9).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from step_tpu_torch.config import StepConfig
+from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.train.trainer import (TrainState, batch_to_device,
+                                          create_train_state, resolve_device,
+                                          train_step)
+from step_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+
+
+class MetricsLogger:
+    """Console and JSONL metrics (`<log_dir>/metrics.jsonl`, one record a
+    step)."""
+
+    def __init__(self, log_dir: Optional[str] = None, print_every: int = 20):
+        self.print_every = print_every
+        self.jsonl = None
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: dict, extra: Optional[dict] = None):
+        record = {"step": step}
+        for k, v in metrics.items():
+            arr = np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+            record[k] = arr.tolist() if arr.ndim else float(arr)
+        record.update(extra or {})
+        if self.jsonl:
+            self.jsonl.write(json.dumps(record) + "\n")
+            self.jsonl.flush()
+        if step % self.print_every == 0:
+            print(f"step {step}: loss={record.get('loss', float('nan')):.4f} "
+                  f"clips/s={record.get('clips_per_sec', 0.0):.1f}", flush=True)
+
+    def close(self):
+        if self.jsonl:
+            self.jsonl.close()
+
+
+def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = None,
+        log_dir: Optional[str] = None, resume: bool = False, ckpt_every: int = 500,
+        model: Optional[STEPDetector] = None, eval_fn: Optional[Callable] = None,
+        eval_every_epochs: int = 1, seed: int = 0, handle_signals: bool = True,
+        prefetch_upload: bool = False, device="cuda",
+        pretrained_i3d: Optional[str] = None) -> TrainState:
+    """Train `cfg` on `loader` (`data.loader.DataLoader`) for `num_epochs`
+    or until `cfg.total_steps`, on `device` (the card unless the caller
+    asks for the CPU). `model` is trained as given, else a new detector
+    gets the training init from `seed`. With `resume` and a checkpoint in
+    `ckpt_dir` the run continues from it. `eval_fn(state, epoch)` runs
+    every `eval_every_epochs` epochs. `prefetch_upload` copies the next
+    batch to the card (pinned, non-blocking) as soon as the current step
+    is issued. `pretrained_i3d` (a Kinetics I3D checkpoint for the
+    backbone) raises until its reader is ported. Returns the final state."""
+    if pretrained_i3d:
+        raise NotImplementedError(
+            "pretrained_i3d needs models/convert.py's torch-I3D checkpoint reader, "
+            "not ported yet: ROADMAP.md M8")
+    device = resolve_device(device)
+    state = create_train_state(cfg, seed, model, device)
+    start_epoch, start_batch = 0, 0
+    if resume and ckpt_dir:
+        try:
+            state, data_iter = restore_checkpoint(ckpt_dir, state)
+            start_epoch, start_batch = data_iter["epoch"], data_iter["batch_index"]
+            print(f"resumed from step {state.step} (epoch {start_epoch}, "
+                  f"batch {start_batch})", flush=True)
+        except FileNotFoundError:
+            pass
+    logger = MetricsLogger(log_dir)
+    stop = {"signal": None}
+    previous = {}
+    if handle_signals and ckpt_dir:
+        def on_signal(signum, frame):
+            if stop["signal"] is not None:
+                # a second signal: the loop is stuck short of a checkpoint;
+                # restore the default action and let it act
+                signal.signal(signum, previous.get(signum, signal.SIG_DFL))
+                signal.raise_signal(signum)
+                return
+            stop["signal"] = signum
+
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                previous[sig] = signal.signal(sig, on_signal)
+            except ValueError:          # not the main thread
+                break
+
+    pending: list = []
+    t_window = time.time()
+
+    def flush():
+        # One host sync a window: the newest loss, read as a value, ends it.
+        nonlocal t_window
+        if pending:
+            float(pending[-1][1]["loss"])
+            cps = len(pending) * cfg.batch_size / max(time.time() - t_window, 1e-6)
+            for s, m, extra in pending:
+                logger.log(s, m, dict(extra, clips_per_sec=cps))
+            pending.clear()
+        t_window = time.time()
+
+    def batches():
+        for epoch in range(start_epoch, num_epochs):
+            first = start_batch if epoch == start_epoch else 0
+            for bi, batch in enumerate(loader.epoch(epoch, first), first):
+                yield epoch, bi, batch
+
+    def upload(item):
+        return batch_to_device(item[2], device, non_blocking=prefetch_upload)
+
+    def epoch_end(epoch):
+        flush()
+        if eval_fn is not None and (epoch + 1) % eval_every_epochs == 0:
+            print(f"epoch {epoch} eval: {eval_fn(state, epoch)}", flush=True)
+
+    gen = batches()
+    try:
+        nxt = next(gen, None)
+        nxt_dev = None
+        while nxt is not None:
+            epoch, bi, _ = nxt
+            device_batch = nxt_dev if nxt_dev is not None else upload(nxt)
+            state, metrics = train_step(state, device_batch, cfg)
+            nxt = next(gen, None)
+            nxt_dev = upload(nxt) if (nxt is not None and prefetch_upload) else None
+            pending.append((state.step, metrics, {"epoch": epoch, "batch_index": bi}))
+            done = state.step >= cfg.total_steps
+            preempted = stop["signal"] is not None
+            if len(pending) >= logger.print_every or done or preempted:
+                flush()
+            if preempted:
+                save_checkpoint(ckpt_dir, state, {"epoch": epoch, "batch_index": bi + 1})
+                print(f"signal {stop['signal']}: checkpointed at step {state.step} "
+                      f"(epoch {epoch}, batch {bi + 1}); resume with resume=True",
+                      flush=True)
+                return state
+            if ckpt_dir and state.step % ckpt_every == 0:
+                flush()
+                save_checkpoint(ckpt_dir, state, {"epoch": epoch, "batch_index": bi + 1})
+            if done:
+                epoch_end(epoch)
+                break
+            if nxt is None or nxt[0] != epoch:
+                epoch_end(epoch)
+        flush()
+        if ckpt_dir:
+            save_checkpoint(ckpt_dir, state, {"epoch": num_epochs, "batch_index": 0})
+    finally:
+        gen.close()                     # stops the loader's prefetch thread
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+        logger.close()
+    return state

@@ -1,0 +1,146 @@
+"""Train on the synthetic oracle, then measure held-out frame-mAP.
+
+Port of `scripts/train_eval_synth.py`'s baseline arm (no `--set`, no
+video evaluation, no saved variables): a `StepConfig` for the synthetic
+dataset (full I3D depth, `--image-size` px, `--classes` classes, two
+actors at most) trains `--steps` steps on fresh synthetic clips each step
+(clip seeds `seed * 1000 + step * batch + i`, never repeated, as the JAX
+script draws them; built ahead by the port's `DataLoader` threads), then
+`detect_clip`
+runs on `--eval-clips` held-out clips (seeds from 10,000,000) and
+`eval/detection_metrics.py::frame_map` scores them at IoU 0.5 and 0.2.
+Prints one JSON line.
+
+    python -m step_tpu_torch.train_eval_synth --steps 700 --batch 8 \\
+        --image-size 112 --classes 4 --eval-clips 48
+
+It runs on the card; `--device cpu` runs it on the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+EVAL_SEED = 10_000_000
+
+
+class SyntheticClips:
+    """A dataset of synthetic clips (`data/synthetic.py`): clip i is drawn
+    from seed `seed + i`, so batch k of an unshuffled loader is
+    `make_batch(seed + k * batch, batch)`."""
+
+    def __init__(self, syn, n: int, seed: int):
+        self.syn, self.n, self.seed = syn, n, seed
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        from step_tpu_torch.data.synthetic import make_clip
+
+        return make_clip(self.seed + i, self.syn)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--steps", type=int, default=700)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--image-size", type=int, default=112)
+    p.add_argument("--classes", type=int, default=4)
+    p.add_argument("--eval-clips", type=int, default=48)
+    p.add_argument("--eval-batch", type=int, default=8)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def synth_config(args):
+    """The JAX script's configuration for these arguments."""
+    from step_tpu_torch.config import StepConfig
+
+    return StepConfig(dataset="synthetic", num_classes=args.classes,
+                      image_size=args.image_size, batch_size=args.batch,
+                      learning_rate=args.lr,
+                      warmup_steps=min(100, args.steps // 5),
+                      total_steps=args.steps, max_gt_tubes=2)
+
+
+def evaluate(model, cfg, syn, eval_clips: int, eval_batch: int, device) -> dict:
+    """Held-out frame-mAP@0.5 and @0.2 of `model` on synthetic clips."""
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import make_batch
+    from step_tpu_torch.eval.detection_metrics import frame_map
+    from step_tpu_torch.inference import detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+
+    detections, frame_gt = [], []
+    T = cfg.total_frames
+    for start in range(0, eval_clips, eval_batch):
+        n = min(eval_batch, eval_clips - start)
+        raw = make_batch(EVAL_SEED + start, n, syn)
+        b = build_model_batch(raw, cfg, train=False)
+        props, pmask = STEPDetector.initial_proposals(cfg, n, device=device)
+        out = detect_clip(model, torch.from_numpy(b["rgb"]).to(device), props, pmask)
+        boxes = out["frame_boxes"].float().cpu().numpy()
+        scores = out["frame_scores"].float().cpu().numpy()
+        mask = out["frame_mask"].cpu().numpy()
+        for bi in range(n):
+            vid = start + bi
+            for g in range(raw["gt_mask"].shape[1]):
+                if raw["gt_mask"][bi, g] <= 0:
+                    continue
+                cls = int(raw["gt_labels"][bi, g])
+                for t in range(T):
+                    frame_gt.append(((vid, t), cls, raw["gt_tubes"][bi, g, t]))
+            keep = np.argwhere((mask[bi] > 0) & (scores[bi] > cfg.score_thresh))
+            for t, c, k in keep:
+                detections.append(((vid, int(t)), int(c), float(scores[bi, t, c, k]),
+                                   boxes[bi, t, c, k]))
+    return {f"frame_mAP@{thr}": round(float(frame_map(detections, frame_gt,
+                                                       cfg.num_classes, thr)["mAP"]), 4)
+            for thr in (0.5, 0.2)}
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.synthetic import SyntheticConfig
+    from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              resolve_device, train_step)
+
+    device = resolve_device(args.device)
+    cfg = synth_config(args)
+    syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=cfg.max_gt_tubes)
+    state = create_train_state(cfg, args.seed, device=device)
+    loader = DataLoader(SyntheticClips(syn, args.steps * cfg.batch_size, args.seed * 1000),
+                        cfg, shuffle=False, seed=args.seed)
+    t0 = time.time()
+    losses = []
+    for step, b in enumerate(loader.epoch(0)):
+        state, metrics = train_step(state, batch_to_device(b, device), cfg)
+        if step % 50 == 0 or step == args.steps - 1:
+            losses.append(round(float(metrics["loss"]), 3))
+            print(f"step {step}: loss={losses[-1]}", flush=True)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    train_s = time.time() - t0
+    state.model.eval()
+    result = evaluate(state.model, cfg, syn, args.eval_clips, args.eval_batch, device)
+    print(json.dumps({
+        "steps": args.steps, "batch": cfg.batch_size, "image_size": cfg.image_size,
+        "num_classes": cfg.num_classes, **result, "loss_curve": losses,
+        "train_s": round(train_s, 1),
+        "device": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                   else "cpu"),
+    }))
+
+
+if __name__ == "__main__":
+    main()

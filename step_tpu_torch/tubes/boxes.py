@@ -1,4 +1,4 @@
-"""Per-frame box math: IoU, delta decoding, clipping.
+"""Per-frame box math: IoU, delta encoding and decoding, clipping.
 
 Port of `step_tpu/tubes/boxes.py`. Boxes are `[x1, y1, x2, y2]` in pixels;
 every function broadcasts over leading axes.
@@ -30,12 +30,39 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=EPS)
 
 
+def elementwise_iou(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU between matching boxes of two `[..., 4]` tensors → `[...]`."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = torch.clamp(rb - lt, min=0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    union = box_area(a) + box_area(b) - inter
+    return inter / torch.clamp(union, min=EPS)
+
+
 def _to_cxcywh(boxes: torch.Tensor):
     cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
     cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
     w = torch.clamp(boxes[..., 2] - boxes[..., 0], min=EPS)
     h = torch.clamp(boxes[..., 3] - boxes[..., 1], min=EPS)
     return cx, cy, w, h
+
+
+def encode_boxes(boxes: torch.Tensor, anchors: torch.Tensor,
+                 variances=(0.1, 0.2)) -> torch.Tensor:
+    """Encode target `boxes` relative to `anchors` → deltas `[..., 4]`.
+
+    Anchor extents clamp to 1 px, so a force-matched proposal that
+    degenerated to zero width or height gives a bounded target."""
+    bcx, bcy, bw, bh = _to_cxcywh(boxes)
+    acx, acy, aw, ah = _to_cxcywh(anchors)
+    aw = torch.clamp(aw, min=1.0)
+    ah = torch.clamp(ah, min=1.0)
+    dx = (bcx - acx) / (aw * variances[0])
+    dy = (bcy - acy) / (ah * variances[0])
+    dw = torch.log(bw / aw) / variances[1]
+    dh = torch.log(bh / ah) / variances[1]
+    return torch.stack([dx, dy, dw, dh], dim=-1)
 
 
 def decode_boxes(deltas: torch.Tensor, anchors: torch.Tensor,

@@ -1,4 +1,5 @@
-"""Tube-level operations: temporal extension masks, extrapolation, validity.
+"""Tube-level operations: tube IoU, temporal extension masks,
+extrapolation, validity.
 
 Port of `step_tpu/tubes/tube_ops.py`. Tubes are `[..., P, T, 4]`; frame
 masks are `[T]` floats marking the frames whose boxes are real.
@@ -8,9 +9,26 @@ from __future__ import annotations
 
 import torch
 
-from step_tpu_torch.tubes.boxes import clip_boxes
+from step_tpu_torch.tubes.boxes import clip_boxes, elementwise_iou
 
 EPS = 1e-8
+
+
+def tube_iou(tubes_a: torch.Tensor, tubes_b: torch.Tensor,
+             frame_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean per-frame IoU between tube sets `[..., P, T, 4]` and
+    `[..., G, T, 4]` → `[..., P, G]`, over the frames `frame_mask` (`[T]` or
+    `[..., T]`) marks, or over all frames."""
+    per_frame = elementwise_iou(tubes_a[..., :, None, :, :],
+                                tubes_b[..., None, :, :, :])     # [..., P, G, T]
+    if frame_mask is None:
+        return per_frame.mean(dim=-1)
+    w = frame_mask.to(per_frame.dtype)
+    if w.dim() > 1:
+        w = w[..., None, None, :]
+    num = (per_frame * w).sum(dim=-1)
+    den = torch.clamp(w.sum(dim=-1), min=EPS)
+    return num / den
 
 
 def valid_tube_mask(tubes: torch.Tensor, min_size: float = 1.0) -> torch.Tensor:

@@ -1,0 +1,77 @@
+"""Checkpoint save and restore of a training run.
+
+Port of `step_tpu/utils/checkpoint.py`, in torch's own format in place of
+orbax: one file `<step>.pt` a checkpoint in `ckpt_dir`, holding the
+model's parameters and BatchNorm statistics, the optimizer state, the
+step, the dropout generator's state and the data iterator's position
+`{epoch, batch_index}` (the loader's per-epoch order is seeded, so `fit`
+resumes mid-epoch without replaying a batch). The newest `max_to_keep`
+are kept. Reading the JAX package's orbax checkpoints is not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from step_tpu_torch.train.trainer import TrainState
+
+
+def _normalize_iter_state(data_iter_state: Optional[dict]) -> dict:
+    out = {"epoch": 0, "batch_index": 0}
+    for k in out:
+        if data_iter_state and k in data_iter_state:
+            out[k] = int(data_iter_state[k])
+    return out
+
+
+def checkpoint_steps(ckpt_dir: str) -> list[int]:
+    """The steps of the checkpoints in `ckpt_dir`, oldest first."""
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(int(f[:-3]) for f in os.listdir(ckpt_dir)
+                  if f.endswith(".pt") and f[:-3].isdigit())
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState,
+                    data_iter_state: Optional[dict] = None,
+                    max_to_keep: int = 3) -> int:
+    """Write the state at its step (atomically: a temporary file renamed
+    into place), then delete all but the newest `max_to_keep`. Returns the
+    step saved."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    payload = {
+        "step": state.step,
+        "model": state.model.state_dict(),
+        "opt_state": state.opt_state,
+        "generator": state.generator.get_state(),
+        "data_iter": _normalize_iter_state(data_iter_state),
+    }
+    path = os.path.join(ckpt_dir, f"{state.step}.pt")
+    torch.save(payload, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    for step in checkpoint_steps(ckpt_dir)[:-max_to_keep]:
+        os.remove(os.path.join(ckpt_dir, f"{step}.pt"))
+    return state.step
+
+
+def restore_checkpoint(ckpt_dir: str, state: TrainState,
+                       step: Optional[int] = None):
+    """Load the checkpoint at `step` (the newest by default) into `state`,
+    on the model's device → (state, data_iter_state). Raises
+    FileNotFoundError if there is none."""
+    steps = checkpoint_steps(ckpt_dir)
+    if step is None and steps:
+        step = steps[-1]
+    if step is None or step not in steps:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}"
+                                + ("" if step is None else f" at step {step}"))
+    device = next(state.model.parameters()).device
+    payload = torch.load(os.path.join(ckpt_dir, f"{step}.pt"), map_location=device)
+    state.model.load_state_dict(payload["model"])
+    state.opt_state = payload["opt_state"]
+    state.generator.set_state(payload["generator"].cpu())
+    state.step = int(payload["step"])
+    return state, payload["data_iter"]

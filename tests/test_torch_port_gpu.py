@@ -649,3 +649,87 @@ def test_chunk_stem_kernel_path_on_card_matches_cpu(cuda, monkeypatch):
     torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
     torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
                                rtol=0, atol=1e-4)
+
+
+# ---- training: K2 and K5 under autograd ----------------------------------
+
+@pytest.mark.parametrize("window,stride", [((3, 3, 3), (1, 1, 1)), ((1, 3, 3), (1, 2, 2)),
+                                           ((3, 3, 3), (2, 2, 2))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_backward_on_card_equals_cpu_on_ties(cuda, window, stride, dtype):
+    """Integer-valued inputs, so windows tie: the stride-1 pool's Function
+    (K5 forward, shift-and-compare backward) and the strided pools
+    (PyTorch's backward) give the CPU's bits, forward and backward."""
+    from step_tpu_torch.models.i3d import max_pool_3d
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randint(0, 3, (2, 40, 5, 9, 11), generator=gen).to(dtype)
+    g = torch.randint(-3, 4, max_pool_3d(x, window, stride).shape, generator=gen).to(dtype)
+    out = []
+    for dev in (cuda, "cpu"):
+        xd = x.to(dev).contiguous(memory_format=torch.channels_last_3d).requires_grad_()
+        y = max_pool_3d(xd, window, stride)
+        assert y.grad_fn is not None
+        y.backward(g.to(dev))
+        out.append((y.detach().cpu(), xd.grad.cpu()))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_roi_align_under_autograd_on_card_matches_plain(cuda):
+    """K2's Function against autograd through the plain version on the
+    card: the output within 1e-4, dfeatures and dtubes equal (the same
+    plain backward)."""
+    rng = np.random.RandomState(6)
+    feat = torch.from_numpy(rng.randn(2, 3, 9, 9, 24).astype(np.float32)).to(cuda)
+    tubes = torch.from_numpy(rng.uniform(-10, 140, (2, 5, 6, 4)).astype(np.float32))
+    # corners sorted: [x1, y1] <= [x2, y2]
+    tubes = torch.sort(tubes.view(2, 5, 6, 2, 2), dim=-2).values.reshape(2, 5, 6, 4)
+    tubes = tubes.to(cuda)
+    g = torch.from_numpy(rng.randn(2, 5, 3, 7, 7, 24).astype(np.float32)).to(cuda)
+    grads = []
+    for fn in (tube_roi_align, tube_roi_align_plain):
+        f, t = feat.clone().requires_grad_(), tubes.clone().requires_grad_()
+        out = fn(f, t, 7, 1 / 16, 2)
+        out.backward(g)
+        grads.append((out.detach(), f.grad, t.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_tiny_train_step_on_card_matches_cpu(cuda):
+    """Two float32 AdamW steps of the tiny detector (dropout 0) on the card
+    against the CPU: losses within 1e-5, BatchNorm statistics within 1e-4,
+    weights within 2 lr and at most 0.1% of them beyond 1e-5."""
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              make_schedule, train_step)
+
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
+                                       image_size=64, compute_dtype="float32",
+                                       batch_size=2, dropout_rate=0.0, warmup_steps=2,
+                                       max_gt_tubes=2)
+    syn = SyntheticConfig(image_size=64, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=2)
+    batch = build_model_batch(make_batch(3, 2, syn), cfg, train=True)
+    runs = []
+    for dev in (cuda, "cpu"):
+        state = create_train_state(cfg, seed=2, device=dev)
+        b = batch_to_device(batch, dev)
+        losses = [float(train_step(state, b, cfg)[1]["loss"]) for _ in range(2)]
+        runs.append((losses, {k: v.cpu() for k, v in state.model.state_dict().items()}))
+    (l_gpu, sd_gpu), (l_cpu, sd_cpu) = runs
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    lr = make_schedule(cfg)(1)
+    far = total = 0
+    for k, v in sd_cpu.items():
+        d = (sd_gpu[k] - v).abs()
+        if "running_" in k:
+            assert float(d.max()) <= 1e-4, k
+            continue
+        assert float(d.max()) <= 2 * lr * (1 + 1e-3), k
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total
