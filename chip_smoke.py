@@ -94,6 +94,30 @@ Phases, each fatal on failure (exit code 1, no result line):
      weight within 2 lr and at most 0.1% of them beyond 1e-5 (Adam turns
      a gradient at the level of float noise into a step of either sign).
 
+ 16. the UCF101-24 evaluation path (`eval_phases`): `evaluate_ucf` on
+     `ucf_3step` at full width on the main path's tree (BN folded, bf16,
+     the seeded weights, score threshold 0), on `MemoryUCF`: 4 synthetic
+     oracle videos of 60 frames held in memory with the UCF reader's
+     protocol and a native resolution of 240x320, so boxes scale back; with
+     host linking, then `device_linking=True`. Each result holds every key,
+     each mAP in [0, 1] or NaN, and detections; K1 and K2 launched, every
+     K1 and K2 call recorded and held against its plain version on its own
+     inputs (K1 by raw bits), and, against the `detect_clip` calls counted
+     in the run, K1 launched once and K2 `num_steps` times a detection
+     batch; the phase timings printed with the card's name and power limit.
+     Then a tiny float32 detector on the card against the same on the CPU:
+     each linker's tubes (`link_frame_detections` after
+     `collect_detections`, and `collect_video_tubes`) matched one to one,
+     same frames, boxes within 5e-3 px of 240x320, scores within 1e-4; and
+     its `evaluate_ucf`, both linkers: equal detection counts, mAPs within
+     1e-3;
+ 17. the command lines on the card: a 4-video UCF101-24 layout on disk
+     (`write_ucf_layout`, 36 frames at 224 px), `cli.train` for 4 steps at
+     full width, B=2, with its in-training evaluation, then `cli.test` on
+     that checkpoint with `--optimized` and with `--device-linking`
+     (score threshold 0): the printed keys, the decoder, the dump, and K1
+     and K2 launched in each (K5 too in training).
+
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
 its launcher on preallocated outputs captured in a CUDA graph and replayed
@@ -114,7 +138,9 @@ and 13 (counts set to 0 just before each path and read just after),
 launches recorded there, the max error against the plain version, and the
 device, plain and bound times, and `train_launches`, its launches in one
 training step of phase 14 (K2 and K5 also `train_backward_ms`, the device
-time of their plain backward). The last is
+time of their plain backward), and `eval_launches`, its launches on each
+run of phases 16 and 17 (K1 and K2 also `eval_launches_per_batch` and
+`eval_shapes`, as `video_shapes`). The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -152,6 +178,15 @@ STREAM_SCORE_TOL, STREAM_TUBE_TOL = 1e-4, 1e-3   # float32, TF32 off
 # The training phases: B=8 clips at full width, 12 fit() steps.
 TRAIN_BATCH, TRAIN_STEPS = 8, 12
 LINK_VALUE_TOL = 1e-5
+# The evaluation phases: 4 synthetic videos of 60 frames at a native
+# 240x320 (10 windows each); the tiny card-vs-CPU evaluation's tubes
+# matched within EVAL_TUBE_TOL and EVAL_SCORE_TOL and its mAPs within 1e-3; the CLIs on 4 on-disk videos of 36 frames, 4 training steps at B=2.
+EVAL_VIDEOS, EVAL_FRAMES, EVAL_RESOLUTION = 4, 60, (240, 320)
+EVAL_MAP_TOL = 1e-3
+# phase 5's 1e-3 px at 64 px, in the 240x320 native pixels (x5), and its
+# 1e-4 of score
+EVAL_TUBE_TOL, EVAL_SCORE_TOL = 5e-3, 1e-4
+CLI_FRAMES, CLI_STEPS = 36, 4
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -556,17 +591,41 @@ def recorded(fn, key, keep: bool = False):
         return got
 
     rec.launches = 0
+    try:
+        with swapped(fn, rec):
+            yield calls
+    finally:
+        fn.launches += rec.launches
+
+
+@contextlib.contextmanager
+def swapped(fn, replacement):
+    """`fn` replaced by `replacement` in every module of the port that
+    holds it while the block runs."""
     homes = [m for name, m in list(sys.modules.items())
              if name.split(".")[0] == "step_tpu_torch"
              and getattr(m, fn.__name__, None) is fn]
     for m in homes:
-        setattr(m, fn.__name__, rec)
+        setattr(m, fn.__name__, replacement)
     try:
-        yield calls
+        yield
     finally:
         for m in homes:
             setattr(m, fn.__name__, fn)
-        fn.launches += rec.launches
+
+
+@contextlib.contextmanager
+def call_count(fn):
+    """Yields a one-element list: the calls of `fn` the port's modules make
+    while the block runs."""
+    n = [0]
+
+    def counting(*args, **kwargs):
+        n[0] += 1
+        return fn(*args, **kwargs)
+
+    with swapped(fn, counting):
+        yield n
 
 
 def shape_of(x, *_):
@@ -1133,6 +1192,279 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     return out
 
 
+class MemoryUCF:
+    """A dataset with the UCF101-24 reader's protocol, held in memory:
+    `videos` synthetic oracle videos (`data/synthetic.py::make_clip`) of
+    `frames` frames at the model's size, whose native resolution is said to
+    be `resolution` (H, W), so that `evaluate_ucf` scales its boxes back to
+    it. `samples` are (video, centre) windows one chunk apart, items carry
+    the `UCFDataset` keys (frames edge-clamped as it clamps them), and
+    `video_groundtruth()` gives the GT in native pixels, frames 1-based."""
+
+    def __init__(self, cfg, videos: int, frames: int, resolution, seed: int):
+        from step_tpu_torch.data.synthetic import SyntheticConfig, make_clip
+
+        syn = SyntheticConfig(image_size=cfg.image_size, num_frames=frames,
+                              num_classes=cfg.num_classes, max_boxes=2)
+        self.cfg, self.frames = cfg, frames
+        self.clips = {f"c{i % cfg.num_classes:02d}/v_{i:05d}": make_clip(seed + i, syn)
+                      for i in range(videos)}
+        self.resolution = {v: tuple(resolution) for v in self.clips}
+        H, W = resolution
+        s = cfg.image_size
+        self.to_native = np.asarray([W / s, H / s, W / s, H / s], np.float32)
+        c = cfg.frames_per_chunk
+        self.samples = [(v, start + c // 2) for v in self.clips
+                        for start in range(0, frames - c + 1, c)]
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> dict:
+        video, center = self.samples[i]
+        T = self.cfg.total_frames
+        idx = np.clip(center + np.arange(T) - T // 2, 0, self.frames - 1)
+        clip = self.clips[video]
+        return {"rgb": clip["rgb"][idx], "gt_tubes": clip["gt_tubes"][:, idx],
+                "gt_labels": clip["gt_labels"], "gt_mask": clip["gt_mask"],
+                "video": video, "center_frame": center, "frame_indices": idx}
+
+    def video_groundtruth(self):
+        frame_gt, tube_gt = [], []
+        for video, clip in self.clips.items():
+            for g in np.flatnonzero(clip["gt_mask"] > 0):
+                cls = int(clip["gt_labels"][g])
+                tube = {f + 1: clip["gt_tubes"][g, f] * self.to_native
+                        for f in range(self.frames)}
+                frame_gt += [((video, f), cls, box) for f, box in tube.items()]
+                tube_gt.append((video, cls, tube))
+        return frame_gt, tube_gt
+
+
+def check_eval_results(results: dict, label: str) -> None:
+    """`evaluate_ucf`'s result: every key, each mAP in [0, 1] or NaN, and
+    detections found."""
+    maps = ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5", "video_mAP@0.5:0.95")
+    timing_keys = ("collect_s", "dedupe_s", "frame_map_s", "link_s", "video_map_s",
+                   "n_detections", "n_tubes", "peak_rss_mb")
+    for key in maps:
+        check(key in results, f"{label}: no {key} in {sorted(results)}")
+        v = float(results[key])
+        check(np.isnan(v) or 0.0 <= v <= 1.0, f"{label}: {key} = {v} outside [0, 1]")
+    missing = [k for k in timing_keys if k not in results.get("timings", {})]
+    check(not missing, f"{label}: timings lack {missing}")
+    check(results["timings"]["n_detections"] > 0, f"{label}: no detections")
+
+
+def same_tubes(got: list, want: list, label: str):
+    """Two linkers' outputs `[(video, cls, score, {frame: box})]` as the
+    same tubes: per (video, class) the same number, each of `got` matched
+    to its own tube of `want` with the same frames, boxes within
+    EVAL_TUBE_TOL px and a score within EVAL_SCORE_TOL (the order may
+    differ where scores tie within float noise). Returns the tube count and
+    the largest box and score differences of the matching."""
+    groups: dict = {}
+    for side, tubes in enumerate((got, want)):
+        for video, c, score, frames in tubes:
+            groups.setdefault((video, c), ([], []))[side].append((score, frames))
+    box_err = score_err = 0.0
+    for key, (mine, theirs) in groups.items():
+        check(len(mine) == len(theirs),
+              f"{label}: {len(mine)} tubes against {len(theirs)} for {key}")
+        free = list(theirs)
+        for score, frames in mine:
+            best = None
+            for j, (s2, f2) in enumerate(free):
+                if sorted(f2) != sorted(frames) or abs(score - s2) > EVAL_SCORE_TOL:
+                    continue
+                err = max(float(np.abs(np.asarray(frames[f]) - np.asarray(f2[f])).max())
+                          for f in frames)
+                if err <= EVAL_TUBE_TOL and (best is None or err < best[1]):
+                    best = (j, err, abs(score - s2))
+            check(best is not None, f"{label}: a tube of {key} (score {score:.6g}, "
+                                    f"frames {min(frames)}-{max(frames)}) has no match")
+            free.pop(best[0])
+            box_err, score_err = max(box_err, best[1]), max(score_err, best[2])
+    return len(got), box_err, score_err
+
+
+def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 16, the UCF101-24 evaluation path, and phase 17, the CLIs.
+    Returns, per kernel, its launches on each evaluation run and, for K1
+    and K2, their numbers at the shapes those runs gave them, for the JSON
+    line."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.cli import test as cli_test
+    from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.data.synthetic import write_ucf_layout
+    from step_tpu_torch.evaluate import (collect_detections, collect_video_tubes,
+                                         dedupe_frame_detections, evaluate_ucf,
+                                         link_frame_detections)
+    from step_tpu_torch.inference import detect_clip, nms_surface
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.models.optimize import optimize_for_inference
+    from step_tpu_torch.ops.roi_align import tube_roi_align
+    from step_tpu_torch.utils.init import init_detector_
+
+    out = {name: dict(eval_launches={}) for name in ("max_pool3x3_same",
+                                                     "fused_scale_bias_relu",
+                                                     "conv3x3x3_bn_relu")}
+    for name in ("nms_many", "tube_roi_align"):
+        out[name] = dict(eval_launches={}, eval_launches_per_batch={}, eval_shapes={})
+
+    def counted(path: str, run, hold: bool):
+        """Run `path` once with the launch counts set to 0 just before and
+        read just after, counting its `detect_clip` calls (its detection
+        batches); with `hold`, every K1 and K2 call recorded and held
+        against its plain version, K1 launched once a batch and K2
+        `num_steps` times."""
+        reset_counts()
+        with recorded(nms_surface, lambda t, *_: tuple(t.shape), keep=hold) as k1, \
+                recorded(tube_roi_align, shape_of, keep=hold) as k2, \
+                call_count(detect_clip) as batches:
+            result = run()
+            torch.cuda.synchronize()
+        counts = read_counts()
+        for name, n in counts.items():
+            out[name]["eval_launches"][path] = n
+        if hold:
+            steps = cfg.num_steps
+            check(batches[0] > 0 and counts["nms_many"] == batches[0]
+                  and counts["tube_roi_align"] == steps * batches[0],
+                  f"{path}: launches {counts} for {batches[0]} detection batches "
+                  f"(want K1 1 and K2 {steps} a batch)")
+            check(sum(v[0] for v in k1.values()) == counts["nms_many"]
+                  and sum(v[0] for v in k2.values()) == counts["tube_roi_align"],
+                  f"{path}: recorded launches differ from the counters {counts}")
+            hold_nms_calls(path, k1, out["nms_many"]["eval_shapes"])
+            hold_roi_calls(path, k2, out["tube_roi_align"]["eval_shapes"])
+        return result, counts, batches[0]
+
+    # ---- 16. evaluate_ucf at full width, bf16, the main path's tree -----
+    t16 = time.time()
+    cfg = PRESETS["ucf_3step"].replace(score_thresh=0.0)
+    cfg_opt, folded = optimize_for_inference(cfg, seeded)
+    model = STEPDetector(cfg_opt).eval()
+    model.load_state_dict(folded)
+    model = model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
+    data = MemoryUCF(cfg, EVAL_VIDEOS, EVAL_FRAMES, EVAL_RESOLUTION, SEED + 3)
+    print(f"[16] evaluate_ucf on ucf_3step, full width, BN folded, {cfg.compute_dtype}, "
+          f"score_thresh 0: {EVAL_VIDEOS} synthetic videos of {EVAL_FRAMES} frames in "
+          f"memory, native resolution {EVAL_RESOLUTION}, {len(data)} windows one chunk "
+          f"apart", flush=True)
+    for path, kw in (("evaluate_ucf_host", {}),
+                     ("evaluate_ucf_device_linking", dict(device_linking=True))):
+        results, counts, batches = counted(path, lambda: evaluate_ucf(model, data, **kw),
+                                           True)
+        check_eval_results(results, path)
+        t = results.pop("timings")
+        print(f"[16] {path}: {json.dumps(results)}", flush=True)
+        print(f"    timings ({smi_line}): {json.dumps(t)}", flush=True)
+        print(f"    launches {counts}: {batches} detection batches (counted), K1 "
+              f"{counts['nms_many'] / batches:g} and K2 "
+              f"{counts['tube_roi_align'] / batches:g} a batch", flush=True)
+        for name in ("nms_many", "tube_roi_align"):
+            out[name]["eval_launches_per_batch"][path] = counts[name] / batches
+    del model
+
+    # The evaluation of a tiny float32 detector on the card against the
+    # same on the CPU (plain K1 and K2 there): each linker's tubes, matched
+    # one to one within EVAL_TUBE_TOL px and EVAL_SCORE_TOL, and, through
+    # evaluate_ucf, equal detection counts and mAPs within EVAL_MAP_TOL.
+    tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                       compute_dtype="float32")
+    small = MemoryUCF(tiny, 2, 30, EVAL_RESOLUTION, SEED + 4)
+    runs, tubes = {}, {}
+    for d in (dev, "cpu"):
+        m = init_detector_(STEPDetector(tiny).eval(), SEED).to(d)
+        tubes[str(d)] = {
+            "host": link_frame_detections(dedupe_frame_detections(
+                collect_detections(m, small))),
+            "device": collect_video_tubes(m, small)}
+        runs[str(d)] = [evaluate_ucf(m, small, device_linking=link) for link in (False, True)]
+    for form in ("host", "device"):
+        n, box_err, score_err = same_tubes(tubes[str(dev)][form], tubes["cpu"][form],
+                                           f"tiny {form} linking, card vs CPU")
+        print(f"[16] tiny f32 {form} linking, card vs CPU: {n} tubes on both, matched "
+              f"one to one: boxes {box_err:.3g} px (tol {EVAL_TUBE_TOL}), scores "
+              f"{score_err:.3g} (tol {EVAL_SCORE_TOL})", flush=True)
+    for (a, b), form in zip(zip(runs[str(dev)], runs["cpu"]), ("host", "device")):
+        check(a["timings"]["n_detections"] == b["timings"]["n_detections"],
+              f"tiny evaluate_ucf ({form} linking): {a['timings']['n_detections']} "
+              f"detections on the card, {b['timings']['n_detections']} on the CPU")
+        for key in ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5"):
+            same = abs(a[key] - b[key]) <= EVAL_MAP_TOL or (np.isnan(a[key])
+                                                            and np.isnan(b[key]))
+            check(same, f"tiny evaluate_ucf ({form} linking) {key}: {a[key]} on the "
+                        f"card, {b[key]} on the CPU")
+        print(f"[16] tiny f32 evaluate_ucf, {form} linking, card vs CPU: "
+              f"{a['timings']['n_detections']} detections on both; frame_mAP@0.5 "
+              f"{a['frame_mAP@0.5']:.6f} vs {b['frame_mAP@0.5']:.6f}, video_mAP@0.2 "
+              f"{a['video_mAP@0.2']:.6f} vs {b['video_mAP@0.2']:.6f} (tol {EVAL_MAP_TOL})",
+              flush=True)
+    print(f"    phase 16 took {time.time() - t16:.1f} s", flush=True)
+
+    # ---- 17. the CLIs on an on-disk UCF101-24 layout ---------------------
+    t17 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ckpt = os.path.join(tmp, "ucf"), os.path.join(tmp, "ckpt")
+        videos = write_ucf_layout(root, EVAL_VIDEOS, num_classes=cfg.num_classes,
+                                  image_size=cfg.image_size, frames_lo=CLI_FRAMES,
+                                  frames_hi=CLI_FRAMES, seed=SEED)
+        gt_path = os.path.join(root, "UCF101v2-GT.pkl")
+        with open(gt_path, "rb") as f:
+            gt = pickle.load(f)
+        gt["train_videos"] = [videos]            # the layout writes a test split only
+        with open(gt_path, "wb") as f:
+            pickle.dump(gt, f)
+        print(f"[17] wrote {len(videos)} videos of {CLI_FRAMES} frames at "
+              f"{cfg.image_size} px in the UCF101-24 layout in {time.time() - t17:.1f} s",
+              flush=True)
+
+        def cli(path, module, argv, expect):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                result, counts, _ = counted(path, lambda: module.main(argv), False)
+            text = buf.getvalue()
+            print("\n".join("    " + line for line in text.splitlines()[-12:]), flush=True)
+            missing = [k for k in expect if k not in text]
+            check(not missing, f"{path}: the output lacks {missing}")
+            check(counts["tube_roi_align"] > 0 and counts["nms_many"] > 0,
+                  f"{path}: launches {counts}")
+            print(f"[17] {path}: launches {counts}", flush=True)
+            return result
+
+        state = cli("cli_train", cli_train,
+                    ["--preset", "ucf_3step", "--dataset", "ucf101_24", "--data-root", root,
+                     "--ckpt-dir", ckpt, "--batch-size", "2", "--steps", str(CLI_STEPS),
+                     "--epochs", "1", "--eval-every-epochs", "1", "--eval-max-batches", "2",
+                     "--set", "warmup_steps=1"],
+                    ("epoch 0 eval:", "frame_mAP@0.5", f"trained to step {CLI_STEPS}",
+                     "decoder:"))
+        check(state.step == CLI_STEPS, f"cli.train stopped at step {state.step}")
+        check(out["max_pool3x3_same"]["eval_launches"]["cli_train"] > 0,
+              "cli_train: K5 never launched under autograd")
+        del state
+        keys = ("decoder:", "frame_mAP@0.5:", "video_mAP@0.2:", "video_mAP@0.5:",
+                "video_mAP@0.5:0.95:", "timings:")
+        for path, extra in (("cli_test_optimized", ["--optimized"]),
+                            ("cli_test_device_linking", ["--device-linking"])):
+            results = cli(path, cli_test, ["--data-root", root, "--ckpt-dir", ckpt,
+                                           "--dump", os.path.join(tmp, "dets.pkl"),
+                                           "--set", "score_thresh=0.0", *extra], keys)
+            check_eval_results(results, path)
+            with open(os.path.join(tmp, "dets.pkl"), "rb") as f:
+                check(len(pickle.load(f)["detections"]) == results["timings"]["n_detections"],
+                      f"{path}: the dump holds another number of detections")
+    print(f"    phase 17 took {time.time() - t17:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -1508,6 +1840,7 @@ def main() -> None:
     del kmodel, mmodel, got, want
     video = video_phases(dev, rng, seeded, reset_counts, read_counts)
     training = training_phases(dev, rng, reset_counts, read_counts)
+    evaluation = eval_phases(dev, seeded, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -1530,7 +1863,8 @@ def main() -> None:
     print(f"all phases took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name], **video[name], **training[name]}
+         "launches": launches[name], **results[name], **video[name], **training[name],
+         **evaluation[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

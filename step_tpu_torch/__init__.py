@@ -19,10 +19,15 @@ Layers, entry point first:
                    each a plain PyTorch version plus a CUDA kernel
                    (kernels.py, csrc/); the pool backward (pool_grad.py)
   train/           the progressive losses, train_step, fit()
-  data/            batch assembly, the threaded loader, synthetic clips
+  evaluate.py      detections over a dataset, dedupe, tube linking, the
+                   UCF101-24 frame- and video-mAP (evaluate_ucf)
+  cli/             python -m step_tpu_torch.cli.train / cli.test
+  data/            batch assembly, the threaded loader, synthetic clips,
+                   the UCF101-24 reader and its augmentations
   tubes/           box and tube math, the initial cuboids
   convert.py       JAX variable tree → this package's state_dict
-  utils/           seeded initializers (serving, training), checkpoints
+  utils/           seeded initializers (serving, training), checkpoints,
+                   the command lines' --set overlay
 """
 
 import torch

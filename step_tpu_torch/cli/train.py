@@ -1,0 +1,150 @@
+"""Train the detector on UCF101-24 (or a dataset in its layout), or on the
+synthetic oracle's clips.
+
+Port of the JAX package's `train.py`, synthetic and UCF branches, on the
+port's `train/fit.py::fit`, on the card (`--device cpu` for the CPU):
+
+    python -m step_tpu_torch.cli.train --preset ucf_3step --data-root /data/ucf24 \\
+        --ckpt-dir runs/ucf/ckpt --log-dir runs/ucf --epochs 8 \\
+        --eval-every-epochs 1
+    python -m step_tpu_torch.cli.train --dataset synthetic --steps 200
+
+`--eval-every-epochs N` scores the test split every N epochs with
+`evaluate_ucf` (bounded by `--eval-max-batches`). `--distributed` (ROADMAP
+M9), `--pretrained-i3d` (M8), `--flow` and AVA (M10) are not ported yet
+and exit with a message that names their item.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def parse_args(argv=None):
+    from step_tpu_torch.utils.cli import add_common_args
+
+    p = argparse.ArgumentParser(description="Train the STEP detector (PyTorch port)")
+    p.add_argument("--preset", default=None, help="named config preset")
+    p.add_argument("--dataset", default=None, help="ucf101_24 | synthetic")
+    p.add_argument("--data-root", default=None)
+    p.add_argument("--annotation-file", default=None)
+    p.add_argument("--flow", action="store_true",
+                   help="two-stream training (not ported yet: ROADMAP M10)")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--steps", type=int, default=None, help="total optimizer steps")
+    p.add_argument("--epochs", type=int, default=8)
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--pretrained-i3d", default=None,
+                   help="Kinetics I3D checkpoint for the backbone (not ported yet: "
+                        "ROADMAP M8)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel training (not ported yet: ROADMAP M9)")
+    p.add_argument("--tiny", action="store_true", help="tiny backbone (debug)")
+    p.add_argument("--eval-every-epochs", type=int, default=0,
+                   help="held-out evaluation every N epochs (0 = off); ucf101_24 "
+                        "scores the test split's frame- and video-mAPs")
+    p.add_argument("--eval-max-batches", type=int, default=25,
+                   help="bound each in-training evaluation to N detection batches")
+    p.add_argument("--eval-annotation-file", default=None,
+                   help="annotations for --eval-every-epochs (default: the "
+                        "training pickle's test split)")
+    add_common_args(p)
+    return p.parse_args(argv)
+
+
+def build_config(args):
+    from step_tpu_torch.config import PRESETS, StepConfig
+    from step_tpu_torch.utils.cli import apply_overrides
+
+    cfg = PRESETS[args.preset] if args.preset else StepConfig()
+    over = {}
+    if args.dataset:
+        over["dataset"] = args.dataset
+        if args.dataset == "synthetic":
+            over.update(num_classes=4, image_size=64)
+    if args.batch_size:
+        over["batch_size"] = args.batch_size
+    if args.lr:
+        over["learning_rate"] = args.lr
+    if args.steps:
+        over["total_steps"] = args.steps
+    if args.image_size:
+        over["image_size"] = args.image_size
+    if args.flow:
+        over["two_stream"] = True
+    if args.tiny:
+        over.update(backbone_depth="tiny", feature_stride=8)
+    cfg = cfg.replace(**over) if over else cfg
+    return apply_overrides(cfg, args.overrides)
+
+
+def build_dataset(cfg, args):
+    if cfg.dataset == "synthetic":
+        # 512 oracle clips, clip i drawn from seed i
+        from step_tpu_torch.data.synthetic import SyntheticConfig
+        from step_tpu_torch.train_eval_synth import SyntheticClips
+
+        syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                              num_classes=cfg.num_classes, max_boxes=cfg.max_gt_tubes)
+        return SyntheticClips(syn, 512, 0)
+    from step_tpu_torch.data.ucf import UCFDataset
+
+    return UCFDataset(args.data_root, cfg, split="train",
+                      annotation_file=args.annotation_file or "UCF101v2-GT.pkl",
+                      augment=True)
+
+
+def build_eval_fn(cfg, args):
+    """The held-out evaluation `fit()` runs every `--eval-every-epochs`:
+    `evaluate_ucf` on the test split, `--eval-max-batches` batches."""
+    if cfg.dataset != "ucf101_24":
+        raise SystemExit("--eval-every-epochs evaluates ucf101_24; for the synthetic "
+                         "oracle use python -m step_tpu_torch.train_eval_synth")
+    from step_tpu_torch.data.ucf import UCFDataset
+    from step_tpu_torch.evaluate import evaluate_ucf
+
+    val = UCFDataset(args.data_root, cfg, split="test",
+                     annotation_file=args.eval_annotation_file or args.annotation_file
+                     or "UCF101v2-GT.pkl")
+
+    def eval_fn(state, epoch):
+        return evaluate_ucf(state.model, val, max_batches=args.eval_max_batches)
+
+    return eval_fn
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if args.distributed:
+        raise SystemExit("--distributed: data-parallel training is not ported yet "
+                         "(ROADMAP M9)")
+    if args.pretrained_i3d:
+        raise SystemExit("--pretrained-i3d: the Kinetics I3D reader is not ported yet "
+                         "(ROADMAP M8)")
+    cfg = build_config(args)
+    if cfg.dataset == "ava":
+        raise SystemExit("AVA training is not ported yet (ROADMAP M10)")
+    if cfg.two_stream or cfg.input_stream != "rgb":
+        raise SystemExit("flow and two-stream training are not ported yet (ROADMAP M10)")
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.train.fit import fit
+
+    dataset = build_dataset(cfg, args)
+    loader = DataLoader(dataset, cfg, batch_size=cfg.batch_size, train=True, seed=args.seed)
+    eval_fn = build_eval_fn(cfg, args) if args.eval_every_epochs else None
+    state = fit(cfg, loader, num_epochs=args.epochs, ckpt_dir=args.ckpt_dir,
+                log_dir=args.log_dir, resume=args.resume, seed=args.seed, eval_fn=eval_fn,
+                eval_every_epochs=args.eval_every_epochs or 1, device=args.device)
+    print(f"trained to step {state.step} on {args.device}"
+          + (f"; decoder: {dataset.decoder}" if hasattr(dataset, "decoder") else ""),
+          flush=True)
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,2 +1,3 @@
 """Host-side data: batch assembly and the wire formats, the threaded
-loader, and the synthetic oracle clips and videos."""
+loader, the synthetic oracle clips and videos, and the UCF101-24 reader
+with its augmentations and native JPEG loader."""

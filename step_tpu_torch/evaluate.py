@@ -1,24 +1,143 @@
-"""Evaluation: per-video tube collection with on-device linking.
+"""Evaluation: detections over a dataset, frame-mAP and video-mAP over
+linked tubes, the detections dump.
 
-Port of `step_tpu/evaluate.py::collect_video_tubes` (:192-425). Detection
-and linking run on the model's device; collection, calibration and tube
-assembly run on the host in numpy, as in the JAX package. The rest of that
-module (`collect_detections`, `evaluate_ucf`, the host linker) is not
-ported yet.
+Port of `step_tpu/evaluate.py`'s UCF101-24 path: `collect_detections`
+(:29-189), `collect_video_tubes` (:192-425), `dedupe_frame_detections`
+(:428-462), `link_frame_detections` (:465-527), `tube_nms` (:530-564) and
+`evaluate_ucf` (:567-704). Detection and device linking run on the
+model's device; collection, dedupe, host linking and the mAPs run on the
+host in numpy, as in the JAX package. Each function takes the port's
+model where the JAX one takes variables; its config is `model.cfg`.
+`evaluate_ava` waits for ROADMAP M10, late fusion (`variables_flow`) for
+M10 and data-parallel evaluation (`mesh`) for M9: those arguments raise.
 """
 
 from __future__ import annotations
 
+import pickle
+import resource
+import time
+from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
 import torch
 
+from step_tpu_torch.data.loader import DataLoader
 from step_tpu_torch.data.pipeline import rgb_to_uint8_wire
-from step_tpu_torch.eval.calibration import calibrate_scores_array
+from step_tpu_torch.eval.calibration import (apply_calibration, calibrate_scores_array,
+                                             fit_calibration)
+from step_tpu_torch.eval.detection_metrics import (_iou_1vsN, frame_map,
+                                                   spatio_temporal_iou, video_map,
+                                                   video_map_range)
 from step_tpu_torch.inference import detect_clip, link_video
 from step_tpu_torch.models.detector import STEPDetector
+
+
+def _refuse_unported(variables_flow, mesh) -> None:
+    if variables_flow is not None:
+        raise NotImplementedError("late fusion (variables_flow) is not ported yet: "
+                                  "ROADMAP M10")
+    if mesh is not None:
+        raise NotImplementedError("data-parallel evaluation (mesh) is not ported "
+                                  "yet: ROADMAP M9")
+
+
+def _scale_to_gt(dataset, video, cfg, image_scale_to_gt: bool) -> np.ndarray:
+    """[sx, sy, sx, sy] from the model's pixels to the dataset's native
+    resolution of `video` (ones without one, or when not asked)."""
+    sx = sy = 1.0
+    if image_scale_to_gt and hasattr(dataset, "resolution"):
+        H, W = dataset.resolution.get(video, (cfg.image_size, cfg.image_size))
+        sx, sy = W / cfg.image_size, H / cfg.image_size
+    return np.asarray([sx, sy, sx, sy], np.float32)
+
+
+def collect_detections(model, dataset, batch_size: int = 8,
+                       max_batches: Optional[int] = None,
+                       image_scale_to_gt: bool = True, mesh=None, variables_flow=None,
+                       coverage: Optional[dict] = None):
+    """Detect over `dataset` with `model` → `[(frame_key, cls, score, box)]`.
+
+    The dataset's items are sliding windows (`frame_indices`, one chunk
+    apart) or keyframe clips (`timestamp`); frame_key is `(video, frame)`
+    with 1-based frames, or `(video, timestamp)`. Batches come from the
+    port's `DataLoader` in dataset order (`train=False`, the last batch
+    short), `max_batches` of them at most; boxes scale to the dataset's
+    `resolution` where it has one and `image_scale_to_gt` is set.
+
+    A frame belongs to the window whose central chunk covers it; only its
+    owner's detections are kept, since the other windows' copies of an
+    actor are sure false positives. Frames no central chunk covers (the
+    clamped video edges) keep every window's detections. `coverage`, where
+    given, is filled with what was evaluated: "fkeys" (the frame keys of
+    every window seen) and "videos" (the videos with a window seen), so a
+    truncated run can be scored against what it saw (`evaluate_ucf`).
+
+    `variables_flow` (late fusion, ROADMAP M10) and `mesh` (M9) raise.
+    """
+    cfg = model.cfg
+    if cfg.temporal_stride != 1:
+        # Ownership assumes windows that sample every frame and tile by one
+        # chunk; with a temporal stride the central chunks overlap in video
+        # time and misaligned duplicates would survive.
+        raise ValueError(
+            "collect_detections' sliding-window ownership protocol "
+            f"requires temporal_stride == 1; got {cfg.temporal_stride}")
+    _refuse_unported(variables_flow, mesh)
+    device = next(model.parameters()).device
+    loader = DataLoader(dataset, cfg, batch_size=batch_size, shuffle=False,
+                        train=False, drop_last=False, num_workers=2)
+
+    det_list, det_central, owned_fkeys = [], [], set()
+    fpc = cfg.frames_per_chunk
+    tc0 = (cfg.total_frames - fpc) // 2        # central-chunk start position
+    for bi, batch in enumerate(loader.epoch(0)):
+        if max_batches is not None and bi >= max_batches:
+            break
+        out = detect_clip(model, *(torch.from_numpy(batch[k]).to(device)
+                                   for k in ("rgb", "proposals", "prop_mask")))
+        boxes = out["frame_boxes"].float().cpu().numpy()     # [B, T, C, K, 4]
+        scores = out["frame_scores"].float().cpu().numpy()   # [B, T, C, K]
+        mask = out["frame_mask"].cpu().numpy()
+        for b, meta in enumerate(batch["meta"]):
+            video = meta.get("video")
+            frame_idx = meta.get("frame_indices")
+            if coverage is not None:
+                coverage.setdefault("videos", set()).add(video)
+                fk = coverage.setdefault("fkeys", set())
+                if frame_idx is not None:
+                    for f in frame_idx:
+                        fk.add((video, int(f) + 1))
+                else:
+                    fk.add((video, meta.get("timestamp")))
+            scale = _scale_to_gt(dataset, video, cfg, image_scale_to_gt)
+            keep = np.argwhere((mask[b] > 0) & (scores[b] > cfg.score_thresh))
+            if frame_idx is not None:
+                # Geometric ownership: every frame of the central chunk is
+                # owned, detections there or not. Keyed on emitted
+                # detections, both neighbours' copies would survive exactly
+                # where the owner is silent.
+                for t in range(tc0, tc0 + fpc):
+                    owned_fkeys.add((video, int(frame_idx[t]) + 1))
+            if keep.size == 0:
+                continue
+            ts, cs, ks = keep[:, 0], keep[:, 1], keep[:, 2]
+            sc = scores[b, ts, cs, ks].tolist()
+            bx = boxes[b, ts, cs, ks] * scale          # [n, 4]
+            if frame_idx is not None:
+                fis = (np.asarray(frame_idx)[ts] + 1).tolist()  # 1-based
+                fkeys = [(video, f) for f in fis]
+                central = ((ts >= tc0) & (ts < tc0 + fpc)).tolist()
+            else:
+                stamp = meta.get("timestamp")
+                fkeys = [(video, stamp if stamp is not None else t) for t in ts.tolist()]
+                central = [True] * len(fkeys)
+            det_list.extend(zip(fkeys, cs.tolist(), sc, bx))
+            det_central.extend(central)
+    return [d for d, central in zip(det_list, det_central)
+            if central or d[0] not in owned_fkeys]
 
 
 def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
@@ -55,12 +174,7 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
         raise ValueError(
             "collect_video_tubes' clip-tiling protocol requires "
             f"temporal_stride == 1; got {cfg.temporal_stride}")
-    if variables_flow is not None:
-        raise NotImplementedError("late fusion (variables_flow) is not ported yet: "
-                                  "ROADMAP M10")
-    if mesh is not None:
-        raise NotImplementedError("data-parallel evaluation (mesh) is not ported "
-                                  "yet: ROADMAP M9")
+    _refuse_unported(variables_flow, mesh)
     if calibration is not None:
         if isinstance(calibration, str):
             calibration = dict(np.load(calibration))
@@ -121,11 +235,7 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
             trim = link["trim"].cpu().numpy()                # [C, K, Lb]
             tube_scores = link["tube_scores"].cpu().numpy()  # [C, K]
 
-            sx = sy = 1.0
-            if image_scale_to_gt and hasattr(dataset, "resolution"):
-                H, W = dataset.resolution.get(video, (cfg.image_size, cfg.image_size))
-                sx, sy = W / cfg.image_size, H / cfg.image_size
-            scale = np.asarray([sx, sy, sx, sy], np.float32)
+            scale = _scale_to_gt(dataset, video, cfg, image_scale_to_gt)
 
             C, K = tube_scores.shape
             for c in range(C):
@@ -148,3 +258,211 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
     finally:
         pool.shutdown(wait=False)
     return out
+
+
+def dedupe_frame_detections(detections):
+    """Keep one detection per (frame key, class, box rounded to 0.1 px):
+    the highest-scored, the earliest on ties, in first-occurrence order.
+
+    The vectorized form of `step_tpu/evaluate.py:428-462`: a lexsort by
+    group, then score descending (stable, so the earliest index wins a
+    tie), the first row of each group, reordered by each group's first
+    index."""
+    n = len(detections)
+    if n < 2:
+        return list(detections)
+    fkey_col, cls_col, score_col, box_col = zip(*detections)
+    fid_of: dict = {}
+    fid = np.fromiter((fid_of.setdefault(k, len(fid_of)) for k in fkey_col), np.int64, n)
+    cls = np.fromiter(cls_col, np.int64, n)
+    score = np.fromiter(score_col, np.float64, n)
+    # coordinates rounded to 0.1 px, as integers: distinct np.round(., 1)
+    # values map to distinct integers
+    coords = np.rint(np.round(np.asarray(box_col, np.float32), 1) * 10.0).astype(np.int64)
+    order = np.lexsort((-score, coords[:, 3], coords[:, 2], coords[:, 1],
+                        coords[:, 0], cls, fid))
+    cols = np.column_stack([fid, cls, coords])[order]
+    new_group = np.empty(n, bool)
+    new_group[0] = True
+    new_group[1:] = (cols[1:] != cols[:-1]).any(axis=1)
+    starts = np.flatnonzero(new_group)
+    kept = order[starts]                          # the best row of each group
+    first_idx = np.minimum.reduceat(order, starts)
+    kept = kept[np.argsort(first_idx, kind="stable")]
+    return [detections[i] for i in kept]
+
+
+def link_frame_detections(detections, link_iou: float = 0.2, max_gap: int = 3,
+                          min_length: int = 2):
+    """Video tubes from per-frame detections by greedy temporal linking →
+    `[(video, cls, score, {frame: box})]`.
+
+    Per (video, class), frames in order: each active tube, in the order
+    the tubes started, takes the unclaimed detection of highest IoU with
+    its last box if that IoU is at least `link_iou`; unclaimed detections
+    start new tubes; a tube idle for more than `max_gap` frames closes. A
+    tube's score is the mean of its members'; tubes of fewer than
+    `min_length` frames are dropped."""
+    by_vcf = defaultdict(lambda: defaultdict(list))
+    for (video, frame), c, s, box in detections:
+        by_vcf[(video, c)][frame].append((s, np.asarray(box, np.float32)))
+
+    out = []
+    for (video, c), frames in by_vcf.items():
+        active = []  # [{'frames': {f: box}, 'scores': [..], 'last_f': f}]
+        done = []
+        for f in sorted(frames):
+            dets = frames[f]
+            still = []
+            for tube in active:
+                (done if f - tube["last_f"] > max_gap else still).append(tube)
+            active = still
+            claimed = [False] * len(dets)
+            for tube in active:
+                if not dets:
+                    break
+                last_box = tube["frames"][tube["last_f"]]
+                ious = np.asarray([0.0 if claimed[i] else
+                                   float(_iou_1vsN(last_box, d[1][None])[0])
+                                   for i, d in enumerate(dets)])
+                j = int(np.argmax(ious)) if len(ious) else -1
+                if j >= 0 and ious[j] >= link_iou:
+                    claimed[j] = True
+                    s, box = dets[j]
+                    tube["frames"][f] = box
+                    tube["scores"].append(s)
+                    tube["last_f"] = f
+            for i, (s, box) in enumerate(dets):
+                if not claimed[i]:
+                    active.append({"frames": {f: box}, "scores": [s], "last_f": f})
+        done.extend(active)
+        for tube in done:
+            if len(tube["frames"]) >= min_length:
+                out.append((video, c, float(np.mean(tube["scores"])), tube["frames"]))
+    return out
+
+
+def tube_nms(pred_tubes, iou_thresh: float):
+    """Greedy tube NMS per (video, class): keep the highest-scored tube,
+    drop every later one whose spatio-temporal IoU with a kept tube is at
+    least `iou_thresh`. Two parallel chains over one actor survive
+    linking; this collapses them. `iou_thresh <= 0` returns `pred_tubes`
+    itself. The survivors come grouped by (video, class), by descending
+    score within a group."""
+    if iou_thresh <= 0:
+        return pred_tubes
+    groups = defaultdict(list)
+    for video, c, s, frames in pred_tubes:
+        groups[(video, c)].append((s, frames))
+    out = []
+    for (video, c), tubes in groups.items():
+        tubes.sort(key=lambda t: -t[0])
+        kept = []
+        for s, frames in tubes:
+            if all(spatio_temporal_iou(frames, kf) < iou_thresh for _, kf in kept):
+                kept.append((s, frames))
+        out.extend((video, c, s, frames) for s, frames in kept)
+    return out
+
+
+def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
+                 max_batches: Optional[int] = None, calibration=None,
+                 fit_calibration_path: Optional[str] = None, mesh=None,
+                 variables_flow=None, device_linking: bool = False,
+                 max_videos: Optional[int] = None) -> dict:
+    """UCF101-24 evaluation of `model` on `dataset`: frame-mAP@0.5 and
+    video-mAP@0.2, @0.5 and @0.5:0.95 over linked tubes.
+
+    Detections are collected (`collect_detections`), deduplicated, and
+    scored per frame. Video tubes come from the host linker
+    (`link_frame_detections`) or, with `device_linking`, from the linker on
+    the device (`collect_video_tubes`, a second detection pass), then
+    `tube_nms` at cfg.tube_nms_thresh.
+
+    `max_batches` bounds the detection pass; the GT is then cut to the
+    frames and videos it saw, and "eval_subset" says so. `max_videos`
+    bounds the device-linking pass to the first videos in dataset order
+    (`max_batches` stands in for it when it is not given), and its tube GT
+    is cut to those videos. `fit_calibration_path`: fit per-class Platt
+    scaling on this run's detections and save it (.npz); `calibration`
+    (a dict `{'a': [C], 'b': [C]}` or an .npz path) applies one to the
+    scores before scoring and linking. `dump_path` pickles
+    `{"detections": [...]}` in the JAX package's layout.
+
+    The result also holds "timings": the seconds of each phase
+    (`collect_s`, `dedupe_s`, `frame_map_s`, `link_s`, `video_map_s`), the
+    counts `n_detections` and `n_tubes`, and the process's `peak_rss_mb`.
+    `mesh` (ROADMAP M9) and `variables_flow` (M10) raise.
+    """
+    _refuse_unported(variables_flow, mesh)
+    cfg = model.cfg
+    timings: dict = {}
+    t0 = time.perf_counter()
+    coverage = {} if max_batches is not None else None
+    raw_dets = collect_detections(model, dataset, max_batches=max_batches,
+                                  coverage=coverage)
+    timings["collect_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    detections = dedupe_frame_detections(raw_dets)
+    timings["dedupe_s"] = time.perf_counter() - t0
+    timings["n_detections"] = len(detections)
+    frame_gt, tube_gt = dataset.video_groundtruth()
+    tube_gt_all = tube_gt
+    if coverage is not None:
+        # A truncated pass is scored against the GT it could have seen:
+        # unseen GT would count as misses and cap the mAP at about the share
+        # of windows seen. Frames are cut exactly, tubes to the videos
+        # touched (the last may be partly seen: "eval_subset" says so).
+        fkeys = coverage.get("fkeys", set())
+        vids = coverage.get("videos", set())
+        frame_gt = [g for g in frame_gt if g[0] in fkeys]
+        tube_gt = [t for t in tube_gt if t[0] in vids]
+    if fit_calibration_path:
+        np.savez(fit_calibration_path, **fit_calibration(detections, frame_gt,
+                                                         cfg.num_classes))
+        print(f"calibration fitted -> {fit_calibration_path}")
+    if calibration is not None:
+        if isinstance(calibration, str):
+            calibration = dict(np.load(calibration))
+        detections = apply_calibration(detections, calibration)
+    if dump_path:
+        with open(dump_path, "wb") as f:
+            pickle.dump({"detections": detections}, f)
+
+    t0 = time.perf_counter()
+    results = {"frame_mAP@0.5": frame_map(detections, frame_gt, cfg.num_classes,
+                                          0.5)["mAP"]}
+    timings["frame_map_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    if device_linking:
+        if max_videos is None and max_batches is not None:
+            max_videos = max_batches
+        # calibrated before linking, as the host linker links calibrated
+        # detections
+        pred_tubes = tube_nms(collect_video_tubes(model, dataset, max_videos=max_videos,
+                                                  calibration=calibration),
+                              cfg.tube_nms_thresh)
+        if max_videos is not None:
+            # this pass saw the first max_videos videos in dataset order:
+            # score against the whole of their tube GT (not cut to the
+            # detection pass's coverage, which may span other videos)
+            dev_vids = list(dict.fromkeys(v for v, _ in dataset.samples))[:max_videos]
+            tube_gt = [t for t in tube_gt_all if t[0] in set(dev_vids)]
+            results["eval_subset"] = f"{len(dev_vids)} videos"
+    else:
+        pred_tubes = tube_nms(link_frame_detections(detections), cfg.tube_nms_thresh)
+        if coverage is not None:
+            results["eval_subset"] = f"{len(coverage.get('videos', ()))} videos touched"
+    timings["link_s"] = time.perf_counter() - t0
+    timings["n_tubes"] = len(pred_tubes)
+    t0 = time.perf_counter()
+    for thresh in (0.2, 0.5):
+        results[f"video_mAP@{thresh}"] = video_map(pred_tubes, tube_gt, cfg.num_classes,
+                                                   thresh)["mAP"]
+    results["video_mAP@0.5:0.95"] = video_map_range(pred_tubes, tube_gt, cfg.num_classes)
+    timings["video_map_s"] = time.perf_counter() - t0
+    timings["peak_rss_mb"] = round(resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                                   / 1024.0, 1)
+    results["timings"] = timings
+    return results

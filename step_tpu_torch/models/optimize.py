@@ -2,7 +2,8 @@
 
 Port of `step_tpu/models/optimize.py`: `fold_bn_variables` (:51-85),
 `fuse_inception_variables` (:88-114), `fuse_inception3_variables`
-(:117-161) and `optimize_for_inference` (:164-209), on state_dicts. In eval
+(:117-161), `optimize_for_inference` (:164-209) and
+`optimize_for_inference_cli` (:212-243), on state_dicts. In eval
 mode a BatchNorm is a per-channel affine, so it folds into the preceding
 conv:
 
@@ -123,3 +124,24 @@ def optimize_for_inference(cfg: StepConfig, state_dict,
                           fused_inception3=fuse_inception3,
                           fused_bn_relu=False, scan_unroll=True)
     return cfg_opt, sd
+
+
+def optimize_for_inference_cli(cfg: StepConfig, overrides, state_dict):
+    """`--optimized` with the user's explicit `--set` flags winning.
+
+    Port of `step_tpu/models/optimize.py::optimize_for_inference_cli`
+    (:212-243). `optimize_for_inference` sets the whole serving flag
+    set; here `--set fused_inception=...` / `fused_inception3=...` choose
+    the weight transformation, so model and weights stay matched, and
+    every override is applied again on top of the serving config.
+    `bn_folded` cannot be overridden: the folded weights are what
+    `--optimized` means. Returns `(cfg, state_dict)`.
+    """
+    from step_tpu_torch.utils.cli import apply_overrides, parse_overrides
+
+    ov = parse_overrides(cfg, overrides)
+    if ov.get("bn_folded") is False:
+        raise ValueError("--set bn_folded=False conflicts with --optimized")
+    cfg, out = optimize_for_inference(cfg, state_dict, ov.get("fused_inception", True),
+                                      ov.get("fused_inception3", "none"))
+    return apply_overrides(cfg, overrides), out

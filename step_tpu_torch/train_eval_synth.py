@@ -1,18 +1,25 @@
-"""Train on the synthetic oracle, then measure held-out frame-mAP.
+"""Train on the synthetic oracle, then measure held-out frame-mAP and,
+with `--video-eval N`, video-mAP through both linkers.
 
-Port of `scripts/train_eval_synth.py`'s baseline arm (no `--set`, no
-video evaluation, no saved variables): a `StepConfig` for the synthetic
-dataset (full I3D depth, `--image-size` px, `--classes` classes, two
-actors at most) trains `--steps` steps on fresh synthetic clips each step
-(clip seeds `seed * 1000 + step * batch + i`, never repeated, as the JAX
-script draws them; built ahead by the port's `DataLoader` threads), then
-`detect_clip`
-runs on `--eval-clips` held-out clips (seeds from 10,000,000) and
-`eval/detection_metrics.py::frame_map` scores them at IoU 0.5 and 0.2.
-Prints one JSON line.
+Port of `scripts/train_eval_synth.py`'s baseline arm and its video-eval
+arm (:217-250; no `--set`, no saved variables): a `StepConfig` for the
+synthetic dataset (full I3D depth, `--image-size` px, `--classes`
+classes, two actors at most) trains `--steps` steps on fresh synthetic
+clips each step (clip seeds `seed * 1000 + step * batch + i`, never
+repeated, as the JAX script draws them; built ahead by the port's
+`DataLoader` threads), then `detect_clip` runs on `--eval-clips` held-out
+clips (seeds from 10,000,000) and `eval/detection_metrics.py::frame_map`
+scores them at IoU 0.5 and 0.2. `--video-eval N` then scores N held-out
+synthetic videos of `VIDEO_WINDOWS` windows one chunk apart (seeds from
+20,000,000) at video-mAP@0.2 and @0.5 with the host linker
+(`collect_detections` → `dedupe_frame_detections` →
+`link_frame_detections`) and with linking on the device
+(`collect_video_tubes`), under the JAX script's keys
+(`video_mAP@0.2_host`, ...), with the seconds and detection counts of
+that evaluation. Prints one JSON line.
 
     python -m step_tpu_torch.train_eval_synth --steps 700 --batch 8 \\
-        --image-size 112 --classes 4 --eval-clips 48
+        --image-size 112 --classes 4 --eval-clips 48 --video-eval 12
 
 It runs on the card; `--device cpu` runs it on the CPU.
 """
@@ -26,7 +33,8 @@ import time
 import numpy as np
 import torch
 
-EVAL_SEED = 10_000_000
+EVAL_SEED, VIDEO_SEED = 10_000_000, 20_000_000
+VIDEO_WINDOWS = 11  # sliding windows per held-out video, as in the JAX script
 
 
 class SyntheticClips:
@@ -56,6 +64,9 @@ def parse_args(argv=None):
     p.add_argument("--eval-batch", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--video-eval", type=int, default=0,
+                   help="also score held-out video-mAP on this many synthetic long "
+                        "videos through both linkers (host greedy, device K-tube)")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
 
@@ -107,6 +118,45 @@ def evaluate(model, cfg, syn, eval_clips: int, eval_batch: int, device) -> dict:
             for thr in (0.5, 0.2)}
 
 
+def evaluate_videos(model, cfg, num_videos: int, windows: int, eval_batch: int) -> dict:
+    """Held-out video-mAP@0.2 and @0.5 of `model` on `num_videos` synthetic
+    videos, host and device linking, and under "video_eval_timings" the
+    seconds of detection collection (with dedupe), of the host linker and
+    of device linking (its own detection pass included), the detections
+    kept at `cfg.score_thresh` per window, and the tubes of each linker."""
+    from step_tpu_torch.data.synthetic import SyntheticConfig, SyntheticVideoDataset
+    from step_tpu_torch.eval.detection_metrics import video_map
+    from step_tpu_torch.evaluate import (collect_detections, collect_video_tubes,
+                                         dedupe_frame_detections, link_frame_detections)
+
+    T, fpc = cfg.total_frames, cfg.frames_per_chunk
+    vds = SyntheticVideoDataset(
+        SyntheticConfig(image_size=cfg.image_size, num_frames=(windows - 1) * fpc + T,
+                        num_classes=cfg.num_classes, max_boxes=cfg.max_gt_tubes),
+        num_videos=num_videos, num_windows=windows, window_frames=T, stride=fpc,
+        seed=VIDEO_SEED)
+    gt = vds.video_gt()
+    times = {}
+    t0 = time.perf_counter()
+    dets = dedupe_frame_detections(collect_detections(model, vds, batch_size=eval_batch,
+                                                      image_scale_to_gt=False))
+    times["collect_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tubes = {"host": link_frame_detections(dets)}
+    times["link_host_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tubes["device"] = collect_video_tubes(model, vds, image_scale_to_gt=False)
+    times["device_linking_s"] = time.perf_counter() - t0   # its own detection pass too
+    result = {f"video_mAP@{thr}_{name}": round(float(video_map(tubes[name], gt,
+                                                               cfg.num_classes, thr)["mAP"]), 4)
+              for name in ("host", "device") for thr in (0.2, 0.5)}
+    result["video_eval_timings"] = dict(
+        times, windows=len(vds), n_detections=len(dets),
+        detections_per_window=len(dets) / len(vds), score_thresh=cfg.score_thresh,
+        n_tubes_host=len(tubes["host"]), n_tubes_device=len(tubes["device"]))
+    return result
+
+
 def main(argv=None):
     args = parse_args(argv)
     from step_tpu_torch.data.loader import DataLoader
@@ -133,6 +183,9 @@ def main(argv=None):
     train_s = time.time() - t0
     state.model.eval()
     result = evaluate(state.model, cfg, syn, args.eval_clips, args.eval_batch, device)
+    if args.video_eval > 0:
+        result.update(evaluate_videos(state.model, cfg, args.video_eval,
+                                      VIDEO_WINDOWS, args.eval_batch))
     print(json.dumps({
         "steps": args.steps, "batch": cfg.batch_size, "image_size": cfg.image_size,
         "num_classes": cfg.num_classes, **result, "loss_curve": losses,

@@ -1,0 +1,206 @@
+"""The port's command-line entry points on the CPU: `utils/cli.py` (the
+`--set` overlay, held equal to the JAX package's on
+`tests/test_cli_overrides.py`'s cases), `optimize_for_inference_cli`
+(config held equal field for field to the JAX package's), and
+`python -m step_tpu_torch.cli.train` / `cli.test` driven in-process
+(`main(argv)`) on a mini on-disk UCF101-24 layout at the tiny size of
+`tests/test_cli_e2e.py::TINY_SET`, plus one subprocess run of `cli.test`.
+
+Tolerances: overrides and configs exactly equal; `--optimized` (BN folded
+in float32) within 1e-4 of the unfolded model's mAPs; the CLI's printed
+mAPs equal `evaluate_ucf`'s to the 4 places it prints.
+"""
+
+import contextlib
+import dataclasses
+import io
+import os
+import pickle
+import re
+import subprocess
+import sys
+
+import pytest
+
+from step_tpu.config import StepConfig as JaxStepConfig
+from step_tpu.models.optimize import optimize_for_inference_cli as jax_optimize_cli
+from step_tpu.utils.cli import parse_overrides as jax_parse_overrides
+from step_tpu_torch.cli import test as cli_test
+from step_tpu_torch.cli import train as cli_train
+from step_tpu_torch.config import StepConfig
+from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.models.optimize import optimize_for_inference_cli
+from step_tpu_torch.utils.cli import apply_overrides, parse_overrides
+from tests.test_cli_e2e import TINY_SET
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MAPS = ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5", "video_mAP@0.5:0.95")
+
+OVERRIDE_CASES = [
+    ["max_gt_tubes=2"],
+    ["max_gt_tubes=2,warmup_steps=100"],
+    ["iou_thresholds=(0.4,0.5,0.6)"],
+    ["iou_thresholds=(0.4,0.5),num_steps=2,max_gt_tubes=3"],
+    ["backbone_depth=tiny"],
+    ["iou_thresholds=(0.4,)", "num_steps=1,score-thresh=0.0"],
+    ["max_gt_tubes=2,oops"],
+    ["max_gt_tubes"],
+    ["roi_impl=0"],
+]
+
+
+@pytest.mark.parametrize("overrides", OVERRIDE_CASES)
+def test_parse_overrides_equals_the_jax_package(overrides):
+    try:
+        want = jax_parse_overrides(JaxStepConfig(), overrides)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            parse_overrides(StepConfig(), overrides)
+        assert str(got.value) == str(e)
+        return
+    got = parse_overrides(StepConfig(), overrides)
+    assert got == want and [type(v) for v in got.values()] == [type(v) for v in want.values()]
+    assert dataclasses.asdict(apply_overrides(StepConfig(), overrides)) == \
+        dataclasses.asdict(JaxStepConfig().replace(**want))
+
+
+@pytest.mark.parametrize("overrides", [
+    [], ["fused_inception=False"], ["scan_unroll=False"], ["fused_inception3=tail"],
+    ["fused_bn_relu=True,compute_dtype=float32"], ["bn_folded=False"],
+])
+def test_optimize_for_inference_cli_equals_the_jax_package(overrides):
+    """Explicit --set serving flags win over the optimized defaults; the
+    config is the JAX package's field for field, and the weights follow
+    the fusion flags."""
+    cfg = StepConfig(backbone_depth="tiny", feature_stride=8, image_size=32)
+    jcfg = JaxStepConfig(backbone_depth="tiny", feature_stride=8, image_size=32)
+    sd = STEPDetector(cfg).eval().state_dict()
+    if overrides == ["bn_folded=False"]:
+        with pytest.raises(ValueError, match="conflicts with --optimized"):
+            optimize_for_inference_cli(cfg, overrides, sd)
+        with pytest.raises(ValueError, match="conflicts with --optimized"):
+            jax_optimize_cli(jcfg, overrides)
+        return
+    got, sd = optimize_for_inference_cli(cfg, overrides, sd)
+    want, _ = jax_optimize_cli(jcfg, overrides)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    served = STEPDetector(got).eval()
+    served.load_state_dict(sd)       # the folded weights fit the served model
+    assert any(".b012." in k for k in sd) == got.fused_inception
+    assert not any(".bn." in k for k in sd)
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A mini UCF101-24 layout, a checkpoint trained on it by `cli.train`
+    (4 steps, an in-training evaluation each epoch) and what it printed."""
+    from step_tpu_torch.data.synthetic import write_ucf_layout
+
+    tmp = tmp_path_factory.mktemp("cli")
+    root = str(tmp / "ucf")
+    videos = write_ucf_layout(root, 3, num_classes=2, image_size=32, frames_lo=8,
+                              frames_hi=10, seed=1)
+    with open(os.path.join(root, "UCF101v2-GT.pkl"), "rb") as f:
+        gt = pickle.load(f)
+    gt["train_videos"] = [videos[:2]]
+    with open(os.path.join(root, "UCF101v2-GT.pkl"), "wb") as f:
+        pickle.dump(gt, f)
+    ckpt, logs = str(tmp / "ckpt"), str(tmp / "logs")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = cli_train.main([
+            "--dataset", "ucf101_24", "--data-root", root, "--ckpt-dir", ckpt,
+            "--log-dir", logs, "--epochs", "2", "--eval-every-epochs", "1",
+            "--eval-max-batches", "2", "--set", "num_classes=2", "--device", "cpu",
+            *TINY_SET])
+    return dict(root=root, ckpt=ckpt, logs=logs, out=buf.getvalue(), state=state,
+                tmp=tmp)
+
+
+def test_train_cli_checkpoints_and_evaluates(trained):
+    out = trained["out"]
+    assert trained["state"].step == 4
+    assert re.search(r"epoch 0 eval: .*'frame_mAP@0\.5'", out), out
+    assert "'eval_subset'" in out and "trained to step 4 on cpu; decoder: cv2" in out
+    assert sorted(os.listdir(trained["ckpt"])) == ["4.pt"]
+    with open(os.path.join(trained["logs"], "metrics.jsonl")) as f:
+        assert len(f.read().splitlines()) == 4
+
+
+def _test_cli(trained, *extra):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        results = cli_test.main(["--data-root", trained["root"], "--ckpt-dir",
+                                 trained["ckpt"], "--set", "num_classes=2", "--device",
+                                 "cpu", *TINY_SET, *extra])
+    return results, buf.getvalue()
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--optimized"], ["--device-linking"], ["--max-batches", "1"],
+    ["--device-linking", "--max-videos", "1"],
+])
+def test_test_cli_prints_the_evaluation(trained, extra):
+    dump = str(trained["tmp"] / "dets.pkl")
+    results, out = _test_cli(trained, "--dump", dump, "--set", "score_thresh=0.0", *extra)
+    assert "restored step 4" in out and re.search(r"^decoder: (native|cv2)$", out, re.M)
+    for key in MAPS:
+        m = re.search(rf"^{re.escape(key)}: ([0-9.]+|nan)$", out, re.M)
+        assert m, out
+        assert m.group(1) == f"{results[key]:.4f}"
+    assert re.search(r"^timings: collect_s=\d+\.\d\d, .*n_detections=\d+, .*peak_rss_mb=",
+                     out, re.M), out
+    if "--max-batches" in extra:
+        assert "eval_subset: 2 videos touched" in out
+    if "--max-videos" in extra:
+        assert "eval_subset: 1 videos" in out
+    with open(dump, "rb") as f:
+        assert len(pickle.load(f)["detections"]) == results["timings"]["n_detections"] > 0
+    if extra == ["--optimized"]:
+        plain, _ = _test_cli(trained, "--set", "score_thresh=0.0")
+        for key in MAPS:
+            assert results[key] == pytest.approx(plain[key], abs=1e-4), key
+
+
+@pytest.mark.parametrize("module,argv,item", [
+    (cli_train, ["--distributed"], "M9"),
+    (cli_train, ["--pretrained-i3d", "i3d.pt"], "M8"),
+    (cli_train, ["--dataset", "ava"], "M10"),
+    (cli_train, ["--flow"], "M10"),
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--sharded"], "M9"),
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z"], "M10"),
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--preset", "ava_3step"], "M10"),
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--preset",
+                "two_stream_train"], "M10"),
+])
+def test_clis_refuse_what_is_not_ported(module, argv, item):
+    with pytest.raises(SystemExit, match=item):
+        module.main([*argv, "--device", "cpu"])
+
+
+def test_clis_run_on_the_card_unless_asked(trained):
+    """`--device` defaults to cuda: without a card the entry points raise,
+    they do not fall back to the CPU."""
+    for module in (cli_train, cli_test):
+        assert module.parse_args(["--data-root", "x", "--ckpt-dir", "y"]).device == "cuda"
+    import torch
+
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli_test.main(["--data-root", trained["root"], "--ckpt-dir", trained["ckpt"],
+                           "--set", "num_classes=2", *TINY_SET])
+
+
+def test_test_cli_as_a_module(trained):
+    """`python -m step_tpu_torch.cli.test --device cpu` in a fresh process."""
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run(
+        [sys.executable, "-m", "step_tpu_torch.cli.test", "--data-root", trained["root"],
+         "--ckpt-dir", trained["ckpt"], "--device", "cpu", "--set", "num_classes=2",
+         *TINY_SET],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    for key in MAPS:
+        assert re.search(rf"^{re.escape(key)}: ", proc.stdout, re.M), proc.stdout
+    assert "decoder: " in proc.stdout and "timings: " in proc.stdout
+    assert not any(m in proc.stderr for m in ("import jax", "No module named 'jax'"))

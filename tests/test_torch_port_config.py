@@ -5,7 +5,8 @@ the port imports nothing of the JAX package.
 and the default config must give the same fields with the same values.
 The import guard runs in a fresh interpreter whose import system refuses
 `jax*` and `step_tpu` / `step_tpu.*`, and imports every module of the port
-and `chip_smoke.py` (as a module, without running it).
+(the CLIs and the UCF reader among them, with cv2 left unimported) and
+`chip_smoke.py` (as a module, without running it).
 """
 
 import dataclasses
@@ -63,12 +64,22 @@ assert callable(smoke.main)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "step_tpu" or m.split(".")[0].startswith("jax"))
 assert not bad, bad
-print(len(names))
+# cv2 is imported where a frame is read or written, never at import
+assert "cv2" not in sys.modules
+print(" ".join(names))
 """
+
+# Modules the guard must reach: the evaluation slice's among them.
+_MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
+              "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
+              "step_tpu_torch.data.augmentations", "step_tpu_torch.utils.cli",
+              "step_tpu_torch.evaluate", "step_tpu_torch.train_eval_synth")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20          # every module was walked
+    walked = proc.stdout.split()
+    assert len(walked) >= 20                            # every module was walked
+    assert not set(_MUST_WALK) - set(walked), set(_MUST_WALK) - set(walked)
