@@ -117,6 +117,44 @@ Phases, each fatal on failure (exit code 1, no result line):
      that checkpoint with `--optimized` and with `--device-linking`
      (score threshold 0): the printed keys, the decoder, the dump, and K1
      and K2 launched in each (K5 too in training).
+ 18. the two-stream detector (`two_stream_phases`): `two_stream_train` at
+     full width on `optimize_for_inference`'s tree (BN folded in both stems
+     and the fusion unit), bf16, serving uint8 RGB and int8 flow through
+     `detect_clip` at B=1 and B=8, every K1 and K2 call held against its
+     plain version (`held_run`: K1 by raw bits, K2 within one bf16 step), K1
+     1 and K2 3 a request, the request medians; the kernel configuration at
+     B=2, whose K3, K4 and K5 launches by shape must equal
+     `backbone_launches` with both stems and the fusion unit's K4, that
+     shape held against plain (`bn_case`); the same weights in float32 at
+     B=1, the kernel configuration against the main path's tree on the same
+     RGB and flow (tube scores within 1e-3, tubes within 1e-2 px, as phase
+     11); a tiny float32 two-stream detector on the card against the CPU;
+     12 `fit()` steps at full width, B=8 (remat "dots", AdamW, synthetic
+     clips with their flow): finite losses, a nonzero step-1 gradient on
+     every parameter of both stems and the fusion unit, K2 and K5 in every
+     step, the step times, their median over the last 8 (CUDA events, as
+     phase 14) and the peak memory; then 8 steps on one batch already on
+     the card, no loader running, timed the same way (so is phase 14's
+     fixed batch);
+ 19. late fusion and the flow stream (`late_fusion_phases`): an RGB and a
+     flow-stream `ucf_3step` detector on the main path's tree,
+     `detect_clip_late_fusion` at B=8 (K1 1 and K2 6 a request, every call
+     held), `evaluate_ucf` with `model_flow` on `MemoryUCF` videos that
+     carry their flow (host-linked; K1 1 and K2 6 a fused batch, counted),
+     `collect_video_tubes` with the flow stream; then each of the three as
+     a tiny float32 run, card against CPU (tubes 1e-3 px, scores 1e-4, the
+     surface equal; detections equal and mAPs within 1e-3; tubes matched
+     one to one);
+ 20. AVA (`ava_phases`): `ava_3step` at full width on the main path's tree
+     serving B=1 and B=8 (every K1 and K2 call held), the C = 60 surface of
+     a B=8 request's own tubes and scores held against plain by raw bits
+     with float32 and bfloat16 scores; `evaluate_ava` on an AVA layout the
+     script writes (`write_ava_layout`: 3 videos, a label map of 60 sparse
+     ids, rows the map does not evaluate, an excluded keyframe), its
+     frame-mAP in [0, 1], its dump normalized, K1 1 and K2 3 a batch of 4;
+     then `cli.train --dataset ava` (4 steps, B=2; K2 launched) and
+     `cli.test --preset ava_3step` on that checkpoint (K1 once and K2 3
+     times a `detect_clip` batch, counted).
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -140,7 +178,11 @@ device, plain and bound times, and `train_launches`, its launches in one
 training step of phase 14 (K2 and K5 also `train_backward_ms`, the device
 time of their plain backward), and `eval_launches`, its launches on each
 run of phases 16 and 17 (K1 and K2 also `eval_launches_per_batch` and
-`eval_shapes`, as `video_shapes`). The last is
+`eval_shapes`, as `video_shapes`), and `two_stream_launches`,
+`late_fusion_launches` and `ava_launches`, its launches on each run of
+phases 18, 19 and 20, with `two_stream_shapes`, `late_fusion_shapes` and
+`ava_shapes` for the shapes held there (K4's fusion shape among them). The
+last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -187,6 +229,15 @@ EVAL_MAP_TOL = 1e-3
 # 1e-4 of score
 EVAL_TUBE_TOL, EVAL_SCORE_TOL = 5e-3, 1e-4
 CLI_FRAMES, CLI_STEPS = 36, 4
+# The two-stream, late-fusion and AVA phases: `two_stream_train` trained for
+# 12 fit() steps at B=8, as phase 14 times ucf_3step; late fusion evaluated on 2 synthetic videos of 60
+# frames; an on-disk AVA layout of 3 videos of 48 frames at 6 fps (5
+# keyframes each, one excluded), 60 evaluated ids of the sparse 1..80.
+TS_TRAIN_BATCH, TS_TRAIN_STEPS = 8, 12
+LF_VIDEOS = 2
+AVA_VIDEOS, AVA_FRAMES, AVA_FPS, AVA_SIZE = 3, 48, 6, (180, 320)
+KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
+           "conv3x3x3_bn_relu")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -276,7 +327,9 @@ def backbone_launches(cfg, B: int):
     step's tail once per refinement step, on the pooled tubes of all
     B * max_proposals slots. With `chunk_stem` the stem runs on the B *
     num_chunks chunks of frames_per_chunk frames, and the tail on their
-    features side by side in time."""
+    features side by side in time. With `two_stream` a second stem (flow)
+    runs the same shapes, and the fusion unit's BN + ReLU is one more K4
+    launch on the fused map, 832 channels."""
     from step_tpu_torch.models.i3d import INCEPTION_CHANNELS
 
     up = lambda n, s: -(-n // s)  # noqa: E731
@@ -286,10 +339,11 @@ def backbone_launches(cfg, B: int):
     S2 = up(S1, 2)
     S3 = up(S2, 2)
     T4, S4 = up(T1, 2), up(S3, 2)
-    k4 = {(N, 64, T1, S1, S1): 1, (N, 64, T1, S2, S2): 1}
-    k3 = {((N, 64, T1, S2, S2), 192): 1}
+    streams = 2 if cfg.two_stream else 1
+    k4 = {(N, 64, T1, S1, S1): streams, (N, 64, T1, S2, S2): streams}
+    k3 = {((N, 64, T1, S2, S2), 192): streams}
     k5 = {}
-    where = {"Mixed_3": (N, T1, S3, 1), "Mixed_4": (N, T4, S4, 1),
+    where = {"Mixed_3": (N, T1, S3, streams), "Mixed_4": (N, T4, S4, streams),
              "Mixed_5": (B * cfg.max_proposals, chunks * T4, cfg.pooled_size,
                          cfg.num_steps)}
     cin = 192
@@ -302,6 +356,8 @@ def backbone_launches(cfg, B: int):
             key = ((n_, cin3, t, s, s), cout)
             k3[key] = k3.get(key, 0) + n
         cin = c[0] + c[2] + c[4] + c[5]
+    if cfg.two_stream:
+        k4[(N, 832, T4, S4, S4)] = 1
     return k4, k5, k3
 
 
@@ -492,21 +548,25 @@ def conv_case(shape, K: int, rng, dev) -> dict:
                 BF16_TENSOR_FLOPS))
 
 
-def serve(model, cfg, clips, dev, label: str) -> None:
-    """Serve each batch size's clips through `detect_clip`, timing each
-    request, and check the outputs as a client would read them."""
+def serve(model, cfg, clips, dev, label: str, flows=None) -> dict:
+    """Serve each batch size's clips (and `flows`, a two-stream detector's
+    second stream) through `detect_clip`, timing each request, and check
+    the outputs as a client would read them. Returns {batch: request wall
+    ms}."""
     from step_tpu_torch.inference import detect_clip
     from step_tpu_torch.models.detector import STEPDetector
 
     T, C, P = cfg.total_frames, cfg.num_classes, cfg.max_proposals
     K = min(cfg.max_detections, P)
+    walls = {}
     for b, batch in clips.items():
         props, pmask = STEPDetector.initial_proposals(cfg, b, device=dev)
         times = []
-        for clip in batch:
+        for i, clip in enumerate(batch):
+            flow = None if flows is None else flows[b][i].to(dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = detect_clip(model, clip.to(dev), props, pmask)
+            out = detect_clip(model, clip.to(dev), props, pmask, flow)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
             shapes = {"tubes": (b, P, T, 4), "tube_scores": (b, P, C),
@@ -523,6 +583,8 @@ def serve(model, cfg, clips, dev, label: str) -> None:
         print(f"    B={b}: request wall ms {', '.join(f'{t:.2f}' for t in times)} "
               f"(first warms up); {int(out['frame_mask'].sum())} survivors in the "
               f"last", flush=True)
+        walls[b] = times
+    return walls
 
 
 def bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float = 1e-5) -> bool:
@@ -714,54 +776,29 @@ def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
     from step_tpu_torch import PRESETS
     from step_tpu_torch.inference import (detect_clip, detect_video, detect_video_stream,
                                           detect_video_stream_batched, link_video,
-                                          nms_surface, window_centers)
+                                          window_centers)
     from step_tpu_torch.models.detector import STEPDetector
-    from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
     from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
     from step_tpu_torch.ops.pool import max_pool3x3_same
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 
-    out = {name: dict(video_launches={}, video_shapes={})
-           for name in ("nms_many", "tube_roi_align", "max_pool3x3_same",
-                        "fused_scale_bias_relu", "conv3x3x3_bn_relu")}
+    out = {name: dict(video_launches={}, video_shapes={}) for name in KERNELS}
     scfg = PRESETS["streaming"]
     C, K, P, T = scfg.num_classes, scfg.link_tubes_per_class, scfg.max_proposals, \
         scfg.total_frames
     c, n = scfg.frames_per_chunk, VIDEO_CHUNKS
-    bf16 = getattr(torch, scfg.compute_dtype)
-
-    def served(cfg, dtype):
-        """The main path's tree of `cfg` on the seeded weights."""
-        cfg_opt, folded = optimize_for_inference(cfg, seeded)
-        model = STEPDetector(cfg_opt).eval()
-        model.load_state_dict(folded)
-        return model.to(device=dev, dtype=dtype)
 
     def held(path: str, run):
-        """Run `path` once with the launch counts set to 0 just before and
-        read just after, K1's and K2's calls recorded; check both launched,
-        and hold every call against its plain version (`hold_nms_calls`,
-        `hold_roi_calls`)."""
-        reset_counts()
-        with recorded(nms_surface, lambda t, *_: tuple(t.shape), keep=True) as k1, \
-                recorded(tube_roi_align, shape_of, keep=True) as k2:
-            result = run()
-            torch.cuda.synchronize()
-        counts = read_counts()
+        """`held_run` on the video path: K1 and K2 must both launch."""
+        result, counts, _ = held_run(path, run, reset_counts, read_counts, out, "video")
         for name in ("nms_many", "tube_roi_align"):
             check(counts[name] > 0, f"{path}: kernel {name} never launched")
-            out[name]["video_launches"][path] = counts[name]
-        check(sum(v[0] for v in k1.values()) == counts["nms_many"]
-              and sum(v[0] for v in k2.values()) == counts["tube_roi_align"],
-              f"{path}: recorded launches differ from the counters {counts}")
-        hold_nms_calls(path, k1, out["nms_many"]["video_shapes"])
-        hold_roi_calls(path, k2, out["tube_roi_align"]["video_shapes"])
         return result, counts
 
     # ---- 12. detect_video on the 48 windows, bf16, the main path's tree --
     t0 = t12 = time.time()
-    model = served(scfg, bf16)
+    model = served_model(scfg, seeded, dev)
     video = torch.from_numpy(rng.randint(0, 256, (n * c, scfg.image_size, scfg.image_size,
                                                   3)).astype(np.uint8)).to(dev)
     clips = video.reshape(n, c, *video.shape[1:])[window_centers(n, scfg, device=dev)]
@@ -810,7 +847,7 @@ def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
     # ---- 13. the chunk-stem cache on the same video -----------------------
     t13 = time.time()
     ccfg = scfg.replace(chunk_stem=True)
-    cmodel = served(ccfg, bf16)
+    cmodel = served_model(ccfg, seeded, dev)
     sdet, counts = held("stream_batched", lambda: detect_video_stream_batched(
         cmodel, video, clip_batch=STREAM_BATCH))
     sk = min(scfg.max_detections, P)
@@ -839,7 +876,7 @@ def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
     check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
           "TF32 is on")
     fcfg = ccfg.replace(compute_dtype="float32")
-    fmodel = served(fcfg, torch.float32)
+    fmodel = served_model(fcfg, seeded, dev)
     first = video[:4 * c]
     live = detect_video_stream(fmodel, first)
     batched = detect_video_stream_batched(fmodel, first, clip_batch=3)   # 3 + 1
@@ -973,6 +1010,22 @@ def far_weights(got: dict, want: dict, lr: float, names) -> tuple[int, int, floa
     return far, total, worst
 
 
+def fixed_batch_steps(state, batch, cfg, n: int = 8):
+    """`n` train_steps on one batch already on the card, no loader running:
+    (losses, each step's ms between CUDA events)."""
+    from step_tpu_torch.train.trainer import train_step
+
+    losses, ms = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = train_step(state, batch, cfg)[1]["loss"]
+        end.record()
+        losses.append(float(loss))
+        ms.append(start.elapsed_time(end))
+    return losses, ms
+
+
 def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     """Phases 14 and 15, the training path. Returns, per kernel, its
     launches a training step and, for K2 and K5, the device time of the
@@ -1006,16 +1059,8 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     loader = DataLoader(SyntheticClips(syn, TRAIN_STEPS * cfg.batch_size, SEED * 1000), cfg,
                         seed=SEED, num_workers=4)
     # Step 1's gradient of every backbone parameter, kept on the card.
-    first_grads, steps = {}, []
-
-    def keep_first_grad(name):
-        def hook(p):
-            if not steps:
-                first_grads[name] = p.grad.ne(0).any()
-        return hook
-
-    for name, p in model.features.named_parameters():
-        p.register_post_accumulate_grad_hook(keep_first_grad(name))
+    steps = []
+    first_grads = first_grad_hooks(model.features, steps)
 
     def timed_step(state, batch, cfg_):
         before = read_counts()
@@ -1082,10 +1127,11 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     # 8 steps on one fixed batch lower the loss.
     raw = make_batch(SEED * 1000 + 10 ** 6, cfg.batch_size, syn)
     fixed = batch_to_device(build_model_batch(raw, cfg, train=True, emit_uint8=True), dev)
-    fixed_losses = [float(train_step(state, fixed, cfg)[1]["loss"]) for _ in range(8)]
+    fixed_losses, fixed_ms = fixed_batch_steps(state, fixed, cfg)
     check(fixed_losses[-1] < fixed_losses[0],
           f"8 steps on one batch did not lower the loss: {fixed_losses}")
-    print(f"    8 steps on one batch: loss {', '.join(f'{v:.3f}' for v in fixed_losses)}",
+    print(f"    8 steps on one batch: loss {', '.join(f'{v:.3f}' for v in fixed_losses)}; "
+          f"step ms without the loader, median {float(np.median(fixed_ms)):.2f}",
           flush=True)
     del state, model, loader
 
@@ -1199,16 +1245,21 @@ class MemoryUCF:
     be `resolution` (H, W), so that `evaluate_ucf` scales its boxes back to
     it. `samples` are (video, centre) windows one chunk apart, items carry
     the `UCFDataset` keys (frames edge-clamped as it clamps them), and
-    `video_groundtruth()` gives the GT in native pixels, frames 1-based."""
+    `video_groundtruth()` gives the GT in native pixels, frames 1-based.
+    `with_flow` gives each item the video's flow (`make_flow`), as
+    `UCFDataset(with_flow=True)` reads `brox-images`."""
 
-    def __init__(self, cfg, videos: int, frames: int, resolution, seed: int):
-        from step_tpu_torch.data.synthetic import SyntheticConfig, make_clip
+    def __init__(self, cfg, videos: int, frames: int, resolution, seed: int,
+                 with_flow: bool = False):
+        from step_tpu_torch.data.synthetic import SyntheticConfig, make_clip, make_flow
 
         syn = SyntheticConfig(image_size=cfg.image_size, num_frames=frames,
                               num_classes=cfg.num_classes, max_boxes=2)
         self.cfg, self.frames = cfg, frames
         self.clips = {f"c{i % cfg.num_classes:02d}/v_{i:05d}": make_clip(seed + i, syn)
                       for i in range(videos)}
+        for clip in self.clips.values() if with_flow else ():
+            clip["flow"] = make_flow(clip["rgb"])
         self.resolution = {v: tuple(resolution) for v in self.clips}
         H, W = resolution
         s = cfg.image_size
@@ -1225,9 +1276,12 @@ class MemoryUCF:
         T = self.cfg.total_frames
         idx = np.clip(center + np.arange(T) - T // 2, 0, self.frames - 1)
         clip = self.clips[video]
-        return {"rgb": clip["rgb"][idx], "gt_tubes": clip["gt_tubes"][:, idx],
+        item = {"rgb": clip["rgb"][idx], "gt_tubes": clip["gt_tubes"][:, idx],
                 "gt_labels": clip["gt_labels"], "gt_mask": clip["gt_mask"],
                 "video": video, "center_frame": center, "frame_indices": idx}
+        if "flow" in clip:
+            item["flow"] = clip["flow"][idx]
+        return item
 
     def video_groundtruth(self):
         frame_gt, tube_gt = [], []
@@ -1307,7 +1361,6 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
                                          link_frame_detections)
     from step_tpu_torch.inference import detect_clip, nms_surface
     from step_tpu_torch.models.detector import STEPDetector
-    from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.ops.roi_align import tube_roi_align
     from step_tpu_torch.utils.init import init_detector_
 
@@ -1348,10 +1401,7 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
     # ---- 16. evaluate_ucf at full width, bf16, the main path's tree -----
     t16 = time.time()
     cfg = PRESETS["ucf_3step"].replace(score_thresh=0.0)
-    cfg_opt, folded = optimize_for_inference(cfg, seeded)
-    model = STEPDetector(cfg_opt).eval()
-    model.load_state_dict(folded)
-    model = model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
+    model = served_model(cfg, seeded, dev)
     data = MemoryUCF(cfg, EVAL_VIDEOS, EVAL_FRAMES, EVAL_RESOLUTION, SEED + 3)
     print(f"[16] evaluate_ucf on ucf_3step, full width, BN folded, {cfg.compute_dtype}, "
           f"score_thresh 0: {EVAL_VIDEOS} synthetic videos of {EVAL_FRAMES} frames in "
@@ -1463,6 +1513,594 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
                       f"{path}: the dump holds another number of detections")
     print(f"    phase 17 took {time.time() - t17:.1f} s", flush=True)
     return out
+
+
+def served_model(cfg, state, dev):
+    """The main path's tree of `cfg` (`optimize_for_inference`: BN folded,
+    the Inception 1x1x1 convs fused) on the unfolded `state`, on the card in
+    cfg.compute_dtype."""
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.models.optimize import optimize_for_inference
+
+    cfg_opt, folded = optimize_for_inference(cfg, state)
+    model = STEPDetector(cfg_opt).eval()
+    model.load_state_dict(folded)
+    return model.to(device=dev, dtype=getattr(torch, cfg.compute_dtype))
+
+
+def held_run(path: str, run, reset_counts, read_counts, out: dict, key: str,
+             counted=None):
+    """Run `path` once with the launch counts set to 0 just before and read
+    just after, every K1 and K2 call recorded and held against its plain
+    version (`hold_nms_calls`, `hold_roi_calls`) into `out[...][key +
+    "_shapes"]`, and the counts stored under `out[...][key + "_launches"]
+    [path]`. `counted`, a function of the port, has its calls counted.
+    Returns (result, counts, calls of `counted`)."""
+    from step_tpu_torch.inference import nms_surface
+    from step_tpu_torch.ops.roi_align import tube_roi_align
+
+    reset_counts()
+    with contextlib.ExitStack() as stack:
+        k1 = stack.enter_context(recorded(nms_surface, lambda t, *_: tuple(t.shape),
+                                          keep=True))
+        k2 = stack.enter_context(recorded(tube_roi_align, shape_of, keep=True))
+        calls = stack.enter_context(call_count(counted)) if counted else [None]
+        result = run()
+        torch.cuda.synchronize()
+    counts = read_counts()
+    for name, n in counts.items():
+        out[name][key + "_launches"][path] = n
+    check(sum(v[0] for v in k1.values()) == counts["nms_many"]
+          and sum(v[0] for v in k2.values()) == counts["tube_roi_align"],
+          f"{path}: recorded launches differ from the counters {counts}")
+    hold_nms_calls(path, k1, out["nms_many"][key + "_shapes"])
+    hold_roi_calls(path, k2, out["tube_roi_align"][key + "_shapes"])
+    return result, counts, calls[0]
+
+
+def first_grad_hooks(module, steps: list) -> dict:
+    """{parameter name: whether its gradient at the first step is nonzero}
+    for every parameter of `module`, filled while `steps` is empty."""
+    first = {}
+
+    def keep(name):
+        def hook(p):
+            if not steps:
+                first[name] = p.grad.ne(0).any()
+        return hook
+
+    for name, p in module.named_parameters():
+        p.register_post_accumulate_grad_hook(keep(name))
+    return first
+
+
+def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 18, the two-stream detector (`two_stream_train`). Returns, per
+    kernel, its launches on each two-stream run and the numbers at the
+    shapes held there, for the JSON line."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch, make_flow
+    from step_tpu_torch.inference import detect_clip, nms_surface
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
+    from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
+    from step_tpu_torch.ops.pool import max_pool3x3_same
+    from step_tpu_torch.train import fit as fit_module
+    from step_tpu_torch.train.trainer import batch_to_device, train_step
+    from step_tpu_torch.train_eval_synth import SyntheticClips
+    from step_tpu_torch.utils.init import init_detector_, init_detector_train_
+
+    out = {name: dict(two_stream_launches={}, two_stream_shapes={}) for name in KERNELS}
+    cfg = PRESETS["two_stream_train"]
+    T, S = cfg.total_frames, cfg.image_size
+    t18 = time.time()
+    seeded = init_detector_(STEPDetector(cfg).eval(), SEED).state_dict()
+    model = served_model(cfg, seeded, dev)
+    names = [n for n, _ in model.named_parameters()]
+    check("features.fusion.conv.bias" in names
+          and any(n.startswith("features.stem_flow.") and ".b012." in n for n in names)
+          and not any(".bn." in n for n in names),
+          "optimize_for_inference did not fold and fuse stem_flow and fusion")
+    n_params = sum(p.numel() for p in model.parameters())
+
+    def uint8_clips(b):
+        return torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8))
+
+    def int8_flows(b):
+        return torch.from_numpy(rng.randint(-127, 128, (b, T, S, S, 2)).astype(np.int8))
+
+    clips = {b: [uint8_clips(b) for _ in range(REQUESTS_PER_BATCH)] for b in SERVE_BATCHES}
+    flows = {b: [int8_flows(b) for _ in range(REQUESTS_PER_BATCH)] for b in SERVE_BATCHES}
+    print(f"[18] two_stream_train full width, {n_params} params, BN folded (both stems "
+          f"and the fusion unit), {cfg.compute_dtype}: uint8 RGB and int8 flow through "
+          f"detect_clip", flush=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    walls, counts, _ = held_run(
+        "serve", lambda: serve(model, cfg, clips, dev, "two-stream", flows),
+        reset_counts, read_counts, out, "two_stream")
+    n_req = len(SERVE_BATCHES) * REQUESTS_PER_BATCH
+    check(counts["nms_many"] == n_req and counts["tube_roi_align"] == cfg.num_steps * n_req,
+          f"two-stream serving: launches {counts} for {n_req} requests (want K1 1 and K2 "
+          f"{cfg.num_steps} a request)")
+    medians = {b: float(np.median(t[1:])) for b, t in walls.items()}
+    print(f"[18] two-stream request medians ({smi_line}): "
+          f"{', '.join(f'B={b} {m:.2f} ms' for b, m in medians.items())}; launches "
+          f"{counts}; peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    del model, clips
+
+    # The kernel configuration at B=2: both stems' K3, K4 and K5 launches by
+    # shape as backbone_launches lists them, the fusion unit's K4 among them.
+    kcfg = cfg.replace(fused_bn_relu=True)
+    kmodel = STEPDetector(kcfg).eval()
+    kmodel.load_state_dict(seeded)
+    kmodel = kmodel.to(dev)
+    props, pm2 = STEPDetector.initial_proposals(kcfg, 2, device=dev)
+    wrappers = (("conv3x3x3_bn_relu", conv3x3x3_bn_relu,
+                 lambda x, w, *_: (tuple(x.shape), w.shape[0])),
+                ("fused_scale_bias_relu", fused_scale_bias_relu, shape_of),
+                ("max_pool3x3_same", max_pool3x3_same, shape_of))
+    os.environ["STEP_TPU_POOL3D"] = "pallas"
+    reset_counts()
+    try:
+        with contextlib.ExitStack() as stack:
+            seen = {name: stack.enter_context(recorded(fn, key)) for name, fn, key in wrappers}
+            kdet = detect_clip(kmodel, uint8_clips(2).to(dev), props, pm2, int8_flows(2).to(dev))
+            torch.cuda.synchronize()
+    finally:
+        os.environ["STEP_TPU_POOL3D"] = "direct"
+    counts = read_counts()
+    check(bool(torch.isfinite(kdet["tube_scores"]).all()), "two-stream kernel path: not finite")
+    k4s, k5s, k3s = backbone_launches(kcfg, 2)
+    fusion_shape = (2, 832, T // 4 + (T % 4 > 0), S // 16, S // 16)
+    check(k4s.get(fusion_shape) == 1, f"backbone_launches lists no fusion K4 at {fusion_shape}")
+    for name, listed in (("conv3x3x3_bn_relu", k3s), ("fused_scale_bias_relu", k4s),
+                         ("max_pool3x3_same", k5s)):
+        measured = {shape: v[0] for shape, v in seen[name].items()}
+        check(counts[name] == sum(measured.values()) and measured == listed,
+              f"two-stream kernel path: {name} launched {measured} by shape, "
+              f"backbone_launches lists {listed}")
+        out[name]["two_stream_launches"]["kernel_path_b2"] = counts[name]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    r = bn_case(fusion_shape, gen)
+    out["fused_scale_bias_relu"]["two_stream_shapes"][f"fusion {fusion_shape}"] = dict(
+        launches=1, max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+        library_ms=r["library_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+    print(f"[18] kernel configuration B=2, both stems: launches {counts}, by shape as "
+          f"backbone_launches lists (K3 {sum(k3s.values())}, K4 {sum(k4s.values())}, K5 "
+          f"{sum(k5s.values())}); K4 at the fusion unit [{r['rows']}, 832]: max |err| f32 "
+          f"{r['err32']:.3g} (tol 1e-6), bf16 {r['max_abs_err']:.3g} (one bf16 step); "
+          f"device {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_ms'] / r['ms']:.1%}), plain {r['plain_ms']:.4f} ms", flush=True)
+    del kmodel, kdet
+
+    # float32, B=1: the kernel configuration (both stems' K3, K4 and K5, the
+    # fusion unit's K4) against the main path's tree, BN folded, on the same
+    # uint8 RGB and int8 flow, as phase 11 holds the one-stream detector.
+    cfg32 = cfg.replace(compute_dtype="float32")
+    kmodel = STEPDetector(cfg32.replace(fused_bn_relu=True)).eval()
+    kmodel.load_state_dict(seeded)
+    kmodel = kmodel.to(dev)
+    mmodel = served_model(cfg32, seeded, dev)
+    props, pm1 = STEPDetector.initial_proposals(cfg, 1, device=dev)
+    rgb1, flow1 = uint8_clips(1).to(dev), int8_flows(1).to(dev)
+    os.environ["STEP_TPU_POOL3D"] = "pallas"
+    try:
+        got = detect_clip(kmodel, rgb1, props, pm1, flow1)
+    finally:
+        os.environ["STEP_TPU_POOL3D"] = "direct"
+    want = detect_clip(mmodel, rgb1, props, pm1, flow1)
+    torch.cuda.synchronize()
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    print(f"[18] f32 B=1 two-stream kernel configuration vs main path: tube scores max "
+          f"|d| {d_scores:.3g} (tol {PATH_SCORE_TOL}), tubes {d_tubes:.3g} px (tol "
+          f"{PATH_TUBE_TOL})", flush=True)
+    check(d_scores <= PATH_SCORE_TOL and d_tubes <= PATH_TUBE_TOL,
+          f"two-stream kernel configuration differs from the main path: scores "
+          f"{d_scores}, tubes {d_tubes} px")
+    del kmodel, mmodel, got, want
+
+    # A tiny float32 two-stream detector on the card against the CPU.
+    tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                       compute_dtype="float32")
+    m_cpu = init_detector_(STEPDetector(tiny).eval(), SEED)
+    m_gpu = init_detector_(STEPDetector(tiny).eval(), SEED).to(dev)
+    tp, tm = STEPDetector.initial_proposals(tiny, 2, device="cpu")
+    clip = torch.from_numpy(rng.randint(0, 256, (2, T, 64, 64, 3)).astype(np.uint8))
+    flow = torch.from_numpy(rng.randint(-127, 128, (2, T, 64, 64, 2)).astype(np.int8))
+    ref = detect_clip(m_cpu, clip, tp, tm, flow)
+    got = detect_clip(m_gpu, clip.to(dev), tp.to(dev), tm.to(dev), flow.to(dev))
+    d_tubes = float((got["tubes"].cpu() - ref["tubes"]).abs().max())
+    d_scores = float((got["tube_scores"].cpu() - ref["tube_scores"]).abs().max())
+    check(d_tubes <= 1e-3 and d_scores <= 1e-4,
+          f"tiny two-stream detector card vs CPU: tubes {d_tubes} px, scores {d_scores}")
+    surf = nms_surface(ref["tubes"].to(dev), ref["tube_scores"].to(dev), tm.to(dev), tiny)
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        check(torch.equal(surf[key].cpu(), ref[key]),
+              f"tiny two-stream NMS surface on the card differs in {key}")
+    print(f"[18] tiny f32 two-stream detector card vs CPU: tubes {d_tubes:.3g} px (tol "
+          f"1e-3), scores {d_scores:.3g} (tol 1e-4); NMS surface equal", flush=True)
+
+    # fit() at full width: both stems and the fusion unit trained end to end.
+    tcfg = cfg.replace(dataset="synthetic", batch_size=TS_TRAIN_BATCH, remat_steps=True,
+                       remat_policy="dots", optimizer="adamw", warmup_steps=2,
+                       learning_rate=1e-3, total_steps=1000)
+    syn = SyntheticConfig(image_size=S, num_frames=T, num_classes=cfg.num_classes,
+                          max_boxes=4)
+    tmodel = init_detector_train_(STEPDetector(tcfg), tcfg, SEED)
+    steps = []
+    first = first_grad_hooks(tmodel.features, steps)
+    loader = DataLoader(SyntheticClips(syn, TS_TRAIN_STEPS * TS_TRAIN_BATCH, SEED * 1000,
+                                       with_flow=True), tcfg, seed=SEED, num_workers=4)
+
+    def timed_step(state, batch, cfg_):
+        check("flow" in batch, "the two-stream training batch holds no flow")
+        before = read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = train_step(state, batch, cfg_)
+        end.record()
+        after = read_counts()
+        steps.append((start, end, {k: after[k] - before[k] for k in after}, result[1]))
+        return result
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    fit_module.train_step = timed_step
+    try:
+        state = fit_module.fit(tcfg, loader, num_epochs=1, model=tmodel, device=dev,
+                               seed=SEED)
+        torch.cuda.synchronize()
+    finally:
+        fit_module.train_step = train_step
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(len(steps) == TS_TRAIN_STEPS == state.step,
+          f"two-stream fit ran {len(steps)} steps, state at {state.step}")
+    for _, _, _, m in steps:
+        for key, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"two-stream training {key} not finite: {v}")
+    features = [n for n, _ in tmodel.features.named_parameters()]
+    zero = [n for n in features if n not in first or not bool(first[n])]
+    check(not zero, f"two-stream backbone parameters without a nonzero step-1 gradient: "
+                    f"{zero[:5]}")
+    per_step = {k: sorted({c[k] for _, _, c, _ in steps}) for k in steps[0][2]}
+    for name in ("tube_roi_align", "max_pool3x3_same"):
+        check(min(per_step[name]) > 0, f"two-stream training: {name} not launched in every "
+                                       f"step: {per_step[name]}")
+        out[name]["two_stream_launches"]["train_step"] = max(per_step[name])
+    step_ms = [a.elapsed_time(b) for a, b, _, _ in steps]
+    median_ms = float(np.median(step_ms[-8:]))
+    stems = {k: sum(1 for n in features if n.startswith(k))
+             for k in ("stem_rgb.", "stem_flow.", "fusion.")}
+    print(f"[18] two-stream fit() at full width, batch {TS_TRAIN_BATCH}, {TS_TRAIN_STEPS} "
+          f"steps in {time.time() - t0:.1f} s ({smi_line}): step ms "
+          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 8 "
+          f"{median_ms:.2f} ms ({TS_TRAIN_BATCH / median_ms * 1e3:.1f} clips/s); peak "
+          f"memory {peak:.2f} GiB; losses "
+          f"{', '.join(f'{float(m[3]['loss']):.3f}' for m in steps)}; every backbone "
+          f"parameter has a nonzero step-1 gradient ({stems}); launches a step {per_step}",
+          flush=True)
+    # The same step on one batch already on the card, no loader running: what
+    # the loader's threads, which make each clip's flow in this process, add.
+    raw = make_batch(SEED * 1000 + 10 ** 6, TS_TRAIN_BATCH, syn)
+    raw["flow"] = np.stack([make_flow(clip) for clip in raw["rgb"]])
+    fixed = batch_to_device(build_model_batch(raw, tcfg, train=True, emit_uint8=True), dev)
+    fixed_losses, fixed_ms = fixed_batch_steps(state, fixed, tcfg)
+    check(all(np.isfinite(fixed_losses)), f"two-stream fixed-batch losses {fixed_losses}")
+    print(f"[18] 8 two-stream steps on one batch on the card, no loader: step ms "
+          f"{', '.join(f'{t:.1f}' for t in fixed_ms)}; median "
+          f"{float(np.median(fixed_ms)):.2f} ms (fit()'s {median_ms:.2f})", flush=True)
+    del state, tmodel, loader, fixed
+    print(f"    phase 18 took {time.time() - t18:.1f} s", flush=True)
+    return out
+
+
+def late_fusion_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 19, late fusion and the flow stream. Returns, per kernel, its
+    launches on each run and the numbers at the shapes held there."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.evaluate import collect_video_tubes, evaluate_ucf
+    from step_tpu_torch.inference import detect_clip_late_fusion, nms_surface
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.utils.init import init_detector_
+
+    out = {name: dict(late_fusion_launches={}, late_fusion_shapes={}) for name in KERNELS}
+    t19 = time.time()
+    # score threshold 0, so that the random weights' detections reach the
+    # evaluation (phase 16)
+    cfg = PRESETS["ucf_3step"].replace(score_thresh=0.0)
+    T, S, B = cfg.total_frames, cfg.image_size, 8
+    flow_cfg = cfg.replace(input_stream="flow")
+    m_rgb = served_model(cfg, init_detector_(STEPDetector(cfg).eval(), SEED).state_dict(), dev)
+    m_flow = served_model(flow_cfg, init_detector_(STEPDetector(flow_cfg).eval(),
+                                                   SEED + 1).state_dict(), dev)
+    props, pmask = STEPDetector.initial_proposals(cfg, B, device=dev)
+    rgb = [torch.from_numpy(rng.randint(0, 256, (B, T, S, S, 3)).astype(np.uint8))
+           for _ in range(REQUESTS_PER_BATCH)]
+    flow = [torch.from_numpy(rng.randint(-127, 128, (B, T, S, S, 2)).astype(np.int8))
+            for _ in range(REQUESTS_PER_BATCH)]
+
+    def requests():
+        times = []
+        for x, f in zip(rgb, flow):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            det = detect_clip_late_fusion(m_rgb, m_flow, x.to(dev), f.to(dev), props, pmask)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            for key, v in det.items():
+                check(bool(torch.isfinite(v).all()), f"late fusion: {key} not finite")
+            check(float(det["tube_scores"][:, cfg.num_proposals:].abs().max()) == 0.0,
+                  "late fusion: padding proposals scored")
+        return times
+
+    times, counts, _ = held_run("detect_clip_late_fusion_b8", requests, reset_counts,
+                                read_counts, out, "late_fusion")
+    n = len(rgb)
+    check(counts["nms_many"] == n and counts["tube_roi_align"] == 2 * cfg.num_steps * n,
+          f"late fusion: launches {counts} for {n} requests (want K1 1 and K2 "
+          f"{2 * cfg.num_steps} a request)")
+    print(f"[19] detect_clip_late_fusion, ucf_3step RGB + flow-stream detectors, full "
+          f"width, BN folded, bf16, B={B}: request wall ms "
+          f"{', '.join(f'{t:.2f}' for t in times)} (first warms up), median "
+          f"{np.median(times[1:]):.2f} ms ({smi_line}); launches {counts}", flush=True)
+
+    # evaluate_ucf and collect_video_tubes with the flow stream, on synthetic
+    # videos whose items carry their flow
+    data = MemoryUCF(cfg, LF_VIDEOS, EVAL_FRAMES, EVAL_RESOLUTION, SEED + 19,
+                     with_flow=True)
+    results, counts, batches = held_run(
+        "evaluate_ucf_late_fusion", lambda: evaluate_ucf(m_rgb, data, model_flow=m_flow),
+        reset_counts, read_counts, out, "late_fusion", counted=detect_clip_late_fusion)
+    check_eval_results(results, "evaluate_ucf late fusion")
+    check(batches > 0 and counts["nms_many"] == batches
+          and counts["tube_roi_align"] == 2 * cfg.num_steps * batches,
+          f"evaluate_ucf late fusion: launches {counts} for {batches} fused batches")
+    timings = results.pop("timings")
+    print(f"[19] evaluate_ucf with model_flow, host-linked, {len(data)} windows of "
+          f"{LF_VIDEOS} videos: {json.dumps(results)}; K1 1 and K2 {2 * cfg.num_steps} a "
+          f"fused batch ({batches} batches); timings ({smi_line}): {json.dumps(timings)}",
+          flush=True)
+    tubes, counts, batches = held_run(
+        "collect_video_tubes_late_fusion",
+        lambda: collect_video_tubes(m_rgb, data, model_flow=m_flow),
+        reset_counts, read_counts, out, "late_fusion", counted=detect_clip_late_fusion)
+    check(len(tubes) > 0 and batches == LF_VIDEOS, f"collect_video_tubes with the flow "
+          f"stream: {len(tubes)} tubes from {batches} fused batches")
+    print(f"[19] collect_video_tubes with model_flow: {len(tubes)} tubes, {batches} fused "
+          f"batches of 16 windows; launches {counts}", flush=True)
+    del m_rgb, m_flow, data
+
+    # Each of the three as a tiny float32 run, card against CPU.
+    tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                       compute_dtype="float32")
+    small = MemoryUCF(tiny, 2, 30, EVAL_RESOLUTION, SEED + 20, with_flow=True)
+    tp, tm = STEPDetector.initial_proposals(tiny, 2, device="cpu")
+    clip = torch.from_numpy(rng.randint(0, 256, (2, T, 64, 64, 3)).astype(np.uint8))
+    tflow = torch.from_numpy(rng.randint(-127, 128, (2, T, 64, 64, 2)).astype(np.int8))
+    runs = {}
+    for d in (dev, "cpu"):
+        mr = init_detector_(STEPDetector(tiny).eval(), SEED).to(d)
+        mf = init_detector_(STEPDetector(tiny.replace(input_stream="flow")).eval(),
+                            SEED + 1).to(d)
+        runs[str(d)] = (
+            detect_clip_late_fusion(mr, mf, clip.to(d), tflow.to(d), tp.to(d), tm.to(d)),
+            evaluate_ucf(mr, small, model_flow=mf),
+            collect_video_tubes(mr, small, model_flow=mf))
+    (det_g, ev_g, tubes_g), (det_c, ev_c, tubes_c) = runs[str(dev)], runs["cpu"]
+    d_tubes = float((det_g["tubes"].cpu() - det_c["tubes"]).abs().max())
+    d_scores = float((det_g["tube_scores"].cpu() - det_c["tube_scores"]).abs().max())
+    check(d_tubes <= 1e-3 and d_scores <= 1e-4,
+          f"tiny late fusion card vs CPU: tubes {d_tubes} px, scores {d_scores}")
+    surf = nms_surface(det_c["tubes"].to(dev), det_c["tube_scores"].to(dev), tm.to(dev), tiny)
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        check(torch.equal(surf[key].cpu(), det_c[key]),
+              f"tiny late fusion NMS surface on the card differs in {key}")
+    check(ev_g["timings"]["n_detections"] == ev_c["timings"]["n_detections"],
+          f"tiny evaluate_ucf late fusion: {ev_g['timings']['n_detections']} detections "
+          f"on the card, {ev_c['timings']['n_detections']} on the CPU")
+    for key in ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5"):
+        same = abs(ev_g[key] - ev_c[key]) <= EVAL_MAP_TOL or (np.isnan(ev_g[key])
+                                                               and np.isnan(ev_c[key]))
+        check(same, f"tiny evaluate_ucf late fusion {key}: {ev_g[key]} on the card, "
+                    f"{ev_c[key]} on the CPU")
+    n_tubes, box_err, score_err = same_tubes(tubes_g, tubes_c,
+                                             "tiny collect_video_tubes late fusion")
+    print(f"[19] tiny f32 card vs CPU: detect_clip_late_fusion tubes {d_tubes:.3g} px, "
+          f"scores {d_scores:.3g}, NMS surface equal; evaluate_ucf with model_flow "
+          f"{ev_g['timings']['n_detections']} detections on both, frame_mAP@0.5 "
+          f"{ev_g['frame_mAP@0.5']:.6f} vs {ev_c['frame_mAP@0.5']:.6f}; "
+          f"collect_video_tubes {n_tubes} tubes matched one to one (boxes {box_err:.3g} px, "
+          f"scores {score_err:.3g})", flush=True)
+    print(f"    phase 19 took {time.time() - t19:.1f} s", flush=True)
+    return out
+
+
+def write_ava_layout(root: str, rng) -> dict:
+    """An AVA v2.1 layout on disk, shaped like the official one: frames
+    `frames/<video>/<video>_%06d.jpg` at AVA_FPS, a label map of 60
+    evaluated ids among the sparse 1..80 (every fourth id is not
+    evaluated), training and validation CSVs of person boxes (rows with ids
+    the map does not evaluate; a person whose only action is one; two
+    actions of one person on two rows), and an excluded keyframe. Returns
+    the CLI's AVA arguments."""
+    import cv2
+
+    ids = [i for i in range(1, 81) if i % 4][:60]
+    H, W = AVA_SIZE
+    rows = []
+    for v in range(AVA_VIDEOS):
+        video = f"vid{v:02d}"
+        os.makedirs(os.path.join(root, "frames", video), exist_ok=True)
+        base = rng.randint(0, 200, (H, W, 3)).astype(np.uint8)
+        for fn in range(1, AVA_FRAMES + 1):
+            img = np.roll(base, 3 * fn, axis=1)
+            cv2.imwrite(os.path.join(root, "frames", video, f"{video}_{fn:06d}.jpg"), img)
+        for ts in range(2, 2 + 5):
+            for person in range(1 + (ts + v) % 3):
+                x1, y1 = rng.uniform(0.0, 0.5, 2)
+                box = [x1, y1, x1 + rng.uniform(0.2, 0.5), y1 + rng.uniform(0.3, 0.5)]
+                actions = ([4 * (ts + person)] if person == 2 else
+                           [ids[(7 * ts + 3 * person + v) % 60],
+                            ids[(5 * ts + person) % 60], 4 * (1 + v)])
+                rows += [f"{video},{ts},{box[0]:.3f},{box[1]:.3f},{min(box[2], 1):.3f},"
+                         f"{min(box[3], 1):.3f},{a},{person}" for a in actions]
+    for name in ("ava_train.csv", "ava_val.csv"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    with open(os.path.join(root, "label_map.pbtxt"), "w") as f:
+        f.write("".join(f'item {{\n  name: "action {i}"\n  id: {i}\n}}\n' for i in ids))
+    with open(os.path.join(root, "excluded.csv"), "w") as f:
+        f.write("vid00,4\n")
+    return dict(label_map=os.path.join(root, "label_map.pbtxt"), exclusions="excluded.csv",
+                fps=AVA_FPS)
+
+
+def ava_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 20, `ava_3step`: serving, the C = 60 NMS surface, `evaluate_ava`
+    on an on-disk layout, and the command lines. Returns, per kernel, its
+    launches on each run and the numbers at the shapes held there."""
+    import io
+    import pickle
+    import tempfile
+
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.cli import test as cli_test
+    from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.data.ava import AVADataset
+    from step_tpu_torch.eval.ava_eval import AVALabelMap
+    from step_tpu_torch.evaluate import evaluate_ava
+    from step_tpu_torch.inference import (class_scores_from_logits, detect_clip, nms_surface,
+                                          nms_surface_plain)
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.utils.init import init_detector_
+
+    out = {name: dict(ava_launches={}, ava_shapes={}) for name in KERNELS}
+    t20 = time.time()
+    cfg = PRESETS["ava_3step"]
+    T, S = cfg.total_frames, cfg.image_size
+    model = served_model(cfg, init_detector_(STEPDetector(cfg).eval(), SEED + 2).state_dict(),
+                         dev)
+    clips = {b: [torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8))
+                 for _ in range(REQUESTS_PER_BATCH)] for b in SERVE_BATCHES}
+    print(f"[20] ava_3step full width ({cfg.num_classes} sigmoid classes, context), BN "
+          f"folded, {cfg.compute_dtype}", flush=True)
+    walls, counts, _ = held_run("serve", lambda: serve(model, cfg, clips, dev, "ava"),
+                                reset_counts, read_counts, out, "ava")
+    n_req = len(SERVE_BATCHES) * REQUESTS_PER_BATCH
+    check(counts["nms_many"] == n_req and counts["tube_roi_align"] == cfg.num_steps * n_req,
+          f"AVA serving: launches {counts} for {n_req} requests")
+    medians = {b: float(np.median(t[1:])) for b, t in walls.items()}
+    print(f"[20] AVA request medians ({smi_line}): "
+          f"{', '.join(f'B={b} {m:.2f} ms' for b, m in medians.items())}; launches {counts}",
+          flush=True)
+    # the C = 60 surface of a B=8 request's own tubes and scores, with the
+    # scores in bfloat16 as well, by raw bits
+    B = max(SERVE_BATCHES)
+    props, pmask = STEPDetector.initial_proposals(cfg, B, device=dev)
+    with torch.inference_mode():
+        raw = model(clips[B][0].to(dev), props)
+    tubes = raw["tubes"][-1]
+    scores = class_scores_from_logits(raw["cls_logits"][-1], cfg) * pmask[..., None]
+    survivors = 0
+    for sc in (scores, scores.to(torch.bfloat16)):
+        got, want = nms_surface(tubes, sc, pmask, cfg), nms_surface_plain(tubes, sc, pmask, cfg)
+        torch.cuda.synchronize()
+        check(got["frame_mask"].shape == (B, T, 60, min(cfg.max_detections, cfg.max_proposals)),
+              f"AVA surface shape {tuple(got['frame_mask'].shape)}")
+        for key in ("frame_boxes", "frame_scores", "frame_mask"):
+            check(torch.equal(raw_bits(got[key]), raw_bits(want[key])),
+                  f"K1 at C=60, {sc.dtype} scores, differs from plain in {key}")
+        survivors = int(want["frame_mask"].sum())
+    print(f"[20] K1 at C=60, B={B} ({B * T * 60} problems), f32 and bf16 scores: the plain "
+          f"version's bits; {survivors} survivors", flush=True)
+    del model, clips
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ava")
+        t0 = time.time()
+        args = write_ava_layout(root, rng)
+        print(f"[20] wrote an AVA layout of {AVA_VIDEOS} videos x {AVA_FRAMES} frames at "
+              f"{AVA_SIZE} px, {AVA_FPS} fps, in {time.time() - t0:.1f} s", flush=True)
+        lm = AVALabelMap.from_pbtxt(args["label_map"])
+        check(lm.num_classes == cfg.num_classes, f"label map of {lm.num_classes} ids")
+        ds = AVADataset(root, cfg, "ava_val.csv", fps=AVA_FPS, label_map=lm,
+                        exclusions_file=args["exclusions"])
+        check(("vid00", 4.0) not in ds.keyframes and len(ds) == AVA_VIDEOS * 5 - 1,
+              f"AVA keyframes {ds.keyframes}")
+        model = served_model(cfg, init_detector_(STEPDetector(cfg).eval(),
+                                                 SEED + 2).state_dict(), dev)
+        t0 = time.time()
+        results, counts, batches = held_run(
+            "evaluate_ava", lambda: evaluate_ava(model, ds, dump_path=os.path.join(tmp, "d.pkl")),
+            reset_counts, read_counts, out, "ava", counted=detect_clip)
+        wall = time.time() - t0
+        m = results["frame_mAP@0.5"]
+        check(np.isfinite(m) and 0.0 <= m <= 1.0, f"evaluate_ava frame_mAP@0.5 = {m}")
+        check(batches == -(-len(ds) // 4) and counts["nms_many"] == batches
+              and counts["tube_roi_align"] == cfg.num_steps * batches,
+              f"evaluate_ava: launches {counts} for {batches} batches of 4")
+        with open(os.path.join(tmp, "d.pkl"), "rb") as f:
+            dets = pickle.load(f)["detections"]
+        check(len(dets) > 0 and all(0 <= c < 60 and float(np.max(b)) <= 1.0 + 1e-6
+                                    for _, c, _, b in dets),
+              "evaluate_ava's dump: no detections, or boxes not normalized")
+        print(f"[20] evaluate_ava on {len(ds)} keyframes ({batches} batches of 4): "
+              f"frame_mAP@0.5 {m:.6f}, {len(dets)} detections; wall {wall:.2f} s "
+              f"({smi_line}); launches {counts}", flush=True)
+        del model
+
+        ckpt = os.path.join(tmp, "ckpt")
+        ava = ["--label-map", args["label_map"], "--exclusions", args["exclusions"],
+               "--fps", str(AVA_FPS)]
+
+        def cli(path, module, argv, expect, evaluates=False):
+            """Run a command line in-process; training launches K2, an
+            evaluation K1 once and K2 num_steps times a detect_clip batch."""
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                result, counts, batches = held_run(
+                    path, lambda: module.main(argv), reset_counts, read_counts, out, "ava",
+                    counted=detect_clip if evaluates else None)
+            text = buf.getvalue()
+            print("\n".join("    " + line for line in text.splitlines()[-6:]), flush=True)
+            missing = [k for k in expect if k not in text]
+            check(not missing, f"{path}: the output lacks {missing}")
+            if evaluates:
+                check(batches > 0 and counts["nms_many"] == batches
+                      and counts["tube_roi_align"] == cfg.num_steps * batches,
+                      f"{path}: launches {counts} for {batches} detect_clip batches")
+            else:
+                check(counts["tube_roi_align"] > 0, f"{path}: launches {counts}")
+            print(f"[20] {path}: launches {counts}", flush=True)
+            return result
+
+        t0 = time.time()
+        state = cli("cli_train_ava", cli_train,
+                    ["--preset", "ava_3step", "--dataset", "ava", "--data-root", root,
+                     "--annotation-file", "ava_train.csv", "--ckpt-dir", ckpt,
+                     "--batch-size", "2", "--steps", str(CLI_STEPS), "--epochs", "1",
+                     "--set", "warmup_steps=1", *ava],
+                    (f"trained to step {CLI_STEPS}",))
+        check(state.step == CLI_STEPS, f"cli.train --dataset ava stopped at {state.step}")
+        del state
+        results = cli("cli_test_ava", cli_test,
+                      ["--preset", "ava_3step", "--data-root", root, "--ckpt-dir", ckpt,
+                       "--annotation-file", "ava_val.csv", *ava],
+                      ("restored step", "frame_mAP@0.5:"), evaluates=True)
+        m = results["frame_mAP@0.5"]
+        check(np.isnan(m) or 0.0 <= m <= 1.0, f"cli.test --preset ava_3step: mAP {m}")
+        print(f"[20] cli.train --dataset ava ({CLI_STEPS} steps, B=2) then cli.test "
+              f"--preset ava_3step: {time.time() - t0:.1f} s, frame_mAP@0.5 {m:.4f}",
+              flush=True)
+    print(f"    phase 20 took {time.time() - t20:.1f} s", flush=True)
+    return out
+
 
 
 def main() -> None:
@@ -1841,6 +2479,9 @@ def main() -> None:
     video = video_phases(dev, rng, seeded, reset_counts, read_counts)
     training = training_phases(dev, rng, reset_counts, read_counts)
     evaluation = eval_phases(dev, seeded, smi.stdout.strip(), reset_counts, read_counts)
+    two_stream = two_stream_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    late_fusion = late_fusion_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    ava = ava_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -1864,7 +2505,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name], **video[name], **training[name],
-         **evaluation[name]}
+         **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

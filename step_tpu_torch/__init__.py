@@ -12,7 +12,8 @@ defaults.
 Layers, entry point first:
 
   config.py        StepConfig and the five presets
-  inference.py     detect_clip → class scores → nms_surface
+  inference.py     detect_clip → class scores → nms_surface; late fusion,
+                   the video and streaming forms
   models/          STEPDetector, FeatureNet / ContextNet / TwoBranchHead,
                    I3D, BN folding (optimize.py)
   ops/             tube ROI-align, batched NMS and the backbone kernels:
@@ -20,10 +21,12 @@ Layers, entry point first:
                    (kernels.py, csrc/); the pool backward (pool_grad.py)
   train/           the progressive losses, train_step, fit()
   evaluate.py      detections over a dataset, dedupe, tube linking, the
-                   UCF101-24 frame- and video-mAP (evaluate_ucf)
+                   UCF101-24 frame- and video-mAP (evaluate_ucf), AVA's
+                   keyframe frame-mAP (evaluate_ava)
   cli/             python -m step_tpu_torch.cli.train / cli.test
   data/            batch assembly, the threaded loader, synthetic clips,
-                   the UCF101-24 reader and its augmentations
+                   the UCF101-24 and AVA readers and their augmentations
+  eval/            frame- and video-mAP, the AVA evaluator, calibration
   tubes/           box and tube math, the initial cuboids
   convert.py       JAX variable tree → this package's state_dict
   utils/           seeded initializers (serving, training), checkpoints,

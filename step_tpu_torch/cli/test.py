@@ -1,16 +1,27 @@
 """Evaluate a trained detector on the test split of UCF101-24 (or of any
-dataset in its layout): frame-mAP@0.5 and video-mAP over linked tubes.
+dataset in its layout): frame-mAP@0.5 and video-mAP over linked tubes; or
+on AVA: keyframe frame-mAP@0.5.
 
-Port of the JAX package's `test.py`, UCF branch. It restores the newest
-checkpoint of `--ckpt-dir` (the port's own, `utils/checkpoint.py`), runs
-`evaluate.evaluate_ucf` on the card (`--device cpu` for the CPU), and
-prints each result, the phase timings and the JPEG decoder that ran:
+Port of the JAX package's `test.py`. It restores the newest checkpoint of
+`--ckpt-dir` (the port's own, `utils/checkpoint.py`), runs
+`evaluate.evaluate_ucf` or, for an AVA preset, `evaluate.evaluate_ava` on
+the card (`--device cpu` for the CPU), and prints each result, and for
+UCF the phase timings and the JPEG decoder that ran:
 
     python -m step_tpu_torch.cli.test --data-root /data/ucf24 \\
         --ckpt-dir runs/ucf/ckpt --optimized --dump dets.pkl
+    python -m step_tpu_torch.cli.test --data-root /data/ucf24 \\
+        --ckpt-dir runs/rgb/ckpt --flow-ckpt-dir runs/flow/ckpt
+    python -m step_tpu_torch.cli.test --preset ava_3step --data-root /data/ava \\
+        --ckpt-dir runs/ava/ckpt --label-map ava_action_list_v2.1.pbtxt \\
+        --exclusions ava_val_excluded_timestamps_v2.1.csv
 
-`--sharded` (ROADMAP M9), `--flow-ckpt-dir` and the AVA preset (M10) are
-not ported yet and exit with a message that names their item.
+`--flow-ckpt-dir` runs the late-fusion protocol: `--ckpt-dir` holds the
+RGB detector and `--flow-ckpt-dir` a flow-stream one (trained with `--set
+input_stream=flow`); UCF only, and not with `--optimized`, as in the JAX
+package. A two-stream or flow-stream checkpoint is evaluated with its
+preset or `--set`. `--sharded` (ROADMAP M9) is not ported yet and exits
+with a message that names its item.
 """
 
 from __future__ import annotations
@@ -45,8 +56,14 @@ def parse_args(argv=None):
     p.add_argument("--sharded", action="store_true",
                    help="data-parallel evaluation (not ported yet: ROADMAP M9)")
     p.add_argument("--flow-ckpt-dir", default=None,
-                   help="late fusion with a flow detector (not ported yet: "
-                        "ROADMAP M10)")
+                   help="second (flow-stream) checkpoint: the late-fusion protocol "
+                        "(UCF only)")
+    p.add_argument("--label-map", default=None,
+                   help="AVA label-map pbtxt (the evaluated-class whitelist)")
+    p.add_argument("--exclusions", default=None,
+                   help="AVA excluded-timestamps CSV (relative to the data root)")
+    p.add_argument("--fps", type=int, default=30,
+                   help="AVA frame-extraction rate (frames per second)")
     add_common_args(p)
     return p.parse_args(argv)
 
@@ -72,13 +89,13 @@ def main(argv=None) -> dict:
     if args.sharded:
         raise SystemExit("--sharded: data-parallel evaluation is not ported yet "
                          "(ROADMAP M9)")
-    if args.flow_ckpt_dir:
-        raise SystemExit("--flow-ckpt-dir: late fusion is not ported yet (ROADMAP M10)")
     import torch
 
+    from step_tpu_torch.cli.train import ava_dataset
     from step_tpu_torch.config import PRESETS
     from step_tpu_torch.data.ucf import UCFDataset
-    from step_tpu_torch.evaluate import evaluate_ucf
+    from step_tpu_torch.evaluate import evaluate_ava, evaluate_ucf
+    from step_tpu_torch.inference import eval_needs_flow
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference_cli
     from step_tpu_torch.train.trainer import create_train_state
@@ -89,14 +106,29 @@ def main(argv=None) -> dict:
     if args.tiny:
         cfg = cfg.replace(backbone_depth="tiny", feature_stride=8)
     cfg = apply_overrides(cfg, args.overrides)
-    if cfg.dataset == "ava":
-        raise SystemExit("AVA evaluation is not ported yet (ROADMAP M10)")
-    if cfg.two_stream or cfg.input_stream != "rgb":
-        raise SystemExit("flow and two-stream detectors are not ported yet (ROADMAP M10)")
+    if args.flow_ckpt_dir:
+        if args.optimized:
+            raise SystemExit("--optimized does not combine with --flow-ckpt-dir "
+                             "(transform each stream explicitly via models/optimize.py)")
+        if cfg.dataset == "ava":
+            raise SystemExit("--flow-ckpt-dir is UCF-only: AVA has no flow stream, "
+                             "the late-fusion protocol does not apply")
+        # late fusion: the primary checkpoint is the single-stream RGB
+        # detector whatever the preset's two_stream flag
+        cfg = cfg.replace(two_stream=False, input_stream="rgb")
     state = create_train_state(cfg, seed=0, device=args.device)
     state, _ = restore_checkpoint(args.ckpt_dir, state)
     model = state.model
     print(f"restored step {state.step} from {args.ckpt_dir} on {args.device}", flush=True)
+    model_flow = None
+    if args.flow_ckpt_dir:
+        cfg_flow = cfg.replace(input_stream="flow")
+        state_flow = create_train_state(cfg_flow, seed=0, device=args.device)
+        state_flow, _ = restore_checkpoint(args.flow_ckpt_dir, state_flow)
+        model_flow = state_flow.model
+        print(f"restored the flow stream's step {state_flow.step} from "
+              f"{args.flow_ckpt_dir}", flush=True)
+        del state_flow
     if args.optimized:
         # explicit --set serving flags win over the optimized defaults
         cfg, folded = optimize_for_inference_cli(cfg, args.overrides, model.state_dict())
@@ -104,13 +136,20 @@ def main(argv=None) -> dict:
         model.load_state_dict(folded)
         model = model.to(device=args.device, dtype=getattr(torch, cfg.compute_dtype))
     del state                   # the optimizer's state: evaluation needs none
-    dataset = UCFDataset(args.data_root, cfg, split="test",
-                         annotation_file=args.annotation_file or "UCF101v2-GT.pkl")
-    results = evaluate_ucf(model, dataset, dump_path=args.dump,
-                           max_batches=args.max_batches, calibration=args.calibration,
-                           fit_calibration_path=args.fit_calibration,
-                           device_linking=args.device_linking, max_videos=args.max_videos)
-    print(f"decoder: {dataset.decoder}")
+    if cfg.dataset == "ava":
+        dataset = ava_dataset(cfg, args, args.annotation_file or "ava_val_v2.1.csv")
+        results = evaluate_ava(model, dataset, dump_path=args.dump,
+                               max_batches=args.max_batches)
+    else:
+        dataset = UCFDataset(args.data_root, cfg, split="test",
+                             annotation_file=args.annotation_file or "UCF101v2-GT.pkl",
+                             with_flow=eval_needs_flow(cfg, model_flow))
+        results = evaluate_ucf(model, dataset, dump_path=args.dump,
+                               max_batches=args.max_batches, calibration=args.calibration,
+                               fit_calibration_path=args.fit_calibration,
+                               model_flow=model_flow, device_linking=args.device_linking,
+                               max_videos=args.max_videos)
+        print(f"decoder: {dataset.decoder}")
     for line in format_results(results):
         print(line)
     return results

@@ -1,18 +1,25 @@
-"""Train the detector on UCF101-24 (or a dataset in its layout), or on the
-synthetic oracle's clips.
+"""Train the detector on UCF101-24 (or a dataset in its layout), on AVA,
+or on the synthetic oracle's clips.
 
-Port of the JAX package's `train.py`, synthetic and UCF branches, on the
-port's `train/fit.py::fit`, on the card (`--device cpu` for the CPU):
+Port of the JAX package's `train.py` on the port's `train/fit.py::fit`,
+on the card (`--device cpu` for the CPU):
 
     python -m step_tpu_torch.cli.train --preset ucf_3step --data-root /data/ucf24 \\
         --ckpt-dir runs/ucf/ckpt --log-dir runs/ucf --epochs 8 \\
         --eval-every-epochs 1
+    python -m step_tpu_torch.cli.train --preset two_stream_train --data-root /data/ucf24 --flow
+    python -m step_tpu_torch.cli.train --preset ava_3step --dataset ava --data-root /data/ava \\
+        --annotation-file ava_train_v2.1.csv --label-map ava_action_list_v2.1.pbtxt \\
+        --exclusions ava_train_excluded_timestamps_v2.1.csv --ckpt-dir runs/ava/ckpt
     python -m step_tpu_torch.cli.train --dataset synthetic --steps 200
 
-`--eval-every-epochs N` scores the test split every N epochs with
-`evaluate_ucf` (bounded by `--eval-max-batches`). `--distributed` (ROADMAP
-M9), `--pretrained-i3d` (M8), `--flow` and AVA (M10) are not ported yet
-and exit with a message that names their item.
+`--flow` trains the two-stream detector on the UCF layout's `brox-images`
+(a flow-stream detector, for late fusion, is `--set input_stream=flow`).
+`--eval-every-epochs N` scores the held-out data every N epochs, bounded
+by `--eval-max-batches`: the UCF test split with `evaluate_ucf`, AVA's
+validation CSV (`--eval-annotation-file`) with `evaluate_ava`.
+`--distributed` (ROADMAP M9) and `--pretrained-i3d` (M8) are not ported
+yet and exit with a message that names their item.
 """
 
 from __future__ import annotations
@@ -25,11 +32,10 @@ def parse_args(argv=None):
 
     p = argparse.ArgumentParser(description="Train the STEP detector (PyTorch port)")
     p.add_argument("--preset", default=None, help="named config preset")
-    p.add_argument("--dataset", default=None, help="ucf101_24 | synthetic")
+    p.add_argument("--dataset", default=None, help="ucf101_24 | ava | synthetic")
     p.add_argument("--data-root", default=None)
     p.add_argument("--annotation-file", default=None)
-    p.add_argument("--flow", action="store_true",
-                   help="two-stream training (not ported yet: ROADMAP M10)")
+    p.add_argument("--flow", action="store_true", help="load optical flow (two-stream)")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--steps", type=int, default=None, help="total optimizer steps")
@@ -47,12 +53,20 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true", help="tiny backbone (debug)")
     p.add_argument("--eval-every-epochs", type=int, default=0,
                    help="held-out evaluation every N epochs (0 = off); ucf101_24 "
-                        "scores the test split's frame- and video-mAPs")
+                        "scores the test split's frame- and video-mAPs, ava the "
+                        "validation CSV's keyframe frame-mAP")
     p.add_argument("--eval-max-batches", type=int, default=25,
                    help="bound each in-training evaluation to N detection batches")
     p.add_argument("--eval-annotation-file", default=None,
-                   help="annotations for --eval-every-epochs (default: the "
-                        "training pickle's test split)")
+                   help="annotations for --eval-every-epochs (AVA: the validation "
+                        "CSV, default ava_val_v2.1.csv; UCF: the training pickle's "
+                        "test split)")
+    p.add_argument("--label-map", default=None,
+                   help="AVA label-map pbtxt (the evaluated-class whitelist)")
+    p.add_argument("--exclusions", default=None,
+                   help="AVA excluded-timestamps CSV (relative to the data root)")
+    p.add_argument("--fps", type=int, default=30,
+                   help="AVA frame-extraction rate (frames per second)")
     add_common_args(p)
     return p.parse_args(argv)
 
@@ -92,25 +106,53 @@ def build_dataset(cfg, args):
         syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
                               num_classes=cfg.num_classes, max_boxes=cfg.max_gt_tubes)
         return SyntheticClips(syn, 512, 0)
+    if cfg.dataset == "ava":
+        return ava_dataset(cfg, args, args.annotation_file or "ava_train_v2.1.csv",
+                           augment=True)
     from step_tpu_torch.data.ucf import UCFDataset
+    from step_tpu_torch.inference import eval_needs_flow
 
     return UCFDataset(args.data_root, cfg, split="train",
                       annotation_file=args.annotation_file or "UCF101v2-GT.pkl",
-                      augment=True)
+                      augment=True, with_flow=eval_needs_flow(cfg))
+
+
+def ava_dataset(cfg, args, annotation_file: str, augment: bool = False):
+    """An `AVADataset` under `--data-root` with `--label-map`, `--exclusions`
+    and `--fps` (shared with `cli/test.py`)."""
+    from step_tpu_torch.data.ava import AVADataset
+    from step_tpu_torch.eval.ava_eval import AVALabelMap
+
+    label_map = AVALabelMap.from_pbtxt(args.label_map) if args.label_map else None
+    return AVADataset(args.data_root, cfg, annotation_file, fps=args.fps,
+                      augment=augment, label_map=label_map,
+                      exclusions_file=args.exclusions)
 
 
 def build_eval_fn(cfg, args):
-    """The held-out evaluation `fit()` runs every `--eval-every-epochs`:
-    `evaluate_ucf` on the test split, `--eval-max-batches` batches."""
+    """The held-out evaluation `fit()` runs every `--eval-every-epochs`,
+    `--eval-max-batches` batches: `evaluate_ucf` on the UCF test split,
+    `evaluate_ava` on AVA's validation CSV."""
+    if cfg.dataset == "ava":
+        from step_tpu_torch.evaluate import evaluate_ava
+
+        # --annotation-file is the training CSV here; the evaluation has its own
+        val = ava_dataset(cfg, args, args.eval_annotation_file or "ava_val_v2.1.csv")
+
+        def eval_fn(state, epoch):
+            return evaluate_ava(state.model, val, max_batches=args.eval_max_batches)
+
+        return eval_fn
     if cfg.dataset != "ucf101_24":
-        raise SystemExit("--eval-every-epochs evaluates ucf101_24; for the synthetic "
-                         "oracle use python -m step_tpu_torch.train_eval_synth")
+        raise SystemExit("--eval-every-epochs evaluates ucf101_24 and ava; for the "
+                         "synthetic oracle use python -m step_tpu_torch.train_eval_synth")
     from step_tpu_torch.data.ucf import UCFDataset
     from step_tpu_torch.evaluate import evaluate_ucf
+    from step_tpu_torch.inference import eval_needs_flow
 
     val = UCFDataset(args.data_root, cfg, split="test",
                      annotation_file=args.eval_annotation_file or args.annotation_file
-                     or "UCF101v2-GT.pkl")
+                     or "UCF101v2-GT.pkl", with_flow=eval_needs_flow(cfg))
 
     def eval_fn(state, epoch):
         return evaluate_ucf(state.model, val, max_batches=args.eval_max_batches)
@@ -127,10 +169,6 @@ def main(argv=None):
         raise SystemExit("--pretrained-i3d: the Kinetics I3D reader is not ported yet "
                          "(ROADMAP M8)")
     cfg = build_config(args)
-    if cfg.dataset == "ava":
-        raise SystemExit("AVA training is not ported yet (ROADMAP M10)")
-    if cfg.two_stream or cfg.input_stream != "rgb":
-        raise SystemExit("flow and two-stream training are not ported yet (ROADMAP M10)")
     from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.train.fit import fit
 

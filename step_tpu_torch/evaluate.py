@@ -1,15 +1,17 @@
 """Evaluation: detections over a dataset, frame-mAP and video-mAP over
 linked tubes, the detections dump.
 
-Port of `step_tpu/evaluate.py`'s UCF101-24 path: `collect_detections`
-(:29-189), `collect_video_tubes` (:192-425), `dedupe_frame_detections`
-(:428-462), `link_frame_detections` (:465-527), `tube_nms` (:530-564) and
-`evaluate_ucf` (:567-704). Detection and device linking run on the
-model's device; collection, dedupe, host linking and the mAPs run on the
-host in numpy, as in the JAX package. Each function takes the port's
-model where the JAX one takes variables; its config is `model.cfg`.
-`evaluate_ava` waits for ROADMAP M10, late fusion (`variables_flow`) for
-M10 and data-parallel evaluation (`mesh`) for M9: those arguments raise.
+Port of `step_tpu/evaluate.py`: `collect_detections` (:29-189),
+`collect_video_tubes` (:192-425), `dedupe_frame_detections` (:428-462),
+`link_frame_detections` (:465-527), `tube_nms` (:530-564), `evaluate_ucf`
+(:567-704) and `evaluate_ava` (:707-782). Detection and device linking
+run on the model's device; collection, dedupe, host linking and the mAPs
+run on the host in numpy, as in the JAX package. Each function takes the
+port's model where the JAX one takes variables; its config is
+`model.cfg`. Late fusion takes a second, flow-stream model, `model_flow`,
+where the JAX package takes `variables_flow`; a two-stream or flow-stream
+model reads the dataset's flow itself. Data-parallel evaluation (`mesh`)
+waits for ROADMAP M9: that argument raises.
 """
 
 from __future__ import annotations
@@ -25,20 +27,20 @@ import numpy as np
 import torch
 
 from step_tpu_torch.data.loader import DataLoader
-from step_tpu_torch.data.pipeline import rgb_to_uint8_wire
+from step_tpu_torch.data.pipeline import flow_to_int8_wire, rgb_to_uint8_wire
+from step_tpu_torch.eval.ava_eval import ava_frame_map
 from step_tpu_torch.eval.calibration import (apply_calibration, calibrate_scores_array,
                                              fit_calibration)
 from step_tpu_torch.eval.detection_metrics import (_iou_1vsN, frame_map,
                                                    spatio_temporal_iou, video_map,
                                                    video_map_range)
-from step_tpu_torch.inference import detect_clip, link_video
+from step_tpu_torch.inference import (FLOW_DATASET_ERROR, detect_clip,
+                                      detect_clip_late_fusion, eval_needs_flow,
+                                      link_video)
 from step_tpu_torch.models.detector import STEPDetector
 
 
-def _refuse_unported(variables_flow, mesh) -> None:
-    if variables_flow is not None:
-        raise NotImplementedError("late fusion (variables_flow) is not ported yet: "
-                                  "ROADMAP M10")
+def _refuse_unported(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("data-parallel evaluation (mesh) is not ported "
                                   "yet: ROADMAP M9")
@@ -54,9 +56,20 @@ def _scale_to_gt(dataset, video, cfg, image_scale_to_gt: bool) -> np.ndarray:
     return np.asarray([sx, sy, sx, sy], np.float32)
 
 
+def _detect(model, model_flow, rgb, proposals, prop_mask, flow):
+    """One detection batch as the collectors run it: late fusion with
+    `model_flow`; else `model` on its primary input (a flow-stream
+    detector's is the flow) and, with two stems, the flow beside it."""
+    if model_flow is not None:
+        return detect_clip_late_fusion(model, model_flow, rgb, flow, proposals, prop_mask)
+    if model.cfg.input_stream == "flow":
+        rgb, flow = flow, None
+    return detect_clip(model, rgb, proposals, prop_mask, flow)
+
+
 def collect_detections(model, dataset, batch_size: int = 8,
                        max_batches: Optional[int] = None,
-                       image_scale_to_gt: bool = True, mesh=None, variables_flow=None,
+                       image_scale_to_gt: bool = True, mesh=None, model_flow=None,
                        coverage: Optional[dict] = None):
     """Detect over `dataset` with `model` → `[(frame_key, cls, score, box)]`.
 
@@ -75,7 +88,10 @@ def collect_detections(model, dataset, batch_size: int = 8,
     every window seen) and "videos" (the videos with a window seen), so a
     truncated run can be scored against what it saw (`evaluate_ucf`).
 
-    `variables_flow` (late fusion, ROADMAP M10) and `mesh` (M9) raise.
+    `model_flow`, a flow-stream detector, runs the late-fusion protocol
+    (`detect_clip_late_fusion`, `model` the RGB stream). It, a two-stream
+    and a flow-stream `model` need a dataset built with flow. `mesh`
+    (ROADMAP M9) raises.
     """
     cfg = model.cfg
     if cfg.temporal_stride != 1:
@@ -85,10 +101,11 @@ def collect_detections(model, dataset, batch_size: int = 8,
         raise ValueError(
             "collect_detections' sliding-window ownership protocol "
             f"requires temporal_stride == 1; got {cfg.temporal_stride}")
-    _refuse_unported(variables_flow, mesh)
+    _refuse_unported(mesh)
     device = next(model.parameters()).device
     loader = DataLoader(dataset, cfg, batch_size=batch_size, shuffle=False,
                         train=False, drop_last=False, num_workers=2)
+    need_flow = eval_needs_flow(cfg, model_flow)
 
     det_list, det_central, owned_fkeys = [], [], set()
     fpc = cfg.frames_per_chunk
@@ -96,8 +113,13 @@ def collect_detections(model, dataset, batch_size: int = 8,
     for bi, batch in enumerate(loader.epoch(0)):
         if max_batches is not None and bi >= max_batches:
             break
-        out = detect_clip(model, *(torch.from_numpy(batch[k]).to(device)
-                                   for k in ("rgb", "proposals", "prop_mask")))
+        flow = batch.get("flow") if need_flow else None
+        if need_flow and flow is None:
+            raise ValueError(FLOW_DATASET_ERROR)
+        out = _detect(model, model_flow,
+                      *(None if v is None else torch.from_numpy(v).to(device)
+                        for v in (batch["rgb"], batch["proposals"], batch["prop_mask"],
+                                  flow)))
         boxes = out["frame_boxes"].float().cpu().numpy()     # [B, T, C, K, 4]
         scores = out["frame_scores"].float().cpu().numpy()   # [B, T, C, K]
         mask = out["frame_mask"].cpu().numpy()
@@ -142,7 +164,7 @@ def collect_detections(model, dataset, batch_size: int = 8,
 
 def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
                         image_scale_to_gt: bool = True, clip_batch: int = 16,
-                        min_length: int = 2, variables_flow=None, mesh=None,
+                        min_length: int = 2, model_flow=None, mesh=None,
                         calibration=None):
     """Per-video tubes linked on the device → `[(video, cls, score,
     {frame: box})]`.
@@ -162,10 +184,10 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
     `cfg.score_thresh`. `calibration`: `{'a': [C], 'b': [C]}` (or an .npz
     path), per-class Platt scaling of the tube scores before linking.
     Boxes are scaled to the dataset's `resolution` when it has one and
-    `image_scale_to_gt` is set.
-
-    `variables_flow` (late fusion, ROADMAP M10) and `mesh` (data-parallel
-    evaluation, M9) are not ported yet and raise.
+    `image_scale_to_gt` is set. `model_flow`: late fusion on the tube
+    surface, as in `collect_detections` (scores fused before linking,
+    boxes from the RGB stream). `mesh` (data-parallel evaluation, ROADMAP
+    M9) is not ported yet and raises.
     """
     cfg = model.cfg
     if cfg.temporal_stride != 1:
@@ -174,7 +196,8 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
         raise ValueError(
             "collect_video_tubes' clip-tiling protocol requires "
             f"temporal_stride == 1; got {cfg.temporal_stride}")
-    _refuse_unported(variables_flow, mesh)
+    _refuse_unported(mesh)
+    need_flow = eval_needs_flow(cfg, model_flow)
     if calibration is not None:
         if isinstance(calibration, str):
             calibration = dict(np.load(calibration))
@@ -189,9 +212,15 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
     props, pmask = STEPDetector.initial_proposals(cfg, clip_batch, device=device)
 
     def wire(batch: np.ndarray) -> torch.Tensor:
+        """The loader's wire format: uint8 RGB, int8 flow."""
         if cfg.uint8_transfer and np.issubdtype(batch.dtype, np.floating):
-            batch = rgb_to_uint8_wire(batch)
+            batch = (rgb_to_uint8_wire(batch) if batch.shape[-1] == 3
+                     else flow_to_int8_wire(batch))
         return torch.from_numpy(batch).to(device)
+
+    def padded(items: list, s: int) -> np.ndarray:
+        chunk = items[s:s + clip_batch]
+        return np.stack(chunk + [chunk[-1]] * (clip_batch - len(chunk)))
 
     pool = ThreadPoolExecutor(2)   # decode the next items while the card runs
     T, fpc = cfg.total_frames, cfg.frames_per_chunk
@@ -202,17 +231,21 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
             if max_videos is not None and vi >= max_videos:
                 break
             L = len(idxs)
-            clips, frame_ids = [], []
+            clips, flows, frame_ids = [], [], []
             for item in pool.map(dataset.__getitem__, idxs):
                 clips.append(item["rgb"])
                 frame_ids.append(np.asarray(item["frame_indices"]))
+                if need_flow:
+                    if item.get("flow") is None:
+                        raise ValueError(FLOW_DATASET_ERROR)
+                    flows.append(item["flow"])
             tubes_np, scores_np = [], []
             for s in range(0, L, clip_batch):
-                chunk = clips[s:s + clip_batch]
-                batch = np.stack(chunk + [chunk[-1]] * (clip_batch - len(chunk)))
-                det = detect_clip(model, wire(batch), props, pmask)
-                tubes_np.append(det["tubes"][:len(chunk)].cpu().numpy())
-                scores_np.append(det["tube_scores"][:len(chunk)].cpu().numpy())
+                n = min(clip_batch, L - s)
+                det = _detect(model, model_flow, wire(padded(clips, s)), props, pmask,
+                              wire(padded(flows, s)) if flows else None)
+                tubes_np.append(det["tubes"][:n].cpu().numpy())
+                scores_np.append(det["tube_scores"][:n].cpu().numpy())
             tubes = np.concatenate(tubes_np, axis=0)      # [L, P, T, 4]
             scores = np.concatenate(scores_np, axis=0)    # [L, P, C]
             if calibration is not None:
@@ -368,7 +401,7 @@ def tube_nms(pred_tubes, iou_thresh: float):
 def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
                  max_batches: Optional[int] = None, calibration=None,
                  fit_calibration_path: Optional[str] = None, mesh=None,
-                 variables_flow=None, device_linking: bool = False,
+                 model_flow=None, device_linking: bool = False,
                  max_videos: Optional[int] = None) -> dict:
     """UCF101-24 evaluation of `model` on `dataset`: frame-mAP@0.5 and
     video-mAP@0.2, @0.5 and @0.5:0.95 over linked tubes.
@@ -392,15 +425,16 @@ def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
     The result also holds "timings": the seconds of each phase
     (`collect_s`, `dedupe_s`, `frame_map_s`, `link_s`, `video_map_s`), the
     counts `n_detections` and `n_tubes`, and the process's `peak_rss_mb`.
-    `mesh` (ROADMAP M9) and `variables_flow` (M10) raise.
+    `model_flow`: late fusion in both passes (`collect_detections`).
+    `mesh` (ROADMAP M9) raises.
     """
-    _refuse_unported(variables_flow, mesh)
+    _refuse_unported(mesh)
     cfg = model.cfg
     timings: dict = {}
     t0 = time.perf_counter()
     coverage = {} if max_batches is not None else None
     raw_dets = collect_detections(model, dataset, max_batches=max_batches,
-                                  coverage=coverage)
+                                  model_flow=model_flow, coverage=coverage)
     timings["collect_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     detections = dedupe_frame_detections(raw_dets)
@@ -441,6 +475,7 @@ def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
         # calibrated before linking, as the host linker links calibrated
         # detections
         pred_tubes = tube_nms(collect_video_tubes(model, dataset, max_videos=max_videos,
+                                                  model_flow=model_flow,
                                                   calibration=calibration),
                               cfg.tube_nms_thresh)
         if max_videos is not None:
@@ -466,3 +501,53 @@ def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
                                    / 1024.0, 1)
     results["timings"] = timings
     return results
+
+
+def evaluate_ava(model, dataset, dump_path: Optional[str] = None,
+                 max_batches: Optional[int] = None, mesh=None) -> dict:
+    """AVA evaluation of `model` on `dataset` (`data/ava.py::AVADataset`):
+    frame-mAP@0.5 over keyframe detections in normalized coordinates.
+
+    The per-class NMS runs in `detect_clip`; only its survivors at the
+    keyframe, frame `total_frames // 2`, are read, boxes divided by
+    `image_size`. `max_batches` bounds the pass (batches of 4), and the GT
+    is then cut to the keyframes seen. `dump_path` pickles `{"detections":
+    [...]}` in the JAX package's layout. RGB only: the dataset has no flow,
+    so a two-stream or flow-stream model raises. `mesh` (ROADMAP M9)
+    raises.
+    """
+    cfg = model.cfg
+    if cfg.two_stream or cfg.input_stream != "rgb":
+        raise ValueError(
+            "AVA evaluation is RGB-only (the dataset has no flow stream); "
+            "got two_stream/input_stream overrides")
+    _refuse_unported(mesh)
+    device = next(model.parameters()).device
+    loader = DataLoader(dataset, cfg, batch_size=4, shuffle=False, train=False,
+                        drop_last=False, num_workers=2)
+    kf = cfg.total_frames // 2
+    detections = []
+    seen_keys = set()          # the keyframes evaluated (max_batches)
+    for bi, batch in enumerate(loader.epoch(0)):
+        if max_batches is not None and bi >= max_batches:
+            break
+        out = detect_clip(model, *(torch.from_numpy(batch[k]).to(device)
+                                   for k in ("rgb", "proposals", "prop_mask")))
+        boxes = out["frame_boxes"][:, kf].float().cpu().numpy()     # [B, C, K, 4]
+        scores = out["frame_scores"][:, kf].float().cpu().numpy()   # [B, C, K]
+        mask = out["frame_mask"][:, kf].cpu().numpy()
+        for b, meta in enumerate(batch["meta"]):
+            key = (meta["video"], meta["timestamp"])
+            seen_keys.add(key)
+            keep = np.argwhere((mask[b] > 0) & (scores[b] > cfg.score_thresh))
+            for c, k in keep:
+                detections.append((key, int(c), float(scores[b, c, k]),
+                                   boxes[b, c, k] / cfg.image_size))
+    if dump_path:
+        with open(dump_path, "wb") as f:
+            pickle.dump({"detections": detections}, f)
+    gt = dataset.groundtruth()
+    if max_batches is not None:
+        # a truncated pass is scored against the keyframes it saw
+        gt = [g for g in gt if g[0] in seen_keys]
+    return {"frame_mAP@0.5": ava_frame_map(detections, gt, cfg.num_classes)["mAP"]}

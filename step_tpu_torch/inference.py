@@ -3,10 +3,12 @@ per-frame NMS, cross-clip linking and the streaming chunk cache.
 
 Port of `step_tpu/inference.py`: `class_scores_from_logits` (:26-31),
 `nms_surface` (:40-94, the batched-NMS branch), `detect_clip` (:126-151),
-the streaming forms `detect_video_stream` and `detect_video_stream_batched`
-(:290-422) and `detect_video` (:584-630). On the card one kernel
-(`csrc/nms.cu`) runs the NMS and writes the survivors; the plain version
-gathers them with `torch.gather`. The functions take the port's model,
+the late-fusion protocol `detect_clip_late_fusion` (:154-188) and
+`eval_needs_flow` (:429-433), the streaming forms `detect_video_stream`
+and `detect_video_stream_batched` (:290-422) and `detect_video`
+(:584-630); each takes a two-stream detector's second stream as `flow`.
+On the card one kernel (`csrc/nms.cu`) runs the NMS and writes the
+survivors; the plain version gathers them with `torch.gather`. The functions take the port's model,
 which holds its config (`model.cfg`) and weights, where the JAX package
 takes a variables tree and a config; the JAX package's `stem_features`
 and `refine_from_features` (:191-255) are `STEPDetector.stem(x, chunks=1)`
@@ -16,8 +18,7 @@ Not carried over, each a JAX or TPU device that computes nothing: the
 one-hot matmul select for large surfaces (:70-82, identical values); the
 jit memoizers (`_stream_fns`, `make_detect_fn`, `make_detect_video_fn` and
 the others); the relay-stall readbacks `float(jnp.sum(...))` of the
-streaming forms (:347, :394, :416). Flow input (two-stream, late fusion, a
-flow-stream detector) waits for the detector that reads it.
+streaming forms (:347, :394, :416).
 """
 
 from __future__ import annotations
@@ -125,20 +126,55 @@ def _detections(outputs, prop_mask: torch.Tensor, cfg: StepConfig):
 
 @torch.inference_mode()
 def detect_clip(model, rgb: torch.Tensor, proposals: torch.Tensor,
-                prop_mask: torch.Tensor):
+                prop_mask: torch.Tensor, flow: torch.Tensor | None = None):
     """Full detection for a batch of clips with `model`
     (`step_tpu_torch.models.detector.STEPDetector`, its config in
     `model.cfg`).
 
-    rgb `[B, T, H, W, 3]` uint8 (or float in [0, 1]), proposals
-    `[B, P, T, 4]`, prop_mask `[B, P]`. Returns:
+    rgb `[B, T, H, W, 3]` uint8 (or float in [0, 1]) — a flow-input
+    detector's flow `[B, T, H, W, 2]` int8 (or float in [-1, 1]) in its
+    place —, proposals `[B, P, T, 4]`, prop_mask `[B, P]`, and `flow`, a
+    two-stream detector's second stream. Returns:
       tubes        `[B, P, T, 4]` — final refined tubes
       tube_scores  `[B, P, C]`    — per-tube class probabilities, 0 on
                                     padding slots
       frame_boxes  `[B, T, C, K, 4]`, frame_scores `[B, T, C, K]`,
       frame_mask   `[B, T, C, K]`    — per-frame per-class NMS survivors
     """
-    return _detections(model(rgb, proposals), prop_mask, model.cfg)
+    return _detections(model(rgb, proposals, flow), prop_mask, model.cfg)
+
+
+@torch.inference_mode()
+def detect_clip_late_fusion(model_rgb, model_flow, rgb: torch.Tensor,
+                            flow: torch.Tensor, proposals: torch.Tensor,
+                            prop_mask: torch.Tensor):
+    """The reference's two-stream protocol: two single-stream detectors,
+    `model_rgb` on the RGB and `model_flow` (input_stream "flow") on the
+    flow, both refining the same proposals; the class scores fuse before
+    NMS as w * p_rgb + (1 - w) * p_flow, w = cfg.late_fusion_weight, and
+    the boxes are the RGB stream's. `model_rgb.cfg` gives w, the
+    class-score rule and the NMS settings. Returns `detect_clip`'s dict."""
+    cfg = model_rgb.cfg
+    if model_rgb.cfg.input_stream != "rgb" or model_flow.cfg.input_stream != "flow":
+        raise ValueError("late fusion takes an RGB detector and a flow-stream "
+                         "detector (input_stream 'rgb' and 'flow')")
+    out_rgb = model_rgb(rgb, proposals)
+    out_flow = model_flow(flow, proposals)
+    w = cfg.late_fusion_weight
+    scores = (w * class_scores_from_logits(out_rgb["cls_logits"][-1], cfg)
+              + (1.0 - w) * class_scores_from_logits(out_flow["cls_logits"][-1], cfg))
+    scores = scores * prop_mask[..., None].to(scores.dtype)
+    return nms_surface(out_rgb["tubes"][-1], scores, prop_mask, cfg)
+
+
+FLOW_DATASET_ERROR = ("two-stream/late-fusion/flow-stream eval needs a "
+                      "flow-enabled dataset (with_flow=True)")
+
+
+def eval_needs_flow(cfg: StepConfig, model_flow=None) -> bool:
+    """True when an evaluation collector must read flow from the dataset:
+    a two-stream or flow-stream detector, or late fusion."""
+    return cfg.two_stream or model_flow is not None or cfg.input_stream == "flow"
 
 
 def window_centers(n: int, cfg: StepConfig, device=None) -> torch.Tensor:
@@ -175,7 +211,7 @@ def _chunked(frames: torch.Tensor, cfg: StepConfig, caller: str):
 
 
 @torch.inference_mode()
-def detect_video_stream(model, frames: torch.Tensor):
+def detect_video_stream(model, frames: torch.Tensor, flow: torch.Tensor | None = None):
     """Sliding-window video detection with a per-chunk stem-feature cache,
     one clip at a time (the live form).
 
@@ -184,7 +220,8 @@ def detect_video_stream(model, frames: torch.Tensor):
     on chunk i (stride one chunk); windows at the video's edges repeat the
     first or last chunk. Each chunk's stem runs once, cached for every
     window that holds it; each window's features are gathered from the
-    cache and refined. Runs on the device of `frames`. Returns a list of n
+    cache and refined. `flow` `[F, H, W, 2]` is a two-stream detector's
+    second stream. Runs on the device of `frames`. Returns a list of n
     detection dicts as `detect_clip` returns them, batch 1.
     """
     cfg = model.cfg
@@ -193,7 +230,9 @@ def detect_video_stream(model, frames: torch.Tensor):
 
     def chunk_feat(i):
         if i not in cache:      # the chunk stemmed alone, as one chunk
-            cache[i] = model.stem(frames[None, i * c:(i + 1) * c], chunks=1)
+            part = slice(i * c, (i + 1) * c)
+            cache[i] = model.stem(frames[None, part], chunks=1,
+                                  flow=None if flow is None else flow[None, part])
         return cache[i]
 
     proposals, prop_mask = STEPDetector.initial_proposals(cfg, 1, device=frames.device)
@@ -205,20 +244,24 @@ def detect_video_stream(model, frames: torch.Tensor):
 
 
 @torch.inference_mode()
-def detect_video_stream_batched(model, frames: torch.Tensor, clip_batch: int = 64):
+def detect_video_stream_batched(model, frames: torch.Tensor, clip_batch: int = 64,
+                                flow: torch.Tensor | None = None):
     """`detect_video_stream` for a whole video at once (the offline form).
 
     The stems of all n chunks run in batches of `clip_batch` chunks; the
     windows are gathered from the cached features on the device; refinement
     and NMS run over `clip_batch` windows at a time, the last batch ragged.
-    Runs on the device of `frames`. Returns one detection dict as from
+    `flow` `[F, H, W, 2]` is a two-stream detector's second stream. Runs on
+    the device of `frames`. Returns one detection dict as from
     `detect_clip`, with leading dimension n (one clip per chunk centre).
     """
     cfg = model.cfg
     c, n = _chunked(frames, cfg, "detect_video_stream_batched")
     dev = frames.device
     chunks = frames.reshape(n, c, *frames.shape[1:])
-    feats = torch.cat([model.stem(chunks[i:i + clip_batch], chunks=1)
+    fchunks = None if flow is None else flow.reshape(n, c, *flow.shape[1:])
+    feats = torch.cat([model.stem(chunks[i:i + clip_batch], chunks=1,
+                                  flow=None if fchunks is None else fchunks[i:i + clip_batch])
                        for i in range(0, n, clip_batch)])      # [n, t', H', W', C]
     centers = window_centers(n, cfg, device=dev)
     proposals, prop_mask = STEPDetector.initial_proposals(cfg, min(clip_batch, n),
@@ -235,7 +278,7 @@ def detect_video_stream_batched(model, frames: torch.Tensor, clip_batch: int = 6
 
 @torch.inference_mode()
 def detect_video(model, clips: torch.Tensor, clip_mask: torch.Tensor | None = None,
-                 tiling_stride: int | None = None):
+                 tiling_stride: int | None = None, flow: torch.Tensor | None = None):
     """Video detection: detect all L clips of a video in one batch, then
     link the per-clip tubes into K video tubes per class on the device
     (iterative node-disjoint Viterbi and temporal trim,
@@ -246,7 +289,8 @@ def detect_video(model, clips: torch.Tensor, clip_mask: torch.Tensor | None = No
     last real clip), which add nothing to the link values and are always
     trimmed out. `tiling_stride`: video frames between consecutive clips;
     None is the non-overlapping tiling (transition IoU of the last box
-    against the first), a sliding window passes its stride.
+    against the first), a sliding window passes its stride. `flow` `[L, T,
+    H, W, 2]` is a two-stream detector's second stream.
 
     Returns `detect_clip`'s dict plus, with K = cfg.link_tubes_per_class:
       link_paths       `[C, K, L]` int32 — tube index per clip
@@ -257,7 +301,7 @@ def detect_video(model, clips: torch.Tensor, clip_mask: torch.Tensor | None = No
     cfg = model.cfg
     proposals, prop_mask = STEPDetector.initial_proposals(cfg, clips.shape[0],
                                                           device=clips.device)
-    det = detect_clip(model, clips, proposals, prop_mask)
+    det = detect_clip(model, clips, proposals, prop_mask, flow)
     link = link_video(det["tubes"], det["tube_scores"], prop_mask, cfg, clip_mask,
                       stride=tiling_stride)
     det["link_paths"] = link["paths"]

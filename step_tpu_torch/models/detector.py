@@ -18,9 +18,15 @@ package (`step_tpu/models/detector.py:115-119, 232-236`); so is
 `chunk_stem`, the stem run on each chunk alone (`nets.FeatureNet`). The
 TPU-only variants of the reference (`stem_s2d`, `conv3d_impl`, `roi_impl`,
 `scan_unroll`, `scan_broadcast_inputs`, `head_compact`, `nms_impl`)
-compute the same function by other means and are ignored. Two-stream
-input, the flow-input detector and the "frame_fc" regression head are not
-ported yet.
+compute the same function by other means and are ignored. The "frame_fc"
+regression head is not ported yet.
+
+The inputs (:207-248): `cfg.input_stream` "rgb" reads uint8 or [0, 1]
+RGB (`device_preprocess`), "flow" makes 2-channel int8 or [-1, 1] flow the
+primary input (`device_preprocess_flow`; the late-fusion protocol's flow
+detector). `cfg.two_stream` takes flow as a second input beside the RGB,
+through a second stem and the fusion unit (`nets.FeatureNet`). Each input
+is normalized in float32 and then cast to `cfg.compute_dtype`.
 
 `forward` is `stem` (normalize, backbone) then `refine` (context, the S
 steps); the streaming entry points of `inference.py` call the two apart.
@@ -49,7 +55,7 @@ from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
                                         TwoBranchHead, draw_dropout_masks)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
-from step_tpu_torch.preprocess import device_preprocess
+from step_tpu_torch.preprocess import device_preprocess, device_preprocess_flow
 from step_tpu_torch.tubes.boxes import clip_boxes, decode_boxes
 from step_tpu_torch.tubes.proposals import initial_cuboids
 from step_tpu_torch.tubes.tube_ops import chunk_frame_mask, extrapolate_tubes
@@ -68,14 +74,10 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _check_supported(cfg: StepConfig) -> None:
-    unported = {
-        "two_stream": cfg.two_stream,
-        "input_stream='flow'": cfg.input_stream != "rgb",
-        "reg_head='frame_fc'": cfg.reg_head != "grid",
-    }
-    missing = [name for name, on in unported.items() if on]
-    if missing:
-        raise NotImplementedError(f"not ported yet: {', '.join(missing)}")
+    if cfg.reg_head != "grid":
+        raise NotImplementedError(f"not ported yet: reg_head={cfg.reg_head!r}")
+    if cfg.input_stream not in ("rgb", "flow"):
+        raise ValueError(f"unknown input_stream {cfg.input_stream!r}")
 
 
 class STEPDetector(nn.Module):
@@ -88,7 +90,8 @@ class STEPDetector(nn.Module):
         variants = (cfg.bn_folded, cfg.fused_bn_relu, cfg.fused_inception)
         self.features = FeatureNet(cfg.backbone_depth, *variants,
                                    cfg.fused_inception3 == "all",
-                                   cfg.chunk_stem, cfg.num_chunks)
+                                   cfg.chunk_stem, cfg.num_chunks, cfg.two_stream,
+                                   3 if cfg.input_stream == "rgb" else 2)
         c = self.features.out_channels
         self.context = ContextNet(c) if cfg.use_context else None
         ctx_dim = CONTEXT_DIM if cfg.use_context else 0
@@ -101,23 +104,33 @@ class STEPDetector(nn.Module):
             for _ in range(cfg.num_steps))
 
     def forward(self, rgb: torch.Tensor, proposals: torch.Tensor,
-                train: bool = False, generator: torch.Generator | None = None):
-        """rgb `[B, T, H, W, 3]` uint8 (or float in [0, 1]); proposals
-        `[B, P, T, 4]`. Returns a dict of per-step outputs stacked on a
-        leading S axis: cls_logits `[S, B, P, ncls]`, deltas, proposals
+                flow: torch.Tensor | None = None, train: bool = False,
+                generator: torch.Generator | None = None):
+        """rgb `[B, T, H, W, 3]` uint8 (or float in [0, 1]), or, for a
+        flow-input detector, flow `[B, T, H, W, 2]` int8 (or float in [-1,
+        1]); proposals `[B, P, T, 4]`; `flow`, the second stream of a
+        two-stream detector. Returns a dict of per-step outputs stacked on
+        a leading S axis: cls_logits `[S, B, P, ncls]`, deltas, proposals
         (the anchors of each step) and tubes `[S, B, P, T, 4]`, frame_mask
         `[S, T]`. `train` and `generator` as `refine` takes them."""
-        return self.refine(self.stem(rgb, train=train), proposals, train, generator)
+        feat = self.stem(rgb, train=train, flow=flow)
+        return self.refine(feat, proposals, train, generator)
 
     def stem(self, rgb: torch.Tensor, chunks: int | None = None,
-             train: bool = False) -> torch.Tensor:
-        """rgb `[B, T, H, W, 3]` → the shared feature map `[B, T', H', W',
-        C]`, channels-last. Normalizes in float32 and computes in
+             train: bool = False, flow: torch.Tensor | None = None) -> torch.Tensor:
+        """The primary input `[B, T, H, W, 3 or 2]` (and `flow` with two
+        stems) → the shared feature map `[B, T', H', W', C]`,
+        channels-last. Normalizes in float32 and computes in
         cfg.compute_dtype; `chunks` as `FeatureNet.forward` takes it;
         `train` runs the backbone in train mode unless it is frozen."""
-        dtype = getattr(torch, self.cfg.compute_dtype)
-        train = train and "features" not in self.cfg.freeze_submodules
-        return self.features(device_preprocess(rgb).to(dtype), chunks, train)
+        cfg = self.cfg
+        dtype = getattr(torch, cfg.compute_dtype)
+        train = train and "features" not in cfg.freeze_submodules
+        x = (device_preprocess(rgb) if cfg.input_stream == "rgb"
+             else device_preprocess_flow(rgb))
+        if flow is not None:
+            flow = device_preprocess_flow(flow).to(dtype)
+        return self.features(x.to(dtype), chunks, train, flow)
 
     def refine(self, feat: torch.Tensor, proposals: torch.Tensor,
                train: bool = False, generator: torch.Generator | None = None):

@@ -271,25 +271,26 @@ class InceptionBlock(nn.Module):
 
 
 class I3DStem(nn.Module):
-    """I3D from the RGB clip through Mixed_4f, the shared detection feature
-    (:322-378): `[B, 3, T, H, W]` → `[B, 832, T/4, H/16, W/16]` at depth
-    "full", `[B, 128, T/4, H/8, W/8]` at depth "tiny"."""
+    """I3D from the input clip through Mixed_4f, the shared detection
+    feature (:322-378): `[B, in_channels, T, H, W]` (3 for RGB, 2 for
+    flow) → `[B, 832, T/4, H/16, W/16]` at depth "full", `[B, 128, T/4,
+    H/8, W/8]` at depth "tiny"."""
 
     def __init__(self, depth: str = "full", bn_folded: bool = False,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
-                 fused_inception3: bool = False):
+                 fused_inception3: bool = False, in_channels: int = 3):
         super().__init__()
         unit = lambda i, o, k, s: Unit3D(i, o, k, s, bn_folded,  # noqa: E731
                                          fused_bn_relu)
         blk = lambda i, ch: InceptionBlock(  # noqa: E731
             i, ch, bn_folded, fused_bn_relu, fused_inception, fused_inception3)
         if depth == "tiny":
-            self.Conv3d_1a_7x7 = unit(3, 16, (3, 7, 7), (2, 2, 2))
+            self.Conv3d_1a_7x7 = unit(in_channels, 16, (3, 7, 7), (2, 2, 2))
             self.Mixed_3b = blk(16, TINY_A)
             self.Mixed_4f = blk(self.Mixed_3b.out_channels, TINY_B)
             self.out_channels = self.Mixed_4f.out_channels
         elif depth == "full":
-            self.Conv3d_1a_7x7 = unit(3, 64, (7, 7, 7), (2, 2, 2))
+            self.Conv3d_1a_7x7 = unit(in_channels, 64, (7, 7, 7), (2, 2, 2))
             self.Conv3d_2b_1x1 = unit(64, 64, (1, 1, 1), (1, 1, 1))
             self.Conv3d_2c_3x3 = unit(64, 192, (3, 3, 3), (1, 1, 1))
             cin = 192

@@ -1,7 +1,8 @@
 """Detection networks: feature extractor, scene context, two-branch head.
 
-Port of `step_tpu/models/nets.py`: `FeatureNet` (RGB, the I3D stem over
-the whole clip or, with `chunk_stem`, over each chunk alone, :32-81),
+Port of `step_tpu/models/nets.py`: `FeatureNet` (the I3D stem over the
+whole clip or, with `chunk_stem`, over each chunk alone; two-stream with
+a flow stem and a 1x1x1 fusion unit, :32-81),
 `ContextNet` (:84-97) and `TwoBranchHead` with the "grid" regression head
 (:100-206).
 
@@ -21,11 +22,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from step_tpu_torch.models.i3d import I3DStem, I3DTail
+from step_tpu_torch.models.i3d import I3DStem, I3DTail, Unit3D
 
 EPS = 1e-6
 CONTEXT_DIM = 256
 REG_CHANNELS = 64     # 1x1x1 reduction before the regression Dense
+FUSION_CHANNELS = 832  # the two-stream fusion unit's output (`nets.py:79`)
 
 
 def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -50,40 +52,63 @@ def _dropout(x: torch.Tensor, keep: torch.Tensor | None, rate: float) -> torch.T
 
 
 class FeatureNet(nn.Module):
-    """Shared backbone features: the RGB I3D stem, channels-last
-    `[B, T, H, W, 3]` → `[B, T', H', W', C]`.
+    """Shared backbone features: the I3D stem of the primary input,
+    channels-last `[B, T, H, W, in_channels]` → `[B, T', H', W', C]`.
 
-    With `chunk_stem` the stem runs on each of the clip's `num_chunks`
+    `two_stream` adds a second stem, `stem_flow`, on 2-channel flow; the
+    two stems' features concatenate on the channels, RGB first, and the
+    `fusion` unit (a 1x1x1 `Unit3D` to 832 channels, with BN and ReLU)
+    mixes them (:64-81), so C is 832 at either depth.
+
+    With `chunk_stem` the stems run on each of the clip's `num_chunks`
     chunks alone (the reference's BaseNet: no receptive field across a
     chunk border), the chunks folded into the batch, and the per-chunk
     features concatenate on T'. The streaming cache relies on it: a
     chunk's features are the same in every clip that holds the chunk.
+    The fusion unit is pointwise in space and time, so it runs on the
+    folded features.
     """
 
     def __init__(self, depth: str = "full", bn_folded: bool = False,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
                  fused_inception3: bool = False, chunk_stem: bool = False,
-                 num_chunks: int = 1):
+                 num_chunks: int = 1, two_stream: bool = False, in_channels: int = 3):
         super().__init__()
-        self.stem_rgb = I3DStem(depth, bn_folded, fused_bn_relu,
-                                fused_inception, fused_inception3)
+        variants = (depth, bn_folded, fused_bn_relu, fused_inception, fused_inception3)
+        self.stem_rgb = I3DStem(*variants, in_channels=in_channels)
         self.out_channels = self.stem_rgb.out_channels
+        self.stem_flow = self.fusion = None
+        if two_stream:
+            self.stem_flow = I3DStem(*variants, in_channels=2)
+            self.fusion = Unit3D(2 * self.out_channels, FUSION_CHANNELS, (1, 1, 1),
+                                 bn_folded=bn_folded, fused_bn_relu=fused_bn_relu)
+            self.out_channels = FUSION_CHANNELS
         self.chunks = num_chunks if chunk_stem else 1
 
     def forward(self, x: torch.Tensor, chunks: int | None = None,
-                train: bool = False) -> torch.Tensor:
-        """x `[B, T, H, W, 3]`, normalized; `chunks` overrides the number
-        of independent chunks the clip folds into (1: the clip is one
-        chunk, as the streaming cache stems a single chunk); `train` runs
-        the stem's BatchNorms on the batch statistics."""
+                train: bool = False, flow: torch.Tensor | None = None) -> torch.Tensor:
+        """x `[B, T, H, W, in_channels]`, normalized; `chunks` overrides the
+        number of independent chunks the clip folds into (1: the clip is
+        one chunk, as the streaming cache stems a single chunk); `train`
+        runs the BatchNorms on the batch statistics; `flow` `[B, T, H, W,
+        2]`, normalized, is the second stream, required with two stems."""
         B, T = x.shape[:2]
         k = self.chunks if chunks is None else chunks
         if T % k:
             raise ValueError(f"{T} frames do not split into {k} chunks")
+
         # The fold and the unfold are views of NDHWC memory, and so is the
         # NCDHW permute: the backbone runs in channels_last_3d order.
-        x = x.reshape(B * k, T // k, *x.shape[2:]).permute(0, 4, 1, 2, 3)
-        feat = self.stem_rgb(x, train).permute(0, 2, 3, 4, 1).contiguous()
+        def fold(v):
+            return v.reshape(B * k, T // k, *v.shape[2:]).permute(0, 4, 1, 2, 3)
+
+        feat = self.stem_rgb(fold(x), train)
+        if self.stem_flow is not None:
+            if flow is None:
+                raise ValueError("two_stream=True requires a flow input")
+            feat = torch.cat([feat, self.stem_flow(fold(flow), train)], dim=1)
+            feat = self.fusion(feat, train)
+        feat = feat.permute(0, 2, 3, 4, 1).contiguous()
         return feat.reshape(B, k * feat.shape[1], *feat.shape[2:])
 
 

@@ -1,7 +1,8 @@
 """Input normalization on the device.
 
-Port of `step_tpu/preprocess.py::device_preprocess`: the clip travels to
-the card as uint8 and is normalized there.
+Port of `step_tpu/preprocess.py`: `device_preprocess` (RGB) and
+`device_preprocess_flow` (optical flow). The clip travels to the card as
+uint8 RGB or int8 flow and is normalized there.
 """
 
 from __future__ import annotations
@@ -21,3 +22,13 @@ def device_preprocess(rgb: torch.Tensor) -> torch.Tensor:
     mean = torch.tensor(RGB_MEAN, dtype=torch.float32, device=rgb.device)
     std = torch.tensor(RGB_STD, dtype=torch.float32, device=rgb.device)
     return (x - mean) / std
+
+
+def device_preprocess_flow(flow: torch.Tensor) -> torch.Tensor:
+    """int8 [-127, 127] (the wire format, `data/pipeline.py::
+    flow_to_int8_wire`) or float [-1, 1] flow `[..., 2]` → float32: int8
+    divides by 127.0, float passes through."""
+    x = flow.to(torch.float32)
+    if flow.dtype == torch.int8:
+        x = x / 127.0
+    return x

@@ -1,7 +1,8 @@
 """Where the device time of one serving request or training step goes,
 on the card.
 
-    python3 -m step_tpu_torch.profile_request [--path main|kernel|video|stream|train]
+    python3 -m step_tpu_torch.profile_request
+        [--path main|kernel|video|stream|train|train_two_stream|two_stream|ava]
         [--batch 8] [--requests 10] [--out profile.json]
 
 Builds the detector at full width and depth with seeded weights (seed 0),
@@ -20,10 +21,17 @@ drives:
           stems (`chunk_stem=True`), 16 windows a refinement batch;
   train   one `train_step` of `ucf_3step` (the training init, float32
           weights, bf16 compute, remat "dots", AdamW) on `--batch`
-          synthetic uint8 clips already on the card.
+          synthetic uint8 clips already on the card;
+  train_two_stream  the same for `two_stream_train`, both stems and the
+          fusion unit trained, each clip with its int8 flow (`make_flow`);
+  two_stream  `two_stream_train` on the main path's tree (both stems and
+          the fusion unit folded): uint8 RGB and int8 flow;
+  ava     `ava_3step` on the main path's tree: 60 sigmoid classes, the
+          context branch.
 
-A request of `main` and `kernel` uploads `--batch` uint8 clips, one of
-`video` and `stream` a uint8 video; then it detects. For `train` it also
+A request of `main`, `kernel` and `ava` uploads `--batch` uint8 clips,
+one of `two_stream` the clips and their int8 flow, one of `video` and
+`stream` a uint8 video; then it detects. For `train` it also
 prints the device time under each plain backward (the stride-1 pool's and
 ROI-align's autograd Functions, children included). The script serves two
 warm-up requests, times `--requests` more (host clock around each
@@ -64,6 +72,12 @@ LAYERS = (
 )
 
 
+PRESET_OF = {"main": "ucf_3step", "kernel": "ucf_3step", "train": "ucf_3step",
+             "train_two_stream": "two_stream_train",
+             "video": "streaming", "stream": "streaming",
+             "two_stream": "two_stream_train", "ava": "ava_3step"}
+
+
 def layer_of(name: str) -> str:
     for layer, keys in LAYERS:
         if any(k in name for k in keys):
@@ -77,8 +91,8 @@ def build(path: str, dev: torch.device):
     from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.utils.init import init_detector_
 
-    cfg = PRESETS["ucf_3step" if path in ("main", "kernel", "train") else "streaming"]
-    if path == "train":
+    cfg = PRESETS[PRESET_OF[path]]
+    if path.startswith("train"):
         from step_tpu_torch.train.trainer import create_train_state
 
         cfg = cfg.replace(dataset="synthetic", warmup_steps=2, total_steps=1000)
@@ -106,24 +120,34 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
 
     rng = np.random.RandomState(0)
     c, S = cfg.frames_per_chunk, cfg.image_size
-    if path == "train":
+    if path.startswith("train"):
         from step_tpu_torch.data.pipeline import build_model_batch
-        from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+        from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch, make_flow
         from step_tpu_torch.train.trainer import batch_to_device, train_step
 
         cfg = cfg.replace(batch_size=batch)
         syn = SyntheticConfig(image_size=S, num_frames=cfg.total_frames,
                               num_classes=cfg.num_classes, max_boxes=4)
         seeds = iter(range(0, 10 ** 6, batch))
-        return (lambda b: train_step(model, b, cfg),
-                lambda: batch_to_device(build_model_batch(
-                    make_batch(next(seeds), batch, syn), cfg, train=True,
-                    emit_uint8=True), dev))
-    if path in ("main", "kernel"):
+
+        def make():
+            raw = make_batch(next(seeds), batch, syn)
+            if cfg.two_stream:
+                raw["flow"] = np.stack([make_flow(rgb) for rgb in raw["rgb"]])
+            return batch_to_device(build_model_batch(raw, cfg, train=True,
+                                                     emit_uint8=True), dev)
+        return (lambda b: train_step(model, b, cfg), make)
+    if path in ("main", "kernel", "ava", "two_stream"):
         props, pmask = STEPDetector.initial_proposals(cfg, batch, device=dev)
-        shape = (batch, cfg.total_frames, S, S, 3)
-        return (lambda x: detect_clip(model, x.to(dev), props, pmask),
-                lambda: torch.from_numpy(rng.randint(0, 256, shape).astype(np.uint8)))
+        shape = (batch, cfg.total_frames, S, S)
+
+        def clip():
+            rgb = torch.from_numpy(rng.randint(0, 256, shape + (3,)).astype(np.uint8))
+            if path != "two_stream":
+                return rgb, None
+            return rgb, torch.from_numpy(rng.randint(-127, 128, shape + (2,)).astype(np.int8))
+        return (lambda x: detect_clip(model, x[0].to(dev), props, pmask,
+                                      None if x[1] is None else x[1].to(dev)), clip)
     make = lambda: torch.from_numpy(  # noqa: E731
         rng.randint(0, 256, (batch * c, S, S, 3)).astype(np.uint8))
     if path == "stream":
@@ -140,8 +164,7 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--path", choices=("main", "kernel", "video", "stream", "train"),
-                    default="main")
+    ap.add_argument("--path", choices=tuple(PRESET_OF), default="main")
     ap.add_argument("--batch", type=int, default=8,
                     help="clips a request (main, kernel) or chunks a video (video, stream)")
     ap.add_argument("--requests", type=int, default=10)
@@ -158,7 +181,7 @@ def main(argv=None) -> int:
     run, make = request_fn(args.path, cfg, model, args.batch, dev)
     inputs = [make() for _ in range(3)]
     request_ms = []
-    with torch.no_grad() if args.path != "train" else contextlib.nullcontext():
+    with contextlib.nullcontext() if args.path.startswith("train") else torch.no_grad():
         for x in inputs[:2]:
             run(x)
         for i in range(args.requests):

@@ -1,7 +1,8 @@
 """The epoch-level training loop.
 
 Port of `step_tpu/train/fit.py` for one card: iterate the loader, run
-`train_step`, log the metrics, checkpoint every `ckpt_every` steps and at
+`train_step` (a batch's flow, where the dataset reads it, goes with it to
+the card), log the metrics, checkpoint every `ckpt_every` steps and at
 the end, resume exactly mid-epoch, and on SIGTERM or SIGINT write a last
 checkpoint and return. The step's metrics stay on the card until a log
 window closes (`MetricsLogger.print_every` steps), so the host runs ahead

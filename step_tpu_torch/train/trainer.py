@@ -41,6 +41,8 @@ from step_tpu_torch.utils.init import init_detector_train_
 CLIP_NORM = 10.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 BATCH_KEYS = ("rgb", "proposals", "prop_mask", "gt_tubes", "gt_labels", "gt_mask")
+# in a batch when the dataset reads optical flow (`step_tpu/train/fit.py:27`)
+OPTIONAL_KEYS = ("flow",)
 
 
 def make_schedule(cfg: StepConfig) -> Callable[[int], float]:
@@ -195,11 +197,11 @@ def create_train_state(cfg: StepConfig, seed: int = 0,
 
 
 def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:
-    """The model's keys of a host batch (numpy or tensors) as tensors on
-    `device`; `non_blocking` pins host memory first, so the copy can run
-    beside the card's work."""
+    """The model's keys of a host batch (numpy or tensors), and its flow
+    where it has one, as tensors on `device`; `non_blocking` pins host
+    memory first, so the copy can run beside the card's work."""
     out = {}
-    for k in BATCH_KEYS:
+    for k in BATCH_KEYS + tuple(k for k in OPTIONAL_KEYS if batch.get(k) is not None):
         v = batch[k]
         t = torch.as_tensor(v)
         if non_blocking and torch.device(device).type == "cuda":
@@ -220,12 +222,27 @@ def _bn_updates(model: STEPDetector):
     return bns, means, variances
 
 
+def model_inputs(batch: dict, cfg: StepConfig):
+    """(primary input, second stream) of a batch, as the JAX package feeds
+    them (`step_tpu/train/trainer.py:146-155, :266-271`): the flow is the
+    primary input of a flow-stream detector and the second stream of a
+    two-stream one; otherwise the RGB goes alone."""
+    if cfg.input_stream != "rgb" and "flow" not in batch:
+        raise ValueError(
+            f"input_stream={cfg.input_stream!r} training needs a "
+            "flow-enabled dataset (batch has no 'flow'; use "
+            "UCFDataset(with_flow=True) — synthetic/AVA carry no flow)")
+    primary = batch["rgb"] if cfg.input_stream == "rgb" else batch["flow"]
+    return primary, batch.get("flow") if cfg.two_stream else None
+
+
 def train_step(state: TrainState, batch: dict, cfg: StepConfig):
     """One optimizer step on `batch` (tensors on the model's device: rgb,
-    proposals, prop_mask, gt_tubes, gt_labels, gt_mask) → (state,
-    metrics). The state is updated in place; the metrics are tensors on
-    the device (`loss`, the per-step losses and positives, `grad_norm`),
-    read without a host sync."""
+    proposals, prop_mask, gt_tubes, gt_labels, gt_mask, and flow for a
+    flow or two-stream detector) → (state, metrics). The state is
+    updated in place; the metrics are tensors on the device (`loss`, the
+    per-step losses and positives, `grad_norm`), read without a host
+    sync."""
     model = state.model
     params = state.trainable()
     for p in params:
@@ -238,7 +255,8 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig):
     bn_sum, m_sum = None, None
     for i in range(accum):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        outputs = model(part["rgb"], part["proposals"], train=True,
+        primary, flow = model_inputs(part, cfg)
+        outputs = model(primary, part["proposals"], flow, train=True,
                         generator=state.generator)
         loss, metrics = step_losses(outputs, part["gt_tubes"], part["gt_labels"],
                                     part["gt_mask"], part["prop_mask"], cfg)
@@ -274,4 +292,5 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig):
 @torch.no_grad()
 def eval_forward(state: TrainState, batch: dict, cfg: StepConfig):
     """The inference forward: no dropout, running BatchNorm statistics."""
-    return state.model(batch["rgb"], batch["proposals"])
+    primary, flow = model_inputs(batch, cfg)
+    return state.model(primary, batch["proposals"], flow)

@@ -40,18 +40,22 @@ VIDEO_WINDOWS = 11  # sliding windows per held-out video, as in the JAX script
 class SyntheticClips:
     """A dataset of synthetic clips (`data/synthetic.py`): clip i is drawn
     from seed `seed + i`, so batch k of an unshuffled loader is
-    `make_batch(seed + k * batch, batch)`."""
+    `make_batch(seed + k * batch, batch)`. `with_flow` adds each clip's
+    flow (`make_flow`), for a two-stream or flow-stream detector."""
 
-    def __init__(self, syn, n: int, seed: int):
-        self.syn, self.n, self.seed = syn, n, seed
+    def __init__(self, syn, n: int, seed: int, with_flow: bool = False):
+        self.syn, self.n, self.seed, self.with_flow = syn, n, seed, with_flow
 
     def __len__(self):
         return self.n
 
     def __getitem__(self, i):
-        from step_tpu_torch.data.synthetic import make_clip
+        from step_tpu_torch.data.synthetic import make_clip, make_flow
 
-        return make_clip(self.seed + i, self.syn)
+        clip = make_clip(self.seed + i, self.syn)
+        if self.with_flow:
+            clip["flow"] = make_flow(clip["rgb"])
+        return clip
 
 
 def parse_args(argv=None):

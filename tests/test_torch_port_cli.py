@@ -4,7 +4,12 @@
 (config held equal field for field to the JAX package's), and
 `python -m step_tpu_torch.cli.train` / `cli.test` driven in-process
 (`main(argv)`) on a mini on-disk UCF101-24 layout at the tiny size of
-`tests/test_cli_e2e.py::TINY_SET`, plus one subprocess run of `cli.test`.
+`tests/test_cli_e2e.py::TINY_SET`, plus one subprocess run of `cli.test`;
+and, after `tests/test_cli_e2e.py:185`, the AVA branch (training with its
+in-training `evaluate_ava`, then `--preset ava_3step`) on a mini AVA
+layout, and the flow branches on a UCF layout with `brox-images`: `--flow`
+(two-stream), a flow-stream detector (`--set input_stream=flow`) and late
+fusion (`--flow-ckpt-dir`).
 
 Tolerances: overrides and configs exactly equal; `--optimized` (BN folded
 in float32) within 1e-4 of the unfolded model's mAPs; the CLI's printed
@@ -20,6 +25,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from step_tpu.config import StepConfig as JaxStepConfig
@@ -165,13 +171,12 @@ def test_test_cli_prints_the_evaluation(trained, extra):
 @pytest.mark.parametrize("module,argv,item", [
     (cli_train, ["--distributed"], "M9"),
     (cli_train, ["--pretrained-i3d", "i3d.pt"], "M8"),
-    (cli_train, ["--dataset", "ava"], "M10"),
-    (cli_train, ["--flow"], "M10"),
     (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--sharded"], "M9"),
-    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z"], "M10"),
-    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--preset", "ava_3step"], "M10"),
-    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--preset",
-                "two_stream_train"], "M10"),
+    # the JAX package's own refusals (test.py:93-95, :107-109)
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z",
+                "--optimized"], "does not combine with --flow-ckpt-dir"),
+    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z",
+                "--preset", "ava_3step"], "UCF-only"),
 ])
 def test_clis_refuse_what_is_not_ported(module, argv, item):
     with pytest.raises(SystemExit, match=item):
@@ -204,3 +209,158 @@ def test_test_cli_as_a_module(trained):
         assert re.search(rf"^{re.escape(key)}: ", proc.stdout, re.M), proc.stdout
     assert "decoder: " in proc.stdout and "timings: " in proc.stdout
     assert not any(m in proc.stderr for m in ("import jax", "No module named 'jax'"))
+
+
+# ---- AVA and flow -----------------------------------------------------------
+
+AVA_SET = ["--set", "num_classes=3", "--set", "max_gt_tubes=2"]
+
+
+def _run(module, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.main([*argv, "--device", "cpu", *TINY_SET])
+    return result, buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def ava_trained(tmp_path_factory):
+    """A mini AVA layout (`tests/test_cli_e2e.py::mini_ava`'s: frames, a
+    training and a validation CSV with real sparse ids, the label map, an
+    exclusion file) and a checkpoint `cli.train --dataset ava` trained on
+    it, evaluating the validation CSV after each epoch."""
+    from tests.test_ava_protocol import PBTXT_ITEM
+    from tests.test_data import _write_jpg
+
+    tmp = tmp_path_factory.mktemp("cli_ava")
+    root = str(tmp / "ava")
+    rng = np.random.RandomState(1)
+    for video in ("vidA", "vidB"):
+        for fn in range(1, 30):
+            _write_jpg(os.path.join(root, "frames", video, f"{video}_{fn:06d}.jpg"),
+                       rng.rand(40, 48, 3) * 0.5)
+    rows = ["vidA,2,0.1,0.2,0.5,0.9,1,1", "vidA,3,0.1,0.2,0.5,0.9,1,1",
+            "vidA,3,0.1,0.2,0.5,0.9,2,1", "vidA,4,0.2,0.2,0.6,0.8,80,2",
+            "vidB,3,0.3,0.3,0.7,0.7,4,5", "vidB,4,0.3,0.3,0.7,0.7,80,5"]
+    for name in ("ava_train.csv", "ava_val.csv"):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows))
+    with open(os.path.join(root, "label_map.pbtxt"), "w") as f:
+        f.write(PBTXT_ITEM)
+    with open(os.path.join(root, "excluded.csv"), "w") as f:
+        f.write("vidA,2\n")
+    ckpt = str(tmp / "ckpt")
+    ava = ["--label-map", os.path.join(root, "label_map.pbtxt"), "--fps", "5",
+           "--exclusions", "excluded.csv", *AVA_SET]
+    state, out = _run(cli_train, [
+        "--preset", "ava_3step", "--dataset", "ava", "--data-root", root,
+        "--annotation-file", "ava_train.csv", "--eval-annotation-file", "ava_val.csv",
+        "--ckpt-dir", ckpt, "--epochs", "2", "--eval-every-epochs", "1", *ava])
+    return dict(root=root, ckpt=ckpt, ava=ava, state=state, out=out, tmp=tmp)
+
+
+def test_ava_train_cli_evaluates_during_training(ava_trained):
+    out = ava_trained["out"]
+    assert ava_trained["state"].step == 4
+    m = re.search(r"epoch 0 eval: \{'frame_mAP@0\.5': ([0-9.e-]+|nan)\}", out)
+    assert m, out
+    assert re.search(r"epoch 1 eval: \{'frame_mAP@0\.5'", out) and "trained to step 4" in out
+    assert sorted(os.listdir(ava_trained["ckpt"])) == ["4.pt"]
+
+
+def test_ava_test_cli_prints_the_evaluation(ava_trained):
+    """`cli.test --preset ava_3step` restores the AVA checkpoint and prints
+    `evaluate_ava`'s frame-mAP; the dump holds its detections."""
+    dump = str(ava_trained["tmp"] / "ava_dets.pkl")
+    results, out = _run(cli_test, [
+        "--preset", "ava_3step", "--data-root", ava_trained["root"], "--ckpt-dir",
+        ava_trained["ckpt"], "--annotation-file", "ava_val.csv", "--dump", dump,
+        "--set", "score_thresh=0.0", *ava_trained["ava"]])
+    assert "restored step 4" in out and "decoder:" not in out
+    m = re.search(r"^frame_mAP@0\.5: ([0-9.]+|nan)$", out, re.M)
+    assert m and m.group(1) == f"{results['frame_mAP@0.5']:.4f}", out
+    assert 0.0 <= results["frame_mAP@0.5"] <= 1.0
+    with open(dump, "rb") as f:
+        dets = pickle.load(f)["detections"]
+    assert dets and all(0 <= c < 3 and (k[0], k[1]) != ("vidA", 2.0) for k, c, _, _ in dets)
+
+
+@pytest.fixture(scope="module")
+def flow_trained(trained):
+    """`trained`'s layout with `brox-images` beside its frames, and two
+    checkpoints trained on it: a two-stream detector (`--flow`) and a
+    flow-stream one (`--set input_stream=flow`, for late fusion)."""
+    from tests.test_data import _write_jpg
+
+    root = trained["root"]
+    rng = np.random.RandomState(2)
+    rgb = os.path.join(root, "rgb-images")
+    for dirpath, _, files in os.walk(rgb):
+        for name in files:
+            _write_jpg(os.path.join(root, "brox-images", os.path.relpath(dirpath, rgb), name),
+                       rng.rand(32, 32, 3))
+    out = {}
+    for kind, extra in (("two_stream", ["--flow"]),
+                        ("flow_stream", ["--set", "input_stream=flow"])):
+        ckpt = str(trained["tmp"] / f"ckpt_{kind}")
+        state, text = _run(cli_train, ["--dataset", "ucf101_24", "--data-root", root,
+                                       "--ckpt-dir", ckpt, "--epochs", "1",
+                                       "--set", "num_classes=2", *extra])
+        out[kind] = dict(ckpt=ckpt, state=state, out=text)
+    return out
+
+
+def _test_cli_maps(out, results):
+    for key in MAPS:
+        m = re.search(rf"^{re.escape(key)}: ([0-9.]+|nan)$", out, re.M)
+        assert m, out
+        assert m.group(1) == f"{results[key]:.4f}"
+
+
+def test_flow_train_then_test_cli(trained, flow_trained):
+    """`cli.train --flow` trains both stems and the fusion unit; `cli.test
+    --preset two_stream_train` evaluates that checkpoint with the flow."""
+    ts = flow_trained["two_stream"]
+    assert ts["state"].step == 4 and ts["state"].model.features.fusion is not None
+    results, out = _run(cli_test, ["--preset", "two_stream_train", "--data-root",
+                                   trained["root"], "--ckpt-dir", ts["ckpt"],
+                                   "--set", "num_classes=2", "--set", "score_thresh=0.0"])
+    assert "restored step 4" in out
+    _test_cli_maps(out, results)
+    assert results["timings"]["n_detections"] > 0
+
+
+def test_flow_stream_test_cli(trained, flow_trained):
+    """A flow-stream checkpoint evaluated alone: the flow is its input."""
+    fs = flow_trained["flow_stream"]
+    assert fs["state"].model.features.stem_rgb.Conv3d_1a_7x7.conv.weight.shape[1] == 2
+    results, out = _run(cli_test, ["--data-root", trained["root"], "--ckpt-dir", fs["ckpt"],
+                                   "--set", "num_classes=2", "--set", "input_stream=flow",
+                                   "--set", "score_thresh=0.0"])
+    _test_cli_maps(out, results)
+
+
+def test_test_cli_late_fusion(trained, flow_trained):
+    """`--flow-ckpt-dir`: the RGB checkpoint and the flow-stream one fused
+    before NMS, equal to `evaluate_ucf(model, ds, model_flow=...)` on the
+    same weights, linked on the device."""
+    from step_tpu_torch.data.ucf import UCFDataset
+    from step_tpu_torch.evaluate import evaluate_ucf
+
+    fs = flow_trained["flow_stream"]
+    results, out = _run(cli_test, ["--data-root", trained["root"], "--ckpt-dir",
+                                   trained["ckpt"], "--flow-ckpt-dir", fs["ckpt"],
+                                   "--set", "num_classes=2", "--set", "score_thresh=0.0",
+                                   "--device-linking"])
+    assert "restored the flow stream's step 4" in out
+    _test_cli_maps(out, results)
+    cfg = trained["state"].model.cfg.replace(score_thresh=0.0)
+    models = []
+    for c, state in ((cfg, trained["state"]), (cfg.replace(input_stream="flow"), fs["state"])):
+        models.append(STEPDetector(c).eval())
+        models[-1].load_state_dict(state.model.state_dict())
+    ds = UCFDataset(trained["root"], cfg, split="test", with_flow=True)
+    want = evaluate_ucf(models[0], ds, model_flow=models[1], device_linking=True)
+    for key in MAPS:
+        assert results[key] == pytest.approx(want[key], abs=1e-6, nan_ok=True), key
+    assert results["timings"]["n_detections"] == want["timings"]["n_detections"] > 0

@@ -69,11 +69,12 @@ assert "cv2" not in sys.modules
 print(" ".join(names))
 """
 
-# Modules the guard must reach: the evaluation slice's among them.
+# Modules the guard must reach: the evaluation slice's and AVA's among them.
 _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
               "step_tpu_torch.data.augmentations", "step_tpu_torch.utils.cli",
-              "step_tpu_torch.evaluate", "step_tpu_torch.train_eval_synth")
+              "step_tpu_torch.evaluate", "step_tpu_torch.train_eval_synth",
+              "step_tpu_torch.data.ava", "step_tpu_torch.eval.ava_eval")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():

@@ -146,7 +146,5 @@ def test_bfloat16_detect_clip_is_finite():
 
 
 def test_unported_options_are_refused():
-    for kw in ({"two_stream": True}, {"reg_head": "frame_fc"},
-               {"input_stream": "flow"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            STEPDetector(TINY.replace(**kw))
+    with pytest.raises(NotImplementedError, match="not ported"):
+        STEPDetector(TINY.replace(reg_head="frame_fc"))

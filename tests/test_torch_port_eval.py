@@ -116,8 +116,10 @@ def test_collect_detections_refuses_what_is_not_ported(pair):
     ds, _ = _datasets(root)
     with pytest.raises(ValueError, match="temporal_stride"):
         tev.collect_detections(STEPDetector(CFG.replace(temporal_stride=2)), ds)
-    with pytest.raises(NotImplementedError, match="M10"):
-        tev.collect_detections(model, ds, variables_flow={})
+    # late fusion needs a dataset that reads flow
+    with pytest.raises(ValueError, match="flow-enabled dataset"):
+        tev.collect_detections(model, ds, model_flow=STEPDetector(
+            CFG.replace(input_stream="flow")).eval())
     with pytest.raises(NotImplementedError, match="M9"):
         tev.collect_detections(model, ds, mesh=object())
     with pytest.raises(NotImplementedError, match="M9"):

@@ -733,3 +733,74 @@ def test_tiny_train_step_on_card_matches_cpu(cuda):
         far += int((d > 1e-5).sum())
         total += d.numel()
     assert far <= 1e-3 * total
+
+
+# ---- the two-stream and AVA paths -----------------------------------------
+
+@pytest.mark.parametrize("B", [1, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nms_surface_kernel_equals_plain_at_60_classes(cuda, B, dtype):
+    """K1 on the `ava_3step` surface: 60 sigmoid scores a box, no
+    background column, the frame's 60 problems split across warps."""
+    cfg = PRESETS["ava_3step"]
+    tubes, scores, mask = (t.to(cuda) for t in surface_inputs(60 + B, B, 16, 18, 60, dtype))
+    got = nms_surface(tubes, scores, mask, cfg)
+    want = nms_surface_plain(tubes, scores, mask, cfg)
+    torch.cuda.synchronize()
+    assert got["frame_mask"].shape == (B, 18, 60, 16)
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        assert torch.equal(raw_bits(got[key]), raw_bits(want[key])), key
+    assert float(want["frame_mask"].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_kernel_at_the_fusion_shape(cuda, dtype):
+    """K4 on the two-stream fusion unit's output, `[B, 832, T', 14, 14]`."""
+    C = 832
+    x = _ncdhw(9, (2, C, 5, 14, 14), dtype)
+    rng = np.random.RandomState(10)
+    scale = torch.from_numpy((rng.rand(C) * 2 + 0.1).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
+    before = fused_scale_bias_relu.launches
+    got = fused_scale_bias_relu(x, scale, bias)
+    assert fused_scale_bias_relu.launches == before + 1
+    _close(got, fused_scale_bias_relu_plain(x, scale, bias), dtype, 1e-6)
+
+
+@pytest.mark.parametrize("name,over", [("two_stream_train", {}), ("ava_3step", {}),
+                                       ("two_stream_train", {"fused_bn_relu": True})])
+def test_tiny_two_stream_and_ava_detectors_on_card_match_cpu(cuda, name, over):
+    """The tiny float32 two-stream detector (with the fusion unit's K4 in
+    the kernel configuration) and the AVA detector on the card against the
+    CPU, and late fusion of the two streams."""
+    from step_tpu_torch.inference import detect_clip_late_fusion
+
+    cfg = PRESETS[name].replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                                compute_dtype="float32", score_thresh=0.0, **over)
+    model = init_detector_(STEPDetector(cfg).eval(), seed=5)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2, device="cpu")
+    rng = np.random.RandomState(6)
+    rgb = torch.from_numpy(rng.randint(0, 256, (2, 18, 64, 64, 3)).astype(np.uint8))
+    flow = torch.from_numpy(rng.randint(-127, 128, (2, 18, 64, 64, 2)).astype(np.int8))
+    second = flow if cfg.two_stream else None
+    ref = detect_clip(model, rgb, props, pmask, second)
+    k4 = fused_scale_bias_relu.launches
+    got = detect_clip(model.to(cuda), rgb.to(cuda), props.to(cuda), pmask.to(cuda),
+                      None if second is None else second.to(cuda))
+    assert (fused_scale_bias_relu.launches > k4) == cfg.fused_bn_relu
+    torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
+                               rtol=0, atol=1e-4)
+    surface = nms_surface(ref["tubes"].to(cuda), ref["tube_scores"].to(cuda),
+                          pmask.to(cuda), cfg)
+    for key in ("frame_boxes", "frame_scores", "frame_mask"):
+        assert torch.equal(surface[key].cpu(), ref[key]), key
+    if name == "two_stream_train" and not over:
+        single = cfg.replace(two_stream=False)
+        m_rgb = init_detector_(STEPDetector(single).eval(), seed=7)
+        m_flow = init_detector_(STEPDetector(single.replace(input_stream="flow")).eval(), 8)
+        ref = detect_clip_late_fusion(m_rgb, m_flow, rgb, flow, props, pmask)
+        got = detect_clip_late_fusion(m_rgb.to(cuda), m_flow.to(cuda), rgb.to(cuda),
+                                      flow.to(cuda), props.to(cuda), pmask.to(cuda))
+        torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
+                                   rtol=0, atol=1e-4)

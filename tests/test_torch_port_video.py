@@ -254,8 +254,14 @@ def test_collect_video_tubes_refuses_what_is_not_ported(pair):
     _, model, _ = pair
     with pytest.raises(ValueError, match="temporal_stride"):
         collect_video_tubes(STEPDetector(CFG.replace(temporal_stride=2)), None)
-    with pytest.raises(NotImplementedError, match="M10"):
-        collect_video_tubes(model, None, variables_flow={})
+    # late fusion needs a dataset that reads flow
+    T, fpc = CFG.total_frames, CFG.frames_per_chunk
+    no_flow = tsyn.SyntheticVideoDataset(tsyn.SyntheticConfig(
+        image_size=32, num_frames=fpc + T, num_classes=CFG.num_classes, max_boxes=2),
+        1, 2, T, fpc, seed=7)
+    with pytest.raises(ValueError, match="flow-enabled dataset"):
+        collect_video_tubes(model, no_flow, model_flow=STEPDetector(
+            CFG.replace(input_stream="flow")).eval())
     with pytest.raises(NotImplementedError, match="M9"):
         collect_video_tubes(model, None, mesh=object())
 
