@@ -155,6 +155,39 @@ Phases, each fatal on failure (exit code 1, no result line):
      then `cli.train --dataset ava` (4 steps, B=2; K2 launched) and
      `cli.test --preset ava_3step` on that checkpoint (K1 once and K2 3
      times a `detect_clip` batch, counted).
+ 21. the pretrained start (`pretrained_phases`): a seeded full-width I3D
+     written with `torch.save` in the piergiaj naming with a `module.`
+     prefix (`i3d_checkpoint`); `fit(pretrained_i3d=...)` on `ucf_3step`,
+     B=8, 12 steps timed as phase 14 (`timed_fit`): the normalizer's report
+     printed, every stem and tail tensor the checkpoint's bit for bit
+     before the first step and the moments fresh, K2 and K5 in every step;
+     `two_stream_train` at B=2 for 2 steps, its flow stem the inflated RGB
+     stem; `cli.train --pretrained-i3d` on phase 17's on-disk layout;
+ 22. int8 moments (`int8_phases`): `fit()` with `adam_moments="int8"`, B=8,
+     12 steps: the median of the last 8, peak memory, the state's bytes a
+     parameter (2.03 to 2.04; float32 moments take 8), the kernels of one
+     step and of the optimizer's update alone beside float32 moments'
+     (profiler), the update's device time (profiler) and its time between
+     CUDA events; a tiny float32 int8 step on the card
+     against the CPU (weights within 2 lr, at most 0.1% beyond 1e-5, each
+     stored moment within one code level, 8%, or 1% of its block's largest
+     value, where a gradient at float-noise level differs);
+ 23. the "frame_fc" head (`frame_fc_phases`): `ucf_3step` with
+     `reg_head="frame_fc"` on `optimize_for_inference`'s tree serving B=1
+     and B=8 (every K1 and K2 call held, K1 1 and K2 3 a request), its
+     kernel configuration against the main path in float32 at phase 11's
+     tolerances, 4 `fit()` steps at B=8;
+ 24. `I3DClassifier` (`classifier_phases`): 64-frame clips at 224 px from a
+     written checkpoint, bf16, B=1 and B=8 request medians on the main
+     configuration (cuDNN convs, PyTorch pools, no kernel launched) and the
+     kernel configuration; one more request at each batch whose every K3,
+     K4 and K5 call is held against its plain version on its own inputs
+     (`held_backbone`) and counted by shape against `classifier_launches`;
+     every B=1 shape held and timed by `pool_case`/`bn_case`/`conv_case`;
+     float32 logits of the kernel configuration against the main one
+     (within 1e-3 of their scale, probabilities within 1e-3); then
+     `cli.classify` on a written frame directory and the checkpoint, its
+     probabilities within 1e-3 of the classifier's on the same clip.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -181,8 +214,10 @@ run of phases 16 and 17 (K1 and K2 also `eval_launches_per_batch` and
 `eval_shapes`, as `video_shapes`), and `two_stream_launches`,
 `late_fusion_launches` and `ava_launches`, its launches on each run of
 phases 18, 19 and 20, with `two_stream_shapes`, `late_fusion_shapes` and
-`ava_shapes` for the shapes held there (K4's fusion shape among them). The
-last is
+`ava_shapes` for the shapes held there (K4's fusion shape among them), and
+`pretrained_launches`, `int8_launches`, `frame_fc_launches` (with
+`frame_fc_shapes`) and `classifier_launches` (with `classifier_shapes`, each
+B=1 classifier shape's numbers) from phases 21-24. The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -211,6 +246,12 @@ BF16_RTOL = 2.0 ** -7           # one bf16 rounding step (8-bit significand)
 # (step_tpu_torch/conv_tune.py measures it). Hence an absolute floor of
 # 2^-15 for K3 in bf16, and 1e-5 elsewhere.
 K3_BF16_ATOL = 2.0 ** -15
+# On the classifier's own activations (phase 24: post-ReLU inputs up to ~40,
+# outputs near 0 after heavy cancellation) that drift is ~2e-7 of the sum of
+# |x * w| * |scale| over the output's 27 * C terms, beyond 2^-15 where that
+# sum is in the hundreds. Held calls on real activations (`held_backbone`)
+# allow 2^-20 of that sum beside one bf16 step and 2^-15 (`k3_close`).
+K3_BF16_SUM_RTOL = 2.0 ** -20
 PATH_SCORE_TOL, PATH_TUBE_TOL = 1e-3, 1e-2
 # The video phases: a 288-frame video of the streaming preset, 48 chunks of
 # 6 frames, tiled into 48 windows one chunk apart; refinement batches of 16
@@ -236,6 +277,9 @@ CLI_FRAMES, CLI_STEPS = 36, 4
 TS_TRAIN_BATCH, TS_TRAIN_STEPS = 8, 12
 LF_VIDEOS = 2
 AVA_VIDEOS, AVA_FRAMES, AVA_FPS, AVA_SIZE = 3, 48, 6, (180, 320)
+# The classifier phase: I3DClassifier on 64-frame clips at 224 px (the Quo
+# Vadis evaluation's centre clip, classify.py's default).
+CLASSIFY_FRAMES, CLASSIFY_SIZE = 64, 224
 KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
            "conv3x3x3_bn_relu")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
@@ -592,6 +636,20 @@ def bf16_close(got: torch.Tensor, want: torch.Tensor, atol: float = 1e-5) -> boo
     return torch.allclose(got.float(), want.float(), rtol=BF16_RTOL, atol=atol)
 
 
+def k3_close(got, want, x, weight, scale) -> bool:
+    """K3's output against its plain version on the inputs x, weight and
+    scale: float32 within 1e-4; bfloat16 within one rounding step, 2^-15,
+    and K3_BF16_SUM_RTOL of the sum of |x * w| * |scale| each output adds
+    up (its accumulation drift)."""
+    if got.dtype == torch.float32:
+        return torch.allclose(got, want, rtol=1e-4, atol=1e-4)
+    w = weight.to(x.dtype).float().abs()
+    terms = F.conv3d(x.float().abs(), w, None, 1, 1) * scale.abs().view(1, -1, 1, 1, 1)
+    err = (got.float() - want.float()).abs()
+    return bool((err <= BF16_RTOL * want.float().abs() + K3_BF16_ATOL
+                 + K3_BF16_SUM_RTOL * terms).all())
+
+
 def median_wall_ms(fn, runs: int = VIDEO_RUNS):
     """(median, all) wall ms of `runs` calls of `fn`, each ending in a
     synchronize, after one warm-up call."""
@@ -608,12 +666,20 @@ def median_wall_ms(fn, runs: int = VIDEO_RUNS):
 
 def cuda_kernels_in(fn) -> int:
     """The CUDA kernels one call of `fn` launches, counted by torch.profiler."""
+    return profiled(fn)[0]
+
+
+def profiled(fn) -> tuple[int, float]:
+    """(CUDA kernels, their summed device ms) of one call of `fn`, from
+    torch.profiler."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.count for e in events),
+            sum(e.self_device_time_total for e in events) / 1e3)
 
 
 def check_links(det, C: int, K: int, L: int, label: str) -> None:
@@ -1032,8 +1098,6 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     plain backward, for the JSON line."""
     import tempfile
 
-    from step_tpu_torch import PRESETS
-    from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.data.pipeline import build_model_batch
     from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
     from step_tpu_torch.models.detector import STEPDetector
@@ -1041,85 +1105,53 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     from step_tpu_torch.ops.pool_grad import max_pool_s1_backward
     from step_tpu_torch.ops.roi_align import (tube_roi_align, tube_roi_align_backward,
                                               tube_roi_align_plain)
-    from step_tpu_torch.train import fit as fit_module
     from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
                                               make_schedule, train_step)
-    from step_tpu_torch.train_eval_synth import SyntheticClips
     from step_tpu_torch.utils.checkpoint import checkpoint_steps, restore_checkpoint
     from step_tpu_torch.utils.init import init_detector_train_
 
     # ---- 14. training at full width --------------------------------------
-    cfg = PRESETS["ucf_3step"].replace(
-        dataset="synthetic", batch_size=TRAIN_BATCH, remat_steps=True, remat_policy="dots",
-        optimizer="adamw", warmup_steps=2, learning_rate=1e-3, total_steps=1000)
+    cfg = train_cfg("ucf_3step", TRAIN_BATCH)
     syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
                           num_classes=cfg.num_classes, max_boxes=4)
     t0 = time.time()
     model = init_detector_train_(STEPDetector(cfg), cfg, SEED)
-    loader = DataLoader(SyntheticClips(syn, TRAIN_STEPS * cfg.batch_size, SEED * 1000), cfg,
-                        seed=SEED, num_workers=4)
     # Step 1's gradient of every backbone parameter, kept on the card.
-    steps = []
-    first_grads = first_grad_hooks(model.features, steps)
-
-    def timed_step(state, batch, cfg_):
-        before = read_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = train_step(state, batch, cfg_)
-        end.record()
-        after = read_counts()
-        steps.append((start, end, {k: after[k] - before[k] for k in after}, out[1]))
-        return out
-
+    first_grads = first_grad_hooks(model.features)
     reset_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
-    fit_module.train_step = timed_step
-    try:
-        with tempfile.TemporaryDirectory() as ckpt_dir:
-            state = fit_module.fit(cfg, loader, num_epochs=1, ckpt_dir=ckpt_dir,
-                                   ckpt_every=TRAIN_STEPS // 2, model=model, device=dev,
-                                   seed=SEED)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-            saved = checkpoint_steps(ckpt_dir)
-            check(TRAIN_STEPS // 2 in saved and TRAIN_STEPS in saved,
-                  f"checkpoints at steps {saved}, expected {TRAIN_STEPS // 2} and "
-                  f"{TRAIN_STEPS}")
-            fresh = create_train_state(cfg, seed=SEED + 1, device=dev)
-            fresh, data_iter = restore_checkpoint(ckpt_dir, fresh, step=TRAIN_STEPS // 2)
-            check(fresh.step == TRAIN_STEPS // 2
-                  and data_iter == {"epoch": 0, "batch_index": TRAIN_STEPS // 2},
-                  f"checkpoint {TRAIN_STEPS // 2} restored step {fresh.step}, {data_iter}")
-            del fresh
-    finally:
-        fit_module.train_step = train_step
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        state, steps, memory = timed_fit(
+            dict(cfg=cfg, loader=synthetic_loader(cfg, TRAIN_STEPS), num_epochs=1,
+                 ckpt_dir=ckpt_dir, ckpt_every=TRAIN_STEPS // 2, model=model, device=dev,
+                 seed=SEED), read_counts)
+        saved = checkpoint_steps(ckpt_dir)
+        check(TRAIN_STEPS // 2 in saved and TRAIN_STEPS in saved,
+              f"checkpoints at steps {saved}, expected {TRAIN_STEPS // 2} and "
+              f"{TRAIN_STEPS}")
+        fresh = create_train_state(cfg, seed=SEED + 1, device=dev)
+        fresh, data_iter = restore_checkpoint(ckpt_dir, fresh, step=TRAIN_STEPS // 2)
+        check(fresh.step == TRAIN_STEPS // 2
+              and data_iter == {"epoch": 0, "batch_index": TRAIN_STEPS // 2},
+              f"checkpoint {TRAIN_STEPS // 2} restored step {fresh.step}, {data_iter}")
+        del fresh
     check(len(steps) == TRAIN_STEPS and state.step == TRAIN_STEPS,
           f"fit ran {len(steps)} steps, state at {state.step}, expected {TRAIN_STEPS}")
-    step_ms = [a.elapsed_time(b) for a, b, _, _ in steps]
-    losses = [float(m["loss"]) for _, _, _, m in steps]
-    norms = [float(m["grad_norm"]) for _, _, _, m in steps]
-    for _, _, _, m in steps:
-        for key, v in m.items():
-            check(bool(torch.isfinite(v).all()), f"training metric {key} not finite: {v}")
+    norms = [float(m["grad_norm"]) for _, _, m in steps]
     features = [n for n, _ in model.features.named_parameters()]
     check(sorted(first_grads) == sorted(features),
           f"{len(features) - len(first_grads)} backbone parameters got no gradient at step 1")
     zero = [n for n in features if not bool(first_grads[n])]
     check(not zero, f"backbone parameters with an all-zero gradient at step 1: {zero[:5]}")
-    per_step = {k: sorted({c[k] for _, _, c, _ in steps}) for k in steps[0][2]}
+    median_ms, per_step, summary = step_summary(steps)
     for name in ("tube_roi_align", "max_pool3x3_same"):
         check(min(per_step[name]) > 0, f"{name} did not launch in every training step: "
                                        f"{per_step[name]}")
-    median_ms = float(np.median(step_ms[-8:]))
     print(f"[14] training ucf_3step full width, bf16, B={cfg.batch_size}, remat "
           f"{cfg.remat_policy}, AdamW, {TRAIN_STEPS} fit() steps from the DataLoader: "
-          f"built and ran in {time.time() - t0:.1f} s; step ms "
-          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 8 "
-          f"{median_ms:.2f} ms ({cfg.batch_size / median_ms * 1e3:.1f} clips/s); peak "
-          f"memory {peak:.2f} GiB", flush=True)
-    print(f"    losses {', '.join(f'{v:.3f}' for v in losses)}; grad_norm "
-          f"{', '.join(f'{v:.3g}' for v in norms)}", flush=True)
+          f"built and ran in {time.time() - t0:.1f} s; {summary}; median of the last 8 "
+          f"{median_ms:.2f} ms ({cfg.batch_size / median_ms * 1e3:.1f} clips/s); {memory}",
+          flush=True)
+    print(f"    grad_norm {', '.join(f'{v:.3g}' for v in norms)}", flush=True)
     print(f"    launches a step: {per_step}; all {len(features)} backbone parameters "
           f"have a nonzero gradient at step 1; checkpoints {saved}, step "
           f"{TRAIN_STEPS // 2} restored", flush=True)
@@ -1133,7 +1165,7 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     print(f"    8 steps on one batch: loss {', '.join(f'{v:.3f}' for v in fixed_losses)}; "
           f"step ms without the loader, median {float(np.median(fixed_ms)):.2f}",
           flush=True)
-    del state, model, loader
+    del state, model
 
     # Each backward alone, at the shapes of a training step.
     gen = torch.Generator(device=dev)
@@ -1355,7 +1387,6 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
     from step_tpu_torch import PRESETS
     from step_tpu_torch.cli import test as cli_test
     from step_tpu_torch.cli import train as cli_train
-    from step_tpu_torch.data.synthetic import write_ucf_layout
     from step_tpu_torch.evaluate import (collect_detections, collect_video_tubes,
                                          dedupe_frame_detections, evaluate_ucf,
                                          link_frame_detections)
@@ -1463,15 +1494,7 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
     t17 = time.time()
     with tempfile.TemporaryDirectory() as tmp:
         root, ckpt = os.path.join(tmp, "ucf"), os.path.join(tmp, "ckpt")
-        videos = write_ucf_layout(root, EVAL_VIDEOS, num_classes=cfg.num_classes,
-                                  image_size=cfg.image_size, frames_lo=CLI_FRAMES,
-                                  frames_hi=CLI_FRAMES, seed=SEED)
-        gt_path = os.path.join(root, "UCF101v2-GT.pkl")
-        with open(gt_path, "rb") as f:
-            gt = pickle.load(f)
-        gt["train_videos"] = [videos]            # the layout writes a test split only
-        with open(gt_path, "wb") as f:
-            pickle.dump(gt, f)
+        videos = write_train_layout(root, cfg)
         print(f"[17] wrote {len(videos)} videos of {CLI_FRAMES} frames at "
               f"{cfg.image_size} px in the UCF101-24 layout in {time.time() - t17:.1f} s",
               flush=True)
@@ -1558,14 +1581,14 @@ def held_run(path: str, run, reset_counts, read_counts, out: dict, key: str,
     return result, counts, calls[0]
 
 
-def first_grad_hooks(module, steps: list) -> dict:
-    """{parameter name: whether its gradient at the first step is nonzero}
-    for every parameter of `module`, filled while `steps` is empty."""
+def first_grad_hooks(module) -> dict:
+    """{parameter name: whether its first gradient, step 1's, is nonzero}
+    for every parameter of `module`."""
     first = {}
 
     def keep(name):
         def hook(p):
-            if not steps:
+            if name not in first:
                 first[name] = p.grad.ne(0).any()
         return hook
 
@@ -1579,7 +1602,6 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
     kernel, its launches on each two-stream run and the numbers at the
     shapes held there, for the JSON line."""
     from step_tpu_torch import PRESETS
-    from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.data.pipeline import build_model_batch
     from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch, make_flow
     from step_tpu_torch.inference import detect_clip, nms_surface
@@ -1587,9 +1609,7 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
     from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
     from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
     from step_tpu_torch.ops.pool import max_pool3x3_same
-    from step_tpu_torch.train import fit as fit_module
-    from step_tpu_torch.train.trainer import batch_to_device, train_step
-    from step_tpu_torch.train_eval_synth import SyntheticClips
+    from step_tpu_torch.train.trainer import batch_to_device
     from step_tpu_torch.utils.init import init_detector_, init_detector_train_
 
     out = {name: dict(two_stream_launches={}, two_stream_shapes={}) for name in KERNELS}
@@ -1726,65 +1746,38 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
           f"1e-3), scores {d_scores:.3g} (tol 1e-4); NMS surface equal", flush=True)
 
     # fit() at full width: both stems and the fusion unit trained end to end.
-    tcfg = cfg.replace(dataset="synthetic", batch_size=TS_TRAIN_BATCH, remat_steps=True,
-                       remat_policy="dots", optimizer="adamw", warmup_steps=2,
-                       learning_rate=1e-3, total_steps=1000)
+    tcfg = train_cfg("two_stream_train", TS_TRAIN_BATCH)
     syn = SyntheticConfig(image_size=S, num_frames=T, num_classes=cfg.num_classes,
                           max_boxes=4)
     tmodel = init_detector_train_(STEPDetector(tcfg), tcfg, SEED)
-    steps = []
-    first = first_grad_hooks(tmodel.features, steps)
-    loader = DataLoader(SyntheticClips(syn, TS_TRAIN_STEPS * TS_TRAIN_BATCH, SEED * 1000,
-                                       with_flow=True), tcfg, seed=SEED, num_workers=4)
+    first = first_grad_hooks(tmodel.features)
 
-    def timed_step(state, batch, cfg_):
+    def with_flow(state, batch, index):
         check("flow" in batch, "the two-stream training batch holds no flow")
-        before = read_counts()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        result = train_step(state, batch, cfg_)
-        end.record()
-        after = read_counts()
-        steps.append((start, end, {k: after[k] - before[k] for k in after}, result[1]))
-        return result
 
     reset_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.time()
-    fit_module.train_step = timed_step
-    try:
-        state = fit_module.fit(tcfg, loader, num_epochs=1, model=tmodel, device=dev,
-                               seed=SEED)
-        torch.cuda.synchronize()
-    finally:
-        fit_module.train_step = train_step
-    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    state, steps, memory = timed_fit(
+        dict(cfg=tcfg, loader=synthetic_loader(tcfg, TS_TRAIN_STEPS, with_flow=True),
+             num_epochs=1, model=tmodel, device=dev, seed=SEED), read_counts, with_flow)
     check(len(steps) == TS_TRAIN_STEPS == state.step,
           f"two-stream fit ran {len(steps)} steps, state at {state.step}")
-    for _, _, _, m in steps:
-        for key, v in m.items():
-            check(bool(torch.isfinite(v).all()), f"two-stream training {key} not finite: {v}")
     features = [n for n, _ in tmodel.features.named_parameters()]
     zero = [n for n in features if n not in first or not bool(first[n])]
     check(not zero, f"two-stream backbone parameters without a nonzero step-1 gradient: "
                     f"{zero[:5]}")
-    per_step = {k: sorted({c[k] for _, _, c, _ in steps}) for k in steps[0][2]}
+    median_ms, per_step, summary = step_summary(steps)
     for name in ("tube_roi_align", "max_pool3x3_same"):
         check(min(per_step[name]) > 0, f"two-stream training: {name} not launched in every "
                                        f"step: {per_step[name]}")
         out[name]["two_stream_launches"]["train_step"] = max(per_step[name])
-    step_ms = [a.elapsed_time(b) for a, b, _, _ in steps]
-    median_ms = float(np.median(step_ms[-8:]))
     stems = {k: sum(1 for n in features if n.startswith(k))
              for k in ("stem_rgb.", "stem_flow.", "fusion.")}
     print(f"[18] two-stream fit() at full width, batch {TS_TRAIN_BATCH}, {TS_TRAIN_STEPS} "
-          f"steps in {time.time() - t0:.1f} s ({smi_line}): step ms "
-          f"{', '.join(f'{t:.1f}' for t in step_ms)}; median of the last 8 "
-          f"{median_ms:.2f} ms ({TS_TRAIN_BATCH / median_ms * 1e3:.1f} clips/s); peak "
-          f"memory {peak:.2f} GiB; losses "
-          f"{', '.join(f'{float(m[3]['loss']):.3f}' for m in steps)}; every backbone "
-          f"parameter has a nonzero step-1 gradient ({stems}); launches a step {per_step}",
-          flush=True)
+          f"steps in {time.time() - t0:.1f} s ({smi_line}): {summary}; median of the last "
+          f"8 {median_ms:.2f} ms ({TS_TRAIN_BATCH / median_ms * 1e3:.1f} clips/s); "
+          f"{memory}; every backbone parameter has a nonzero step-1 gradient ({stems}); "
+          f"launches a step {per_step}", flush=True)
     # The same step on one batch already on the card, no loader running: what
     # the loader's threads, which make each clip's flow in this process, add.
     raw = make_batch(SEED * 1000 + 10 ** 6, TS_TRAIN_BATCH, syn)
@@ -1795,7 +1788,7 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
     print(f"[18] 8 two-stream steps on one batch on the card, no loader: step ms "
           f"{', '.join(f'{t:.1f}' for t in fixed_ms)}; median "
           f"{float(np.median(fixed_ms)):.2f} ms (fit()'s {median_ms:.2f})", flush=True)
-    del state, tmodel, loader, fixed
+    del state, tmodel, fixed
     print(f"    phase 18 took {time.time() - t18:.1f} s", flush=True)
     return out
 
@@ -2101,6 +2094,645 @@ def ava_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
     print(f"    phase 20 took {time.time() - t20:.1f} s", flush=True)
     return out
 
+
+
+def write_train_layout(root: str, cfg) -> list:
+    """`write_ucf_layout`'s 4 videos of CLI_FRAMES frames at cfg.image_size
+    under `root`, with its test split copied into the training split (the
+    layout writes a test split only). Returns the video names."""
+    import pickle
+
+    from step_tpu_torch.data.synthetic import write_ucf_layout
+
+    videos = write_ucf_layout(root, EVAL_VIDEOS, num_classes=cfg.num_classes,
+                              image_size=cfg.image_size, frames_lo=CLI_FRAMES,
+                              frames_hi=CLI_FRAMES, seed=SEED)
+    gt_path = os.path.join(root, "UCF101v2-GT.pkl")
+    with open(gt_path, "rb") as f:
+        gt = pickle.load(f)
+    gt["train_videos"] = [videos]
+    with open(gt_path, "wb") as f:
+        pickle.dump(gt, f)
+    return videos
+
+
+def i3d_checkpoint(path: str, num_classes: int = 400) -> dict:
+    """Write a seeded full-width Kinetics-shaped I3D to `path` with
+    `torch.save`, in the piergiaj/pytorch-i3d naming with a DataParallel
+    `module.` prefix and `num_batches_tracked` beside each BatchNorm, as the
+    public files come; the weights are `init_detector_`'s serving draw on
+    `I3DClassifier` (BN near the identity, so bf16 activations stay finite).
+    Returns the classifier state_dict the file must convert to."""
+    from step_tpu_torch.models.i3d import I3DClassifier
+    from step_tpu_torch.utils.init import init_detector_
+
+    sd = init_detector_(I3DClassifier(num_classes).eval(), SEED + 21).state_dict()
+    out = {}
+    for key, value in sd.items():
+        name = key.split(".", 1)[1] if key.startswith(("stem.", "tail.")) else key
+        name = name.replace(".conv.", ".conv3d.")
+        if name.startswith("logits."):
+            name = "logits.conv3d." + name[len("logits."):]
+        out["module." + name] = value.clone()
+        if name.endswith(".bn.running_var"):
+            out["module." + name.replace("running_var", "num_batches_tracked")] = \
+                torch.tensor(1)
+    torch.save(out, path)
+    return sd
+
+
+def timed_fit(fit_kwargs: dict, read_counts, before_step=None):
+    """`fit(**fit_kwargs)` with each `train_step` timed between CUDA events
+    and its launches counted, and `before_step(state, batch, index)` called
+    before each. Returns (state, [(ms, launches, metrics)], memory): memory says
+    the peak allocated during fit() and what was allocated before it (what
+    earlier phases still hold counts in the peak)."""
+    from step_tpu_torch.train import fit as fit_module
+    from step_tpu_torch.train.trainer import train_step
+
+    events = []
+
+    def timed_step(state, batch, cfg_):
+        if before_step is not None:
+            before_step(state, batch, len(events))
+        before = read_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        result = train_step(state, batch, cfg_)
+        end.record()
+        after = read_counts()
+        events.append((start, end, {k: after[k] - before[k] for k in after}, result[1]))
+        return result
+
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2 ** 30
+    fit_module.train_step = timed_step
+    try:
+        state = fit_module.fit(**fit_kwargs)
+        torch.cuda.synchronize()
+    finally:
+        fit_module.train_step = train_step
+    steps = [(a.elapsed_time(b), counts, m) for a, b, counts, m in events]
+    for _, _, m in steps:
+        for key, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"training metric {key} not finite: {v}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return state, steps, f"peak memory {peak:.2f} GiB ({before:.2f} GiB allocated before fit())"
+
+
+def step_summary(steps) -> tuple[float, dict, str]:
+    """(median ms of the last 8 steps, {kernel: sorted launches a step},
+    the step times and losses as text)."""
+    median = float(np.median([ms for ms, _, _ in steps][-8:]))
+    per_step = {k: sorted({c[k] for _, c, _ in steps}) for k in steps[0][1]}
+    text = (f"step ms {', '.join(f'{ms:.1f}' for ms, _, _ in steps)}; losses "
+            f"{', '.join(f'{float(m['loss']):.3f}' for _, _, m in steps)}")
+    return median, per_step, text
+
+
+def synthetic_loader(cfg, steps: int, with_flow: bool = False):
+    """The port's DataLoader over `steps` batches of synthetic clips of
+    `cfg` (4 threads)."""
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.synthetic import SyntheticConfig
+    from step_tpu_torch.train_eval_synth import SyntheticClips
+
+    syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=4)
+    return DataLoader(SyntheticClips(syn, steps * cfg.batch_size, SEED * 1000,
+                                     with_flow=with_flow), cfg, seed=SEED, num_workers=4)
+
+
+def train_cfg(preset: str, batch: int, **over):
+    """`preset` as phase 14 trains it: synthetic clips, remat "dots", AdamW
+    (warmup 2, lr 1e-3)."""
+    from step_tpu_torch import PRESETS
+
+    return PRESETS[preset].replace(dataset="synthetic", batch_size=batch, remat_steps=True,
+                                   remat_policy="dots", optimizer="adamw", warmup_steps=2,
+                                   learning_rate=1e-3, total_steps=1000, **over)
+
+
+def pretrained_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 21, training from a Kinetics I3D checkpoint. Returns, per
+    kernel, its launches on each run, for the JSON line."""
+    import contextlib
+    import io
+    import tempfile
+
+    from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.models.convert import convert_torch_i3d, inflate_rgb_to_flow
+
+    out = {name: dict(pretrained_launches={}) for name in KERNELS}
+    t21 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rgb_imagenet.pt")
+        i3d_checkpoint(path)
+        want = {k: v.to(dev) for k, v in convert_torch_i3d(
+            torch.load(path), include_logits=False).items()}
+        cfg = train_cfg("ucf_3step", TRAIN_BATCH)
+        seen = {}
+
+        def loaded(state, batch, index):
+            """Before the first step, every stem and tail tensor equals the
+            checkpoint's, bit for bit."""
+            if index:
+                return
+            sd = state.model.state_dict()
+            targets = [("stem.", "features.stem_rgb.")]
+            if state.model.cfg.two_stream:
+                targets.append(("stem.", "features.stem_flow."))
+            targets += [("tail.", f"steps.{s}.tail.")
+                        for s in range(state.model.cfg.num_steps)]
+            n = 0
+            for src, dst in targets:
+                for key, value in want.items():
+                    if key.startswith(src):
+                        name = dst + key[len(src):]
+                        if name == "features.stem_flow.Conv3d_1a_7x7.conv.weight":
+                            value = inflate_rgb_to_flow(value)
+                        check(torch.equal(sd[name], value),
+                              f"{name} differs from the checkpoint's before the first step")
+                        n += 1
+            moments = state.opt_state["mu"]
+            check(all(float(m.abs().max()) == 0 for m in moments),
+                  "the optimizer's moments are not fresh after the pretrained load")
+            seen[state.model.cfg.two_stream] = n
+
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            state, steps, memory = timed_fit(
+                dict(cfg=cfg, loader=synthetic_loader(cfg, TRAIN_STEPS), num_epochs=1,
+                     device=dev, seed=SEED, pretrained_i3d=path), read_counts, loaded)
+        text = buf.getvalue()
+        check("pretrained I3D: scheme='piergiaj'" in text and "missing=0" in text
+              and "initialized backbone from" in text,
+              f"fit(pretrained_i3d=...) printed no report: {text[-300:]}")
+        check(len(steps) == TRAIN_STEPS == state.step, f"fit ran {len(steps)} steps")
+        median, per_step, summary = step_summary(steps)
+        for name in ("tube_roi_align", "max_pool3x3_same"):
+            check(min(per_step[name]) > 0, f"pretrained fit: {name} not launched in every "
+                                           f"step: {per_step[name]}")
+        for name in KERNELS:
+            out[name]["pretrained_launches"]["train_step"] = max(per_step[name])
+        print(f"[21] {text.splitlines()[0]}", flush=True)
+        print(f"[21] fit(pretrained_i3d=...) ucf_3step full width, B={TRAIN_BATCH}, "
+              f"{TRAIN_STEPS} steps ({smi_line}): all {seen[False]} stem and tail tensors "
+              f"the checkpoint's before step 1, moments fresh; {summary}; median of the "
+              f"last 8 {median:.2f} ms ({TRAIN_BATCH / median * 1e3:.1f} clips/s); "
+              f"{memory}; launches a step {per_step}", flush=True)
+        del state
+
+        # two_stream_train at B=2: the flow stem is the RGB stem with its
+        # first conv inflated
+        tcfg = train_cfg("two_stream_train", 2)
+        with contextlib.redirect_stdout(io.StringIO()):
+            state, steps, _ = timed_fit(
+                dict(cfg=tcfg, loader=synthetic_loader(tcfg, 2, with_flow=True),
+                     num_epochs=1, device=dev, seed=SEED, pretrained_i3d=path),
+                read_counts, loaded)
+        check(seen.get(True, 0) > seen[False] and state.step == 2,
+              f"two-stream pretrained start: {seen}")
+        print(f"[21] two_stream_train B=2: {seen[True]} tensors loaded, the flow stem's "
+              f"Conv3d_1a the inflated RGB kernel, the rest the RGB stem's; 2 steps, "
+              f"losses {', '.join(f'{float(m['loss']):.3f}' for _, _, m in steps)}",
+              flush=True)
+        del state
+
+        root, ckpt = os.path.join(tmp, "ucf"), os.path.join(tmp, "ckpt")
+        write_train_layout(root, cfg)
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            state = cli_train.main(["--preset", "ucf_3step", "--dataset", "ucf101_24",
+                                    "--data-root", root, "--ckpt-dir", ckpt,
+                                    "--batch-size", "2", "--steps", str(CLI_STEPS),
+                                    "--epochs", "1", "--pretrained-i3d", path,
+                                    "--set", "warmup_steps=1"])
+            torch.cuda.synchronize()
+        counts = read_counts()
+        text = buf.getvalue()
+        for name, n in counts.items():
+            out[name]["pretrained_launches"]["cli_train"] = n
+        check(state.step == CLI_STEPS and "initialized backbone from" in text
+              and counts["tube_roi_align"] > 0 and counts["max_pool3x3_same"] > 0,
+              f"cli.train --pretrained-i3d: step {state.step}, launches {counts}")
+        print("\n".join("    " + line for line in text.splitlines()[-4:]), flush=True)
+        print(f"[21] cli.train --pretrained-i3d on the on-disk layout, {CLI_STEPS} steps at "
+              f"B=2: launches {counts}", flush=True)
+    print(f"    phase 21 took {time.time() - t21:.1f} s", flush=True)
+    return out
+
+
+def int8_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 22, AdamW with int8 moments. Returns, per kernel, its launches
+    a step, for the JSON line."""
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.train import optim_int8
+    from step_tpu_torch.train.trainer import (Optimizer, batch_to_device, create_train_state,
+                                              make_schedule, train_step)
+
+    out = {name: dict(int8_launches={}) for name in KERNELS}
+    t22 = time.time()
+    cfg = train_cfg("ucf_3step", TRAIN_BATCH, adam_moments="int8")
+    reset_counts()
+    state, steps, memory = timed_fit(dict(cfg=cfg, loader=synthetic_loader(cfg, TRAIN_STEPS),
+                                          num_epochs=1, device=dev, seed=SEED), read_counts)
+    check(len(steps) == TRAIN_STEPS == state.step and state.opt_state["mu"].dtype == torch.int8,
+          f"int8 fit ran {len(steps)} steps with moments {state.opt_state['mu'].dtype}")
+    median, per_step, summary = step_summary(steps)
+    for name in KERNELS:
+        out[name]["int8_launches"]["train_step"] = max(per_step[name])
+    params = state.trainable()
+    n = sum(p.numel() for p in params)
+    size = optim_int8.state_bytes(state.opt_state)
+    # kernels in one step and in the optimizer's update alone, int8 against
+    # float32 moments on the same model and batch
+    syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=4)
+    fixed = batch_to_device(build_model_batch(make_batch(SEED + 22, TRAIN_BATCH, syn), cfg,
+                                              train=True, emit_uint8=True), dev)
+    grads = [torch.randn_like(p) * 1e-3 for p in params]
+    kernels, update_ms = {}, {}
+    for label in ("int8", "float32"):
+        opt = Optimizer(cfg.replace(adam_moments=label))
+        state.optimizer, state.opt_state = opt, opt.init(params)
+        step_kernels = cuda_kernels_in(lambda: train_step(state, fixed, state.model.cfg))
+        update_kernels, device = profiled(lambda: opt.update(params, grads, state.opt_state))
+        update_ms[label] = (device, cuda_ms(lambda: opt.update(params, grads, state.opt_state),
+                                            iters=10))
+        kernels[label] = (step_kernels, update_kernels)
+    print(f"[22] fit() with adam_moments='int8', ucf_3step full width, B={TRAIN_BATCH}, "
+          f"{TRAIN_STEPS} steps ({smi_line}): {summary}; median of the last 8 "
+          f"{median:.2f} ms ({TRAIN_BATCH / median * 1e3:.1f} clips/s); {memory}; "
+          f"launches a step {per_step}", flush=True)
+    print(f"[22] optimizer state {size} bytes for {n} trainable parameters: "
+          f"{size / n:.4f} bytes a parameter (float32 moments {8 * n} bytes, 8); "
+          f"kernels a step {kernels['int8'][0]} (float32 moments {kernels['float32'][0]}), "
+          f"in the update alone {kernels['int8'][1]} ({kernels['float32'][1]}); the update's "
+          f"device time {update_ms['int8'][0]:.3f} ms ({update_ms['float32'][0]:.3f} ms), "
+          f"between CUDA events {update_ms['int8'][1]:.3f} ms ({update_ms['float32'][1]:.3f} "
+          f"ms)", flush=True)
+    check(2.03 <= size / n <= 2.04, f"int8 state takes {size / n} bytes a parameter")
+    del state, grads, params, fixed
+
+    # One tiny float32 step on the card against the CPU (the bound of
+    # tests/test_torch_port_gpu.py::test_int8_train_step_on_card_matches_cpu)
+    tiny = cfg.replace(backbone_depth="tiny", feature_stride=8, image_size=64,
+                       compute_dtype="float32", batch_size=2, dropout_rate=0.0,
+                       max_gt_tubes=2, warmup_steps=0, remat_steps=False)
+    tsyn = SyntheticConfig(image_size=64, num_frames=tiny.total_frames,
+                           num_classes=tiny.num_classes, max_boxes=2)
+    tbatch = build_model_batch(make_batch(SEED, 2, tsyn), tiny, train=True)
+    runs = []
+    for d in (dev, "cpu"):
+        st = create_train_state(tiny, seed=SEED, device=d)
+        loss = float(train_step(st, batch_to_device(tbatch, d), tiny)[1]["loss"])
+        runs.append((loss, {k: v.cpu() for k, v in st.model.state_dict().items()},
+                     {k: st.opt_state[k].cpu() for k in ("mu", "nu", "mu_scale",
+                                                         "nu_scale")}))
+    (l_gpu, sd_gpu, q_gpu), (l_cpu, sd_cpu, q_cpu) = runs
+    check(abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu), f"tiny int8 step loss {l_gpu} vs {l_cpu}")
+    lr = make_schedule(tiny)(0)
+    far, total, worst = far_weights(sd_gpu, sd_cpu, lr,
+                                    [k for k in sd_cpu if "running_" not in k])
+    check(far <= 1e-3 * total, f"tiny int8 step: {far} of {total} weights beyond 1e-5")
+    codes = {k: float((q_gpu[k] != q_cpu[k]).float().mean()) for k in ("mu", "nu")}
+    for k in ("mu", "nu"):
+        a = optim_int8.dequantize_blockwise(q_gpu[k], q_gpu[k + "_scale"])
+        b = optim_int8.dequantize_blockwise(q_cpu[k], q_cpu[k + "_scale"])
+        absmax = torch.maximum(q_gpu[k + "_scale"], q_cpu[k + "_scale"])[:, None]
+        check(bool(((a - b).abs() <= 0.08 * b.abs() + 0.01 * absmax).all()),
+              f"tiny int8 step: {k} on the card beyond one level and 1% of its block's "
+              f"largest value from the CPU's")
+    print(f"[22] tiny f32 int8 step card vs CPU: loss {l_gpu:.6f} vs {l_cpu:.6f}; weights "
+          f"{far} of {total} beyond 1e-5 (tol 0.1%), max |d| {worst:.3g} (tol 2 lr = "
+          f"{2 * lr:.3g}); codes differ on {codes}, each moment within one level (8%) or "
+          f"1% of its block's largest value", flush=True)
+    print(f"    phase 22 took {time.time() - t22:.1f} s", flush=True)
+    return out
+
+
+def frame_fc_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 23, the "frame_fc" regression head. Returns, per kernel, its
+    launches on each run and the numbers at the shapes held there."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.inference import detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.utils.init import init_detector_, init_detector_train_
+
+    out = {name: dict(frame_fc_launches={}, frame_fc_shapes={}) for name in KERNELS}
+    t23 = time.time()
+    cfg = PRESETS["ucf_3step"].replace(reg_head="frame_fc")
+    T, S = cfg.total_frames, cfg.image_size
+    seeded = init_detector_(STEPDetector(cfg).eval(), SEED).state_dict()
+    model = served_model(cfg, seeded, dev)
+    check(tuple(model.steps[0].reg.weight.shape) == (4 * T, 5 * 7 * 7 * 64),
+          f"frame_fc Dense {tuple(model.steps[0].reg.weight.shape)}")
+
+    def clips(b, n):
+        return [torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8))
+                for _ in range(n)]
+
+    walls, counts, _ = held_run(
+        "serve", lambda: serve(model, cfg, {b: clips(b, REQUESTS_PER_BATCH)
+                                            for b in SERVE_BATCHES}, dev, "frame_fc"),
+        reset_counts, read_counts, out, "frame_fc")
+    n_req = len(SERVE_BATCHES) * REQUESTS_PER_BATCH
+    check(counts["nms_many"] == n_req and counts["tube_roi_align"] == cfg.num_steps * n_req,
+          f"frame_fc serving: launches {counts} for {n_req} requests")
+    medians = {b: float(np.median(t[1:])) for b, t in walls.items()}
+    print(f"[23] frame_fc ucf_3step, BN folded, bf16: request medians ({smi_line}): "
+          f"{', '.join(f'B={b} {m:.2f} ms' for b, m in medians.items())}; launches "
+          f"{counts}", flush=True)
+    del model
+
+    # float32, B=1: the kernel configuration against the main path's tree
+    cfg32 = cfg.replace(compute_dtype="float32")
+    kmodel = STEPDetector(cfg32.replace(fused_bn_relu=True)).eval()
+    kmodel.load_state_dict(seeded)
+    kmodel = kmodel.to(dev)
+    mmodel = served_model(cfg32, seeded, dev)
+    props, pm1 = STEPDetector.initial_proposals(cfg, 1, device=dev)
+    clip = clips(1, 1)[0].to(dev)
+    os.environ["STEP_TPU_POOL3D"] = "pallas"
+    try:
+        got = detect_clip(kmodel, clip, props, pm1)
+    finally:
+        os.environ["STEP_TPU_POOL3D"] = "direct"
+    want = detect_clip(mmodel, clip, props, pm1)
+    torch.cuda.synchronize()
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    check(d_scores <= PATH_SCORE_TOL and d_tubes <= PATH_TUBE_TOL,
+          f"frame_fc kernel configuration differs from the main path: scores "
+          f"{d_scores}, tubes {d_tubes} px")
+    print(f"[23] f32 B=1 frame_fc kernel configuration vs main path: tube scores max |d| "
+          f"{d_scores:.3g} (tol {PATH_SCORE_TOL}), tubes {d_tubes:.3g} px (tol "
+          f"{PATH_TUBE_TOL})", flush=True)
+    del kmodel, mmodel, got, want
+
+    tcfg = train_cfg("ucf_3step", TRAIN_BATCH, reg_head="frame_fc")
+    reset_counts()
+    state, steps, memory = timed_fit(
+        dict(cfg=tcfg, loader=synthetic_loader(tcfg, 4), num_epochs=1, device=dev,
+             seed=SEED, model=init_detector_train_(STEPDetector(tcfg), tcfg, SEED)),
+        read_counts)
+    check(len(steps) == 4 == state.step, f"frame_fc fit ran {len(steps)} steps")
+    _, per_step, summary = step_summary(steps)
+    for name in ("tube_roi_align", "max_pool3x3_same"):
+        check(min(per_step[name]) > 0, f"frame_fc training: {name} not launched in every "
+                                       f"step: {per_step[name]}")
+    for name in KERNELS:
+        out[name]["frame_fc_launches"]["train_step"] = max(per_step[name])
+    print(f"[23] frame_fc fit() B={TRAIN_BATCH}, 4 steps: {summary}; {memory}; "
+          f"launches a step {per_step}", flush=True)
+    del state
+    print(f"    phase 23 took {time.time() - t23:.1f} s", flush=True)
+    return out
+
+
+def classifier_launches(B: int, T: int = 64, S: int = 224):
+    """The K4, K5 and K3 launches of one `I3DClassifier` request of the
+    kernel configuration at batch B on T frames of S px, keyed as
+    `backbone_launches` keys them: the stem as the detector's, then
+    MaxPool_5a and the tail's two blocks on the whole clip's features."""
+    from step_tpu_torch.models.i3d import INCEPTION_CHANNELS
+
+    up = lambda n, s: -(-n // s)  # noqa: E731
+    T1, S1 = up(T, 2), up(S, 2)
+    S2 = up(S1, 2)
+    S3 = up(S2, 2)
+    T4, S4 = up(T1, 2), up(S3, 2)
+    T5, S5 = up(T4, 2), up(S4, 2)
+    k4 = {(B, 64, T1, S1, S1): 1, (B, 64, T1, S2, S2): 1}
+    k3 = {((B, 64, T1, S2, S2), 192): 1}
+    k5 = {}
+    where = {"Mixed_3": (T1, S3), "Mixed_4": (T4, S4), "Mixed_5": (T5, S5)}
+    cin = 192
+    for name, c in INCEPTION_CHANNELS.items():
+        t, s = where[name[:7]]
+        k5[(B, cin, t, s, s)] = k5.get((B, cin, t, s, s), 0) + 1
+        for width in (c[0], c[1], c[3], c[5]):
+            k4[(B, width, t, s, s)] = k4.get((B, width, t, s, s), 0) + 1
+        for cin3, cout in ((c[1], c[2]), (c[3], c[4])):
+            key = ((B, cin3, t, s, s), cout)
+            k3[key] = k3.get(key, 0) + 1
+        cin = c[0] + c[2] + c[4] + c[5]
+    return k4, k5, k3
+
+
+@contextlib.contextmanager
+def held_backbone(errors: dict):
+    """Each K3, K4 and K5 call the port's modules make while the block runs,
+    held against its plain version on its own inputs as it is made (K5 by
+    raw bits, K4 within one bf16 step, K3 by `k3_close`); yields
+    {kernel: {shape: launches}} and fills `errors` with each kernel's
+    largest |error|."""
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
+    from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
+                                                  fused_scale_bias_relu_plain)
+    from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
+
+    seen = {}
+
+    def holding(name, fn, plain, key, close):
+        def run(*args, **kwargs):
+            before = fn.launches + run.launches
+            got = fn(*args, **kwargs)
+            want = plain(*args)
+            err = float((got.float() - want.float()).abs().max())
+            check(close(got, want, *args), f"{name} at {key(*args)} {got.dtype} differs "
+                                           f"from plain on its inputs: max |err| {err}")
+            errors[name] = max(errors.get(name, 0.0), err)
+            shapes = seen.setdefault(name, {})
+            shapes[key(*args)] = shapes.get(key(*args), 0) + fn.launches + run.launches \
+                - before
+            return got
+        run.launches = 0
+        return fn, run
+
+    pairs = [holding("max_pool3x3_same", max_pool3x3_same, max_pool3x3_same_plain,
+                     shape_of, lambda a, b, _: torch.equal(raw_bits(a), raw_bits(b))),
+             holding("fused_scale_bias_relu", fused_scale_bias_relu,
+                     fused_scale_bias_relu_plain, shape_of,
+                     lambda a, b, *_: bf16_close(a, b)),
+             holding("conv3x3x3_bn_relu", conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
+                     lambda x, w, *_: (tuple(x.shape), w.shape[0]),
+                     lambda a, b, x, w, scale, _: k3_close(a, b, x, w, scale))]
+    try:
+        with contextlib.ExitStack() as stack:
+            for fn, run in pairs:
+                stack.enter_context(swapped(fn, run))
+            yield seen
+    finally:
+        for fn, run in pairs:
+            fn.launches += run.launches
+
+
+def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 24, `I3DClassifier` and `cli.classify`. Returns, per kernel,
+    its launches on each run and its numbers at the classifier's shapes."""
+    import contextlib
+    import io
+    import tempfile
+
+    import cv2
+
+    from step_tpu_torch.cli import classify as cli_classify
+    from step_tpu_torch.models.convert import convert_torch_i3d, load_torch_checkpoint
+    from step_tpu_torch.models.i3d import I3DClassifier
+    from step_tpu_torch.preprocess import device_preprocess
+
+    out = {name: dict(classifier_launches={}, classifier_shapes={}) for name in KERNELS}
+    t24 = time.time()
+    T, S = CLASSIFY_FRAMES, CLASSIFY_SIZE
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "i3d_kinetics.pt")
+        i3d_checkpoint(path)
+        sd = convert_torch_i3d(load_torch_checkpoint(path))
+
+        def build(fused: bool):
+            model = I3DClassifier(400, fused_bn_relu=fused).eval()
+            model.load_state_dict(sd)
+            return model.to(dev)
+
+        def classify(model, clip, dtype=torch.bfloat16):
+            with torch.no_grad():
+                logits = model(device_preprocess(clip.to(dev)).to(dtype))
+                return logits, torch.softmax(logits.to(torch.float32), dim=-1)
+
+        clips = {b: [torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8))
+                     for _ in range(REQUESTS_PER_BATCH)] for b in SERVE_BATCHES}
+        medians = {}
+        for config, fused in (("main", False), ("kernel", True)):
+            model = build(fused)
+            os.environ["STEP_TPU_POOL3D"] = "pallas" if fused else "direct"
+            try:
+                for b, batch in clips.items():
+                    times = []
+                    reset_counts()
+                    for clip in batch:
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        logits, probs = classify(model, clip)
+                        torch.cuda.synchronize()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                        check(tuple(logits.shape) == (b, 400) and logits.dtype == torch.bfloat16
+                              and bool(torch.isfinite(logits).all()),
+                              f"classifier {config} B={b}: logits {tuple(logits.shape)} "
+                              f"{logits.dtype}")
+                    counts = read_counts()
+                    medians[(config, b)] = float(np.median(times[1:]))
+                    if not fused:
+                        check(not any(counts.values()),
+                              f"the main configuration launched {counts}")
+                        continue
+                    for name in ("max_pool3x3_same", "fused_scale_bias_relu",
+                                 "conv3x3x3_bn_relu"):
+                        out[name]["classifier_launches"][f"kernel_b{b}"] = counts[name]
+                    # one more request, each K3, K4 and K5 call held against
+                    # plain and counted by shape against classifier_launches
+                    errors = {}
+                    reset_counts()
+                    with held_backbone(errors) as seen:
+                        classify(model, batch[0])
+                        torch.cuda.synchronize()
+                    k4s, k5s, k3s = classifier_launches(b, T, S)
+                    for name, listed in (("conv3x3x3_bn_relu", k3s),
+                                         ("fused_scale_bias_relu", k4s),
+                                         ("max_pool3x3_same", k5s)):
+                        check(seen.get(name) == listed,
+                              f"classifier B={b}: {name} launched {seen.get(name)} by "
+                              f"shape, classifier_launches lists {listed}")
+                        check(counts[name] == len(batch) * sum(listed.values()),
+                              f"classifier B={b}: {counts[name]} {name} launches in "
+                              f"{len(batch)} requests, {sum(listed.values())} a request")
+                    print(f"[24] classifier kernel configuration B={b}: every launch held "
+                          f"against plain on its own inputs (max |err| {errors}); K3 "
+                          f"{sum(k3s.values())}, K4 {sum(k4s.values())}, K5 "
+                          f"{sum(k5s.values())} a request, by shape as "
+                          f"classifier_launches lists", flush=True)
+            finally:
+                os.environ["STEP_TPU_POOL3D"] = "direct"
+            del model
+        print(f"[24] I3DClassifier, {T} frames at {S} px, bf16, request medians of "
+              f"{REQUESTS_PER_BATCH - 1} ({smi_line}): "
+              f"{', '.join(f'{c} B={b} {m:.2f} ms' for (c, b), m in medians.items())}",
+              flush=True)
+
+        # every shape of a B=1 request against plain, timed
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED + 24)
+        k4s, k5s, k3s = classifier_launches(1, T, S)
+        for name, listed, case in (("max_pool3x3_same", k5s, lambda sh: pool_case(sh, gen)),
+                                   ("fused_scale_bias_relu", k4s,
+                                    lambda sh: bn_case(sh, gen)),
+                                   ("conv3x3x3_bn_relu", k3s,
+                                    lambda sh: conv_case(sh[0], sh[1], rng, dev))):
+            total = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0)
+            for shape, launches in listed.items():
+                r = case(shape)
+                for key in total:
+                    total[key] += launches * (r[key] or 0.0)
+                out[name]["classifier_shapes"][f"b1 {shape}"] = dict(
+                    ms=r["ms"], plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                    max_abs_err=r["max_abs_err"], bound_ms=r["bound_ms"],
+                    bound_by=r["bound_by"], launches=launches)
+                print(f"    {name} {shape} x{launches}: held against plain (max |err| "
+                      f"{r['max_abs_err']:.3g}); bf16 device {r['ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}), plain "
+                      f"{r['plain_ms']:.4f} ms, library "
+                      f"{'none' if r['library_ms'] is None else f'{r['library_ms']:.4f} ms'}",
+                      flush=True)
+            print(f"[24] {name} at every B=1 classifier shape ({len(listed)} shapes, "
+                  f"{sum(listed.values())} launches): device {total['ms']:.4f} ms a "
+                  f"request, bound {total['bound_ms']:.4f} ms, plain "
+                  f"{total['plain_ms']:.4f} ms", flush=True)
+
+        # float32 logits: the kernel configuration against the main one
+        clip = clips[1][0]
+        want, p_want = classify(build(False), clip, torch.float32)
+        os.environ["STEP_TPU_POOL3D"] = "pallas"
+        try:
+            got, p_got = classify(build(True), clip, torch.float32)
+        finally:
+            os.environ["STEP_TPU_POOL3D"] = "direct"
+        d_logits = float((got - want).abs().max()) / float(want.abs().max())
+        d_probs = float((p_got - p_want).abs().max())
+        check(d_logits <= 1e-3 and d_probs <= PATH_SCORE_TOL,
+              f"f32 classifier kernel configuration vs main: logits {d_logits} of their "
+              f"scale, probabilities {d_probs}")
+        print(f"[24] f32 B=1 classifier kernel configuration vs main: logits max |d| "
+              f"{d_logits:.3g} of their scale (tol 1e-3), probabilities {d_probs:.3g} "
+              f"(tol {PATH_SCORE_TOL})", flush=True)
+
+        # cli.classify on a written frame directory and the written checkpoint
+        frames = os.path.join(tmp, "frames")
+        os.makedirs(frames)
+        for i in range(T + 6):
+            cv2.imwrite(os.path.join(frames, f"{i:05d}.jpg"),
+                        rng.randint(0, 256, (240, 320, 3)).astype(np.uint8))
+        argv = ["--frames-dir", frames, "--torch-ckpt", path, "--top-k", "5",
+                "--num-frames", str(T), "--image-size", str(S)]
+        buf = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(buf):
+            probs = cli_classify.main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        args = cli_classify.parse_args(argv)
+        _, ref = classify(build(False), torch.from_numpy(cli_classify.load_frames(args)))
+        d = float(np.abs(probs - ref[0].cpu().numpy()).max())
+        check(len(lines) == 5 and d <= 1e-3,
+              f"cli.classify printed {lines}; probabilities {d} from the model's")
+        print("\n".join("    " + line for line in lines), flush=True)
+        print(f"[24] cli.classify on {T + 6} written frames and the written checkpoint "
+              f"(device {args.device}): top 5 printed, probabilities within {d:.3g} of "
+              f"the classifier's on the same clip", flush=True)
+    print(f"    phase 24 took {time.time() - t24:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -2482,6 +3114,10 @@ def main() -> None:
     two_stream = two_stream_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     late_fusion = late_fusion_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     ava = ava_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    pretrained = pretrained_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
+    int8 = int8_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
+    frame_fc = frame_fc_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    classifier = classifier_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -2505,7 +3141,8 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name], **video[name], **training[name],
-         **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name]}
+         **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
+         **pretrained[name], **int8[name], **frame_fc[name], **classifier[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

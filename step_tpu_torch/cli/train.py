@@ -18,8 +18,12 @@ on the card (`--device cpu` for the CPU):
 `--eval-every-epochs N` scores the held-out data every N epochs, bounded
 by `--eval-max-batches`: the UCF test split with `evaluate_ucf`, AVA's
 validation CSV (`--eval-annotation-file`) with `evaluate_ava`.
-`--distributed` (ROADMAP M9) and `--pretrained-i3d` (M8) are not ported
-yet and exit with a message that names their item.
+`--pretrained-i3d i3d.pt` starts the backbone from a Kinetics I3D
+checkpoint in any public naming (`models/convert.py`); `--set
+adam_moments=int8` keeps AdamW's moments in 8-bit blocks and `--set
+reg_head=frame_fc` trains the reference's 4·T regression FC.
+`--distributed` (ROADMAP M9) is not ported yet and exits with a message
+that names its item.
 """
 
 from __future__ import annotations
@@ -45,8 +49,8 @@ def parse_args(argv=None):
     p.add_argument("--log-dir", default=None)
     p.add_argument("--resume", action="store_true")
     p.add_argument("--pretrained-i3d", default=None,
-                   help="Kinetics I3D checkpoint for the backbone (not ported yet: "
-                        "ROADMAP M8)")
+                   help="Kinetics-pretrained torch I3D checkpoint (.pt/.pth) for the "
+                        "backbone")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
                    help="data-parallel training (not ported yet: ROADMAP M9)")
@@ -165,9 +169,6 @@ def main(argv=None):
     if args.distributed:
         raise SystemExit("--distributed: data-parallel training is not ported yet "
                          "(ROADMAP M9)")
-    if args.pretrained_i3d:
-        raise SystemExit("--pretrained-i3d: the Kinetics I3D reader is not ported yet "
-                         "(ROADMAP M8)")
     cfg = build_config(args)
     from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.train.fit import fit
@@ -177,7 +178,8 @@ def main(argv=None):
     eval_fn = build_eval_fn(cfg, args) if args.eval_every_epochs else None
     state = fit(cfg, loader, num_epochs=args.epochs, ckpt_dir=args.ckpt_dir,
                 log_dir=args.log_dir, resume=args.resume, seed=args.seed, eval_fn=eval_fn,
-                eval_every_epochs=args.eval_every_epochs or 1, device=args.device)
+                eval_every_epochs=args.eval_every_epochs or 1, device=args.device,
+                pretrained_i3d=args.pretrained_i3d)
     print(f"trained to step {state.step} on {args.device}"
           + (f"; decoder: {dataset.decoder}" if hasattr(dataset, "decoder") else ""),
           flush=True)

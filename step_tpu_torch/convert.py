@@ -3,7 +3,10 @@
 Takes the JAX package's `{"params", "batch_stats"}` tree of
 `step_tpu.models.detector.STEPDetector` — nested dicts of numpy (or JAX)
 arrays, unfolded or BN-folded by `step_tpu.models.optimize` — and returns
-the `state_dict` of `step_tpu_torch.models.detector.STEPDetector`:
+the `state_dict` of `step_tpu_torch.models.detector.STEPDetector`
+(`from_jax_variables`); or the tree of the JAX package's `I3DClassifier`
+(`stem`, `tail`, `logits`), and returns that of the port's
+(`from_jax_classifier_variables`):
 
   * conv kernels DHWIO → OIDHW (the inverse of
     `step_tpu/models/convert.py::_conv_kernel`);
@@ -60,16 +63,33 @@ def _leaf(collection: str, path, arr: np.ndarray):
 def from_jax_variables(variables, cfg: StepConfig) -> Dict[str, torch.Tensor]:
     """JAX detector variables → state_dict for the detector built from
     `cfg` (with `bn_folded` set as the tree is folded or not)."""
+    return _convert(variables, cfg.num_steps)
+
+
+def from_jax_classifier_variables(variables) -> Dict[str, torch.Tensor]:
+    """JAX `I3DClassifier` variables (`stem`, `tail`, `logits`) → state_dict
+    for `step_tpu_torch.models.i3d.I3DClassifier`."""
+    for collection in ("params", "batch_stats"):
+        extra = set(variables.get(collection, {})) - {"stem", "tail", "logits"}
+        if extra:
+            raise KeyError(f"{collection}/{sorted(extra)}: not an I3DClassifier tree "
+                           "(stem, tail, logits)")
+    return _convert(variables, None)
+
+
+def _convert(variables, num_steps) -> Dict[str, torch.Tensor]:
+    """Every leaf of `variables` mapped (`_leaf`), the per-step head
+    parameters unstacked into `num_steps` heads."""
     sd: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _leaves(variables.get(collection, {})):
             arr = np.asarray(leaf, np.float32)
             if path[0] == "steps":
-                if path[1] != "head" or arr.shape[0] != cfg.num_steps:
+                if path[1] != "head" or arr.shape[0] != num_steps:
                     raise KeyError(f"{collection}/{'/'.join(path)}: expected "
-                                   f"steps/head/… stacked {cfg.num_steps} deep, "
+                                   f"steps/head/… stacked {num_steps} deep, "
                                    f"got shape {arr.shape}")
-                for s in range(cfg.num_steps):
+                for s in range(num_steps):
                     name, value = _leaf(collection, path, arr[s])
                     key = ".".join(("steps", str(s)) + path[2:-1] + (name,))
                     sd[key] = torch.tensor(value)

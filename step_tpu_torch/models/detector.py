@@ -18,8 +18,9 @@ package (`step_tpu/models/detector.py:115-119, 232-236`); so is
 `chunk_stem`, the stem run on each chunk alone (`nets.FeatureNet`). The
 TPU-only variants of the reference (`stem_s2d`, `conv3d_impl`, `roi_impl`,
 `scan_unroll`, `scan_broadcast_inputs`, `head_compact`, `nms_impl`)
-compute the same function by other means and are ignored. The "frame_fc"
-regression head is not ported yet.
+compute the same function by other means and are ignored. `cfg.reg_head`
+picks the heads' box regression: "grid" or the reference's "frame_fc"
+(`nets.TwoBranchHead`), whose Dense is sized by `feature_frames(cfg)`.
 
 The inputs (:207-248): `cfg.input_stream` "rgb" reads uint8 or [0, 1]
 RGB (`device_preprocess`), "flow" makes 2-channel int8 or [-1, 1] flow the
@@ -73,11 +74,13 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def _check_supported(cfg: StepConfig) -> None:
-    if cfg.reg_head != "grid":
-        raise NotImplementedError(f"not ported yet: reg_head={cfg.reg_head!r}")
-    if cfg.input_stream not in ("rgb", "flow"):
-        raise ValueError(f"unknown input_stream {cfg.input_stream!r}")
+def feature_frames(cfg: StepConfig) -> int:
+    """T', the time axis of the shared feature map: the stem halves time
+    twice (Conv3d_1a and MaxPool_4a, TF-SAME), on the whole clip or on each
+    chunk under `chunk_stem` (5 on `ucf_3step`, 6 with chunk stems)."""
+    chunks = cfg.num_chunks if cfg.chunk_stem else 1
+    half = lambda n: -(-n // 2)  # noqa: E731
+    return chunks * half(half(cfg.total_frames // chunks))
 
 
 class STEPDetector(nn.Module):
@@ -85,7 +88,8 @@ class STEPDetector(nn.Module):
 
     def __init__(self, cfg: StepConfig):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.input_stream not in ("rgb", "flow"):
+            raise ValueError(f"unknown input_stream {cfg.input_stream!r}")
         self.cfg = cfg
         variants = (cfg.bn_folded, cfg.fused_bn_relu, cfg.fused_inception)
         self.features = FeatureNet(cfg.backbone_depth, *variants,
@@ -100,7 +104,7 @@ class STEPDetector(nn.Module):
                           cfg.pooled_size, cfg.backbone_depth, cfg.bn_folded,
                           ctx_dim, *variants[1:],
                           cfg.fused_inception3 in ("tail", "all"),
-                          cfg.dropout_rate)
+                          cfg.dropout_rate, cfg.reg_head, feature_frames(cfg))
             for _ in range(cfg.num_steps))
 
     def forward(self, rgb: torch.Tensor, proposals: torch.Tensor,

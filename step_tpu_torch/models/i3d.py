@@ -1,10 +1,10 @@
 """I3D — the Inflated 3D Inception-v1 backbone.
 
 Port of `step_tpu/models/i3d.py`: `Unit3D` (:138-197), `max_pool_3d`
-(:213-261), `InceptionBlock` (:264-319), `I3DStem` (:322-378) and `I3DTail`
-(:381-414), at depths "full" and "tiny". Tensors are NCDHW here; the
-detector hands in channels-last data as a permuted view, so the backbone
-runs in `channels_last_3d` memory order.
+(:213-261), `InceptionBlock` (:264-319), `I3DStem` (:322-378), `I3DTail`
+(:381-414) at depths "full" and "tiny", and `I3DClassifier` (:417-456).
+Tensors are NCDHW here; the detector hands in channels-last data as a
+permuted view, so the backbone runs in `channels_last_3d` memory order.
 
 Padding is TensorFlow's SAME rule, as in the released I3D checkpoints: the
 total pad is max((ceil(n/s) - 1)*s + k - n, 0), with the odd extra cell on
@@ -325,12 +325,15 @@ class I3DStem(nn.Module):
 class I3DTail(nn.Module):
     """Mixed_5b + Mixed_5c ("full") or one Mixed_5c ("tiny"), run by every
     refinement step's head on pooled tube features (:381-414). The heads
-    skip the classifier's MaxPool_5a, keeping the 7x7 ROI grid."""
+    skip the classifier's MaxPool_5a, keeping the 7x7 ROI grid; the
+    classifier passes `pool_5a=True` for the 2x2x2 stride-2 SAME max pool
+    before the blocks."""
 
     def __init__(self, cin: int, depth: str = "full", bn_folded: bool = False,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
-                 fused_inception3: bool = False):
+                 fused_inception3: bool = False, pool_5a: bool = False):
         super().__init__()
+        self.pool_5a = pool_5a
         blk = lambda i, ch: InceptionBlock(  # noqa: E731
             i, ch, bn_folded, fused_bn_relu, fused_inception, fused_inception3)
         if depth == "tiny":
@@ -346,6 +349,51 @@ class I3DTail(nn.Module):
         self.out_channels = self.Mixed_5c.out_channels
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.pool_5a:
+            x = max_pool_3d(x, (2, 2, 2), (2, 2, 2))
         for name in self.blocks:
             x = getattr(self, name)(x, train)
         return x
+
+
+class I3DClassifier(nn.Module):
+    """The whole I3D as a video classifier with the Kinetics head
+    (`step_tpu/models/i3d.py:417-456`): the stem, the tail after MaxPool_5a,
+    the spatial mean (time kept), dropout, a 1x1x1 `logits` conv with bias,
+    and the mean of the logits over time (the TF I3D convention).
+
+    It takes the detector's variant flags (`bn_folded`, `fused_bn_relu`,
+    `fused_inception`), so under `fused_bn_relu` and `STEP_TPU_POOL3D=pallas`
+    its units and pools run kernels K3, K4 and K5. Weights come from
+    `models/convert.py::convert_torch_i3d` or the JAX package's tree through
+    `step_tpu_torch/convert.py::from_jax_classifier_variables`."""
+
+    def __init__(self, num_classes: int = 400, dropout_rate: float = 0.5,
+                 bn_folded: bool = False, fused_bn_relu: bool = False,
+                 fused_inception: bool = False):
+        super().__init__()
+        variants = (bn_folded, fused_bn_relu, fused_inception)
+        self.stem = I3DStem("full", *variants)
+        self.tail = I3DTail(self.stem.out_channels, "full", *variants, pool_5a=True)
+        self.dropout_rate = dropout_rate
+        self.logits = nn.Conv3d(self.tail.out_channels, num_classes, (1, 1, 1))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """x `[B, T, H, W, 3]` channels-last, normalized (`preprocess.
+        device_preprocess`), computed in x's dtype → logits `[B,
+        num_classes]` in that dtype. `train` runs the BatchNorms on the batch
+        statistics and, with a dropout rate, drops features by a mask drawn
+        from `generator`."""
+        from step_tpu_torch.models.nets import _dropout, draw_dropout_masks
+
+        x = self.tail(self.stem(x.permute(0, 4, 1, 2, 3), train), train)
+        x = x.mean(dim=(3, 4), keepdim=True)                 # [B, C, T', 1, 1]
+        if train and self.dropout_rate > 0:
+            if generator is None:
+                raise ValueError("training with dropout needs a torch.Generator "
+                                 "for its mask (generator=...)")
+            keep, = draw_dropout_masks((x.shape,), self.dropout_rate, generator, x.device)
+            x = _dropout(x, keep, self.dropout_rate)
+        x = conv3d_same(x, self.logits.weight, self.logits.bias, (1, 1, 1))
+        return x.mean(dim=(2, 3, 4))

@@ -3,8 +3,8 @@
 Port of `step_tpu/models/nets.py`: `FeatureNet` (the I3D stem over the
 whole clip or, with `chunk_stem`, over each chunk alone; two-stream with
 a flow stem and a 1x1x1 fusion unit, :32-81),
-`ContextNet` (:84-97) and `TwoBranchHead` with the "grid" regression head
-(:100-206).
+`ContextNet` (:84-97) and `TwoBranchHead` with the "grid" and "frame_fc"
+regression heads (:100-206).
 
 Training passes `train=True` down the backbone and the heads (train-mode
 BatchNorm, `models/i3d.py`). The head's dropouts (`step_tpu/models/nets.py:154, :196`)
@@ -129,33 +129,47 @@ class TwoBranchHead(nn.Module):
     """One refinement step's head.
 
     Classification: I3D tail → spatial mean → mean over the active feature
-    slices → (concat context) → dropout → logits. Regression: I3D tail →
-    1x1x1 reduction to `REG_CHANNELS` → ReLU → dropout → Dense(4) over the
-    flattened 7x7 grid of each slice → linear temporal resize from T' to T
-    frames.
+    slices → (concat context) → dropout → logits. Regression, `reg_head`
+    "grid": I3D tail → 1x1x1 reduction to `REG_CHANNELS` → ReLU → dropout →
+    Dense(4) over the flattened 7x7 grid of each slice → linear temporal
+    resize from T' to T frames. "frame_fc", the reference's 4·T FC
+    (:161-177): the same reduction and ReLU, each tube flattened in (T', h,
+    w, c) order, dropout, one Dense to all 4·T deltas; no resize. Its input
+    width T'·7·7·64 is fixed at construction, so it takes `num_tprime`, the
+    feature map's T' (flax infers it at init).
     """
 
     def __init__(self, cin: int, num_cls_outputs: int, num_frames: int,
                  pooled_size: int = 7, depth: str = "full",
                  bn_folded: bool = False, ctx_dim: int = 0,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
-                 fused_inception3: bool = False, dropout_rate: float = 0.3):
+                 fused_inception3: bool = False, dropout_rate: float = 0.3,
+                 reg_head: str = "grid", num_tprime: int | None = None):
         super().__init__()
+        if reg_head not in ("grid", "frame_fc"):
+            raise ValueError(f"unknown reg_head {reg_head!r}")
+        if reg_head == "frame_fc" and num_tprime is None:
+            raise ValueError("reg_head='frame_fc' needs num_tprime, the feature map's T'")
         self.num_frames = num_frames
         self.pooled_size = pooled_size
         self.dropout_rate = dropout_rate
+        self.reg_head = reg_head
+        self.num_tprime = num_tprime
         self.tail = I3DTail(cin, depth, bn_folded, fused_bn_relu,
                             fused_inception, fused_inception3)
         c = self.tail.out_channels
         self.cls = nn.Linear(c + ctx_dim, num_cls_outputs)
         self.reg_reduce = nn.Conv3d(c, REG_CHANNELS, (1, 1, 1))
-        self.reg = nn.Linear(pooled_size * pooled_size * REG_CHANNELS, 4)
+        grid = pooled_size * pooled_size * REG_CHANNELS
+        self.reg = (nn.Linear(grid, 4) if reg_head == "grid"
+                    else nn.Linear(num_tprime * grid, 4 * num_frames))
 
     def dropout_shapes(self, N: int, Tp: int):
         """The shapes of the classification and regression dropout masks
         for N pooled tubes of T' slices."""
+        grid = self.pooled_size * self.pooled_size * REG_CHANNELS
         return ((N, self.cls.in_features),
-                (N, Tp, self.pooled_size * self.pooled_size * REG_CHANNELS))
+                (N, Tp, grid) if self.reg_head == "grid" else (N, Tp * grid))
 
     def forward(self, pooled: torch.Tensor, ctx: torch.Tensor | None = None,
                 tprime_mask: torch.Tensor | None = None, train: bool = False,
@@ -184,7 +198,15 @@ class TwoBranchHead(nn.Module):
                             self.reg_reduce.bias.to(x.dtype)))
         # The JAX head flattens each slice's grid in (h, w, c) order, so the
         # channels move last before the reshape.
-        r = r.permute(0, 2, 3, 4, 1).reshape(N, Tp, -1)
+        r = r.permute(0, 2, 3, 4, 1)
+        if self.reg_head == "frame_fc":
+            if Tp != self.num_tprime:
+                raise ValueError(f"frame_fc head built for T'={self.num_tprime}, "
+                                 f"pooled features have T'={Tp}")
+            r = _dropout(r.reshape(N, -1), keep_reg, self.dropout_rate)
+            deltas = _linear(self.reg, r).to(torch.float32)
+            return cls_logits.to(torch.float32), deltas.reshape(N, self.num_frames, 4)
+        r = r.reshape(N, Tp, -1)
         r = _dropout(r, keep_reg, self.dropout_rate)
         deltas = _linear(self.reg, r).to(torch.float32)        # [N, T', 4]
         # jax.image.resize "linear" == F.interpolate(align_corners=False).

@@ -6,9 +6,11 @@ the card), log the metrics, checkpoint every `ckpt_every` steps and at
 the end, resume exactly mid-epoch, and on SIGTERM or SIGINT write a last
 checkpoint and return. The step's metrics stay on the card until a log
 window closes (`MetricsLogger.print_every` steps), so the host runs ahead
-of the card between windows. Not ported yet: `pretrained_i3d` (it waits
-for the torch-I3D checkpoint reader of `models/convert.py`) and the
-`mesh` argument (data parallelism, ROADMAP.md M9).
+of the card between windows. `pretrained_i3d` starts the backbone from a
+Kinetics I3D checkpoint (`models/convert.py`) with fresh optimizer
+moments, as the JAX package does (`step_tpu/train/fit.py:153-164`); a
+resumed checkpoint wins over it. Not ported yet: the `mesh` argument
+(data parallelism, ROADMAP.md M9).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from step_tpu_torch.config import StepConfig
+from step_tpu_torch.models.convert import pretrained_detector_variables
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.train.trainer import (TrainState, batch_to_device,
                                           create_train_state, resolve_device,
@@ -72,14 +75,20 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
     `ckpt_dir` the run continues from it. `eval_fn(state, epoch)` runs
     every `eval_every_epochs` epochs. `prefetch_upload` copies the next
     batch to the card (pinned, non-blocking) as soon as the current step
-    is issued. `pretrained_i3d` (a Kinetics I3D checkpoint for the
-    backbone) raises until its reader is ported. Returns the final state."""
-    if pretrained_i3d:
-        raise NotImplementedError(
-            "pretrained_i3d needs models/convert.py's torch-I3D checkpoint reader, "
-            "not ported yet: ROADMAP.md M8")
+    is issued. `pretrained_i3d`, a torch I3D checkpoint file, loads the
+    backbone (stems and every step's tail) before the first step and
+    starts the optimizer moments anew on the loaded weights. Returns the
+    final state."""
     device = resolve_device(device)
     state = create_train_state(cfg, seed, model, device)
+    if pretrained_i3d:
+        loaded = pretrained_detector_variables(state.model.state_dict(), pretrained_i3d,
+                                               cfg)
+        # load_state_dict copies in place, so the derived caches (the BN
+        # affine, K3's weight layout) see the new version and are remade
+        state.model.load_state_dict(loaded)
+        state.opt_state = state.optimizer.init(state.trainable())
+        print(f"initialized backbone from {pretrained_i3d}", flush=True)
     start_epoch, start_batch = 0, 0
     if resume and ckpt_dir:
         try:

@@ -6,8 +6,9 @@ optax chain computed with the same operations in the same order, not
 
     clip_by_global_norm(10)  (no epsilon: g * 1 or (g / norm) * 10)
     → AdamW (b1 0.9, b2 0.999, eps 1e-8; first moment stored in
-      `cfg.adam_mu_dtype`) or SGD (decoupled weight decay added first,
-      then momentum)
+      `cfg.adam_mu_dtype`, or with `cfg.adam_moments="int8"` both moments
+      in 8-bit blocks, `train/optim_int8.py`) or SGD (decoupled weight
+      decay added first, then momentum)
     → × -lr(step), the schedule's step counted from 0 (so warmup-cosine
       applies lr 0 at step 0, as optax does).
 
@@ -20,7 +21,6 @@ backward stops at them, and they run in eval mode (`models/detector.py`).
 micro-batches: the mean of their gradients and of their BatchNorm running
 updates, the loss metrics averaged and `num_positive_per_step` summed, and
 `grad_norm` the global norm of the trainable gradients before the clip.
-`adam_moments="int8"` (`step_tpu/train/optim_int8.py`) is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ import torch
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.models.i3d import BatchNorm, running_updates
+from step_tpu_torch.train import optim_int8
 from step_tpu_torch.train.losses import step_losses
 from step_tpu_torch.utils.init import init_detector_train_
 
@@ -84,18 +85,19 @@ class Optimizer:
     makes its state, `update` applies one step in place."""
 
     def __init__(self, cfg: StepConfig):
-        if cfg.adam_moments == "int8":
-            raise NotImplementedError(
-                "adam_moments='int8' (step_tpu/train/optim_int8.py) is not ported "
-                "yet: ROADMAP.md M8")
         if cfg.optimizer not in ("adamw", "sgd"):
             raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+        if cfg.adam_moments not in ("float32", "int8"):
+            raise ValueError(f"unknown adam_moments {cfg.adam_moments!r}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
+        self.int8 = cfg.optimizer == "adamw" and cfg.adam_moments == "int8"
 
     def init(self, params) -> dict:
         if self.cfg.optimizer == "sgd":
             return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+        if self.int8:
+            return optim_int8.init_state(params)
         mu_dtype = getattr(torch, self.cfg.adam_mu_dtype)
         return {"count": 0,
                 "mu": [torch.zeros_like(p, dtype=mu_dtype) for p in params],
@@ -118,6 +120,9 @@ class Optimizer:
             trace = torch._foreach_add(u, torch._foreach_mul(state["trace"], cfg.momentum))
             state["trace"] = trace
             u = trace
+        elif self.int8:
+            u = optim_int8.adam_step(g, state, count + 1, ADAM_B1, ADAM_B2, ADAM_EPS)
+            u = torch._foreach_add(u, torch._foreach_mul(params, cfg.weight_decay))
         else:
             # b1 in mu's dtype, as optax scales a bfloat16 first moment
             b1 = torch.tensor(ADAM_B1, dtype=state["mu"][0].dtype, device=g[0].device)

@@ -2,11 +2,13 @@
 
 Port of `step_tpu/utils/checkpoint.py`, in torch's own format in place of
 orbax: one file `<step>.pt` a checkpoint in `ckpt_dir`, holding the
-model's parameters and BatchNorm statistics, the optimizer state, the
-step, the dropout generator's state and the data iterator's position
-`{epoch, batch_index}` (the loader's per-epoch order is seeded, so `fit`
-resumes mid-epoch without replaying a batch). The newest `max_to_keep`
-are kept. Reading the JAX package's orbax checkpoints is not ported.
+model's parameters and BatchNorm statistics (under "model"), the
+optimizer state (int8 moments as their int8, uint8 and float32 tensors,
+so they restore bit for bit), the step, the dropout generator's state and
+the data iterator's position `{epoch, batch_index}` (the loader's
+per-epoch order is seeded, so `fit` resumes mid-epoch without replaying a
+batch). The newest `max_to_keep` are kept. Reading the JAX package's
+orbax checkpoints is not ported.
 """
 
 from __future__ import annotations
@@ -57,10 +59,8 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
     return state.step
 
 
-def restore_checkpoint(ckpt_dir: str, state: TrainState,
-                       step: Optional[int] = None):
-    """Load the checkpoint at `step` (the newest by default) into `state`,
-    on the model's device → (state, data_iter_state). Raises
+def _checkpoint_file(ckpt_dir: str, step: Optional[int]) -> str:
+    """The file of the checkpoint at `step` (the newest by default); raises
     FileNotFoundError if there is none."""
     steps = checkpoint_steps(ckpt_dir)
     if step is None and steps:
@@ -68,8 +68,22 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     if step is None or step not in steps:
         raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}"
                                 + ("" if step is None else f" at step {step}"))
+    return os.path.join(ckpt_dir, f"{step}.pt")
+
+
+def load_model_state(ckpt_dir: str, step: Optional[int] = None) -> dict:
+    """The model state_dict of the checkpoint at `step` (the newest by
+    default), on the CPU: what `cli/classify.py --ckpt-dir` reads."""
+    return torch.load(_checkpoint_file(ckpt_dir, step), map_location="cpu")["model"]
+
+
+def restore_checkpoint(ckpt_dir: str, state: TrainState,
+                       step: Optional[int] = None):
+    """Load the checkpoint at `step` (the newest by default) into `state`,
+    on the model's device → (state, data_iter_state). Raises
+    FileNotFoundError if there is none."""
     device = next(state.model.parameters()).device
-    payload = torch.load(os.path.join(ckpt_dir, f"{step}.pt"), map_location=device)
+    payload = torch.load(_checkpoint_file(ckpt_dir, step), map_location=device)
     state.model.load_state_dict(payload["model"])
     state.opt_state = payload["opt_state"]
     state.generator.set_state(payload["generator"].cpu())

@@ -170,7 +170,6 @@ def test_test_cli_prints_the_evaluation(trained, extra):
 
 @pytest.mark.parametrize("module,argv,item", [
     (cli_train, ["--distributed"], "M9"),
-    (cli_train, ["--pretrained-i3d", "i3d.pt"], "M8"),
     (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--sharded"], "M9"),
     # the JAX package's own refusals (test.py:93-95, :107-109)
     (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z",

@@ -146,5 +146,9 @@ def test_bfloat16_detect_clip_is_finite():
 
 
 def test_unported_options_are_refused():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        STEPDetector(TINY.replace(reg_head="frame_fc"))
+    """`reg_head="frame_fc"` is ported (held against the JAX package in
+    `test_torch_port_frame_fc.py`) and builds; an unknown head is refused."""
+    model = STEPDetector(TINY.replace(reg_head="frame_fc"))
+    assert model.steps[0].reg.out_features == 4 * TINY.total_frames
+    with pytest.raises(ValueError, match="unknown reg_head"):
+        STEPDetector(TINY.replace(reg_head="per_slot"))

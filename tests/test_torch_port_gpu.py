@@ -804,3 +804,203 @@ def test_tiny_two_stream_and_ava_detectors_on_card_match_cpu(cuda, name, over):
                                       flow.to(cuda), props.to(cuda), pmask.to(cuda))
         torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
                                    rtol=0, atol=1e-4)
+
+
+# ---- the I3D classifier's shapes and the int8 optimizer --------------------
+
+# `I3DClassifier` on 64 frames at 224 px (B=1): the stem at T = 32 and 16,
+# the tail after MaxPool_5a at T = 8 (7x7).
+CLASSIFIER_POOLS = [(1, 192, 32, 28, 28), (1, 480, 16, 14, 14), (1, 832, 8, 7, 7)]
+CLASSIFIER_BN = [(1, 64, 32, 112, 112), (1, 64, 32, 56, 56), (1, 160, 16, 14, 14),
+                 (1, 384, 8, 7, 7)]
+CLASSIFIER_CONV = [((1, 64, 32, 56, 56), 192), ((1, 96, 32, 28, 28), 128),
+                   ((1, 112, 16, 14, 14), 224), ((1, 160, 8, 7, 7), 320)]
+
+
+@pytest.mark.parametrize("shape", CLASSIFIER_POOLS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pool_kernel_at_the_classifier_shapes(cuda, shape, dtype):
+    x = _ncdhw(21, shape, dtype)
+    got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_bits(got), raw_bits(want))
+
+
+@pytest.mark.parametrize("shape", CLASSIFIER_BN)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_relu_kernel_at_the_classifier_shapes(cuda, shape, dtype):
+    C = shape[1]
+    x = _ncdhw(22, shape, dtype)
+    rng = np.random.RandomState(23)
+    scale = torch.from_numpy((rng.rand(C) * 2 + 0.1).astype(np.float32)).cuda()
+    bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
+    _close(fused_scale_bias_relu(x, scale, bias),
+           fused_scale_bias_relu_plain(x, scale, bias), dtype, 1e-6)
+
+
+@pytest.mark.parametrize("shape,K", CLASSIFIER_CONV)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_kernel_at_the_classifier_shapes(cuda, shape, K, dtype):
+    """bf16 within one rounding step and 2^-15: over 27 * C products the
+    tensor cores' float32 accumulation drifts ~1e-5 from the plain sum
+    where BN and ReLU bring an output near 0 (chip_smoke.py K3_BF16_ATOL)."""
+    C = shape[1]
+    x = _ncdhw(24, shape, dtype)
+    rng = np.random.RandomState(25)
+    w = torch.from_numpy((rng.randn(K, C, 3, 3, 3) / np.sqrt(27 * C)).astype(np.float32))
+    scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
+    bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
+    w, scale, bias = w.cuda(), scale.cuda(), bias.cuda()
+    got = conv3x3x3_bn_relu(x, w, scale, bias)
+    want = conv3x3x3_bn_relu_plain(x, w, scale, bias)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL,
+                                   atol=2.0 ** -15)
+
+
+def test_classifier_kernel_configuration_on_card_matches_cpu(cuda, monkeypatch):
+    """`I3DClassifier` in float32 with `fused_bn_relu` and K5 pools on the
+    card (K3, K4, K5 launched) against the main configuration on the CPU:
+    logits within 1e-4 of their scale."""
+    from step_tpu_torch.models.i3d import I3DClassifier
+
+    torch.manual_seed(0)
+    model = I3DClassifier(num_classes=11).eval()
+    sd = init_detector_(model, seed=3).state_dict()
+    x = torch.from_numpy(np.random.RandomState(26).randn(2, 16, 64, 64, 3)
+                         .astype(np.float32))
+    with torch.no_grad():
+        want = model(x)
+        kmodel = I3DClassifier(num_classes=11, fused_bn_relu=True).eval()
+        kmodel.load_state_dict(sd)
+        monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
+        before = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
+                                       max_pool3x3_same)]
+        got = kmodel.to(cuda)(x.to(cuda)).cpu()
+    after = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
+                                  max_pool3x3_same)]
+    assert all(a > b for a, b in zip(after, before))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("signed", [True, False])
+def test_int8_quantize_on_card_equals_cpu(cuda, signed):
+    """The same codes (CUDA's and the CPU's float32 log may differ by an ulp
+    at a rounding boundary: one level, at most 0.1% of the elements), the
+    same scales, and the same codes dequantized within 2e-6 relative: CUDA
+    divides by a scalar as a product with its reciprocal, an ulp of exp's
+    argument (|x| <= 13.8, ulp 9.5e-7), which exp turns into ~1e-6 relative."""
+    from step_tpu_torch.train.optim_int8 import dequantize_blockwise, quantize_blockwise
+
+    rng = np.random.RandomState(27)
+    mag = 10.0 ** rng.uniform(-9, 1, size=256 * 4000)
+    x = (mag * rng.choice([-1.0, 1.0], size=mag.size) if signed else mag).astype(np.float32)
+    x[rng.rand(x.size) < 0.05] = 0.0
+    blocks = torch.from_numpy(x).view(-1, 256)
+    q_cpu, s_cpu = quantize_blockwise(blocks, signed)
+    q_gpu, s_gpu = quantize_blockwise(blocks.to(cuda), signed)
+    assert torch.equal(s_gpu.cpu(), s_cpu) and q_gpu.dtype == q_cpu.dtype
+    d = (q_gpu.cpu().to(torch.int32) - q_cpu.to(torch.int32)).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+    back = dequantize_blockwise(q_cpu.to(cuda), s_cpu.to(cuda)).cpu()
+    torch.testing.assert_close(back, dequantize_blockwise(q_cpu, s_cpu), rtol=2e-6, atol=0)
+
+
+def test_int8_optimizer_on_card_equals_cpu(cuda):
+    """Three int8 AdamW updates (lr 1e-3) of the tiny detector's parameters
+    on the same gradients on the card and the CPU: the codes within one
+    level on at most 0.1% of the elements (the log's and the scalar
+    division's ulp); the block scales within 4e-6 relative (each step
+    requantizes moments whose dequantized values differ by ~1e-6, as
+    `test_int8_quantize_on_card_equals_cpu` says); where a code differs
+    the next step differs by up to a level (~8% of lr), so the weights are
+    within 0.3 lr after three steps and all but 0.3% within 1e-6."""
+    from step_tpu_torch.train.trainer import Optimizer
+
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
+                                       adam_moments="int8", warmup_steps=0)
+    params = [p.detach().clone() for p in init_detector_(STEPDetector(cfg), seed=4).parameters()]
+    rng = np.random.RandomState(28)
+    grads = [[torch.from_numpy((rng.randn(*p.shape) * 10.0 ** rng.uniform(-5, -1))
+                               .astype(np.float32)) for p in params] for _ in range(3)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        ps = [p.to(dev) for p in params]
+        opt = Optimizer(cfg)
+        state = opt.init(ps)
+        for g in grads:
+            opt.update(ps, [t.to(dev) for t in g], state)
+        runs.append(([p.cpu() for p in ps], {k: state[k].cpu() for k in
+                                             ("mu", "nu", "mu_scale", "nu_scale")}))
+    (p_gpu, s_gpu), (p_cpu, s_cpu) = runs
+    d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(p_gpu, p_cpu)])
+    codes = {k: (s_gpu[k].to(torch.int32) - s_cpu[k].to(torch.int32)).abs()
+             for k in ("mu", "nu")}
+    scales = {k: float(((s_gpu[k] - s_cpu[k]).abs() / s_cpu[k].clamp(min=1e-30)).max())
+              for k in ("mu_scale", "nu_scale")}
+    stats = dict(w_max=float(d.max()), w_far=float((d > 1e-6).float().mean()), scales=scales,
+                 codes={k: (int(c.max()), float((c > 0).float().mean()))
+                        for k, c in codes.items()})
+    lr = 1e-3
+    assert stats["w_max"] <= 0.3 * lr and stats["w_far"] <= 3e-3, stats
+    assert max(scales.values()) <= 4e-6, stats
+    for c in codes.values():
+        assert int(c.max()) <= 1 and float((c > 0).float().mean()) <= 1e-3, stats
+
+
+def int8_moments_close(q_a, s_a, q_b, s_b) -> bool:
+    """Two int8 states' moments within one code level (8% relative: the
+    levels are 7.6% apart for mu and 5.6% for nu) or within 1% of their
+    block's largest value, where a gradient at the level of float noise
+    differs between two devices."""
+    from step_tpu_torch.train.optim_int8 import dequantize_blockwise
+
+    a, b = dequantize_blockwise(q_a, s_a), dequantize_blockwise(q_b, s_b)
+    absmax = torch.maximum(s_a, s_b)[:, None]
+    return bool(((a - b).abs() <= 0.08 * b.abs() + 0.01 * absmax).all())
+
+
+def test_int8_train_step_on_card_matches_cpu(cuda):
+    """One float32 step of the tiny detector with int8 moments (warmup 0, so
+    the step moves the weights) on the card against the CPU: the loss
+    within 1e-5, the weights as the float32 AdamW test above holds them
+    (within 2 lr, at most 0.1% beyond 1e-5: the first step's update comes
+    from the float32 moments), and the stored moments within one level or
+    1% of their block's largest value (`int8_moments_close`)."""
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              make_schedule, train_step)
+
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
+                                       image_size=64, compute_dtype="float32",
+                                       batch_size=2, dropout_rate=0.0, warmup_steps=0,
+                                       max_gt_tubes=2, adam_moments="int8")
+    syn = SyntheticConfig(image_size=64, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=2)
+    batch = build_model_batch(make_batch(3, 2, syn), cfg, train=True)
+    runs = []
+    for dev in (cuda, "cpu"):
+        state = create_train_state(cfg, seed=2, device=dev)
+        loss = float(train_step(state, batch_to_device(batch, dev), cfg)[1]["loss"])
+        runs.append((loss, {k: v.detach().cpu().clone()
+                            for k, v in state.model.state_dict().items()},
+                     {k: v.cpu() for k, v in state.opt_state.items() if torch.is_tensor(v)}))
+    (l_gpu, sd_gpu, m_gpu), (l_cpu, sd_cpu, m_cpu) = runs
+    np.testing.assert_allclose(l_gpu, l_cpu, rtol=1e-5)
+    lr = make_schedule(cfg)(0)
+    far = total = 0
+    for k, v in sd_cpu.items():
+        if "running_" in k:
+            continue
+        d = (sd_gpu[k] - v).abs()
+        assert float(d.max()) <= 2 * lr * (1 + 1e-3), k
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total
+    for k in ("mu", "nu"):
+        assert int8_moments_close(m_gpu[k], m_gpu[k + "_scale"], m_cpu[k],
+                                  m_cpu[k + "_scale"]), k

@@ -443,13 +443,18 @@ def test_optimizer_matches_optax(over):
                                        rtol=tol, atol=1e-7)
 
 
-def test_int8_moments_pretrained_i3d_and_a_missing_card_refuse():
-    cfg = PRESETS["ucf_3step"].replace(adam_moments="int8")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit(PRESETS["ucf_3step"].replace(**TINY), None, device="cpu",
-            pretrained_i3d="i3d_kinetics.pt")
+def test_int8_moments_pretrained_i3d_and_a_missing_card_refuse(tmp_path):
+    """int8 moments and `pretrained_i3d` are ported (`test_torch_port_int8.py`,
+    `test_torch_port_pretrained.py`); what they refuse is what the JAX
+    package refuses: int8 with a bfloat16 first moment, and a checkpoint
+    that is no I3D. A missing card refuses training."""
+    with pytest.raises(ValueError, match="int8"):
+        PRESETS["ucf_3step"].replace(adam_moments="int8", adam_mu_dtype="bfloat16")
+    assert make_optimizer(PRESETS["ucf_3step"].replace(adam_moments="int8")).int8
+    bad = str(tmp_path / "not_i3d.pt")
+    torch.save({"state_dict": {"fc.weight": torch.zeros(3, 3)}}, bad)
+    with pytest.raises(KeyError, match="unrecognized I3D"):
+        fit(PRESETS["ucf_3step"].replace(**TINY), None, device="cpu", pretrained_i3d=bad)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             create_train_state(PRESETS["ucf_3step"].replace(**TINY))
