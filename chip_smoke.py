@@ -188,6 +188,25 @@ Phases, each fatal on failure (exit code 1, no result line):
      (within 1e-3 of their scale, probabilities within 1e-3); then
      `cli.classify` on a written frame directory and the checkpoint, its
      probabilities within 1e-3 of the classifier's on the same clip.
+ 25. the exported program (`serving_phases`): `ucf_3step` on
+     `optimize_for_inference`'s tree, bf16, exported with `torch.export` at
+     B=8 and B=1 on the card (`utils/export.py`): its bytes under 10% of the
+     state dict's (the weights are an input), 1 `step::nms_surface` and 3
+     `step::tube_roi_align` nodes; loaded and run on uint8 clips, K1 1 and
+     K2 3 launches a request, every K1 and K2 call of a B=8 request held
+     against its plain version on its own inputs and timed on them; the
+     served request's median at B=8 and B=1 beside eager `detect_clip`'s;
+     the float32 program against eager `detect_clip` (tube scores 1e-4,
+     tubes 1e-3 px, frame_mask equal);
+ 26. `cli.export --optimized` then `cli.serve` on phase 17's on-disk
+     layout and a checkpoint `cli.train` writes there, in float32 with the
+     cv2 decoder: each video's detections equal `cli.test --optimized
+     --dump`'s (frames and classes equal, scores within rtol 1e-5 / atol
+     1e-6, boxes within rtol 1e-4 / atol 1e-3 px), and a directory of the
+     videos served at once equals each video served alone; its wall time
+     and clips/s;
+ 27. `cli.demo` at the `streaming` preset on a 60-frame synthetic mp4: as
+     many frames written as read, K1 and K2 launched.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -217,7 +236,11 @@ phases 18, 19 and 20, with `two_stream_shapes`, `late_fusion_shapes` and
 `ava_shapes` for the shapes held there (K4's fusion shape among them), and
 `pretrained_launches`, `int8_launches`, `frame_fc_launches` (with
 `frame_fc_shapes`) and `classifier_launches` (with `classifier_shapes`, each
-B=1 classifier shape's numbers) from phases 21-24. The last is
+B=1 classifier shape's numbers) from phases 21-24, and `served_launches`,
+its launches on each run of phases 25-27 (K1 and K2 also `served_ms`,
+`served_max_abs_err` and `served_request_ms`: the device time and error of
+their calls inside the B=8 program, and the served request's median at
+B=8 and B=1). The last is
 {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -280,6 +303,10 @@ AVA_VIDEOS, AVA_FRAMES, AVA_FPS, AVA_SIZE = 3, 48, 6, (180, 320)
 # The classifier phase: I3DClassifier on 64-frame clips at 224 px (the Quo
 # Vadis evaluation's centre clip, classify.py's default).
 CLASSIFY_FRAMES, CLASSIFY_SIZE = 64, 224
+# The serving phases: each exported program's request timed 5 times after a
+# warm-up; the demo's synthetic video of 60 frames at 320x240.
+SERVED_REQUESTS = 5
+DEMO_FRAMES, DEMO_SIZE = 60, (240, 320)
 KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
            "conv3x3x3_bn_relu")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
@@ -2358,7 +2385,7 @@ def int8_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
     kernels, update_ms = {}, {}
     for label in ("int8", "float32"):
         opt = Optimizer(cfg.replace(adam_moments=label))
-        state.optimizer, state.opt_state = opt, opt.init(params)
+        state.optimizer, state.opt_state = opt, opt.init(params, state.trainable_names())
         step_kernels = cuda_kernels_in(lambda: train_step(state, fixed, state.model.cfg))
         update_kernels, device = profiled(lambda: opt.update(params, grads, state.opt_state))
         update_ms[label] = (device, cuda_ms(lambda: opt.update(params, grads, state.opt_state),
@@ -2732,6 +2759,299 @@ def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
               f"(device {args.device}): top 5 printed, probabilities within {d:.3g} of "
               f"the classifier's on the same clip", flush=True)
     print(f"    phase 24 took {time.time() - t24:.1f} s", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def launcher_calls(name: str):
+    """The calls of the launcher `kernels.<name>` while the block runs: the
+    kernels' custom operators look it up at each call, so this sees the
+    calls a loaded program makes. Yields a list of each call's (args,
+    kwargs)."""
+    from step_tpu_torch import kernels
+
+    launcher = getattr(kernels, name)
+    calls = []
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return launcher(*args, **kwargs)
+
+    setattr(kernels, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(kernels, name, launcher)
+
+
+def quiet_main(module, argv):
+    """`module.main(argv)` with its standard output captured → (result,
+    text)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = module.main(argv)
+    return result, buf.getvalue()
+
+
+def matched_detections(got: list, want: list, label: str) -> list:
+    """Pair each detection of `got` one to one with a detection of `want`
+    (both of one video) of the same frame and class whose score is within rtol 1e-5 / atol
+    1e-6 and whose box is within rtol 1e-4 / atol 1e-3 px
+    (`tests/test_serve_protocol.py`'s bounds); fails if one has none. The
+    pairs are sought by value, not by rank: at score threshold 0 a frame's
+    ten detections of a class can lie an ulp apart, and two paths that
+    agree to a few ulps may rank them differently. Returns the largest
+    score and box differences over the pairs."""
+    groups: dict = {}
+    for fkey, c, score, box in want:
+        groups.setdefault((fkey[1], c), []).append((score, box))
+    worst = [0.0, 0.0]
+    for fkey, c, score, box in got:
+        group = groups.get((fkey[1], c), [])
+        for i, (s, b) in enumerate(group):
+            if (abs(score - s) <= 1e-6 + 1e-5 * abs(s)
+                    and bool(np.all(np.abs(box - b) <= 1e-3 + 1e-4 * np.abs(b)))):
+                worst = [max(worst[0], abs(score - s)),
+                         max(worst[1], float(np.abs(box - b).max()))]
+                del group[i]
+                break
+        else:
+            fail(f"{label}: frame {fkey[1]} class {c}: score {score}, box {box} has no "
+                 f"counterpart among the {len(group)} left")
+    check(not any(groups.values()), f"{label}: detections left unmatched")
+    return worst
+
+
+def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phases 25-27: the exported program, `cli.serve` and `cli.demo`.
+    Returns, per kernel, its launches on each served run, and for K1 and K2
+    their device time, error and bound inside the B=8 program, for the JSON
+    line."""
+    import pickle
+    import tempfile
+
+    from step_tpu_torch import PRESETS, kernels
+    from step_tpu_torch.cli import demo as cli_demo
+    from step_tpu_torch.cli import export as cli_export
+    from step_tpu_torch.cli import serve as cli_serve
+    from step_tpu_torch.cli import test as cli_test
+    from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.inference import _surface_plain, detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.ops.roi_align import tube_roi_align_plain
+    from step_tpu_torch.utils import export
+    from step_tpu_torch.utils.vis import extract_frames, write_video
+
+    out = {name: dict(served_launches={}) for name in KERNELS}
+
+    def launches(path: str) -> dict:
+        counts = read_counts()
+        for name, n in counts.items():
+            out[name]["served_launches"][path] = n
+        return counts
+
+    # ---- 25. the exported program: ucf_3step --optimized, bf16 ----------
+    t25 = time.time()
+    cfg = PRESETS["ucf_3step"]
+    T, S = cfg.total_frames, cfg.image_size
+    model = served_model(cfg, seeded, dev)
+    scfg = model.cfg
+    weights = export.serving_weights(model.state_dict(), scfg, dev)
+    sd_bytes = sum(v.numel() * v.element_size() for v in weights.values())
+    blobs, export_s = {}, {}
+    for b in (8, 1):
+        t0 = time.time()
+        blobs[b] = export.export_detect_fn(scfg, b, model=model, device=dev)
+        export_s[b] = time.time() - t0
+    nodes = export.program_op_counts(blobs[8])
+    print(f"[25] exported ucf_3step --optimized, {scfg.compute_dtype}, B=8 in "
+          f"{export_s[8]:.1f} s (B=1 {export_s[1]:.1f} s): {len(blobs[8])} bytes against "
+          f"the state dict's {sd_bytes} ({len(blobs[8]) / sd_bytes:.2%}); nodes {nodes}",
+          flush=True)
+    check(len(blobs[8]) < 0.1 * sd_bytes,
+          f"the program takes {len(blobs[8])} bytes, 10% or more of the weights' {sd_bytes}")
+    check(nodes == {"nms_surface": 1, "tube_roi_align": scfg.num_steps},
+          f"the program holds {nodes}, not 1 nms_surface and {scfg.num_steps} "
+          "tube_roi_align")
+    t0 = time.time()
+    runs = {b: export.load_detect_fn(blob) for b, blob in blobs.items()}
+    print(f"    loaded both programs in {time.time() - t0:.1f} s", flush=True)
+    served_ms, eager_ms = {}, {}
+    for b in (8, 1):
+        props, pmask = STEPDetector.initial_proposals(scfg, b, device=dev)
+        clip = torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8)).to(dev)
+        reset_counts()
+        with launcher_calls("nms_many_forward") as k1, \
+                launcher_calls("tube_roi_align_forward") as k2:
+            got = runs[b](weights, clip, props, pmask)
+            torch.cuda.synchronize()
+        counts = launches(f"program_b{b}")
+        check(counts["nms_many"] == 1 == len(k1)
+              and counts["tube_roi_align"] == scfg.num_steps == len(k2),
+              f"the B={b} program launched {counts} (K1 {len(k1)}, K2 {len(k2)} calls)")
+        want = detect_clip(model, clip, props, pmask)
+        for key, v in got.items():
+            check(v.shape == want[key].shape and bool(torch.isfinite(v).all()),
+                  f"program B={b}: {key} {tuple(v.shape)} or not finite")
+        d_scores = float((got["tube_scores"].float() - want["tube_scores"].float()).abs().max())
+        if b == 8:
+            # every kernel call the program made, held against its plain
+            # version on its own inputs, then timed on them
+            (a1, kw1), (a2, kw2) = k1[0], k2[-1]
+            plain = _surface_plain(a1[0].transpose(1, 2), a1[1][:, 0], a1[2][:, 0],
+                                   a1[3].shape[-1], a1[4], a1[5])
+            k1_err = 0.0
+            for name, g, w in zip(("frame_boxes", "frame_scores", "frame_mask"),
+                                  (kw1["out_boxes"], kw1["out_scores"], a1[3]), plain):
+                check(torch.equal(raw_bits(g), raw_bits(w)),
+                      f"K1 in the program differs from plain in {name}")
+                k1_err = max(k1_err, float((g.float() - w.float()).abs().max()))
+            k2_err = 0.0
+            for a, _ in k2:
+                want2 = tube_roi_align_plain(a[0], a[1], a[2].shape[3], a[3], a[4])
+                k2_err = max(k2_err, float((a[2].float() - want2.float()).abs().max()))
+                check(bf16_close(a[2], want2), "K2 in the program differs from plain")
+            k1_ms = device_ms(lambda: kernels.nms_many_forward(*a1, **kw1))
+            k2_ms = device_ms(lambda: kernels.tube_roi_align_forward(*a2, **kw2))
+            out["nms_many"].update(served_ms=k1_ms, served_max_abs_err=k1_err)
+            out["tube_roi_align"].update(served_ms=k2_ms, served_max_abs_err=k2_err)
+            print(f"[25] B=8 program: K1 and K2 held against plain on the program's own "
+                  f"inputs (K1 bits equal, max |err| {k1_err:.3g}; K2 max |err| "
+                  f"{k2_err:.3g}); device K1 "
+                  f"{k1_ms:.4f} ms on [{', '.join(map(str, a1[0].shape))}] boxes, K2 "
+                  f"{k2_ms:.4f} ms on [{', '.join(map(str, a2[0].shape))}]", flush=True)
+        served_ms[b], served_all = median_wall_ms(
+            lambda: runs[b](weights, clip, props, pmask), SERVED_REQUESTS)
+        eager_ms[b], eager_all = median_wall_ms(
+            lambda: detect_clip(model, clip, props, pmask), SERVED_REQUESTS)
+        print(f"[25] B={b} served program ({smi_line}): median "
+              f"{served_ms[b]:.2f} ms ({', '.join(f'{t:.2f}' for t in served_all)}), "
+              f"{b / served_ms[b] * 1e3:.1f} clips/s; eager detect_clip {eager_ms[b]:.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in eager_all)}); launches {counts}; tube "
+              f"scores against eager max |d| {d_scores:.3g}", flush=True)
+    out["nms_many"]["served_request_ms"] = served_ms
+    out["tube_roi_align"]["served_request_ms"] = served_ms
+    del runs, blobs, model, weights
+
+    # float32, TF32 off: the program against eager detect_clip on its model
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    model32 = served_model(cfg.replace(compute_dtype="float32"), seeded, dev)
+    run32 = export.load_detect_fn(export.export_detect_fn(model32.cfg, 8, model=model32,
+                                                          device=dev))
+    props, pmask = STEPDetector.initial_proposals(scfg, 8, device=dev)
+    clip = torch.from_numpy(rng.randint(0, 256, (8, T, S, S, 3)).astype(np.uint8)).to(dev)
+    got = run32(export.serving_weights(model32.state_dict(), model32.cfg, dev), clip,
+                props, pmask)
+    want = detect_clip(model32, clip, props, pmask)
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    same_mask = torch.equal(got["frame_mask"], want["frame_mask"])
+    print(f"[25] f32 B=8 program against eager detect_clip: tube scores max |d| "
+          f"{d_scores:.3g} (tol {STREAM_SCORE_TOL}), tubes {d_tubes:.3g} px (tol "
+          f"{STREAM_TUBE_TOL}), frame_mask {'equal' if same_mask else 'DIFFERS'}", flush=True)
+    check(d_scores <= STREAM_SCORE_TOL and d_tubes <= STREAM_TUBE_TOL and same_mask,
+          f"the f32 program differs from eager: scores {d_scores}, tubes {d_tubes} px, "
+          f"frame_mask equal {same_mask}")
+    del model32, run32
+    print(f"    phase 25 took {time.time() - t25:.1f} s", flush=True)
+
+    # ---- 26. cli.export then cli.serve against cli.test --dump ----------
+    t26 = time.time()
+    native = os.environ.get("STEP_TPU_DISABLE_NATIVE")
+    os.environ["STEP_TPU_DISABLE_NATIVE"] = "1"         # cv2 on both sides
+    with tempfile.TemporaryDirectory() as tmp:
+        root, ckpt = os.path.join(tmp, "ucf"), os.path.join(tmp, "ckpt")
+        videos = write_train_layout(root, cfg)
+        quiet_main(cli_train, ["--preset", "ucf_3step", "--dataset", "ucf101_24",
+                               "--data-root", root, "--ckpt-dir", ckpt, "--batch-size", "2",
+                               "--steps", str(CLI_STEPS), "--epochs", "1",
+                               "--set", "warmup_steps=1"])
+        f32 = ["--optimized", "--set", "compute_dtype=float32", "--set", "score_thresh=0.0"]
+        dump, prog = os.path.join(tmp, "dets.pkl"), os.path.join(tmp, "detect.pt2")
+        quiet_main(cli_test, ["--data-root", root, "--ckpt-dir", ckpt, "--dump", dump,
+                              *f32])
+        with open(dump, "rb") as f:
+            test_dets = pickle.load(f)["detections"]
+        t0 = time.time()
+        nbytes, _ = quiet_main(cli_export, ["--batch-size", "8", "--out", prog, *f32])
+        print(f"[26] trained {CLI_STEPS} steps on {len(videos)} on-disk videos of "
+              f"{CLI_FRAMES} frames; cli.export --optimized (f32) {nbytes} bytes in "
+              f"{time.time() - t0:.1f} s", flush=True)
+        # one directory of every video (links), then each video alone
+        vdir = os.path.join(tmp, "videos")
+        os.makedirs(vdir)
+        for v in videos:
+            os.symlink(os.path.join(root, "rgb-images", v),
+                       os.path.join(vdir, os.path.basename(v)))
+
+        def serve(frames, out_path):
+            return quiet_main(cli_serve, ["--program", prog, "--ckpt-dir", ckpt,
+                                          "--frames-dir", frames, "--out", out_path,
+                                          "--batch-size", "8", *f32])
+
+        reset_counts()
+        t0 = time.time()
+        together, text = serve(vdir, os.path.join(tmp, "all.pkl"))
+        wall = time.time() - t0
+        counts = launches("cli_serve")
+        clips = sum(int(line.split(": ")[1].split()[0]) for line in text.splitlines()
+                    if line.endswith("clips served"))
+        check(counts["nms_many"] == len(videos)
+              and counts["tube_roi_align"] == cfg.num_steps * len(videos),
+              f"cli.serve over {len(videos)} videos of one batch each launched {counts}")
+        print(f"[26] cli.serve over {len(videos)} videos ({smi_line}): {wall:.2f} s "
+              f"with the program's load and the checkpoint's fold, {wall / len(videos):.2f} "
+              f"s a video, {clips / wall:.2f} clips/s; {len(together)} detections; "
+              f"launches {counts}", flush=True)
+        for v in videos:
+            name = os.path.basename(v)
+            alone, _ = serve(os.path.join(root, "rgb-images", v),
+                             os.path.join(tmp, f"{name}.pkl"))
+            mine = [d for d in together if d[0][0] == name]
+            check(len(mine) == len(alone) > 0
+                  and all((a[0], a[1], a[2]) == (b[0], b[1], b[2])
+                          and np.array_equal(a[3], b[3]) for a, b in zip(mine, alone)),
+                  f"cli.serve of {name} in a directory differs from its own serve")
+            wanted = [d for d in test_dets if d[0][0] == v]
+            check(len(wanted) == len(alone), f"cli.serve of {v}: {len(alone)} detections, "
+                                             f"cli.test --dump {len(wanted)}")
+            worst = matched_detections(alone, wanted, v)
+            print(f"[26] {v}: cli.serve alone = in the directory; = cli.test --optimized "
+                  f"--dump: {len(alone)} detections, frames and classes equal, scores "
+                  f"max |d| {worst[0]:.3g}, boxes {worst[1]:.3g} px", flush=True)
+    if native is None:
+        del os.environ["STEP_TPU_DISABLE_NATIVE"]
+    else:
+        os.environ["STEP_TPU_DISABLE_NATIVE"] = native
+    print(f"    phase 26 took {time.time() - t26:.1f} s", flush=True)
+
+    # ---- 27. cli.demo at the streaming preset ---------------------------
+    t27 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.mp4"), os.path.join(tmp, "out.mp4")
+        H, W = DEMO_SIZE
+        frames = []
+        for f in range(DEMO_FRAMES):
+            img = np.full((H, W, 3), 0.2, np.float32) + rng.rand(H, W, 3).astype(np.float32) * 0.1
+            img[60:160, 40 + 2 * f: 120 + 2 * f] = (0.9, 0.3, 0.2)
+            frames.append(img)
+        write_video(src, frames)
+        n_in = extract_frames(src).shape[0]
+        reset_counts()
+        t0 = time.time()
+        n, _ = quiet_main(cli_demo, ["--video", src, "--output", dst, "--score-thresh", "0.0"])
+        wall = time.time() - t0
+        counts = launches("cli_demo")
+        n_out = extract_frames(dst).shape[0]
+        print(f"[27] cli.demo, streaming preset, random weights ({smi_line}): {n_in} frames "
+              f"of {W}x{H} in, {n_out} out, {wall:.2f} s; launches {counts}", flush=True)
+        check(n == n_in == n_out == DEMO_FRAMES, f"cli.demo read {n_in}, wrote {n_out}")
+        check(counts["nms_many"] > 0 and counts["tube_roi_align"] > 0,
+              f"cli.demo launched {counts}")
+    print(f"    phase 27 took {time.time() - t27:.1f} s", flush=True)
     return out
 
 
@@ -3118,6 +3438,7 @@ def main() -> None:
     int8 = int8_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
     frame_fc = frame_fc_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     classifier = classifier_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    serving = serving_phases(dev, rng, seeded, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -3142,7 +3463,8 @@ def main() -> None:
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name], **video[name], **training[name],
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
-         **pretrained[name], **int8[name], **frame_fc[name], **classifier[name]}
+         **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
+         **serving[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

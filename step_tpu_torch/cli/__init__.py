@@ -1,3 +1,3 @@
 """Command-line entry points, run as modules: `python -m
-step_tpu_torch.cli.train` and `python -m step_tpu_torch.cli.test` (ports of
-the JAX package's `train.py` and `test.py`)."""
+step_tpu_torch.cli.<name>` for `train`, `test`, `classify`, `export`,
+`serve` and `demo` (ports of the JAX package's scripts of those names)."""

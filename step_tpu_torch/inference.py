@@ -7,8 +7,9 @@ the late-fusion protocol `detect_clip_late_fusion` (:154-188) and
 `eval_needs_flow` (:429-433), the streaming forms `detect_video_stream`
 and `detect_video_stream_batched` (:290-422) and `detect_video`
 (:584-630); each takes a two-stream detector's second stream as `flow`.
-On the card one kernel (`csrc/nms.cu`) runs the NMS and writes the
-survivors; the plain version gathers them with `torch.gather`. The functions take the port's model,
+The NMS surface is the custom operator `step::nms_surface`: on the card
+one kernel (`csrc/nms.cu`) runs the NMS and writes the survivors; the
+plain version gathers them with `torch.gather`. The functions take the port's model,
 which holds its config (`model.cfg`) and weights, where the JAX package
 takes a variables tree and a config; the JAX package's `stem_features`
 and `refine_from_features` (:191-255) are `STEPDetector.stem(x, chunks=1)`
@@ -40,26 +41,35 @@ def class_scores_from_logits(cls_logits: torch.Tensor, cfg: StepConfig) -> torch
     return torch.softmax(cls_logits, dim=-1)[..., 1:]
 
 
-def nms_surface_plain(tubes: torch.Tensor, scores: torch.Tensor,
-                      prop_mask: torch.Tensor, cfg: StepConfig):
-    """The plain version of `nms_surface`: the B·T·C problems expanded,
-    pre-masked (`premask_scores`), run through `nms_many_plain`, and the
-    survivors gathered. The CPU path and the tests use it."""
+def _surface_plain(tubes: torch.Tensor, scores: torch.Tensor, prop_mask: torch.Tensor,
+                   max_keep: int, iou_threshold: float, score_threshold: float):
+    """(frame_boxes, frame_scores, frame_mask) of the surface: the B·T·C
+    problems expanded, pre-masked (`premask_scores`), run through
+    `nms_many_plain`, and the survivors gathered."""
     B, P, T = tubes.shape[:3]
     C = scores.shape[-1]
-    K = min(cfg.max_detections, P)
+    K = max_keep
     boxes_prob = tubes.transpose(1, 2)[:, :, None].expand(B, T, C, P, 4)
     scores_prob = scores.transpose(1, 2)[:, None].expand(B, T, C, P)
     valid_prob = prop_mask[:, None, None].expand(B, T, C, P)
-    live = premask_scores(scores_prob.reshape(-1, P), cfg.score_thresh,
+    live = premask_scores(scores_prob.reshape(-1, P), score_threshold,
                           valid_prob.reshape(-1, P))
-    idx, mask = nms_many_plain(boxes_prob.reshape(-1, P, 4), live, cfg.nms_thresh, K)
+    idx, mask = nms_many_plain(boxes_prob.reshape(-1, P, 4), live, iou_threshold, K)
     keep_idx = idx.reshape(B, T, C, K).to(torch.int64)
     keep_mask = mask.reshape(B, T, C, K)
     frame_boxes = torch.gather(boxes_prob, 3,
                                keep_idx[..., None].expand(B, T, C, K, 4))
     frame_scores = torch.gather(scores_prob, 3, keep_idx) * keep_mask
-    return _surface(tubes, scores, frame_boxes, frame_scores, keep_mask)
+    return frame_boxes, frame_scores, keep_mask
+
+
+def nms_surface_plain(tubes: torch.Tensor, scores: torch.Tensor,
+                      prop_mask: torch.Tensor, cfg: StepConfig):
+    """The plain version of `nms_surface`, on any device. The CPU path and
+    the tests use it."""
+    K = min(cfg.max_detections, tubes.shape[1])
+    return _surface(tubes, scores, *_surface_plain(tubes, scores, prop_mask, K,
+                                                   cfg.nms_thresh, cfg.score_thresh))
 
 
 def _surface(tubes, scores, frame_boxes, frame_scores, frame_mask):
@@ -72,6 +82,51 @@ def _surface(tubes, scores, frame_boxes, frame_scores, frame_mask):
     }
 
 
+@torch.library.custom_op("step::nms_surface", mutates_args=(), device_types="cpu")
+def nms_surface_op(tubes: torch.Tensor, scores: torch.Tensor, prop_mask: torch.Tensor,
+                   max_keep: int, iou_threshold: float,
+                   score_threshold: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`step::nms_surface`, the surface as a custom operator, so that
+    `torch.export` keeps it as one node of a served program → (frame_boxes,
+    frame_scores, frame_mask): on a CPU tensor the plain version, on a
+    CUDA tensor the kernel (`_nms_surface_cuda`), on a fake tensor the
+    shapes (`_nms_surface_fake`)."""
+    return _surface_plain(tubes, scores, prop_mask, max_keep, iou_threshold,
+                          score_threshold)
+
+
+@nms_surface_op.register_fake
+def _nms_surface_fake(tubes, scores, prop_mask, max_keep, iou_threshold, score_threshold):
+    B, _, T = tubes.shape[:3]
+    shape = (B, T, scores.shape[-1], max_keep)
+    return (tubes.new_empty(shape + (4,), dtype=torch.float32),
+            tubes.new_empty(shape, dtype=torch.float32),
+            tubes.new_empty(shape, dtype=torch.float32))
+
+
+@nms_surface_op.register_kernel("cuda")
+def _nms_surface_cuda(tubes, scores, prop_mask, max_keep, iou_threshold, score_threshold):
+    """One launch of `csrc/nms.cu`, which reads the tubes, scores and mask
+    through strides (B·T groups of P boxes shared by C problems) and writes
+    the three outputs; counted by `nms_surface.launches`."""
+    from step_tpu_torch import kernels
+
+    B, P, T = tubes.shape[:3]
+    C = scores.shape[-1]
+    out = dict(device=tubes.device, dtype=torch.float32)
+    frame_boxes = torch.empty((B, T, C, max_keep, 4), **out)
+    frame_scores = torch.empty((B, T, C, max_keep), **out)
+    frame_mask = torch.empty((B, T, C, max_keep), **out)
+    if frame_mask.numel():
+        kernels.nms_many_forward(
+            tubes.transpose(1, 2), scores[:, None].expand(B, T, P, C),
+            kernel_valid(prop_mask)[:, None].expand(B, T, P), frame_mask,
+            _f32(iou_threshold), _f32(score_threshold),
+            out_boxes=frame_boxes, out_scores=frame_scores)
+        nms_surface.launches += 1
+    return frame_boxes, frame_scores, frame_mask
+
+
 def nms_surface(tubes: torch.Tensor, scores: torch.Tensor,
                 prop_mask: torch.Tensor, cfg: StepConfig):
     """Per-frame, per-class greedy NMS over the final tubes.
@@ -82,32 +137,15 @@ def nms_surface(tubes: torch.Tensor, scores: torch.Tensor,
     each. Returns the surface: frame_boxes `[B, T, C, K, 4]`, frame_scores
     and frame_mask `[B, T, C, K]` float32, beside the tubes and scores.
 
-    A CPU tensor goes to `nms_surface_plain`. A CUDA tensor goes to one
-    launch of `csrc/nms.cu`, which reads the tubes, scores and mask through
-    strides (B·T groups of P boxes shared by C problems) and writes the
-    three outputs; `nms_surface.launches` counts those launches.
+    One call of `step::nms_surface` (`nms_surface_op`): a CPU tensor goes
+    to the plain version, a CUDA tensor to one launch of `csrc/nms.cu`;
+    `nms_surface.launches` counts those launches, in a served program too.
     """
-    if tubes.device.type == "cpu":
-        return nms_surface_plain(tubes, scores, prop_mask, cfg)
-    if tubes.device.type != "cuda":
+    if tubes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_surface: no kernel for device {tubes.device}")
-    from step_tpu_torch import kernels
-
-    B, P, T = tubes.shape[:3]
-    C = scores.shape[-1]
-    K = min(cfg.max_detections, P)
-    out = dict(device=tubes.device, dtype=torch.float32)
-    frame_boxes = torch.empty((B, T, C, K, 4), **out)
-    frame_scores = torch.empty((B, T, C, K), **out)
-    frame_mask = torch.empty((B, T, C, K), **out)
-    if frame_mask.numel():
-        kernels.nms_many_forward(
-            tubes.transpose(1, 2), scores[:, None].expand(B, T, P, C),
-            kernel_valid(prop_mask)[:, None].expand(B, T, P), frame_mask,
-            _f32(cfg.nms_thresh), _f32(cfg.score_thresh),
-            out_boxes=frame_boxes, out_scores=frame_scores)
-        nms_surface.launches += 1
-    return _surface(tubes, scores, frame_boxes, frame_scores, frame_mask)
+    K = min(cfg.max_detections, tubes.shape[1])
+    return _surface(tubes, scores, *nms_surface_op(
+        tubes, scores, prop_mask, K, _f32(cfg.nms_thresh), _f32(cfg.score_thresh)))
 
 
 nms_surface.launches = 0

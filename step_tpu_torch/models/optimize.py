@@ -105,28 +105,32 @@ def fuse_inception3(fused: Dict[str, torch.Tensor],
 _fuse_1x1, _fuse_3x3 = fuse_inception, fuse_inception3
 
 
-def optimize_for_inference(cfg: StepConfig, state_dict,
+def optimize_for_inference(cfg: StepConfig, state_dict=None,
                            fuse_inception: bool = True,
                            fuse_inception3: str = "none"):
     """(cfg, state_dict) → the serving (cfg, state_dict): BN folded, and by
     default the Inception 1x1x1 convs fused, as in the JAX package. The
-    config is the JAX package's `inference_optimized_config`."""
+    config is the JAX package's `inference_optimized_config`. Without a
+    state_dict only the config is made (the weights come back None), as a
+    program's export needs it."""
     if cfg.bn_folded:
         raise ValueError("a bn_folded config's weights are already folded")
     if fuse_inception3 != "none" and not fuse_inception:
         raise ValueError("fuse_inception3 requires fuse_inception")
-    sd = fold_bn(state_dict)
-    if fuse_inception:
-        sd = _fuse_1x1(sd)
-    if fuse_inception3 != "none":
-        sd = _fuse_3x3(sd, fuse_inception3)
+    sd = None
+    if state_dict is not None:
+        sd = fold_bn(state_dict)
+        if fuse_inception:
+            sd = _fuse_1x1(sd)
+        if fuse_inception3 != "none":
+            sd = _fuse_3x3(sd, fuse_inception3)
     cfg_opt = cfg.replace(bn_folded=True, fused_inception=fuse_inception,
                           fused_inception3=fuse_inception3,
                           fused_bn_relu=False, scan_unroll=True)
     return cfg_opt, sd
 
 
-def optimize_for_inference_cli(cfg: StepConfig, overrides, state_dict):
+def optimize_for_inference_cli(cfg: StepConfig, overrides, state_dict=None):
     """`--optimized` with the user's explicit `--set` flags winning.
 
     Port of `step_tpu/models/optimize.py::optimize_for_inference_cli`
@@ -135,7 +139,8 @@ def optimize_for_inference_cli(cfg: StepConfig, overrides, state_dict):
     the weight transformation, so model and weights stay matched, and
     every override is applied again on top of the serving config.
     `bn_folded` cannot be overridden: the folded weights are what
-    `--optimized` means. Returns `(cfg, state_dict)`.
+    `--optimized` means. Returns `(cfg, state_dict)`, the state_dict None
+    when none is given.
     """
     from step_tpu_torch.utils.cli import apply_overrides, parse_overrides
 

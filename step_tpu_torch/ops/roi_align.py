@@ -14,11 +14,14 @@ inside is clamped to [0, limit - 1].
 Layout is channels-last: features `[B, T', H, W, C]`, tubes `[B, N, T, 4]`,
 output `[B, N, T', pooled, pooled, C]`.
 
-Under autograd `tube_roi_align` is a `torch.autograd.Function`, the port
-of `_tube_roi_align_vjp` (`step_tpu/ops/roi_align_pallas.py:130-159`):
-the forward is the kernel on the card (the plain version on the CPU), the
-backward is autograd through `tube_roi_align_plain`, as the JAX package's
-backward is autodiff of its jnp reference.
+The forward is the custom operator `step::tube_roi_align`
+(`tube_roi_align_op`): the plain version on the CPU, the kernel on the
+card, a shape function under `torch.export`, which so keeps each call as
+one node of a served program. Under autograd `tube_roi_align` is a
+`torch.autograd.Function` over it, the port of `_tube_roi_align_vjp`
+(`step_tpu/ops/roi_align_pallas.py:130-159`): the backward is autograd
+through `tube_roi_align_plain`, as the JAX package's backward is autodiff
+of its jnp reference.
 """
 
 from __future__ import annotations
@@ -127,15 +130,27 @@ def tube_roi_align_plain(features: torch.Tensor, tubes: torch.Tensor,
     return (out / count).to(features.dtype)
 
 
-def _tube_roi_align_forward(features: torch.Tensor, tubes: torch.Tensor,
-                            pooled_size: int, spatial_scale: float,
-                            sampling_ratio: int) -> torch.Tensor:
-    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
-    if features.device.type == "cpu":
-        return tube_roi_align_plain(features, tubes, pooled_size,
-                                    spatial_scale, sampling_ratio)
-    if features.device.type != "cuda":
-        raise ValueError(f"tube_roi_align: no kernel for device {features.device}")
+@torch.library.custom_op("step::tube_roi_align", mutates_args=(), device_types="cpu")
+def tube_roi_align_op(features: torch.Tensor, tubes: torch.Tensor, pooled_size: int,
+                      spatial_scale: float, sampling_ratio: int) -> torch.Tensor:
+    """`step::tube_roi_align`, the forward as a custom operator, so that
+    `torch.export` keeps it as one node of a served program: on a CPU
+    tensor the plain version, on a CUDA tensor the kernel
+    (`_tube_roi_align_cuda`), on a fake tensor the shape
+    (`_tube_roi_align_fake`). Each returns a contiguous tensor."""
+    return tube_roi_align_plain(features, tubes, pooled_size, spatial_scale,
+                                sampling_ratio).contiguous()
+
+
+@tube_roi_align_op.register_fake
+def _tube_roi_align_fake(features, tubes, pooled_size, spatial_scale, sampling_ratio):
+    B, Tp, _, _, C = features.shape
+    return features.new_empty((B, tubes.shape[1], Tp, pooled_size, pooled_size, C))
+
+
+@tube_roi_align_op.register_kernel("cuda")
+def _tube_roi_align_cuda(features, tubes, pooled_size, spatial_scale, sampling_ratio):
+    """The kernel (`csrc/roi_align.cu`); counted by `tube_roi_align.launches`."""
     from step_tpu_torch import kernels
 
     B, Tp, H, W, C = features.shape
@@ -157,7 +172,7 @@ class _TubeRoiAlign(torch.autograd.Function):
     def forward(ctx, features, tubes, pooled_size, spatial_scale, sampling_ratio):
         ctx.args = (pooled_size, spatial_scale, sampling_ratio)
         ctx.save_for_backward(features, tubes)
-        return _tube_roi_align_forward(features, tubes, *ctx.args)
+        return tube_roi_align_op(features, tubes, *ctx.args)
 
     @staticmethod
     def backward(ctx, g):
@@ -192,11 +207,12 @@ def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
     version backward (`dfeatures`, and `dtubes` when the tubes require it).
     `tube_roi_align.launches` counts kernel launches.
     """
+    if features.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"tube_roi_align: no kernel for device {features.device}")
+    args = (int(pooled_size), float(spatial_scale), int(sampling_ratio))
     if torch.is_grad_enabled() and (features.requires_grad or tubes.requires_grad):
-        return _TubeRoiAlign.apply(features, tubes, pooled_size, spatial_scale,
-                                   sampling_ratio)
-    return _tube_roi_align_forward(features, tubes, pooled_size, spatial_scale,
-                                   sampling_ratio)
+        return _TubeRoiAlign.apply(features, tubes, *args)
+    return tube_roi_align_op(features, tubes, *args)
 
 
 tube_roi_align.launches = 0

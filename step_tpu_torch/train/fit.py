@@ -87,7 +87,8 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
         # load_state_dict copies in place, so the derived caches (the BN
         # affine, K3's weight layout) see the new version and are remade
         state.model.load_state_dict(loaded)
-        state.opt_state = state.optimizer.init(state.trainable())
+        state.opt_state = state.optimizer.init(state.trainable(),
+                                                  state.trainable_names())
         print(f"initialized backbone from {pretrained_i3d}", flush=True)
     start_epoch, start_batch = 0, 0
     if resume and ckpt_dir:

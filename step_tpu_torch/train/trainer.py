@@ -93,11 +93,16 @@ class Optimizer:
         self.schedule = make_schedule(cfg)
         self.int8 = cfg.optimizer == "adamw" and cfg.adam_moments == "int8"
 
-    def init(self, params) -> dict:
+    def init(self, params, names) -> dict:
+        """The state for `params`, whose names in the model are `names`;
+        int8 moments block them by those names (`optim_int8.blocking`), as
+        the JAX package blocks its leaves, and the optimizer keeps the
+        blocking's gather index."""
         if self.cfg.optimizer == "sgd":
             return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
         if self.int8:
-            return optim_int8.init_state(params)
+            self.index, leaves = optim_int8.blocking(params, names)
+            return optim_int8.init_state(leaves, params[0].device)
         mu_dtype = getattr(torch, self.cfg.adam_mu_dtype)
         return {"count": 0,
                 "mu": [torch.zeros_like(p, dtype=mu_dtype) for p in params],
@@ -121,7 +126,8 @@ class Optimizer:
             state["trace"] = trace
             u = trace
         elif self.int8:
-            u = optim_int8.adam_step(g, state, count + 1, ADAM_B1, ADAM_B2, ADAM_EPS)
+            u = optim_int8.adam_step(g, state, self.index, count + 1, ADAM_B1, ADAM_B2,
+                                     ADAM_EPS)
             u = torch._foreach_add(u, torch._foreach_mul(params, cfg.weight_decay))
         else:
             # b1 in mu's dtype, as optax scales a bfloat16 first moment
@@ -170,6 +176,9 @@ class TrainState:
     def trainable(self):
         return [p for p in self.model.parameters() if p.requires_grad]
 
+    def trainable_names(self):
+        return [n for n, p in self.model.named_parameters() if p.requires_grad]
+
 
 def resolve_device(device) -> torch.device:
     """The training device: the card unless the caller asks for the CPU."""
@@ -196,9 +205,11 @@ def create_train_state(cfg: StepConfig, seed: int = 0,
     for name in cfg.freeze_submodules:
         getattr(model, name).requires_grad_(False)
     optimizer = make_optimizer(cfg)
-    params = [p for p in model.parameters() if p.requires_grad]
+    named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     generator = torch.Generator(device=device).manual_seed(seed + 1)
-    return TrainState(0, model, optimizer, optimizer.init(params), generator)
+    return TrainState(0, model, optimizer,
+                      optimizer.init([p for _, p in named], [n for n, _ in named]),
+                      generator)
 
 
 def batch_to_device(batch: dict, device, non_blocking: bool = False) -> dict:

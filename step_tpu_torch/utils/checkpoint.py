@@ -4,10 +4,11 @@ Port of `step_tpu/utils/checkpoint.py`, in torch's own format in place of
 orbax: one file `<step>.pt` a checkpoint in `ckpt_dir`, holding the
 model's parameters and BatchNorm statistics (under "model"), the
 optimizer state (int8 moments as their int8, uint8 and float32 tensors,
-so they restore bit for bit), the step, the dropout generator's state and
-the data iterator's position `{epoch, batch_index}` (the loader's
-per-epoch order is seeded, so `fit` resumes mid-epoch without replaying a
-batch). The newest `max_to_keep` are kept. Reading the JAX package's
+so they restore bit for bit, with the name of their blocking; moments
+saved in another blocking are refused, `train/optim_int8.py`), the step,
+the dropout generator's state and the data iterator's position
+`{epoch, batch_index}` (the loader's per-epoch order is seeded, so `fit`
+resumes mid-epoch without replaying a batch). The newest `max_to_keep` are kept. Reading the JAX package's
 orbax checkpoints is not ported.
 """
 
@@ -18,6 +19,7 @@ from typing import Optional
 
 import torch
 
+from step_tpu_torch.train import optim_int8
 from step_tpu_torch.train.trainer import TrainState
 
 
@@ -81,9 +83,12 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
                        step: Optional[int] = None):
     """Load the checkpoint at `step` (the newest by default) into `state`,
     on the model's device → (state, data_iter_state). Raises
-    FileNotFoundError if there is none."""
+    FileNotFoundError if there is none, and ValueError for int8 moments
+    blocked otherwise than `state`'s optimizer blocks them."""
     device = next(state.model.parameters()).device
-    payload = torch.load(_checkpoint_file(ckpt_dir, step), map_location=device)
+    path = _checkpoint_file(ckpt_dir, step)
+    payload = torch.load(path, map_location=device)
+    optim_int8.check_restorable(payload["opt_state"], state.opt_state, path)
     state.model.load_state_dict(payload["model"])
     state.opt_state = payload["opt_state"]
     state.generator.set_state(payload["generator"].cpu())

@@ -90,6 +90,7 @@ def test_optimize_for_inference_cli_equals_the_jax_package(overrides):
     got, sd = optimize_for_inference_cli(cfg, overrides, sd)
     want, _ = jax_optimize_cli(jcfg, overrides)
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert optimize_for_inference_cli(cfg, overrides) == (got, None)
     served = STEPDetector(got).eval()
     served.load_state_dict(sd)       # the folded weights fit the served model
     assert any(".b012." in k for k in sd) == got.fused_inception

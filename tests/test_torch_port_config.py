@@ -70,14 +70,17 @@ print(" ".join(names))
 """
 
 # Modules the guard must reach: the evaluation slice's, AVA's and the
-# pretrained start's, int8 moments' and classifier's among them.
+# pretrained start's, int8 moments', the classifier's and serving's among
+# them.
 _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
               "step_tpu_torch.data.augmentations", "step_tpu_torch.utils.cli",
               "step_tpu_torch.evaluate", "step_tpu_torch.train_eval_synth",
               "step_tpu_torch.data.ava", "step_tpu_torch.eval.ava_eval",
               "step_tpu_torch.models.convert", "step_tpu_torch.train.optim_int8",
-              "step_tpu_torch.cli.classify")
+              "step_tpu_torch.cli.classify", "step_tpu_torch.utils.export",
+              "step_tpu_torch.utils.vis", "step_tpu_torch.cli.export",
+              "step_tpu_torch.cli.serve", "step_tpu_torch.cli.demo")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():

@@ -922,7 +922,8 @@ def test_int8_optimizer_on_card_equals_cpu(cuda):
 
     cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
                                        adam_moments="int8", warmup_steps=0)
-    params = [p.detach().clone() for p in init_detector_(STEPDetector(cfg), seed=4).parameters()]
+    named = list(init_detector_(STEPDetector(cfg), seed=4).named_parameters())
+    names, params = [n for n, _ in named], [p.detach().clone() for _, p in named]
     rng = np.random.RandomState(28)
     grads = [[torch.from_numpy((rng.randn(*p.shape) * 10.0 ** rng.uniform(-5, -1))
                                .astype(np.float32)) for p in params] for _ in range(3)]
@@ -930,7 +931,7 @@ def test_int8_optimizer_on_card_equals_cpu(cuda):
     for dev in (cuda, "cpu"):
         ps = [p.to(dev) for p in params]
         opt = Optimizer(cfg)
-        state = opt.init(ps)
+        state = opt.init(ps, names)
         for g in grads:
             opt.update(ps, [t.to(dev) for t in g], state)
         runs.append(([p.cpu() for p in ps], {k: state[k].cpu() for k in
@@ -949,6 +950,38 @@ def test_int8_optimizer_on_card_equals_cpu(cuda):
     assert max(scales.values()) <= 4e-6, stats
     for c in codes.values():
         assert int(c.max()) <= 1 and float((c > 0).float().mean()) <= 1e-3, stats
+
+
+def test_int8_blocking_on_card_equals_cpu(cuda):
+    """The JAX package's blocking of the tiny detector's parameters (conv
+    kernels DHWIO, Dense weights [in, out], the heads stacked by step),
+    built on the card: the same leaves and gather index as on the CPU, and
+    one update's gather into the blocks and scatter back puts each
+    gradient's step where it belongs: Adam's step at t = 1 from zero
+    moments is g / (|g| + eps) within the bias corrections' float32
+    rounding (1e-4), and the card's within 2e-6 of the CPU's (CUDA divides
+    by a scalar through its reciprocal)."""
+    from step_tpu_torch.train import optim_int8
+
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8)
+    named = list(STEPDetector(cfg).named_parameters())
+    names, params = [n for n, _ in named], [p.detach() for _, p in named]
+    index, leaves = optim_int8.blocking([p.to(cuda) for p in params], names)
+    want_index, want_leaves = optim_int8.blocking(params, names)
+    assert leaves == want_leaves and any(leaf.startswith("steps.*.") for leaf, *_ in leaves)
+    assert index.dtype == torch.int32 and torch.equal(index.cpu(), want_index)
+    rng = np.random.RandomState(29)
+    grads = [torch.from_numpy(rng.randn(*p.shape).astype(np.float32)) for p in params]
+    steps = []
+    for dev in (cuda, "cpu"):
+        index, leaves = optim_int8.blocking([p.to(dev) for p in params], names)
+        state = optim_int8.init_state(leaves, dev)
+        steps.append([s.cpu() for s in optim_int8.adam_step(
+            [g.to(dev) for g in grads], state, index, 1, 0.9, 0.999, 1e-8)])
+    for a, b, g in zip(*steps, grads):
+        assert a.shape == g.shape
+        torch.testing.assert_close(a, b, rtol=2e-6, atol=0)
+        torch.testing.assert_close(a, g / (g.abs() + 1e-8), rtol=0, atol=1e-4)
 
 
 def int8_moments_close(q_a, s_a, q_b, s_b) -> bool:

@@ -419,7 +419,7 @@ def test_optimizer_matches_optax(over):
     jparams = params
     opt = make_optimizer(cfg)
     tparams = [_t(params[k]).clone() for k in shapes]
-    tstate = opt.init(tparams)
+    tstate = opt.init(tparams, list(shapes))
     for i in range(4):
         scale = 10.0 if i == 1 else 0.5
         grads = {k: (rng.randn(*s) * scale).astype(np.float32) for k, s in shapes.items()}
