@@ -307,6 +307,10 @@ CLASSIFY_FRAMES, CLASSIFY_SIZE = 64, 224
 # warm-up; the demo's synthetic video of 60 frames at 320x240.
 SERVED_REQUESTS = 5
 DEMO_FRAMES, DEMO_SIZE = 60, (240, 320)
+# The data-parallel phases: fit() for 4 steps at phase 14's B=8 (3 on two
+# ranks), the step alone 6 times in turns with the plain one; the
+# evaluation on 1 synthetic video of EVAL_FRAMES frames (10 windows).
+DP_STEPS, DP2_STEPS, DP_TIMED, DP_EVAL_VIDEOS = 4, 3, 6, 1
 KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
            "conv3x3x3_bn_relu")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
@@ -754,12 +758,14 @@ def recorded(fn, key, keep: bool = False):
 
 
 @contextlib.contextmanager
-def swapped(fn, replacement):
+def swapped(fn, replacement, callers_only: bool = False):
     """`fn` replaced by `replacement` in every module of the port that
-    holds it while the block runs."""
+    holds it while the block runs; with `callers_only`, not in its own
+    module, where its launch counter stays its own."""
     homes = [m for name, m in list(sys.modules.items())
              if name.split(".")[0] == "step_tpu_torch"
-             and getattr(m, fn.__name__, None) is fn]
+             and getattr(m, fn.__name__, None) is fn
+             and not (callers_only and name == fn.__module__)]
     for m in homes:
         setattr(m, fn.__name__, replacement)
     try:
@@ -1297,63 +1303,6 @@ def training_phases(dev, rng, reset_counts, read_counts) -> dict:
     return out
 
 
-class MemoryUCF:
-    """A dataset with the UCF101-24 reader's protocol, held in memory:
-    `videos` synthetic oracle videos (`data/synthetic.py::make_clip`) of
-    `frames` frames at the model's size, whose native resolution is said to
-    be `resolution` (H, W), so that `evaluate_ucf` scales its boxes back to
-    it. `samples` are (video, centre) windows one chunk apart, items carry
-    the `UCFDataset` keys (frames edge-clamped as it clamps them), and
-    `video_groundtruth()` gives the GT in native pixels, frames 1-based.
-    `with_flow` gives each item the video's flow (`make_flow`), as
-    `UCFDataset(with_flow=True)` reads `brox-images`."""
-
-    def __init__(self, cfg, videos: int, frames: int, resolution, seed: int,
-                 with_flow: bool = False):
-        from step_tpu_torch.data.synthetic import SyntheticConfig, make_clip, make_flow
-
-        syn = SyntheticConfig(image_size=cfg.image_size, num_frames=frames,
-                              num_classes=cfg.num_classes, max_boxes=2)
-        self.cfg, self.frames = cfg, frames
-        self.clips = {f"c{i % cfg.num_classes:02d}/v_{i:05d}": make_clip(seed + i, syn)
-                      for i in range(videos)}
-        for clip in self.clips.values() if with_flow else ():
-            clip["flow"] = make_flow(clip["rgb"])
-        self.resolution = {v: tuple(resolution) for v in self.clips}
-        H, W = resolution
-        s = cfg.image_size
-        self.to_native = np.asarray([W / s, H / s, W / s, H / s], np.float32)
-        c = cfg.frames_per_chunk
-        self.samples = [(v, start + c // 2) for v in self.clips
-                        for start in range(0, frames - c + 1, c)]
-
-    def __len__(self):
-        return len(self.samples)
-
-    def __getitem__(self, i: int) -> dict:
-        video, center = self.samples[i]
-        T = self.cfg.total_frames
-        idx = np.clip(center + np.arange(T) - T // 2, 0, self.frames - 1)
-        clip = self.clips[video]
-        item = {"rgb": clip["rgb"][idx], "gt_tubes": clip["gt_tubes"][:, idx],
-                "gt_labels": clip["gt_labels"], "gt_mask": clip["gt_mask"],
-                "video": video, "center_frame": center, "frame_indices": idx}
-        if "flow" in clip:
-            item["flow"] = clip["flow"][idx]
-        return item
-
-    def video_groundtruth(self):
-        frame_gt, tube_gt = [], []
-        for video, clip in self.clips.items():
-            for g in np.flatnonzero(clip["gt_mask"] > 0):
-                cls = int(clip["gt_labels"][g])
-                tube = {f + 1: clip["gt_tubes"][g, f] * self.to_native
-                        for f in range(self.frames)}
-                frame_gt += [((video, f), cls, box) for f, box in tube.items()]
-                tube_gt.append((video, cls, tube))
-        return frame_gt, tube_gt
-
-
 def check_eval_results(results: dict, label: str) -> None:
     """`evaluate_ucf`'s result: every key, each mAP in [0, 1] or NaN, and
     detections found."""
@@ -1414,6 +1363,7 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
     from step_tpu_torch import PRESETS
     from step_tpu_torch.cli import test as cli_test
     from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.data.memory import MemoryUCF
     from step_tpu_torch.evaluate import (collect_detections, collect_video_tubes,
                                          dedupe_frame_detections, evaluate_ucf,
                                          link_frame_detections)
@@ -1824,6 +1774,7 @@ def late_fusion_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> di
     """Phase 19, late fusion and the flow stream. Returns, per kernel, its
     launches on each run and the numbers at the shapes held there."""
     from step_tpu_torch import PRESETS
+    from step_tpu_torch.data.memory import MemoryUCF
     from step_tpu_torch.evaluate import collect_video_tubes, evaluate_ucf
     from step_tpu_torch.inference import detect_clip_late_fusion, nms_surface
     from step_tpu_torch.models.detector import STEPDetector
@@ -2169,36 +2120,46 @@ def i3d_checkpoint(path: str, num_classes: int = 400) -> dict:
 
 
 def timed_fit(fit_kwargs: dict, read_counts, before_step=None):
-    """`fit(**fit_kwargs)` with each `train_step` timed between CUDA events
-    and its launches counted, and `before_step(state, batch, index)` called
+    """`fit(**fit_kwargs)` with each step (`train_step`, or with a `mesh`
+    the step `make_parallel_train_step` made) timed between CUDA events and
+    its launches counted, and `before_step(state, batch, index)` called
     before each. Returns (state, [(ms, launches, metrics)], memory): memory says
     the peak allocated during fit() and what was allocated before it (what
     earlier phases still hold counts in the peak)."""
     from step_tpu_torch.train import fit as fit_module
-    from step_tpu_torch.train.trainer import train_step
+    from step_tpu_torch.train.trainer import make_parallel_train_step, train_step
 
     events = []
 
-    def timed_step(state, batch, cfg_):
+    def timed(step, state, batch):
         if before_step is not None:
             before_step(state, batch, len(events))
         before = read_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        result = train_step(state, batch, cfg_)
+        result = step(state, batch)
         end.record()
         after = read_counts()
         events.append((start, end, {k: after[k] - before[k] for k in after}, result[1]))
         return result
 
+    def timed_step(state, batch, cfg_):
+        return timed(lambda s, b: train_step(s, b, cfg_), state, batch)
+
+    def timed_parallel(cfg_, model, mesh):
+        step = make_parallel_train_step(cfg_, model, mesh)
+        return lambda state, batch: timed(step, state, batch)
+
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated() / 2 ** 30
     fit_module.train_step = timed_step
+    fit_module.make_parallel_train_step = timed_parallel
     try:
         state = fit_module.fit(**fit_kwargs)
         torch.cuda.synchronize()
     finally:
         fit_module.train_step = train_step
+        fit_module.make_parallel_train_step = make_parallel_train_step
     steps = [(a.elapsed_time(b), counts, m) for a, b, counts, m in events]
     for _, _, m in steps:
         for key, v in m.items():
@@ -3055,6 +3016,550 @@ def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -
     return out
 
 
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def held_calls():
+    """Every K1, K2 and K5 call the port makes while the block runs, each
+    held against its plain version on the same inputs as it is made: K1
+    (`nms_surface`) and K5 (`max_pool3x3_kernel`, the forward of the
+    training step's stride-1 pools) by raw bits, K2 (`tube_roi_align`, under
+    autograd in training) within one bf16 step (float32: 1e-4). Yields
+    {kernel: [calls held, max |err|]}. The K2 and K5 counters count as the
+    block runs; K1's launches land on its wrapper and are added to
+    `nms_surface.launches` when the block ends."""
+    from step_tpu_torch.inference import nms_surface, nms_surface_plain
+    from step_tpu_torch.ops.pool import max_pool3x3_kernel, max_pool3x3_same_plain
+    from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
+
+    held = {"nms_many": [0, 0.0], "tube_roi_align": [0, 0.0], "max_pool3x3_same": [0, 0.0]}
+
+    def nms(*args):
+        got = nms_surface(*args)
+        want = nms_surface_plain(*args)
+        for key in ("frame_boxes", "frame_scores", "frame_mask"):
+            check(torch.equal(raw_bits(got[key]), raw_bits(want[key])),
+                  f"K1 at {list(args[0].shape)} differs from plain in {key}")
+        held["nms_many"][0] += 1
+        return got
+
+    def roi(features, tubes, *args):
+        got = tube_roi_align(features, tubes, *args)
+        with torch.no_grad():
+            want = tube_roi_align_plain(features.detach(), tubes.detach(), *args)
+            err = float((got.detach().float() - want.float()).abs().max())
+            ok = (bf16_close(got.detach(), want) if got.dtype == torch.bfloat16
+                  else torch.allclose(got.detach(), want, rtol=1e-4, atol=1e-4))
+        check(ok, f"K2 at {list(features.shape)} {got.dtype} differs from plain: {err}")
+        held["tube_roi_align"][0] += 1
+        held["tube_roi_align"][1] = max(held["tube_roi_align"][1], err)
+        return got
+
+    def pool(x):
+        got = max_pool3x3_kernel(x)
+        check(torch.equal(raw_bits(got), raw_bits(max_pool3x3_same_plain(x))),
+              f"K5 at {list(x.shape)} {x.dtype} differs from plain")
+        held["max_pool3x3_same"][0] += 1
+        return got
+
+    nms.launches = 0
+    try:
+        with swapped(nms_surface, nms), swapped(tube_roi_align, roi, callers_only=True), \
+                swapped(max_pool3x3_kernel, pool):
+            yield held
+    finally:
+        nms_surface.launches += nms.launches
+
+
+def step_profile(fn) -> dict:
+    """One call of `fn` under torch.profiler: its CUDA kernels, those of
+    NCCL among them and their device ms, the collectives the host issued
+    (`nccl:*` / `gloo:*` events), and the device ms of all kernels."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in cuda if "nccl" in e.key.lower()]
+    return dict(kernels=sum(e.count for e in cuda),
+                device_ms=sum(e.self_device_time_total for e in cuda) / 1e3,
+                nccl_kernels=sum(e.count for e in nccl),
+                nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
+                collectives={e.key: e.count for e in events
+                             if e.device_type == torch.autograd.DeviceType.CPU
+                             and e.key.startswith(("nccl:", "gloo:"))})
+
+
+def kernel_counters():
+    """(reset, read) of the K1, K2 and K5 launch counters, for a process
+    that has not built `main`'s."""
+    from step_tpu_torch.inference import nms_surface
+    from step_tpu_torch.ops.nms import nms_many
+    from step_tpu_torch.ops.pool import max_pool3x3_same
+    from step_tpu_torch.ops.roi_align import tube_roi_align
+
+    counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
+                "max_pool3x3_same": (max_pool3x3_same,)}
+
+    def reset():
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
+
+    def read():
+        return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+
+    return reset, read
+
+
+def dp_loader(cfg, process_count: int, process_index: int):
+    """Process `process_index`'s DataLoader of a `process_count`-process
+    run over DP2_STEPS global batches of synthetic clips: its share of the
+    global batch, its strided slice of each epoch."""
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.synthetic import SyntheticConfig
+    from step_tpu_torch.train_eval_synth import SyntheticClips
+
+    syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=4)
+    return DataLoader(SyntheticClips(syn, DP2_STEPS * cfg.batch_size, SEED * 1000), cfg,
+                      batch_size=cfg.batch_size // process_count, seed=SEED, num_workers=4,
+                      process_count=process_count, process_index=process_index)
+
+
+class InterleavedBatches:
+    """The one-process loader of a two-process run's global batches: batch k
+    is the ranks' batches k interleaved, row i of rank r at i·2 + r, where
+    `process_shard` took it from."""
+
+    def __init__(self, cfg):
+        self.loaders = [dp_loader(cfg, 2, r) for r in range(2)]
+
+    def epoch(self, epoch, start=0):
+        for parts in zip(*(ld.epoch(epoch, start) for ld in self.loaders)):
+            yield {k: np.stack([p[k] for p in parts], axis=1).reshape(-1, *parts[0][k].shape[1:])
+                   for k in parts[0] if k != "meta"}
+
+
+def dp_eval_setup(dev, dtype=torch.bfloat16):
+    """The evaluation of phases 28-29: `ucf_3step` at full width in `dtype`
+    with seeded weights, score threshold 0, on DP_EVAL_VIDEOS synthetic
+    videos (10 windows each: batches of 8 and 2)."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.data.memory import MemoryUCF
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.utils.init import init_detector_
+
+    cfg = PRESETS["ucf_3step"].replace(score_thresh=0.0,
+                                       compute_dtype=str(dtype).removeprefix("torch."))
+    model = init_detector_(STEPDetector(cfg).eval(), SEED + 5).to(dev, dtype)
+    return model, MemoryUCF(cfg, DP_EVAL_VIDEOS, EVAL_FRAMES, EVAL_RESOLUTION, SEED + 6)
+
+
+def dp_worker(rank: int, world: int, port: int, tmp: str) -> None:
+    """One rank of phase 29, in a process of its own: a gloo group on the
+    one card. `fit(mesh=...)` at full width in float32, global
+    B=TRAIN_BATCH, on its loader, then `evaluate_ucf` and
+    `collect_video_tubes` over the mesh in float32, every
+    K1, K2 and K5 call held against plain; writes what it computed to
+    `<tmp>/rank<r>.pt` (a failure's traceback to `rank<r>.err`)."""
+    import traceback
+
+    try:
+        import torch.distributed as dist
+
+        from step_tpu_torch.evaluate import collect_video_tubes, evaluate_ucf
+        from step_tpu_torch.models.detector import STEPDetector
+        from step_tpu_torch.parallel import create_mesh, init_distributed
+        from step_tpu_torch.utils.init import init_detector_train_
+
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        check(init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo")
+              == (rank, world), "init_distributed")
+        mesh = create_mesh()
+        reset, read = kernel_counters()
+        cfg = train_cfg("ucf_3step", TRAIN_BATCH, compute_dtype="float32")
+        model = init_detector_train_(STEPDetector(cfg), cfg, SEED)
+        reset()
+        with held_calls() as held_train:
+            state, steps, memory = timed_fit(
+                dict(cfg=cfg, loader=dp_loader(cfg, world, rank), num_epochs=1,
+                     model=model, device=dev, seed=SEED, mesh=mesh), read)
+        sd = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        del state, model
+        emodel, data = dp_eval_setup(dev, torch.float32)
+        reset()
+        with held_calls() as held_eval:
+            results = evaluate_ucf(emodel, data, mesh=mesh,
+                                   dump_path=os.path.join(tmp, f"dets{rank}.pkl"))
+            tubes = collect_video_tubes(emodel, data, mesh=mesh)
+            torch.cuda.synchronize()
+        torch.save(dict(steps=[(ms, c, {k: v.cpu() for k, v in m.items()})
+                               for ms, c, m in steps],
+                        memory=memory, state=sd, held_train=held_train, results=results,
+                        tubes=tubes, held_eval=held_eval, eval_launches=read(),
+                        backend=str(dist.get_backend())),
+                   os.path.join(tmp, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+    except BaseException:
+        with open(os.path.join(tmp, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def parallel_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 28, data parallelism on one rank (NCCL), and phase 29, two ranks
+    on the one card (gloo). The sharded runs are held against the plain ones
+    in float32: in bf16 a last-bit difference of BatchNorm's statistics
+    (sums over the group against means) flips a bf16 rounding of some
+    activations, and two AdamW steps grow that to a loss 1.5% apart (a
+    one-rank bf16 run of this phase). Returns, per kernel, its launches on
+    each run, for the JSON line."""
+    import io
+    import pickle
+    import tempfile
+
+    import torch.distributed as dist
+
+    from step_tpu_torch.cli import test as cli_test
+    from step_tpu_torch.cli import train as cli_train
+    from step_tpu_torch.evaluate import collect_video_tubes, evaluate_ucf
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.parallel import create_mesh, init_distributed
+    from step_tpu_torch.train.trainer import (batch_to_device, make_parallel_train_step,
+                                              make_schedule, train_step)
+    from step_tpu_torch.utils.init import init_detector_train_
+
+    out = {name: dict(parallel_launches={}) for name in KERNELS}
+
+    def fits(label, cfg, mesh, loader, hold, n=DP_STEPS):
+        """fit() of `n` steps from phase 14's init: (state, steps, held,
+        memory)."""
+        model = init_detector_train_(STEPDetector(cfg), cfg, SEED)
+        reset_counts()
+        with held_calls() if hold else contextlib.nullcontext({}) as held:
+            state, steps, memory = timed_fit(
+                dict(cfg=cfg, loader=loader, num_epochs=1, model=model, device=dev,
+                     seed=SEED, mesh=mesh), read_counts)
+        check(len(steps) == n == state.step, f"{label}: {len(steps)} steps")
+        return state, steps, held, memory
+
+    def fit_diff(got_steps, got_sd, want_steps, want_sd, cfg) -> dict:
+        """How far two fits are apart: the largest relative difference of a
+        step's loss, the weights beyond 1e-5 (fatal if one is more than 2 lr
+        a step apart) and the largest, and the BN statistics' largest
+        difference relative to their tensor's largest value."""
+        got_l = [float(m["loss"]) for _, _, m in got_steps]
+        want_l = [float(m["loss"]) for _, _, m in want_steps]
+        lr = sum(make_schedule(cfg)(s) for s in range(len(want_l)))
+        far, total, worst = far_weights(got_sd, want_sd, lr,
+                                        [k for k in want_sd if "running_" not in k])
+        stat = max(float((got_sd[k].float() - want_sd[k].float()).abs().max()
+                         / want_sd[k].float().abs().max().clamp(min=1e-3))
+                   for k in want_sd if "running_" in k)
+        return dict(losses=got_l, loss_rel=max(abs(a - b) / abs(b)
+                                               for a, b in zip(got_l, want_l)),
+                    far=far, total=total, worst=worst, lr=lr, stat=stat)
+
+    def same_fit(label, got, spread, weights_like_spread: bool = True) -> str:
+        """`got` (a `fit_diff` against a plain run) within the bounds: losses
+        a step within 1e-3 relative; weights within 2 lr a step, and no more
+        of them beyond 1e-5 than 1.5 times `spread`, the `fit_diff` of a
+        second plain run against the first (the card's training is not
+        bitwise repeatable: its backward sums with atomics), and BN
+        statistics no further apart than 3 times its (one pair of runs
+        estimates that tail loosely); or 0.1% and 1e-2 if those are more
+        (two plain runs of phase 28 were 6e-4 to 3e-3 apart). Without
+        `weights_like_spread` the share and the statistics are reported,
+        not held: two ranks perturb more than a rerun does (halves of the
+        batch through the convolutions, sums over two ranks), and AdamW
+        turns the perturbation into steps of either sign."""
+        far_tol = max(1e-3 * got["total"], 1.5 * spread["far"])
+        stat_tol = max(1e-2, 3 * spread["stat"])
+        check(got["loss_rel"] <= 1e-3, f"{label}: losses {got['losses']}, "
+                                       f"{got['loss_rel']:.3g} apart")
+        if weights_like_spread:
+            check(got["far"] <= far_tol, f"{label}: {got['far']} of {got['total']} "
+                                         f"weights beyond 1e-5, tol {far_tol:.0f}")
+            check(got["stat"] <= stat_tol,
+                  f"{label}: BN statistics {got['stat']:.3g} apart")
+        else:
+            far_tol = stat_tol = float("nan")
+        return (f"losses {', '.join(f'{v:.5f}' for v in got['losses'])} (max rel "
+                f"{got['loss_rel']:.3g}, tol 1e-3; a second plain run "
+                f"{spread['loss_rel']:.3g}); weights {got['far']} of {got['total']} beyond "
+                f"1e-5 (a second plain run {spread['far']}; tol {far_tol:.0f}), max |d| "
+                f"{got['worst']:.3g} (tol 2 lr a step = {2 * got['lr']:.3g}); BN statistics "
+                f"{got['stat']:.3g} relative (a second plain run {spread['stat']:.3g}, tol "
+                f"{stat_tol:.3g})")
+
+    def check_per_step(label, steps):
+        per = {k: sorted({c[k] for _, c, _ in steps}) for k in steps[0][1]}
+        check(per["tube_roi_align"] == [6] and per["max_pool3x3_same"] == [19],
+              f"{label}: launches a step {per} (want K2 6 and K5 19, as phase 14)")
+        return per
+
+    # ---- 28. one rank on NCCL --------------------------------------------
+    t28 = time.time()
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0",
+               WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    cfg = train_cfg("ucf_3step", TRAIN_BATCH)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    try:
+        check(init_distributed() == (0, 1), "init_distributed on one rank")
+        mesh = create_mesh()
+        print(f"[28] one rank: backend {dist.get_backend()}, mesh {mesh}", flush=True)
+        plain, p_steps, _, _ = fits("plain fit", cfg32, None,
+                                    synthetic_loader(cfg32, DP_STEPS), False)
+        p_sd = plain.model.state_dict()
+        again, a_steps, _, _ = fits("plain fit again", cfg32, None,
+                                    synthetic_loader(cfg32, DP_STEPS), False)
+        spread = fit_diff(a_steps, again.model.state_dict(), p_steps, p_sd, cfg32)
+        del again
+        sharded, s_steps, held, memory = fits("sharded fit", cfg32, mesh,
+                                              synthetic_loader(cfg32, DP_STEPS), True)
+        per = check_per_step("sharded fit", s_steps)
+        check(held["tube_roi_align"][0] == 6 * DP_STEPS
+              and held["max_pool3x3_same"][0] == 19 * DP_STEPS,
+              f"sharded fit: calls held {held}")
+        for name in KERNELS:
+            out[name]["parallel_launches"]["sharded_fit_step"] = max(
+                c[name] for _, c, _ in s_steps)
+        text = same_fit("sharded fit against plain fit",
+                        fit_diff(s_steps, sharded.model.state_dict(), p_steps, p_sd, cfg32),
+                        spread)
+        print(f"[28] fit(mesh=create_mesh()) ucf_3step full width, float32, B={TRAIN_BATCH}, "
+              f"{DP_STEPS} steps, against plain fit() on the same seed and batches: {text}; "
+              f"{memory}", flush=True)
+        print(f"    launches a step {per}; every call held against plain: K2 "
+              f"{held['tube_roi_align'][0]} (max |err| {held['tube_roi_align'][1]:.3g}, one "
+              f"bf16 step), K5 {held['max_pool3x3_same'][0]} (raw bits)", flush=True)
+
+        del plain, sharded
+        # The step alone on one fixed batch, in bf16 (the training
+        # configuration), sharded and plain in turns from the same init.
+        from step_tpu_torch.data.pipeline import build_model_batch
+        from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+        from step_tpu_torch.train.trainer import create_train_state
+
+        sharded, plain = (create_train_state(cfg, seed=SEED, device=dev) for _ in range(2))
+
+        syn = SyntheticConfig(image_size=cfg.image_size, num_frames=cfg.total_frames,
+                              num_classes=cfg.num_classes, max_boxes=4)
+        fixed = batch_to_device(build_model_batch(make_batch(SEED + 77, TRAIN_BATCH, syn),
+                                                  cfg, train=True, emit_uint8=True), dev)
+        pstep = make_parallel_train_step(cfg, sharded.model, mesh)
+        steps_of = {"sharded": lambda: pstep(sharded, fixed),
+                    "plain": lambda: train_step(plain, fixed, cfg)}
+        ms = {k: [] for k in steps_of}
+        for _ in range(DP_TIMED):
+            for k, fn in steps_of.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                ms[k].append(start.elapsed_time(end))
+        med = {k: float(np.median(v[1:])) for k, v in ms.items()}
+        prof = {k: step_profile(fn) for k, fn in steps_of.items()}
+        print(f"[28] the bf16 step alone on one fixed batch, {DP_TIMED} in turns ({smi_line}): "
+              f"sharded median {med['sharded']:.2f} ms ({', '.join(f'{v:.1f}' for v in ms['sharded'])}), "
+              f"plain {med['plain']:.2f} ms ({', '.join(f'{v:.1f}' for v in ms['plain'])}), "
+              f"ratio {med['sharded'] / med['plain']:.3f}", flush=True)
+        print(f"    profiler, one step each: {json.dumps(prof)}", flush=True)
+        out["tube_roi_align"]["parallel_step_ms"] = med
+        out["tube_roi_align"]["parallel_step_profile"] = prof
+        del plain, sharded, pstep, fixed, steps_of
+
+        emodel, data = dp_eval_setup(dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            runs = {}
+            for label, m in (("unsharded", None), ("sharded", mesh)):
+                reset_counts()
+                with held_calls() as held_e:
+                    res = evaluate_ucf(emodel, data, mesh=m,
+                                       dump_path=os.path.join(tmp, f"{label}.pkl"))
+                    torch.cuda.synchronize()
+                counts = read_counts()
+                with open(os.path.join(tmp, f"{label}.pkl"), "rb") as f:
+                    runs[label] = (res, pickle.load(f)["detections"], counts, held_e)
+            (r_s, d_s, c_s, h_s), (r_u, d_u, _, _) = runs["sharded"], runs["unsharded"]
+        check_eval_results(r_s, "sharded evaluate_ucf")
+        check(len(d_s) == len(d_u) > 0 and all(
+            a[:3] == b[:3] and np.array_equal(a[3], b[3]) for a, b in zip(d_s, d_u)),
+            "sharded evaluate_ucf's detections differ from the unsharded run's")
+        for key in ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5", "video_mAP@0.5:0.95"):
+            check(r_s[key] == r_u[key] or (np.isnan(r_s[key]) and np.isnan(r_u[key])),
+                  f"sharded evaluate_ucf {key}: {r_s[key]} against {r_u[key]}")
+        check(c_s["nms_many"] > 0 and c_s["tube_roi_align"] == 3 * c_s["nms_many"]
+              and h_s["nms_many"][0] == c_s["nms_many"]
+              and h_s["tube_roi_align"][0] == c_s["tube_roi_align"],
+              f"sharded evaluate_ucf: launches {c_s}, held {h_s}")
+        for name in KERNELS:
+            out[name]["parallel_launches"]["sharded_evaluate_ucf"] = c_s[name]
+        print(f"[28] evaluate_ucf(mesh=...) on {len(data)} windows, bf16, score_thresh 0: "
+              f"{len(d_s)} detections equal to the unsharded run's, mAPs equal "
+              f"(frame_mAP@0.5 {r_s['frame_mAP@0.5']:.4f}); launches {c_s}, every K1 "
+              f"(raw bits) and K2 call held (max |err| {h_s['tube_roi_align'][1]:.3g})",
+              flush=True)
+        del emodel
+
+        with tempfile.TemporaryDirectory() as tmp:
+            root, ckpt = os.path.join(tmp, "ucf"), os.path.join(tmp, "ckpt")
+            write_train_layout(root, cfg)
+            for path, module, argv, expect, kernels_run in (
+                    ("cli_train_distributed", cli_train,
+                     ["--preset", "ucf_3step", "--dataset", "ucf101_24", "--data-root", root,
+                      "--ckpt-dir", ckpt, "--batch-size", "2", "--steps", str(CLI_STEPS),
+                      "--epochs", "1", "--distributed", "--set", "warmup_steps=1"],
+                     ("distributed: process 0/1", f"trained to step {CLI_STEPS}"),
+                     ("tube_roi_align", "max_pool3x3_same")),
+                    ("cli_test_sharded", cli_test,
+                     ["--data-root", root, "--ckpt-dir", ckpt, "--max-batches", "2",
+                      "--set", "score_thresh=0.0", "--sharded"],
+                     ("sharded eval over 1 devices", "frame_mAP@0.5:", "timings:"),
+                     ("nms_many", "tube_roi_align"))):
+                buf = io.StringIO()
+                reset_counts()
+                with contextlib.redirect_stdout(buf):
+                    module.main(argv)
+                    torch.cuda.synchronize()
+                counts = read_counts()
+                text = buf.getvalue()
+                missing = [k for k in expect if k not in text]
+                check(not missing and all(counts[k] > 0 for k in kernels_run),
+                      f"{path}: the output lacks {missing}; launches {counts}")
+                for name in KERNELS:
+                    out[name]["parallel_launches"][path] = counts[name]
+                print("\n".join("    " + line for line in text.splitlines()[-6:]), flush=True)
+                print(f"[28] {path}: launches {counts}", flush=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    print(f"    phase 28 took {time.time() - t28:.1f} s", flush=True)
+
+    # ---- 29. two ranks on the one card, gloo -----------------------------
+    t29 = time.time()
+    torch.cuda.empty_cache()
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [ctx.Process(target=dp_worker, args=(r, 2, port, tmp)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for r, p in enumerate(procs):
+            if p.is_alive():
+                p.kill()
+                p.join()
+            err = os.path.join(tmp, f"rank{r}.err")
+            check(p.exitcode == 0, f"phase 29 rank {r} exited {p.exitcode}: "
+                  + (open(err).read()[-3000:] if os.path.exists(err) else ""))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+        dets = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"dets{r}.pkl"), "rb") as f:
+                dets.append(pickle.load(f)["detections"])
+    print(f"[29] two ranks on the one card, backend {ranks[0]['backend']}: both ran "
+          f"fit(mesh=...) and the evaluation in {time.time() - t29:.1f} s", flush=True)
+    r0, r1 = ranks
+    for a, b in zip(r0["steps"], r1["steps"]):
+        check(all(torch.equal(a[2][k], b[2][k]) for k in a[2]),
+              "phase 29: the ranks' metrics differ")
+    check(all(torch.equal(r0["state"][k], r1["state"][k]) for k in r0["state"]),
+          "phase 29: the ranks' final weights differ")
+    for r, rank in enumerate(ranks):
+        check(len(rank["steps"]) == DP2_STEPS, f"rank {r}: {len(rank['steps'])} steps")
+        check_per_step(f"rank {r}", rank["steps"])
+        held = rank["held_train"]
+        check(held["tube_roi_align"][0] == 6 * DP2_STEPS
+              and held["max_pool3x3_same"][0] == 19 * DP2_STEPS,
+              f"rank {r}: calls held {held}")
+    for name in ("nms_many", "tube_roi_align", "max_pool3x3_same"):
+        out[name]["parallel_launches"]["two_rank_fit_step"] = max(
+            c[name] for _, c, _ in r0["steps"])
+        out[name]["parallel_launches"]["two_rank_evaluation"] = r0["eval_launches"][name]
+    two_ms = float(np.median([ms for ms, _, _ in r0["steps"]][1:]))
+    cfg = train_cfg("ucf_3step", TRAIN_BATCH, compute_dtype="float32")
+    runs = [fits("one-process fit", cfg, None, InterleavedBatches(cfg), False, DP2_STEPS)
+            for _ in range(2)]
+    (one, o_steps, _, _), (again, a_steps, _, _) = runs
+    o_sd = {k: v.cpu() for k, v in one.model.state_dict().items()}
+    spread = fit_diff(a_steps, {k: v.cpu() for k, v in again.model.state_dict().items()},
+                      o_steps, o_sd, cfg)
+    del runs, again
+    text = same_fit("two-rank fit against one process",
+                    fit_diff(r0["steps"], r0["state"], o_steps, o_sd, cfg), spread,
+                    weights_like_spread=False)
+    one_ms = float(np.median([ms for ms, _, _ in o_steps][1:]))
+    out["tube_roi_align"]["two_rank_step_ms"] = dict(two_rank=two_ms, one_process=one_ms)
+    print(f"[29] fit(mesh) float32 at a global B={TRAIN_BATCH} ({TRAIN_BATCH // 2} a rank), "
+          f"{DP2_STEPS} steps: both ranks' metrics and final weights equal bit for bit; "
+          f"against one process on the same global batches: {text}", flush=True)
+    print(f"    step ms ({smi_line}): rank 0 {', '.join(f'{ms:.1f}' for ms, _, _ in r0['steps'])} "
+          f"(median after the first {two_ms:.2f}); one process "
+          f"{', '.join(f'{ms:.1f}' for ms, _, _ in o_steps)} (median {one_ms:.2f}); "
+          f"{r0['memory']}", flush=True)
+    print(f"    every K2 and K5 call held in each rank: K2 "
+          f"{[r['held_train']['tube_roi_align'][0] for r in ranks]} (max |err| "
+          f"{max(r['held_train']['tube_roi_align'][1] for r in ranks):.3g}), K5 "
+          f"{[r['held_train']['max_pool3x3_same'][0] for r in ranks]} (raw bits)", flush=True)
+    del one
+    emodel, data = dp_eval_setup(dev, torch.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        want = evaluate_ucf(emodel, data, dump_path=os.path.join(tmp, "dets.pkl"))
+        with open(os.path.join(tmp, "dets.pkl"), "rb") as f:
+            want_dets = pickle.load(f)["detections"]
+    want_tubes = collect_video_tubes(emodel, data)
+    for r, rank in enumerate(ranks):
+        label = f"rank {r} two-rank evaluate_ucf"
+        check(rank["results"]["timings"]["n_detections"] == want["timings"]["n_detections"],
+              f"{label}: {rank['results']['timings']['n_detections']} detections against "
+              f"{want['timings']['n_detections']}")
+        worst = [0.0, 0.0]
+        for video in {d[0][0] for d in want_dets}:
+            w = matched_detections([d for d in dets[r] if d[0][0] == video],
+                                   [d for d in want_dets if d[0][0] == video], label)
+            worst = [max(a, b) for a, b in zip(worst, w)]
+        for key in ("frame_mAP@0.5", "video_mAP@0.2", "video_mAP@0.5"):
+            a, b = rank["results"][key], want[key]
+            check(abs(a - b) <= EVAL_MAP_TOL or (np.isnan(a) and np.isnan(b)),
+                  f"{label} {key}: {a} against {b}")
+        n, box_err, score_err = same_tubes(rank["tubes"], want_tubes,
+                                           f"rank {r} two-rank collect_video_tubes")
+        held = rank["held_eval"]
+        check(held["nms_many"][0] == rank["eval_launches"]["nms_many"] > 0
+              and held["tube_roi_align"][0] == rank["eval_launches"]["tube_roi_align"],
+              f"rank {r} evaluation: held {held}, launches {rank['eval_launches']}")
+        print(f"[29] rank {r}: evaluate_ucf(mesh) {len(dets[r])} detections matched one to "
+              f"one with the unsharded run's (scores {worst[0]:.3g}, boxes {worst[1]:.3g} "
+              f"px), mAPs within {EVAL_MAP_TOL}; collect_video_tubes(mesh) {n} tubes "
+              f"matched (boxes {box_err:.3g} px, scores {score_err:.3g}); K1 "
+              f"{held['nms_many'][0]} and K2 {held['tube_roi_align'][0]} calls held",
+              flush=True)
+    print(f"    phase 29 took {time.time() - t29:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.time()
     if not torch.cuda.is_available():
@@ -3439,6 +3944,7 @@ def main() -> None:
     frame_fc = frame_fc_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     classifier = classifier_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     serving = serving_phases(dev, rng, seeded, smi.stdout.strip(), reset_counts, read_counts)
+    parallel = parallel_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -3464,7 +3970,7 @@ def main() -> None:
          "launches": launches[name], **results[name], **video[name], **training[name],
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
-         **serving[name]}
+         **serving[name], **parallel[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

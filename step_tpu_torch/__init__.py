@@ -20,6 +20,8 @@ Layers, entry point first:
                    each a plain PyTorch version plus a CUDA kernel
                    (kernels.py, csrc/); the pool backward (pool_grad.py)
   train/           the progressive losses, train_step, fit()
+  parallel/        data parallelism: one card a rank in a process group,
+                   its "data" mesh, the per-process batch slices
   evaluate.py      detections over a dataset, dedupe, tube linking, the
                    UCF101-24 frame- and video-mAP (evaluate_ucf), AVA's
                    keyframe frame-mAP (evaluate_ava)

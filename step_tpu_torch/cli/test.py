@@ -20,8 +20,12 @@ UCF the phase timings and the JPEG decoder that ran:
 RGB detector and `--flow-ckpt-dir` a flow-stream one (trained with `--set
 input_stream=flow`); UCF only, and not with `--optimized`, as in the JAX
 package. A two-stream or flow-stream checkpoint is evaluated with its
-preset or `--set`. `--sharded` (ROADMAP M9) is not ported yet and exits
-with a message that names its item.
+preset or `--set`. `--sharded` splits each detection batch over the
+ranks of the process group (`parallel.create_mesh`, one card a process):
+under plain `python -m` that is one rank; under `torchrun --nproc-per-node
+N` N ranks, each with its card, all printing the same results. (The JAX
+package's `--sharded` spreads a batch over every local chip of one
+process.)
 """
 
 from __future__ import annotations
@@ -54,7 +58,8 @@ def parse_args(argv=None):
                    help="link video tubes on the device (K-tube Viterbi) instead "
                         "of the host's greedy linker")
     p.add_argument("--sharded", action="store_true",
-                   help="data-parallel evaluation (not ported yet: ROADMAP M9)")
+                   help="split each detection batch over the process group's ranks "
+                        "(one card a process; torchrun for more than one)")
     p.add_argument("--flow-ckpt-dir", default=None,
                    help="second (flow-stream) checkpoint: the late-fusion protocol "
                         "(UCF only)")
@@ -86,9 +91,6 @@ def format_results(results: dict) -> list[str]:
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.sharded:
-        raise SystemExit("--sharded: data-parallel evaluation is not ported yet "
-                         "(ROADMAP M9)")
     import torch
 
     from step_tpu_torch.cli.train import ava_dataset
@@ -116,6 +118,13 @@ def main(argv=None) -> dict:
         # late fusion: the primary checkpoint is the single-stream RGB
         # detector whatever the preset's two_stream flag
         cfg = cfg.replace(two_stream=False, input_stream="rgb")
+    mesh = None
+    if args.sharded:
+        from step_tpu_torch.parallel import create_mesh, init_distributed
+
+        init_distributed()
+        mesh = create_mesh(device_type=torch.device(args.device).type)
+        print(f"sharded eval over {mesh.size()} devices", flush=True)
     state = create_train_state(cfg, seed=0, device=args.device)
     state, _ = restore_checkpoint(args.ckpt_dir, state)
     model = state.model
@@ -139,7 +148,7 @@ def main(argv=None) -> dict:
     if cfg.dataset == "ava":
         dataset = ava_dataset(cfg, args, args.annotation_file or "ava_val_v2.1.csv")
         results = evaluate_ava(model, dataset, dump_path=args.dump,
-                               max_batches=args.max_batches)
+                               max_batches=args.max_batches, mesh=mesh)
     else:
         dataset = UCFDataset(args.data_root, cfg, split="test",
                              annotation_file=args.annotation_file or "UCF101v2-GT.pkl",
@@ -148,7 +157,7 @@ def main(argv=None) -> dict:
                                max_batches=args.max_batches, calibration=args.calibration,
                                fit_calibration_path=args.fit_calibration,
                                model_flow=model_flow, device_linking=args.device_linking,
-                               max_videos=args.max_videos)
+                               max_videos=args.max_videos, mesh=mesh)
         print(f"decoder: {dataset.decoder}")
     for line in format_results(results):
         print(line)

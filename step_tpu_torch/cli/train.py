@@ -22,8 +22,13 @@ validation CSV (`--eval-annotation-file`) with `evaluate_ava`.
 checkpoint in any public naming (`models/convert.py`); `--set
 adam_moments=int8` keeps AdamW's moments in 8-bit blocks and `--set
 reg_head=frame_fc` trains the reference's 4·T regression FC.
-`--distributed` (ROADMAP M9) is not ported yet and exits with a message
-that names its item.
+`--distributed` trains data-parallel, one process a card, under torchrun:
+
+    torchrun --nproc-per-node 8 -m step_tpu_torch.cli.train --distributed \
+        --preset ucf_3step --data-root /data/ucf24 --ckpt-dir runs/ucf/ckpt
+
+Each process loads its share, `batch_size // processes`, of the global
+batch; as in the JAX package, `--eval-every-epochs` is refused with it.
 """
 
 from __future__ import annotations
@@ -53,7 +58,8 @@ def parse_args(argv=None):
                         "backbone")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--distributed", action="store_true",
-                   help="data-parallel training (not ported yet: ROADMAP M9)")
+                   help="data-parallel training over the process group that "
+                        "torchrun's environment names (one card a process)")
     p.add_argument("--tiny", action="store_true", help="tiny backbone (debug)")
     p.add_argument("--eval-every-epochs", type=int, default=0,
                    help="held-out evaluation every N epochs (0 = off); ucf101_24 "
@@ -166,20 +172,38 @@ def build_eval_fn(cfg, args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.distributed:
-        raise SystemExit("--distributed: data-parallel training is not ported yet "
-                         "(ROADMAP M9)")
     cfg = build_config(args)
+    pi, pc, mesh = 0, 1, None
+    if args.distributed:
+        import os
+
+        import torch
+
+        from step_tpu_torch.parallel import create_mesh, init_distributed
+
+        # refused before the group forms, so that every rank fails alike
+        if args.eval_every_epochs:
+            # (the JAX package's reason, train.py:204-209)
+            raise SystemExit("--eval-every-epochs is not supported with "
+                             "--distributed; run cli.test from one process")
+        world = int(os.environ.get("WORLD_SIZE", "1"))
+        if cfg.batch_size % world:
+            raise SystemExit(f"batch_size {cfg.batch_size} not divisible by "
+                             f"{world} processes")
+        pi, pc = init_distributed()
+        mesh = create_mesh(device_type=torch.device(args.device).type)
+        print(f"distributed: process {pi}/{pc}", flush=True)
     from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.train.fit import fit
 
     dataset = build_dataset(cfg, args)
-    loader = DataLoader(dataset, cfg, batch_size=cfg.batch_size, train=True, seed=args.seed)
+    loader = DataLoader(dataset, cfg, batch_size=cfg.batch_size // pc, train=True,
+                        seed=args.seed, process_count=pc, process_index=pi)
     eval_fn = build_eval_fn(cfg, args) if args.eval_every_epochs else None
     state = fit(cfg, loader, num_epochs=args.epochs, ckpt_dir=args.ckpt_dir,
                 log_dir=args.log_dir, resume=args.resume, seed=args.seed, eval_fn=eval_fn,
                 eval_every_epochs=args.eval_every_epochs or 1, device=args.device,
-                pretrained_i3d=args.pretrained_i3d)
+                pretrained_i3d=args.pretrained_i3d, mesh=mesh)
     print(f"trained to step {state.step} on {args.device}"
           + (f"; decoder: {dataset.decoder}" if hasattr(dataset, "decoder") else ""),
           flush=True)

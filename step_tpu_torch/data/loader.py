@@ -3,7 +3,10 @@
 Port of `step_tpu/data/loader.py`: worker threads load and assemble the
 next batches (`build_model_batch`) while the card runs the current step.
 The per-epoch order is a seeded shuffle, the same on every process, so a
-run resumed at `(epoch, batch_index)` sees the batches it would have seen.
+run resumed at `(epoch, batch_index)` sees the batches it would have seen;
+in a data-parallel run each process takes its strided slice of it
+(`parallel.process_shard`'s order), cut to the same length on every
+process, so that every process runs the same number of steps.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.data.pipeline import build_model_batch
+from step_tpu_torch.parallel.distributed import process_shard
 
 _STACK_KEYS = ("rgb", "flow", "gt_tubes", "gt_labels", "gt_mask")
 
@@ -33,12 +37,15 @@ class DataLoader:
     shuffled per epoch from `seed + epoch`, assembled by worker threads up
     to `prefetch` batches ahead; `drop_last` drops a short last batch;
     rgb ships as uint8 unless `emit_uint8` (default
-    `cfg.uint8_transfer`) says otherwise."""
+    `cfg.uint8_transfer`) says otherwise. With `process_count` > 1 the
+    loader serves process `process_index`'s slice of each epoch, and its
+    `batch_size` is the process's share of the global batch."""
 
     def __init__(self, dataset, cfg: StepConfig, batch_size: Optional[int] = None,
                  shuffle: bool = True, train: bool = True, seed: int = 0,
                  num_workers: int = 4, prefetch: int = 4, drop_last: bool = True,
-                 emit_uint8: Optional[bool] = None):
+                 emit_uint8: Optional[bool] = None, process_count: int = 1,
+                 process_index: int = 0):
         self.dataset = dataset
         self.cfg = cfg
         self.emit_uint8 = cfg.uint8_transfer if emit_uint8 is None else emit_uint8
@@ -49,15 +56,19 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
         self.drop_last = drop_last
+        self.process_count = process_count
+        self.process_index = process_index
 
     def __len__(self):
-        n, rem = divmod(len(self.dataset), self.batch_size)
+        n, rem = divmod(len(self.dataset) // self.process_count, self.batch_size)
         return n + (1 if rem and not self.drop_last else 0)
 
     def _epoch_batches(self, epoch: int) -> list[np.ndarray]:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + epoch).shuffle(idx)
+        if self.process_count > 1:
+            idx = idx[process_shard(len(idx), self.process_count, self.process_index)]
         batches = [idx[i:i + self.batch_size]
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:

@@ -10,8 +10,12 @@ run on the host in numpy, as in the JAX package. Each function takes the
 port's model where the JAX one takes variables; its config is
 `model.cfg`. Late fusion takes a second, flow-stream model, `model_flow`,
 where the JAX package takes `variables_flow`; a two-stream or flow-stream
-model reads the dataset's flow itself. Data-parallel evaluation (`mesh`)
-waits for ROADMAP M9: that argument raises.
+model reads the dataset's flow itself. With a `mesh`
+(`parallel.create_mesh`) every rank runs the same evaluation: each
+detection batch, padded to a multiple of the mesh's size, is split over
+the ranks (`inference.make_parallel_detect_fn`) and the detections
+gathered to every rank, where the padded rows are dropped; linking and
+scoring run on each rank, so every rank returns the unsharded result.
 """
 
 from __future__ import annotations
@@ -36,14 +40,9 @@ from step_tpu_torch.eval.detection_metrics import (_iou_1vsN, frame_map,
                                                    video_map_range)
 from step_tpu_torch.inference import (FLOW_DATASET_ERROR, detect_clip,
                                       detect_clip_late_fusion, eval_needs_flow,
-                                      link_video)
+                                      link_video, make_parallel_detect_fn,
+                                      make_parallel_late_fusion_detect_fn, pad_batch_to)
 from step_tpu_torch.models.detector import STEPDetector
-
-
-def _refuse_unported(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("data-parallel evaluation (mesh) is not ported "
-                                  "yet: ROADMAP M9")
 
 
 def _scale_to_gt(dataset, video, cfg, image_scale_to_gt: bool) -> np.ndarray:
@@ -56,15 +55,27 @@ def _scale_to_gt(dataset, video, cfg, image_scale_to_gt: bool) -> np.ndarray:
     return np.asarray([sx, sy, sx, sy], np.float32)
 
 
-def _detect(model, model_flow, rgb, proposals, prop_mask, flow):
-    """One detection batch as the collectors run it: late fusion with
-    `model_flow`; else `model` on its primary input (a flow-stream
-    detector's is the flow) and, with two stems, the flow beside it."""
-    if model_flow is not None:
-        return detect_clip_late_fusion(model, model_flow, rgb, flow, proposals, prop_mask)
-    if model.cfg.input_stream == "flow":
-        rgb, flow = flow, None
-    return detect_clip(model, rgb, proposals, prop_mask, flow)
+def _detector(model, model_flow, mesh):
+    """(detect, shards): `detect(rgb, proposals, prop_mask, flow)` runs one
+    detection batch as the collectors run it, late fusion with
+    `model_flow`, else `model` on its primary input (a flow-stream
+    detector's is the flow) and, with two stems, the flow beside it; with
+    a `mesh`, split over its ranks (the batch a multiple of `shards`)."""
+    cfg = model.cfg
+    single, fuse, shards = detect_clip, detect_clip_late_fusion, 1
+    if mesh is not None:
+        single, fuse = (make_parallel_detect_fn(cfg, mesh),
+                        make_parallel_late_fusion_detect_fn(cfg, mesh))
+        shards = mesh.size()
+
+    def detect(rgb, proposals, prop_mask, flow):
+        if model_flow is not None:
+            return fuse(model, model_flow, rgb, flow, proposals, prop_mask)
+        if cfg.input_stream == "flow":
+            rgb, flow = flow, None
+        return single(model, rgb, proposals, prop_mask, flow)
+
+    return detect, shards
 
 
 def collect_detections(model, dataset, batch_size: int = 8,
@@ -91,7 +102,9 @@ def collect_detections(model, dataset, batch_size: int = 8,
     `model_flow`, a flow-stream detector, runs the late-fusion protocol
     (`detect_clip_late_fusion`, `model` the RGB stream). It, a two-stream
     and a flow-stream `model` need a dataset built with flow. `mesh`
-    (ROADMAP M9) raises.
+    splits each batch over its ranks (`inference.make_parallel_detect_fn`):
+    a short last batch is padded to a multiple of the mesh's size and the
+    padded rows are dropped here.
     """
     cfg = model.cfg
     if cfg.temporal_stride != 1:
@@ -101,11 +114,11 @@ def collect_detections(model, dataset, batch_size: int = 8,
         raise ValueError(
             "collect_detections' sliding-window ownership protocol "
             f"requires temporal_stride == 1; got {cfg.temporal_stride}")
-    _refuse_unported(mesh)
     device = next(model.parameters()).device
     loader = DataLoader(dataset, cfg, batch_size=batch_size, shuffle=False,
                         train=False, drop_last=False, num_workers=2)
     need_flow = eval_needs_flow(cfg, model_flow)
+    detect, shards = _detector(model, model_flow, mesh)
 
     det_list, det_central, owned_fkeys = [], [], set()
     fpc = cfg.frames_per_chunk
@@ -116,10 +129,10 @@ def collect_detections(model, dataset, batch_size: int = 8,
         flow = batch.get("flow") if need_flow else None
         if need_flow and flow is None:
             raise ValueError(FLOW_DATASET_ERROR)
-        out = _detect(model, model_flow,
-                      *(None if v is None else torch.from_numpy(v).to(device)
-                        for v in (batch["rgb"], batch["proposals"], batch["prop_mask"],
-                                  flow)))
+        out = detect(*(None if v is None else torch.from_numpy(pad_batch_to(v, shards))
+                       .to(device)
+                       for v in (batch["rgb"], batch["proposals"], batch["prop_mask"],
+                                 flow)))
         boxes = out["frame_boxes"].float().cpu().numpy()     # [B, T, C, K, 4]
         scores = out["frame_scores"].float().cpu().numpy()   # [B, T, C, K]
         mask = out["frame_mask"].cpu().numpy()
@@ -186,8 +199,9 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
     Boxes are scaled to the dataset's `resolution` when it has one and
     `image_scale_to_gt` is set. `model_flow`: late fusion on the tube
     surface, as in `collect_detections` (scores fused before linking,
-    boxes from the RGB stream). `mesh` (data-parallel evaluation, ROADMAP
-    M9) is not ported yet and raises.
+    boxes from the RGB stream). `mesh` splits each clip batch over its
+    ranks (`clip_batch` rounds up to a multiple of the mesh's size); the
+    linking runs on each rank's device.
     """
     cfg = model.cfg
     if cfg.temporal_stride != 1:
@@ -196,8 +210,9 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
         raise ValueError(
             "collect_video_tubes' clip-tiling protocol requires "
             f"temporal_stride == 1; got {cfg.temporal_stride}")
-    _refuse_unported(mesh)
     need_flow = eval_needs_flow(cfg, model_flow)
+    detect, shards = _detector(model, model_flow, mesh)
+    clip_batch = -(-clip_batch // shards) * shards
     if calibration is not None:
         if isinstance(calibration, str):
             calibration = dict(np.load(calibration))
@@ -242,8 +257,8 @@ def collect_video_tubes(model, dataset, max_videos: Optional[int] = None,
             tubes_np, scores_np = [], []
             for s in range(0, L, clip_batch):
                 n = min(clip_batch, L - s)
-                det = _detect(model, model_flow, wire(padded(clips, s)), props, pmask,
-                              wire(padded(flows, s)) if flows else None)
+                det = detect(wire(padded(clips, s)), props, pmask,
+                             wire(padded(flows, s)) if flows else None)
                 tubes_np.append(det["tubes"][:n].cpu().numpy())
                 scores_np.append(det["tube_scores"][:n].cpu().numpy())
             tubes = np.concatenate(tubes_np, axis=0)      # [L, P, T, 4]
@@ -426,14 +441,13 @@ def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
     (`collect_s`, `dedupe_s`, `frame_map_s`, `link_s`, `video_map_s`), the
     counts `n_detections` and `n_tubes`, and the process's `peak_rss_mb`.
     `model_flow`: late fusion in both passes (`collect_detections`).
-    `mesh` (ROADMAP M9) raises.
+    `mesh`: both passes split their batches over its ranks.
     """
-    _refuse_unported(mesh)
     cfg = model.cfg
     timings: dict = {}
     t0 = time.perf_counter()
     coverage = {} if max_batches is not None else None
-    raw_dets = collect_detections(model, dataset, max_batches=max_batches,
+    raw_dets = collect_detections(model, dataset, max_batches=max_batches, mesh=mesh,
                                   model_flow=model_flow, coverage=coverage)
     timings["collect_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -475,7 +489,7 @@ def evaluate_ucf(model, dataset, dump_path: Optional[str] = None,
         # calibrated before linking, as the host linker links calibrated
         # detections
         pred_tubes = tube_nms(collect_video_tubes(model, dataset, max_videos=max_videos,
-                                                  model_flow=model_flow,
+                                                  model_flow=model_flow, mesh=mesh,
                                                   calibration=calibration),
                               cfg.tube_nms_thresh)
         if max_videos is not None:
@@ -513,26 +527,26 @@ def evaluate_ava(model, dataset, dump_path: Optional[str] = None,
     `image_size`. `max_batches` bounds the pass (batches of 4), and the GT
     is then cut to the keyframes seen. `dump_path` pickles `{"detections":
     [...]}` in the JAX package's layout. RGB only: the dataset has no flow,
-    so a two-stream or flow-stream model raises. `mesh` (ROADMAP M9)
-    raises.
+    so a two-stream or flow-stream model raises. `mesh` splits each batch
+    over its ranks, as `collect_detections` does.
     """
     cfg = model.cfg
     if cfg.two_stream or cfg.input_stream != "rgb":
         raise ValueError(
             "AVA evaluation is RGB-only (the dataset has no flow stream); "
             "got two_stream/input_stream overrides")
-    _refuse_unported(mesh)
     device = next(model.parameters()).device
     loader = DataLoader(dataset, cfg, batch_size=4, shuffle=False, train=False,
                         drop_last=False, num_workers=2)
+    detect, shards = _detector(model, None, mesh)
     kf = cfg.total_frames // 2
     detections = []
     seen_keys = set()          # the keyframes evaluated (max_batches)
     for bi, batch in enumerate(loader.epoch(0)):
         if max_batches is not None and bi >= max_batches:
             break
-        out = detect_clip(model, *(torch.from_numpy(batch[k]).to(device)
-                                   for k in ("rgb", "proposals", "prop_mask")))
+        out = detect(*(torch.from_numpy(pad_batch_to(batch[k], shards)).to(device)
+                       for k in ("rgb", "proposals", "prop_mask")), None)
         boxes = out["frame_boxes"][:, kf].float().cpu().numpy()     # [B, C, K, 4]
         scores = out["frame_scores"][:, kf].float().cpu().numpy()   # [B, C, K]
         mask = out["frame_mask"][:, kf].cpu().numpy()

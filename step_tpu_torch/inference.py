@@ -4,7 +4,9 @@ per-frame NMS, cross-clip linking and the streaming chunk cache.
 Port of `step_tpu/inference.py`: `class_scores_from_logits` (:26-31),
 `nms_surface` (:40-94, the batched-NMS branch), `detect_clip` (:126-151),
 the late-fusion protocol `detect_clip_late_fusion` (:154-188) and
-`eval_needs_flow` (:429-433), the streaming forms `detect_video_stream`
+`eval_needs_flow` (:429-433), the data-parallel forms
+`make_parallel_detect_fn`, `make_parallel_late_fusion_detect_fn` and
+`pad_batch_to` (:481-582), the streaming forms `detect_video_stream`
 and `detect_video_stream_batched` (:290-422) and `detect_video`
 (:584-630); each takes a two-stream detector's second stream as `flow`.
 The NMS surface is the custom operator `step::nms_surface`: on the card
@@ -24,11 +26,14 @@ streaming forms (:347, :394, :416).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.nms import _f32, kernel_valid, nms_many_plain, premask_scores
+from step_tpu_torch.parallel.distributed import shard_rows
+from step_tpu_torch.parallel.mesh import mesh_group
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 
 
@@ -207,6 +212,82 @@ def detect_clip_late_fusion(model_rgb, model_flow, rgb: torch.Tensor,
 
 FLOW_DATASET_ERROR = ("two-stream/late-fusion/flow-stream eval needs a "
                       "flow-enabled dataset (with_flow=True)")
+
+
+def _gather_rows(out: dict, group, world: int) -> dict:
+    """Every rank's rows of `out`'s tensors, concatenated in rank order, as
+    host tensors on every rank: the host copies travel through the group's
+    host backend (gloo has no all-gather of CUDA tensors)."""
+    host = {k: v.cpu().contiguous() for k, v in out.items()}
+    if world == 1:
+        return host
+    gathered = {}
+    for k, v in host.items():
+        parts = [torch.empty_like(v) for _ in range(world)]
+        torch.distributed.all_gather(parts, v, group=group)
+        gathered[k] = torch.cat(parts)
+    return gathered
+
+
+def _rows(x, rows: slice, device):
+    return torch.as_tensor(x)[rows].to(device)
+
+
+def make_parallel_detect_fn(cfg: StepConfig, mesh):
+    """`detect_clip` over the "data" axis of `mesh` →
+    `detect(model, rgb, proposals, prop_mask, flow=None)`, called as
+    `detect_clip` is, alike on every rank with the same global batch (host
+    or device tensors, its batch a multiple of the mesh's size:
+    `pad_batch_to`), a two-stream `cfg`'s flow with it. Each rank detects
+    its block of rows (`parallel.distributed.shard_rows`, as GSPMD places
+    a batch-sharded array) with its `model`; the outputs, gathered to every
+    rank in rank order, are `detect_clip`'s dict of the global batch, on
+    the host.
+
+    Port of `step_tpu/inference.py:481-533`. The JAX function takes its
+    variables at the call; here the rank's model, which holds its weights,
+    takes their place, so the factory has no `model` argument."""
+    group, rank, world = mesh_group(mesh)
+
+    def detect(model, rgb, proposals, prop_mask, flow=None):
+        if (flow is not None) != cfg.two_stream:
+            raise ValueError("a two-stream detector takes flow, and only it does")
+        rows = shard_rows(len(rgb), world, rank)
+        device = next(model.parameters()).device
+        out = detect_clip(model, *(None if x is None else _rows(x, rows, device)
+                                   for x in (rgb, proposals, prop_mask, flow)))
+        return _gather_rows(out, group, world)
+
+    return detect
+
+
+def make_parallel_late_fusion_detect_fn(cfg: StepConfig, mesh):
+    """`detect_clip_late_fusion` over the "data" axis of `mesh`, as
+    `make_parallel_detect_fn` runs `detect_clip` →
+    `detect_lf(model_rgb, model_flow, rgb, flow, proposals, prop_mask)`,
+    called as `detect_clip_late_fusion` is (`step_tpu/inference.py:539-564`)."""
+    group, rank, world = mesh_group(mesh)
+
+    def detect_lf(model_rgb, model_flow, rgb, flow, proposals, prop_mask):
+        rows = shard_rows(len(rgb), world, rank)
+        device = next(model_rgb.parameters()).device
+        rgb, proposals, prop_mask, flow = (_rows(x, rows, device)
+                                           for x in (rgb, proposals, prop_mask, flow))
+        out = detect_clip_late_fusion(model_rgb, model_flow, rgb, flow, proposals, prop_mask)
+        return _gather_rows(out, group, world)
+
+    return detect_lf
+
+
+def pad_batch_to(arr: np.ndarray, multiple: int) -> np.ndarray:
+    """Pad a [B, ...] array's batch dim up to the next multiple by repeating
+    the last element (keeps shapes static for sharded eval; padded rows are
+    dropped host-side by iterating only the real metadata)."""
+    b = arr.shape[0]
+    pad = -b % multiple
+    if pad == 0:
+        return arr
+    return np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)], axis=0)
 
 
 def eval_needs_flow(cfg: StepConfig, model_flow=None) -> bool:

@@ -106,6 +106,7 @@ class STEPDetector(nn.Module):
                           cfg.fused_inception3 in ("tail", "all"),
                           cfg.dropout_rate, cfg.reg_head, feature_frames(cfg))
             for _ in range(cfg.num_steps))
+        self.data_shard = None      # (rank, world) in a data-parallel train step
 
     def forward(self, rgb: torch.Tensor, proposals: torch.Tensor,
                 flow: torch.Tensor | None = None, train: bool = False,
@@ -170,8 +171,7 @@ class STEPDetector(nn.Module):
         for step, head in enumerate(self.steps):
             fmask = chunk_frame_mask(step, cfg.num_chunks, cfg.frames_per_chunk,
                                      cfg.temporal_extension, device=tubes.device)
-            masks = (draw_dropout_masks(head.dropout_shapes(B * P, feat.shape[1]),
-                                        cfg.dropout_rate, generator, feat.device)
+            masks = (self._dropout_masks(head, B, P, feat.shape[1], generator, feat.device)
                      if drop else None)
             args = (head, feat, tubes, ctx_flat, fmask, t_idx, train, masks)
             cls_logits, deltas, filled = (remat(self._step, *args) if remat
@@ -182,6 +182,19 @@ class STEPDetector(nn.Module):
                 outputs[key].append(value)
             tubes = filled.detach()
         return {k: torch.stack(v) for k, v in outputs.items()}
+
+    def _dropout_masks(self, head, B, P, Tp, generator, device):
+        """A step's dropout keep-masks for B clips of P tubes. In a
+        data-parallel step (`data_shard` = (rank, world)) the masks of the
+        global batch are drawn and the rank keeps its rows, `rank::world`,
+        so every rank draws what one process would on the global batch."""
+        rank, world = self.data_shard or (0, 1)
+        masks = draw_dropout_masks(head.dropout_shapes(B * world * P, Tp),
+                                   self.cfg.dropout_rate, generator, device)
+        if world == 1:
+            return masks
+        return tuple(m.reshape(B * world, P, *m.shape[1:])[rank::world]
+                     .reshape(B * P, *m.shape[1:]) for m in masks)
 
     def _step(self, head, feat, tubes, ctx_flat, fmask, t_idx, train, masks):
         """One refinement step: pool the tubes, run the head, decode, clip

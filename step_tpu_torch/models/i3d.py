@@ -45,6 +45,7 @@ import math
 import os
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -52,6 +53,7 @@ from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
 from step_tpu_torch.ops.pool import max_pool3x3_same
 from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
+from step_tpu_torch.parallel.distributed import all_reduce_sum
 from step_tpu_torch.utils.tensor_cache import derived
 
 # Inception-v1 branch widths: (b0_1x1, b1_reduce, b1_3x3, b2_reduce, b2_3x3, b3_pool_proj)
@@ -132,7 +134,15 @@ class BatchNorm(nn.Module):
     `running_updates` gives flax's running update from them. The trainer
     commits that update after the backward, so a forward that
     `torch.utils.checkpoint` runs again leaves the same values, not a
-    second update."""
+    second update.
+
+    In a data-parallel train step (`batch_group` set to the "data" axis's
+    process group, `train/trainer.py::make_parallel_train_step`) the
+    statistics are the global batch's, as GSPMD computes them for the JAX
+    package: the per-channel sum and sum of squares in float32, summed over
+    the ranks in one differentiable all-reduce, then flax's one-pass
+    formula on the global element count. Every rank issues the same
+    collectives in the same order, the remat recompute included."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -142,6 +152,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
         self._affine = {}           # scale_bias(), reused while the state holds
         self.batch_stats = None     # (mean, var) of the last train-mode batch
+        self.batch_group = None     # the process group of a data-parallel step
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         shape = (1, -1) + (1,) * (x.dim() - 2)
@@ -149,8 +160,16 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.float32)
         if train:
             dims = (0,) + tuple(range(2, x.dim()))
-            mean = x32.mean(dim=dims)
-            var = torch.clamp((x32 * x32).mean(dim=dims) - mean * mean, min=0.0)
+            if self.batch_group is None:
+                mean = x32.mean(dim=dims)
+                var = torch.clamp((x32 * x32).mean(dim=dims) - mean * mean, min=0.0)
+            else:
+                group = self.batch_group
+                n = x32.numel() // x32.shape[1] * dist.get_world_size(group)
+                sums = all_reduce_sum(torch.cat([x32.sum(dim=dims),
+                                                 (x32 * x32).sum(dim=dims)]), group)
+                mean, mean2 = (sums / n).chunk(2)
+                var = torch.clamp(mean2 - mean * mean, min=0.0)
             self.batch_stats = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

@@ -9,8 +9,16 @@ window closes (`MetricsLogger.print_every` steps), so the host runs ahead
 of the card between windows. `pretrained_i3d` starts the backbone from a
 Kinetics I3D checkpoint (`models/convert.py`) with fresh optimizer
 moments, as the JAX package does (`step_tpu/train/fit.py:153-164`); a
-resumed checkpoint wins over it. Not ported yet: the `mesh` argument
-(data parallelism, ROADMAP.md M9).
+resumed checkpoint wins over it.
+
+With a `mesh` (`parallel.create_mesh`) every rank runs `fit` on its own
+loader (`DataLoader(process_count=..., process_index=...)`, the rank's
+share of the global batch `cfg.batch_size`) and steps through
+`make_parallel_train_step`: rank 0's state is broadcast once after the
+pretrained load or the resume, only rank 0 writes checkpoints and
+metrics (the others wait for each checkpoint), every rank restores, and a
+signal seen by any rank stops every rank after the same step (the flag is
+agreed on at each step by a host-side all-reduce).
 """
 
 from __future__ import annotations
@@ -23,13 +31,16 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch.distributed import ReduceOp
 
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.convert import pretrained_detector_variables
 from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.parallel.distributed import broadcast_tensors, host_all_reduce
+from step_tpu_torch.parallel.mesh import mesh_device, mesh_group
 from step_tpu_torch.train.trainer import (TrainState, batch_to_device,
-                                          create_train_state, resolve_device,
-                                          train_step)
+                                          create_train_state, make_parallel_train_step,
+                                          resolve_device, train_step)
 from step_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
@@ -62,12 +73,31 @@ class MetricsLogger:
             self.jsonl.close()
 
 
+def _state_tensors(state: TrainState) -> list:
+    """The tensors of the model (parameters, BatchNorm statistics) and of the
+    optimizer state, in a fixed order."""
+    out = list(state.model.state_dict().values())
+
+    def walk(x):
+        if torch.is_tensor(x):
+            out.append(x)
+        elif isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(state.opt_state)
+    return out
+
+
 def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = None,
         log_dir: Optional[str] = None, resume: bool = False, ckpt_every: int = 500,
         model: Optional[STEPDetector] = None, eval_fn: Optional[Callable] = None,
         eval_every_epochs: int = 1, seed: int = 0, handle_signals: bool = True,
         prefetch_upload: bool = False, device="cuda",
-        pretrained_i3d: Optional[str] = None) -> TrainState:
+        pretrained_i3d: Optional[str] = None, mesh=None) -> TrainState:
     """Train `cfg` on `loader` (`data.loader.DataLoader`) for `num_epochs`
     or until `cfg.total_steps`, on `device` (the card unless the caller
     asks for the CPU). `model` is trained as given, else a new detector
@@ -77,8 +107,17 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
     batch to the card (pinned, non-blocking) as soon as the current step
     is issued. `pretrained_i3d`, a torch I3D checkpoint file, loads the
     backbone (stems and every step's tail) before the first step and
-    starts the optimizer moments anew on the loaded weights. Returns the
-    final state."""
+    starts the optimizer moments anew on the loaded weights. `mesh`
+    trains data-parallel on the mesh's ranks (the rank's card, or the CPU
+    for a CPU mesh, in place of `device`); the global batch must divide
+    over them. Returns the final state."""
+    rank, group = 0, None
+    if mesh is not None:
+        group, rank, world = mesh_group(mesh)
+        if cfg.batch_size % world:
+            raise ValueError(f"global batch {cfg.batch_size} must divide over all "
+                             f"{world} ranks")
+        device = mesh_device(mesh)
     device = resolve_device(device)
     state = create_train_state(cfg, seed, model, device)
     if pretrained_i3d:
@@ -99,7 +138,14 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
                   f"batch {start_batch})", flush=True)
         except FileNotFoundError:
             pass
-    logger = MetricsLogger(log_dir)
+
+    def step_fn(state, batch):
+        return train_step(state, batch, cfg)
+
+    if mesh is not None:
+        broadcast_tensors(_state_tensors(state), group)
+        step_fn = make_parallel_train_step(cfg, state.model, mesh)
+    logger = MetricsLogger(log_dir if rank == 0 else None)
     stop = {"signal": None}
     previous = {}
     if handle_signals and ckpt_dir:
@@ -141,6 +187,13 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
     def upload(item):
         return batch_to_device(item[2], device, non_blocking=prefetch_upload)
 
+    def save(data_iter):
+        # rank 0 writes; the others wait until the file is in place
+        if rank == 0:
+            save_checkpoint(ckpt_dir, state, data_iter)
+        if group is not None:
+            host_all_reduce([0], group)
+
     def epoch_end(epoch):
         flush()
         if eval_fn is not None and (epoch + 1) % eval_every_epochs == 0:
@@ -153,23 +206,29 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
         while nxt is not None:
             epoch, bi, _ = nxt
             device_batch = nxt_dev if nxt_dev is not None else upload(nxt)
-            state, metrics = train_step(state, device_batch, cfg)
+            state, metrics = step_fn(state, device_batch)
             nxt = next(gen, None)
             nxt_dev = upload(nxt) if (nxt is not None and prefetch_upload) else None
             pending.append((state.step, metrics, {"epoch": epoch, "batch_index": bi}))
             done = state.step >= cfg.total_steps
             preempted = stop["signal"] is not None
+            if group is not None and handle_signals and ckpt_dir:
+                # every rank stops after the same step, or the others would
+                # wait forever in the next step's collectives
+                seen = host_all_reduce([stop["signal"] or 0], group, ReduceOp.MAX)
+                preempted = bool(seen[0])
+                stop["signal"] = int(seen[0]) or None
             if len(pending) >= logger.print_every or done or preempted:
                 flush()
             if preempted:
-                save_checkpoint(ckpt_dir, state, {"epoch": epoch, "batch_index": bi + 1})
+                save({"epoch": epoch, "batch_index": bi + 1})
                 print(f"signal {stop['signal']}: checkpointed at step {state.step} "
                       f"(epoch {epoch}, batch {bi + 1}); resume with resume=True",
                       flush=True)
                 return state
             if ckpt_dir and state.step % ckpt_every == 0:
                 flush()
-                save_checkpoint(ckpt_dir, state, {"epoch": epoch, "batch_index": bi + 1})
+                save({"epoch": epoch, "batch_index": bi + 1})
             if done:
                 epoch_end(epoch)
                 break
@@ -177,7 +236,7 @@ def fit(cfg: StepConfig, loader, num_epochs: int = 1, ckpt_dir: Optional[str] = 
                 epoch_end(epoch)
         flush()
         if ckpt_dir:
-            save_checkpoint(ckpt_dir, state, {"epoch": num_epochs, "batch_index": 0})
+            save({"epoch": num_epochs, "batch_index": 0})
     finally:
         gen.close()                     # stops the loader's prefetch thread
         for sig, handler in previous.items():

@@ -35,6 +35,7 @@ import torch
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.models.i3d import BatchNorm, running_updates
+from step_tpu_torch.parallel.mesh import mesh_group
 from step_tpu_torch.train import optim_int8
 from step_tpu_torch.train.losses import step_losses
 from step_tpu_torch.utils.init import init_detector_train_
@@ -252,13 +253,15 @@ def model_inputs(batch: dict, cfg: StepConfig):
     return primary, batch.get("flow") if cfg.two_stream else None
 
 
-def train_step(state: TrainState, batch: dict, cfg: StepConfig):
+def train_step(state: TrainState, batch: dict, cfg: StepConfig, _reduce=None):
     """One optimizer step on `batch` (tensors on the model's device: rgb,
     proposals, prop_mask, gt_tubes, gt_labels, gt_mask, and flow for a
     flow or two-stream detector) → (state, metrics). The state is
     updated in place; the metrics are tensors on the device (`loss`, the
     per-step losses and positives, `grad_norm`), read without a host
-    sync."""
+    sync. `_reduce(grads, metrics)`, where given, turns the rank's
+    gradients and metrics into the global batch's before the norm
+    (`make_parallel_train_step`)."""
     model = state.model
     params = state.trainable()
     for p in params:
@@ -293,6 +296,8 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig):
                  for k, v in m_sum.items()}
         bn_sum = tuple(torch._foreach_mul(stats, inv) if stats else stats
                        for stats in bn_sum)
+    if _reduce is not None:
+        grads, m_sum = _reduce(grads, m_sum)
     metrics = dict(m_sum, grad_norm=global_norm(grads))
     state.optimizer.update(params, grads, state.opt_state, metrics["grad_norm"])
     if bns:
@@ -303,6 +308,58 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig):
         p.grad = None
     state.step += 1
     return state, metrics
+
+
+def make_parallel_train_step(cfg: StepConfig, model: STEPDetector, mesh):
+    """`train_step` over the "data" axis of `mesh`: each rank passes its
+    rows of the global batch (its loader's batch, the same size on every
+    rank) and `model` (its state's) gets the step the global batch would
+    give one process → `step(state, batch) -> (state, metrics)`.
+
+    What GSPMD does for the JAX package (`step_tpu/train/trainer.py:239-262`)
+    is written out: BatchNorm's batch statistics are the global batch's
+    (`BatchNorm.batch_group`); the dropout masks are the global batch's,
+    of which the rank keeps rows `rank::world` (`STEPDetector.data_shard`);
+    after the backward one all-reduce of the flat gradients and metrics
+    (no `DistributedDataParallel`), the gradients and losses divided by the
+    world size, `num_positive_per_step` a sum. Every rank then takes the
+    same optimizer step and commits the same BatchNorm update.
+
+    With `grad_accum_steps` = k each rank splits its rows into k slices and
+    micro-batch i is every rank's i-th slice: rows [i·mb, (i+1)·mb) of the
+    global batch in `process_shard`'s order (ROADMAP §3)."""
+    group, rank, world = mesh_group(mesh)
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+
+    def reduce(grads, metrics):
+        keys = list(metrics)
+        parts = list(grads) + [metrics[k].reshape(-1).to(torch.float32) for k in keys]
+        flat = torch.cat([t.reshape(-1) for t in parts])
+        torch.distributed.all_reduce(flat, group=group)
+        out = list(torch.split(flat, [t.numel() for t in parts]))
+        grads = [o.view_as(g) for o, g in zip(out, grads)]
+        if world > 1:
+            grads = torch._foreach_div(grads, float(world))
+        reduced = {}
+        for k, o in zip(keys, out[len(grads):]):
+            o = o.view_as(metrics[k])
+            reduced[k] = o if k == "num_positive_per_step" else o / world
+        return grads, reduced
+
+    def step(state: TrainState, batch: dict):
+        if state.model is not model:
+            raise ValueError("the state's model is not the model this step was made for")
+        for m in bns:
+            m.batch_group = group
+        model.data_shard = (rank, world)
+        try:
+            return train_step(state, batch, cfg, _reduce=reduce)
+        finally:
+            for m in bns:
+                m.batch_group = None
+            model.data_shard = None
+
+    return step
 
 
 @torch.no_grad()

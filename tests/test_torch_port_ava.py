@@ -17,6 +17,7 @@ package's tubes and scores), `train_step` as
 `evaluate_ava`'s frame-mAP@0.5 within 1e-6.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import pickle
 

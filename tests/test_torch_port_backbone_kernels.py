@@ -15,6 +15,7 @@ The port takes the backbone's NCDHW tensors, the JAX kernels channels-last
 ones, so the inputs are permuted between the two.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

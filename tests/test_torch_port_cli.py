@@ -16,6 +16,7 @@ in float32) within 1e-4 of the unfolded model's mAPs; the CLI's printed
 mAPs equal `evaluate_ucf`'s to the 4 places it prints.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import dataclasses
 import io
@@ -170,17 +171,46 @@ def test_test_cli_prints_the_evaluation(trained, extra):
 
 
 @pytest.mark.parametrize("module,argv,item", [
-    (cli_train, ["--distributed"], "M9"),
-    (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--sharded"], "M9"),
-    # the JAX package's own refusals (test.py:93-95, :107-109)
+    # the JAX package's own refusals (train.py:196-198, :204-209; test.py:93-95,
+    # :107-109); WORLD_SIZE=2 as torchrun would set it for two processes
+    (cli_train, ["--distributed", "--eval-every-epochs", "1"],
+     "not supported with --distributed"),
+    (cli_train, ["--distributed", "--batch-size", "3"], "not divisible by 2 processes"),
     (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z",
                 "--optimized"], "does not combine with --flow-ckpt-dir"),
     (cli_test, ["--data-root", "x", "--ckpt-dir", "y", "--flow-ckpt-dir", "z",
                 "--preset", "ava_3step"], "UCF-only"),
 ])
-def test_clis_refuse_what_is_not_ported(module, argv, item):
+def test_clis_refuse_what_is_not_ported(module, argv, item, monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit, match=item):
         module.main([*argv, "--device", "cpu"])
+
+
+def test_distributed_train_and_sharded_test_on_one_process(trained, monkeypatch):
+    """`cli.train --distributed` and `cli.test --sharded` with no torchrun
+    environment: one rank. Training takes the fixture's 4 steps, with
+    losses within 1e-4 relative of the plain run's (BatchNorm's sums over
+    the group against its means); the sharded evaluation prints the plain
+    one's results exactly."""
+    for var in ("WORLD_SIZE", "RANK", "MASTER_ADDR"):
+        monkeypatch.delenv(var, raising=False)
+    ckpt, logs = str(trained["tmp"] / "ckpt_dp"), str(trained["tmp"] / "logs_dp")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = cli_train.main([
+            "--dataset", "ucf101_24", "--data-root", trained["root"], "--ckpt-dir", ckpt,
+            "--log-dir", logs, "--epochs", "2", "--distributed", "--set", "num_classes=2",
+            "--device", "cpu", *TINY_SET])
+    assert "distributed: process 0/1" in buf.getvalue()
+    assert state.step == 4 and sorted(os.listdir(ckpt)) == ["4.pt"]
+    read = lambda d: [eval(line)["loss"] for line in open(os.path.join(d, "metrics.jsonl"))]  # noqa: E731
+    np.testing.assert_allclose(read(logs), read(trained["logs"]), rtol=1e-4)
+    plain, _ = _test_cli(trained)
+    sharded, out = _test_cli(trained, "--sharded")
+    assert "sharded eval over 1 devices" in out
+    for key in MAPS:
+        assert sharded[key] == plain[key] or (np.isnan(sharded[key]) and np.isnan(plain[key]))
 
 
 def test_clis_run_on_the_card_unless_asked(trained):

@@ -9,6 +9,7 @@ The import guard runs in a fresh interpreter whose import system refuses
 `chip_smoke.py` (as a module, without running it).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 import subprocess
 import sys
@@ -61,6 +62,11 @@ spec = importlib.util.spec_from_file_location("chip_smoke_module", "chip_smoke.p
 smoke = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(smoke)
 assert callable(smoke.main)
+# the two-process test's worker, which the test spawns
+spec = importlib.util.spec_from_file_location("dist_worker", "tests/_torch_dist_worker.py")
+dist_worker = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(dist_worker)
+dist_worker.eval_models(), dist_worker.fit_loader(2, 1)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] == "step_tpu" or m.split(".")[0].startswith("jax"))
 assert not bad, bad
@@ -70,8 +76,8 @@ print(" ".join(names))
 """
 
 # Modules the guard must reach: the evaluation slice's, AVA's and the
-# pretrained start's, int8 moments', the classifier's and serving's among
-# them.
+# pretrained start's, int8 moments', the classifier's, serving's and data
+# parallelism's among them.
 _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
               "step_tpu_torch.data.augmentations", "step_tpu_torch.utils.cli",
@@ -80,7 +86,9 @@ _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.models.convert", "step_tpu_torch.train.optim_int8",
               "step_tpu_torch.cli.classify", "step_tpu_torch.utils.export",
               "step_tpu_torch.utils.vis", "step_tpu_torch.cli.export",
-              "step_tpu_torch.cli.serve", "step_tpu_torch.cli.demo")
+              "step_tpu_torch.cli.serve", "step_tpu_torch.cli.demo",
+              "step_tpu_torch.parallel.mesh", "step_tpu_torch.parallel.distributed",
+              "step_tpu_torch.data.memory")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():

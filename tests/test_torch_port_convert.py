@@ -7,6 +7,7 @@ that every key and shape lines up, and the leaf count proves that no JAX
 leaf was dropped.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import subprocess
 import sys
 from pathlib import Path

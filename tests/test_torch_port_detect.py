@@ -9,6 +9,7 @@ final tubes and scores, so that a near-tie between two scores cannot flip
 a keep list.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ equal; the host-side functions (dedupe, linker, tube NMS) exactly equal to
 the JAX functions on the same detections, order included.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import pickle
 
@@ -34,6 +35,7 @@ from step_tpu_torch.config import StepConfig
 from step_tpu_torch.convert import from_jax_variables
 from step_tpu_torch.data.ucf import UCFDataset
 from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.parallel import create_mesh
 from step_tpu_torch.train_eval_synth import evaluate_videos
 from tests.test_data import _write_jpg
 from tests.test_torch_port_detect import _randomize
@@ -120,10 +122,13 @@ def test_collect_detections_refuses_what_is_not_ported(pair):
     with pytest.raises(ValueError, match="flow-enabled dataset"):
         tev.collect_detections(model, ds, model_flow=STEPDetector(
             CFG.replace(input_stream="flow")).eval())
-    with pytest.raises(NotImplementedError, match="M9"):
-        tev.collect_detections(model, ds, mesh=object())
-    with pytest.raises(NotImplementedError, match="M9"):
-        tev.evaluate_ucf(model, ds, mesh=object())
+    # and over a mesh (data-parallel evaluation, here on one CPU rank)
+    mesh = create_mesh(device_type="cpu")
+    with pytest.raises(ValueError, match="flow-enabled dataset"):
+        tev.collect_detections(model, ds, mesh=mesh, model_flow=STEPDetector(
+            CFG.replace(input_stream="flow")).eval())
+    with pytest.raises(ValueError, match="temporal_stride"):
+        tev.evaluate_ucf(STEPDetector(CFG.replace(temporal_stride=2)), ds, mesh=mesh)
 
 
 @pytest.mark.parametrize("device_linking,max_batches,max_videos", [

@@ -19,6 +19,7 @@
     eager on them; `two_stream` and `--platforms` are refused.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -11,6 +11,7 @@ relative, `grad_norm` 1e-4 relative, weights within 1e-6, BN statistics
 within 5e-5.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ products), one bf16 step in bfloat16 (the tensor cores multiply bf16
 exactly and accumulate in float32, in another order than the plain conv).
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import numpy as np
 import pytest
 import torch
@@ -1037,3 +1038,90 @@ def test_int8_train_step_on_card_matches_cpu(cuda):
     for k in ("mu", "nu"):
         assert int8_moments_close(m_gpu[k], m_gpu[k + "_scale"], m_cpu[k],
                                   m_cpu[k + "_scale"]), k
+
+
+# ---- data parallelism on one rank (NCCL) -----------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A one-rank process group (NCCL for CUDA tensors, gloo for host ones)
+    and its "data" mesh, torn down after the module's tests."""
+    import socket
+
+    import torch.distributed as dist
+
+    from step_tpu_torch.parallel import create_mesh, init_distributed
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(f"127.0.0.1:{port}", 1, 0)
+    yield create_mesh()
+    dist.destroy_process_group()
+
+
+def test_one_rank_parallel_train_step_on_card_matches_train_step(nccl_mesh):
+    """Two float32 AdamW steps of the tiny detector (dropout 0.3, remat
+    "dots") through `make_parallel_train_step` on a one-rank NCCL mesh
+    against `train_step` on the card: BatchNorm's sums over the group
+    against its means, so losses within 1e-5, BatchNorm statistics within
+    1e-5, weights within 2 lr and at most 0.1% of them beyond 1e-5."""
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
+                                              make_parallel_train_step, make_schedule,
+                                              train_step)
+
+    cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
+                                       image_size=64, compute_dtype="float32",
+                                       batch_size=2, dropout_rate=0.3, warmup_steps=2,
+                                       max_gt_tubes=2)
+    syn = SyntheticConfig(image_size=64, num_frames=cfg.total_frames,
+                          num_classes=cfg.num_classes, max_boxes=2)
+    batch = batch_to_device(build_model_batch(make_batch(3, 2, syn), cfg, train=True),
+                            "cuda")
+    runs = []
+    for parallel in (True, False):
+        state = create_train_state(cfg, seed=2, device="cuda")
+        step = (make_parallel_train_step(cfg, state.model, nccl_mesh) if parallel
+                else lambda s, b: train_step(s, b, cfg))
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(2)]
+        runs.append((losses, {k: v.cpu() for k, v in state.model.state_dict().items()}))
+    (l_par, sd_par), (l_one, sd_one) = runs
+    np.testing.assert_allclose(l_par, l_one, rtol=1e-5)
+    lr = make_schedule(cfg)(1)
+    far = total = 0
+    for k, v in sd_one.items():
+        d = (sd_par[k] - v).abs()
+        if "running_" in k:
+            assert float(d.max()) <= 1e-5, k
+            continue
+        assert float(d.max()) <= 2 * lr * (1 + 1e-3), k
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 1e-3 * total
+
+
+def test_one_rank_sharded_collect_detections_on_card_equals_unsharded(nccl_mesh):
+    """`collect_detections` over the one-rank mesh (a batch of 8 and one of
+    7) is the unsharded collection: on one rank the shard is the batch."""
+    from step_tpu_torch.config import StepConfig
+    from step_tpu_torch.data.memory import MemoryUCF
+    from step_tpu_torch.evaluate import collect_detections
+
+    cfg = StepConfig(dataset="ucf101_24", num_classes=3, frames_per_chunk=2, num_chunks=3,
+                     num_steps=2, iou_thresholds=(0.4, 0.5), step_loss_weights=(1.0, 1.0),
+                     image_size=32, backbone_depth="tiny", feature_stride=8,
+                     pooled_size=4, max_proposals=12, max_detections=4,
+                     compute_dtype="float32", max_gt_tubes=2, score_thresh=0.0)
+    model = init_detector_(STEPDetector(cfg), 3).eval().to("cuda")
+    data = MemoryUCF(cfg, 3, 10, (48, 64), 7)
+    want = collect_detections(model, data)
+    got = collect_detections(model, data, mesh=nccl_mesh)
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g[:3] == w[:3]
+        np.testing.assert_array_equal(g[3], w[3])

@@ -27,6 +27,7 @@ port against the JAX package's `train/optim_int8.py`, on the CPU.
     takes about 2.03 bytes a parameter.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -13,6 +13,7 @@ Tolerances as in `test_torch_port_detect.py`: 1e-4 on logits and deltas,
 1e-3 px on tubes.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

@@ -9,6 +9,7 @@ clip-mask padding, node-disjointness, Kadane on all-negative input, ties
 and NaN scores.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import jax.numpy as jnp
 import numpy as np

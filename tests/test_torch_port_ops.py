@@ -9,6 +9,7 @@ Pallas kernels run in interpret mode, as the JAX package's own tests run
 them on the CPU.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -21,6 +21,7 @@ against the JAX package, on the CPU.
     32 px, since a checkpoint of the full I3D fills no tiny backbone.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 
 import jax
@@ -223,19 +224,23 @@ def test_classifier_trains_with_dropout_from_a_generator(classifier):
     assert float(model.stem.Conv3d_1a_7x7.conv.weight.grad.abs().sum()) > 0
 
 
-def _write_piergiaj(fake, path):
+@pytest.fixture(scope="module")
+def piergiaj(fake, tmp_path_factory):
+    """The fake checkpoint in piergiaj's naming with `module.` prefixes, as
+    a file that both pretrained starts read."""
+    path = str(tmp_path_factory.mktemp("piergiaj") / "i3d.pt")
     torch.save({f"module.{k}": torch.as_tensor(np.asarray(v))
                 for k, v in _rekey_piergiaj(fake).items()}, path)
+    return path
 
 
-def test_fit_starts_from_the_pretrained_backbone(fake, tmp_path, capsys):
+def test_fit_starts_from_the_pretrained_backbone(fake, piergiaj, tmp_path, capsys):
     from step_tpu_torch.data.loader import DataLoader
     from step_tpu_torch.data.synthetic import SyntheticConfig
     from step_tpu_torch.train import fit as fit_module
     from step_tpu_torch.train_eval_synth import SyntheticClips
 
-    path = str(tmp_path / "i3d.pt")
-    _write_piergiaj(fake, path)
+    path = piergiaj
     cfg = PRESETS["ucf_3step"].replace(dataset="synthetic", num_classes=4, batch_size=1,
                                        total_steps=2, warmup_steps=1, **SMALL)
     want = convert.convert_torch_i3d(fake, include_logits=False)
@@ -280,14 +285,13 @@ def test_fit_starts_from_the_pretrained_backbone(fake, tmp_path, capsys):
     assert len(resumed) == 1 and torch.equal(resumed[0][key], sd[key])
 
 
-def test_train_cli_pretrained_and_classify_cli(fake, tmp_path, capsys):
+def test_train_cli_pretrained_and_classify_cli(piergiaj, tmp_path, capsys):
     import cv2
 
     from step_tpu_torch.cli import classify as cli_classify
     from step_tpu_torch.cli import train as cli_train
 
-    path = str(tmp_path / "i3d.pt")
-    _write_piergiaj(fake, path)
+    path = piergiaj
     over = ("num_classes=4,image_size=32,frames_per_chunk=2,num_steps=1,"
             "iou_thresholds=(0.4,),step_loss_weights=(1.0,),compute_dtype='float32'")
     state = cli_train.main(["--dataset", "synthetic", "--steps", "1", "--epochs", "1",

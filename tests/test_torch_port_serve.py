@@ -19,6 +19,7 @@
     frames as it reads.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import contextlib
 import io
 import os

@@ -11,6 +11,7 @@ exactly; float32 math that runs the same operations in the same order
 1e-6 relative; math that XLA and PyTorch reduce in different orders 1e-5.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import math
 import os
 
@@ -598,19 +599,34 @@ def _same_state(a, b):
     assert torch.equal(a.generator.get_state(), b.generator.get_state())
 
 
-def test_fit_resumed_through_a_checkpoint_equals_an_uninterrupted_run(tmp_path):
+def _fit_loader(cfg, data=None):
+    return tloader.DataLoader(data or _Clips(cfg, 6), cfg, seed=1, num_workers=1)
+
+
+@pytest.fixture(scope="module")
+def straight(tmp_path_factory):
+    """(6 steps of fit() straight, its checkpoint and log directory), which
+    the resumed and the preempted runs must end on."""
+    tmp = tmp_path_factory.mktemp("straight")
+    cfg = _fit_cfg()
+    state = fit(cfg, _fit_loader(cfg), num_epochs=2, device="cpu", seed=4,
+                ckpt_dir=str(tmp / "ckpt"), ckpt_every=2, log_dir=str(tmp / "log"))
+    return state, tmp
+
+
+def test_fit_resumed_through_a_checkpoint_equals_an_uninterrupted_run(straight, tmp_path):
     """fit() for 3 + 3 steps through a checkpoint (an epoch boundary), and
     for 4 + 2 (mid-epoch, from the step-4 checkpoint), equal 6 steps
     straight, bit for bit on the CPU: weights, BatchNorm statistics,
     optimizer moments, step and the dropout generator."""
+    import shutil
+
+    straight, tmp = straight
     cfg = _fit_cfg()
-    loader = tloader.DataLoader(_Clips(cfg, 6), cfg, seed=1, num_workers=1)
-    straight = fit(cfg, loader, num_epochs=2, device="cpu", seed=4,
-                   ckpt_dir=str(tmp_path / "straight"), ckpt_every=2,
-                   log_dir=str(tmp_path / "log"))
+    loader = _fit_loader(cfg)
     assert straight.step == 6
-    assert checkpoint_steps(str(tmp_path / "straight")) == [2, 4, 6]   # max_to_keep 3
-    lines = open(tmp_path / "log" / "metrics.jsonl").read().splitlines()
+    assert checkpoint_steps(str(tmp / "ckpt")) == [2, 4, 6]   # max_to_keep 3
+    lines = open(tmp / "log" / "metrics.jsonl").read().splitlines()
     assert len(lines) == 6 and all(math.isfinite(float(eval(l)["loss"])) for l in lines)
 
     first = fit(cfg, loader, num_epochs=1, device="cpu", seed=4,
@@ -621,30 +637,30 @@ def test_fit_resumed_through_a_checkpoint_equals_an_uninterrupted_run(tmp_path):
     _same_state(resumed, straight)
 
     mid = tmp_path / "straight"
+    shutil.copytree(tmp / "ckpt", mid)
     os.remove(mid / "6.pt")
     resumed = fit(cfg, loader, num_epochs=2, device="cpu", seed=4,
                   ckpt_dir=str(mid), resume=True)
     _same_state(resumed, straight)
 
 
-def test_evaluate_scores_a_trained_tiny_detector():
+def test_evaluate_scores_a_trained_tiny_detector(straight):
     """The synthetic-oracle evaluation of `train_eval_synth` runs on a
-    detector and gives frame-mAPs in [0, 1]."""
+    trained detector (the 6 straight steps) and gives frame-mAPs in [0, 1]."""
     cfg = _fit_cfg()
-    state = create_train_state(cfg, seed=0, device="cpu")
-    train_step(state, _tiny_batch(cfg), cfg)
     syn = SyntheticConfig(image_size=32, num_frames=cfg.total_frames, num_classes=4,
                           max_boxes=2)
-    result = evaluate(state.model, cfg, syn, 3, 2, "cpu")
+    result = evaluate(straight[0].model, cfg, syn, 3, 2, "cpu")
     assert sorted(result) == ["frame_mAP@0.2", "frame_mAP@0.5"]
     assert all(0.0 <= v <= 1.0 for v in result.values())
 
 
-def test_fit_checkpoints_on_sigterm_and_runs_eval_fn(tmp_path, monkeypatch):
+def test_fit_checkpoints_on_sigterm_and_runs_eval_fn(straight, tmp_path, monkeypatch):
     """SIGTERM in the middle of an epoch (its handler called as the signal
     would call it, from the loader's thread) makes fit() write a last
     checkpoint and return; resumed, it ends where an uninterrupted run
-    ends, bit for bit. `eval_fn(state, epoch)` runs at each epoch's end."""
+    ends (the 6 straight steps), bit for bit. `eval_fn(state, epoch)` runs
+    at each epoch's end."""
     import signal
 
     handlers = {}
@@ -665,8 +681,7 @@ def test_fit_checkpoints_on_sigterm_and_runs_eval_fn(tmp_path, monkeypatch):
             return super().__getitem__(i)
 
     evals = []
-    loader = tloader.DataLoader(Preempted(cfg, 6), cfg, seed=1, num_workers=1,
-                                shuffle=False)
+    loader = _fit_loader(cfg, Preempted(cfg, 6))
     stopped = fit(cfg, loader, num_epochs=2, device="cpu", seed=4,
                   ckpt_dir=str(tmp_path), eval_fn=lambda s, e: evals.append((s.step, e)))
     assert handlers.get("sent") and 1 <= stopped.step < 6
@@ -674,10 +689,7 @@ def test_fit_checkpoints_on_sigterm_and_runs_eval_fn(tmp_path, monkeypatch):
     resumed = fit(cfg, loader, num_epochs=2, device="cpu", seed=4,
                   ckpt_dir=str(tmp_path), resume=True,
                   eval_fn=lambda s, e: evals.append((s.step, e)))
-    straight = fit(cfg, tloader.DataLoader(_Clips(cfg, 6), cfg, seed=1, num_workers=1,
-                                           shuffle=False), num_epochs=2, device="cpu",
-                   seed=4)
-    _same_state(resumed, straight)
+    _same_state(resumed, straight[0])
     assert evals[-1] == (6, 1)
 
 

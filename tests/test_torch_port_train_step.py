@@ -21,6 +21,7 @@ noise into a step of up to lr in either direction, and those elements
 stay within 2 lr. A frozen subtree is bit for bit unchanged in both.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import jax
 import numpy as np
 import pytest

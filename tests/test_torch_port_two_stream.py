@@ -15,6 +15,7 @@ evaluation as `tests/test_torch_port_eval.py` states it (scores 1e-5,
 boxes 1e-4 px, mAPs 1e-6). Preprocessing and the bridge are exact.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import pickle
 

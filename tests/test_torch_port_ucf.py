@@ -11,6 +11,7 @@ a resolution entry (the native path then falls back to cv2), one with a
 short tube between window centres (an orphan), flow frames for all.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import os
 import pickle
 

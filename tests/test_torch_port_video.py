@@ -11,6 +11,7 @@ outputs exactly equal when linking reads the JAX package's own detections,
 so that no near-tie of the detector can flip a path; copies exactly equal.
 """
 
+import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import dataclasses
 
 import jax
@@ -38,6 +39,7 @@ from step_tpu_torch.eval import detection_metrics as tdm
 from step_tpu_torch.evaluate import collect_video_tubes
 from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.models.optimize import optimize_for_inference
+from step_tpu_torch.parallel import create_mesh
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 from tests.test_torch_port_detect import _randomize
 
@@ -262,8 +264,13 @@ def test_collect_video_tubes_refuses_what_is_not_ported(pair):
     with pytest.raises(ValueError, match="flow-enabled dataset"):
         collect_video_tubes(model, no_flow, model_flow=STEPDetector(
             CFG.replace(input_stream="flow")).eval())
-    with pytest.raises(NotImplementedError, match="M9"):
-        collect_video_tubes(model, None, mesh=object())
+    # and over a mesh (data-parallel evaluation, here on one CPU rank)
+    mesh = create_mesh(device_type="cpu")
+    with pytest.raises(ValueError, match="temporal_stride"):
+        collect_video_tubes(STEPDetector(CFG.replace(temporal_stride=2)), None, mesh=mesh)
+    with pytest.raises(ValueError, match="flow-enabled dataset"):
+        collect_video_tubes(model, no_flow, mesh=mesh, model_flow=STEPDetector(
+            CFG.replace(input_stream="flow")).eval())
 
 
 # ---- the host-side copies, each equal to its original ----------------------
