@@ -207,6 +207,32 @@ Phases, each fatal on failure (exit code 1, no result line):
      and clips/s;
  27. `cli.demo` at the `streaming` preset on a 60-frame synthetic mp4: as
      many frames written as read, K1 and K2 launched.
+ 28. data parallelism on one rank (`parallel_phases`): `fit` on a one-rank
+     NCCL mesh against plain `fit`, `evaluate_ucf(mesh)`, `cli.train
+     --distributed` and `cli.test --sharded`;
+ 29. two gloo ranks on the one card against one process on the same global
+     batches;
+ 30. the kernel configuration as a served program (`kernel_program_phases`):
+     `ucf_3step` unfolded with `fused_bn_relu`, exported under
+     `STEP_TPU_POOL3D=pallas` at B=8 and B=1 in bf16 and served with no
+     switch in the environment: its bytes under 10% of the state dict's;
+     K3 `step::conv3x3x3_bn_relu`, K4 `step::scale_bias_relu` and K5
+     `step::max_pool3x3_same` nodes as `backbone_launches` counts them (27,
+     54, 13) beside K1 1 and K2 3; one launch a node in a served request;
+     every K3, K4 and K5 launch of the program held against its plain
+     version on its own inputs (`held_backbone_launches`: K5 by raw bits,
+     K4 within one bf16 step, K3 by `k3_close`); their device ms inside
+     the B=8 program (profiler), their summed bounds, the device ms of K3's
+     weight layouts the program makes; request medians against the eager
+     kernel configuration; the float32 program against eager (tube scores
+     1e-4, tubes 1e-3 px, frame_mask equal);
+ 31. the variables and checkpoint bridge (`bridge_phases`), tiny depth at
+     64 px: `train_eval_synth --save-variables`, then `--load-variables` in
+     a second call (the same frame-mAPs); `fit` then `--load-ckpt-dir` on
+     its checkpoint (the mAPs of the `fit` model) with `--save-variables`,
+     whose file re-read by the port's decoder equals the weights bit for
+     bit and detects the same. The orbax reader needs `tensorstore`, which
+     the card's machine lacks: the phase says it was not run.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -240,8 +266,13 @@ B=1 classifier shape's numbers) from phases 21-24, and `served_launches`,
 its launches on each run of phases 25-27 (K1 and K2 also `served_ms`,
 `served_max_abs_err` and `served_request_ms`: the device time and error of
 their calls inside the B=8 program, and the served request's median at
-B=8 and B=1). The last is
-{"ok": true, "device": {...}}. Without a CUDA device, or run outside the
+B=8 and B=1), and `kernel_program_launches`, its launches in each
+request of the phase-30 programs (K3, K4 and K5 also `kernel_program_ms`,
+their device ms inside the B=8 program by the profiler,
+`kernel_program_bound_ms` and `kernel_program_max_abs_err`, K3
+`kernel_program_pack_ms`), with the request medians of the program and of
+eager, and `bridge_launches`, its launches in each phase-31 run. The last
+is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
 
@@ -3016,6 +3047,327 @@ def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -
     return out
 
 
+@contextlib.contextmanager
+def held_backbone_launches(errors: dict):
+    """Each K3, K4 and K5 launch while the block runs, at its launcher
+    (`kernels.*_forward`, which the operators look up at each call, so a
+    loaded program's launches are seen), held against its plain version on
+    its own inputs as it is made (K5 by raw bits, K4 within one bf16 step,
+    K3 by `k3_close`); yields {kernel: [(shape, bound dict), ...]}, one
+    entry a launch, and fills `errors` with each kernel's largest |error|."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu_plain, unpack_kernel_weight
+    from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu_plain
+    from step_tpu_torch.ops.pool import max_pool3x3_same_plain
+
+    ncdhw = lambda t: t.permute(0, 4, 1, 2, 3)  # noqa: E731  (the kernels' NDHWC views)
+    seen = {}
+
+    def pool(x, out):
+        got, want = ncdhw(out), max_pool3x3_same_plain(ncdhw(x))
+        return ("max_pool3x3_same", tuple(got.shape), got, want,
+                torch.equal(raw_bits(got), raw_bits(want)),
+                bound(2 * x.numel() * x.element_size(), 26 * x.numel(), F32_FLOPS))
+
+    def bn_relu(x, scale, bias, out):
+        want = fused_scale_bias_relu_plain(x, scale, bias)
+        return ("fused_scale_bias_relu", tuple(x.shape), out, want, bf16_close(out, want),
+                bound(2 * x.numel() * x.element_size() + 2 * scale.numel() * 4,
+                      3 * x.numel(), F32_FLOPS))
+
+    def conv(x, w, scale, bias, out, **_):
+        xc, K = ncdhw(x), scale.shape[0]
+        weight = unpack_kernel_weight(w, xc.shape[1], K)
+        got, want = ncdhw(out), conv3x3x3_bn_relu_plain(xc, weight, scale, bias)
+        flop = 2 * out.numel() * 27 * xc.shape[1]
+        peak = BF16_TENSOR_FLOPS if x.dtype == torch.bfloat16 else F32_FLOPS
+        return ("conv3x3x3_bn_relu", (tuple(xc.shape), K), got, want,
+                k3_close(got, want, xc, weight, scale),
+                bound((x.numel() + weight.numel() + out.numel()) * x.element_size()
+                      + 2 * K * 4, flop, peak))
+
+    saved = {}
+    for name, hold in (("max_pool3x3_forward", pool), ("scale_bias_relu_forward", bn_relu),
+                       ("conv3x3x3_bn_relu_forward", conv)):
+        launcher = saved[name] = getattr(kernels, name)
+
+        def run(*args, _launcher=launcher, _hold=hold, **kwargs):
+            _launcher(*args, **kwargs)
+            kernel, shape, got, want, ok, b = _hold(*args, **kwargs)
+            err = float((got.float() - want.float()).abs().max())
+            check(ok, f"{kernel} at {shape} {got.dtype} in the program differs from plain "
+                      f"on its inputs: max |err| {err}")
+            errors[kernel] = max(errors.get(kernel, 0.0), err)
+            seen.setdefault(kernel, []).append((shape, b))
+
+        setattr(kernels, name, run)
+    try:
+        yield seen
+    finally:
+        for name, launcher in saved.items():
+            setattr(kernels, name, launcher)
+
+
+def device_ms_by_kernel(fn, fragments: dict) -> tuple[dict, float]:
+    """One call of `fn` under torch.profiler → ({label: (launches, device
+    ms)} for the CUDA kernels whose names hold one of `fragments[label]`,
+    the device ms of all its kernels)."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {label: [0, 0.0] for label in fragments}
+    for e in events:
+        for label, keys in fragments.items():
+            if any(k in e.key for k in keys):
+                out[label][0] += e.count
+                out[label][1] += e.self_device_time_total / 1e3
+                break
+    return ({k: tuple(v) for k, v in out.items()},
+            sum(e.self_device_time_total for e in events) / 1e3)
+
+
+BACKBONE_KERNEL_NAMES = {"conv3x3x3_bn_relu": ("conv_bf16_kernel", "conv_f32_kernel"),
+                         "fused_scale_bias_relu": ("scale_bias_relu_kernel",),
+                         "max_pool3x3_same": ("max_pool3x3_kernel",)}
+
+
+def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
+                          read_counts) -> dict:
+    """Phase 30: the kernel configuration as an exported program. Returns,
+    per kernel, its launches in each served request and, for K3, K4 and
+    K5, their launches, device ms, bound and error inside the B=8 program,
+    for the JSON line."""
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.inference import detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.models.i3d import Unit3D
+    from step_tpu_torch.ops.conv3d import pack_conv3x3x3_weight
+    from step_tpu_torch.utils import export
+
+    t30 = time.time()
+    out = {name: dict(kernel_program_launches={}) for name in KERNELS}
+    cfg = PRESETS["ucf_3step"]
+    kcfg = cfg.replace(fused_bn_relu=True)
+    T, S = cfg.total_frames, cfg.image_size
+    k4_shapes, k5_shapes, k3_shapes = backbone_launches(cfg, 8)
+    want_nodes = {"conv3x3x3_bn_relu": sum(k3_shapes.values()),
+                  "scale_bias_relu": sum(k4_shapes.values()),
+                  "max_pool3x3_same": sum(k5_shapes.values()),
+                  "nms_surface": 1, "tube_roi_align": cfg.num_steps}
+    node_of = {"conv3x3x3_bn_relu": "conv3x3x3_bn_relu",
+               "fused_scale_bias_relu": "scale_bias_relu",
+               "max_pool3x3_same": "max_pool3x3_same", "nms_many": "nms_surface",
+               "tube_roi_align": "tube_roi_align"}
+
+    def model_of(c):
+        m = STEPDetector(c).eval()
+        m.load_state_dict(seeded)
+        return m.to(dev)                    # float32 parameters, activations in c's dtype
+
+    def exported(c, m, b):
+        os.environ["STEP_TPU_POOL3D"] = "pallas"        # read at trace time only
+        try:
+            return export.export_detect_fn(c, b, model=m, device=dev)
+        finally:
+            os.environ["STEP_TPU_POOL3D"] = "direct"
+
+    model = model_of(kcfg)
+    weights = export.serving_weights(model.state_dict(), kcfg, dev)
+    sd_bytes = sum(v.numel() * v.element_size() for v in weights.values())
+    blobs, export_s = {}, {}
+    for b in (8, 1):
+        t0 = time.time()
+        blobs[b] = exported(kcfg, model, b)
+        export_s[b] = time.time() - t0
+    nodes = export.program_op_counts(blobs[8])
+    print(f"[30] exported the kernel configuration of ucf_3step (unfolded, fused_bn_relu, "
+          f"STEP_TPU_POOL3D=pallas at trace time), {kcfg.compute_dtype}, B=8 in "
+          f"{export_s[8]:.1f} s (B=1 {export_s[1]:.1f} s): {len(blobs[8])} bytes against "
+          f"the state dict's {sd_bytes} ({len(blobs[8]) / sd_bytes:.2%}); nodes {nodes}",
+          flush=True)
+    check(len(blobs[8]) < 0.1 * sd_bytes,
+          f"the program takes {len(blobs[8])} bytes, 10% or more of the weights' {sd_bytes}")
+    check(nodes == want_nodes, f"the B=8 program holds {nodes}, backbone_launches lists "
+                               f"{want_nodes}")
+    runs = {b: export.load_detect_fn(blob) for b, blob in blobs.items()}
+    errors, served_ms, eager_ms = {}, {}, {}
+    for b in (8, 1):
+        props, pmask = STEPDetector.initial_proposals(kcfg, b, device=dev)
+        clip = torch.from_numpy(rng.randint(0, 256, (b, T, S, S, 3)).astype(np.uint8)).to(dev)
+        reset_counts()
+        with held_backbone_launches(errors) as held:
+            got = runs[b](weights, clip, props, pmask)      # no switch in the environment
+            torch.cuda.synchronize()
+        counts = read_counts()
+        for name, n in counts.items():
+            out[name]["kernel_program_launches"][f"program_b{b}"] = n
+        b_nodes = export.program_op_counts(blobs[b])
+        check(all(counts[k] == b_nodes[node_of[k]] for k in counts)
+              and all(len(held[k]) == counts[k] for k in held),
+              f"the B={b} program launched {counts}, its nodes are {b_nodes}")
+        for key, v in got.items():
+            check(bool(torch.isfinite(v).all()), f"kernel program B={b}: {key} not finite")
+        if b == 8:
+            for name in BACKBONE_KERNEL_NAMES:
+                calls = held.get(name, [])
+                out[name].update(kernel_program_max_abs_err=errors.get(name),
+                                 kernel_program_bound_ms=sum(c[1]["bound_ms"] for c in calls))
+            by_kernel, total_ms = device_ms_by_kernel(
+                lambda: runs[8](weights, clip, props, pmask), BACKBONE_KERNEL_NAMES)
+            units = [u for u in model.modules() if isinstance(u, Unit3D) and u.conv_bn_relu]
+            n_pack, pack_ms = profiled(lambda: [pack_conv3x3x3_weight(u.conv.weight,
+                                                                      torch.bfloat16)
+                                                for u in units])
+            for name, (n, ms) in by_kernel.items():
+                out[name].update(kernel_program_ms=ms, kernel_program_kernels=n)
+                print(f"[30] B=8 program, {name}: {len(held.get(name, []))} launches held "
+                      f"against plain on their own inputs (max |err| {errors.get(name)}); device "
+                      f"{ms:.4f} ms over {n} kernels (profiler), bound "
+                      f"{out[name]['kernel_program_bound_ms']:.4f} ms", flush=True)
+            out["conv3x3x3_bn_relu"].update(kernel_program_pack_ms=pack_ms)
+            print(f"[30] B=8 program: all kernels {total_ms:.3f} ms of device time; K3's "
+                  f"bf16 weight layout made in the program from the {len(units)} units' "
+                  f"float32 weights: {pack_ms:.4f} ms over {n_pack} kernels (profiler)",
+                  flush=True)
+        served_ms[b], served_all = median_wall_ms(
+            lambda: runs[b](weights, clip, props, pmask), SERVED_REQUESTS)
+        os.environ["STEP_TPU_POOL3D"] = "pallas"
+        want = detect_clip(model, clip, props, pmask)
+        eager_ms[b], eager_all = median_wall_ms(
+            lambda: detect_clip(model, clip, props, pmask), SERVED_REQUESTS)
+        os.environ["STEP_TPU_POOL3D"] = "direct"
+        d_scores = float((got["tube_scores"].float() - want["tube_scores"].float()).abs().max())
+        print(f"[30] B={b} kernel program ({smi_line}): median {served_ms[b]:.2f} ms "
+              f"({', '.join(f'{t:.2f}' for t in served_all)}); eager kernel configuration "
+              f"{eager_ms[b]:.2f} ms ({', '.join(f'{t:.2f}' for t in eager_all)}); launches "
+              f"{counts}; tube scores against eager max |d| {d_scores:.3g}", flush=True)
+    for name in KERNELS:
+        out[name]["kernel_program_request_ms"] = served_ms
+        out[name]["kernel_eager_request_ms"] = eager_ms
+    del runs, blobs, model, weights
+
+    # float32, TF32 off: the program against the eager kernel configuration
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on")
+    kcfg32 = kcfg.replace(compute_dtype="float32")
+    model32 = model_of(kcfg32)
+    run32 = export.load_detect_fn(exported(kcfg32, model32, 8))
+    props, pmask = STEPDetector.initial_proposals(kcfg32, 8, device=dev)
+    clip = torch.from_numpy(rng.randint(0, 256, (8, T, S, S, 3)).astype(np.uint8)).to(dev)
+    got = run32(export.serving_weights(model32.state_dict(), kcfg32, dev), clip, props, pmask)
+    os.environ["STEP_TPU_POOL3D"] = "pallas"
+    want = detect_clip(model32, clip, props, pmask)
+    os.environ["STEP_TPU_POOL3D"] = "direct"
+    d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
+    d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
+    same_mask = torch.equal(got["frame_mask"], want["frame_mask"])
+    print(f"[30] f32 B=8 kernel program against the eager kernel configuration: tube "
+          f"scores max |d| {d_scores:.3g} (tol {STREAM_SCORE_TOL}), tubes {d_tubes:.3g} px "
+          f"(tol {STREAM_TUBE_TOL}), frame_mask {'equal' if same_mask else 'DIFFERS'}",
+          flush=True)
+    check(d_scores <= STREAM_SCORE_TOL and d_tubes <= STREAM_TUBE_TOL and same_mask,
+          f"the f32 kernel program differs from eager: scores {d_scores}, tubes {d_tubes} "
+          f"px, frame_mask equal {same_mask}")
+    print(f"    phase 30 took {time.time() - t30:.1f} s", flush=True)
+    return out
+
+
+BRIDGE_SYNTH = ["--steps", "4", "--batch", "2", "--image-size", "64", "--classes", "2",
+                "--eval-clips", "8", "--eval-batch", "4", "--tag", "bridge",
+                "--set", "backbone_depth=tiny,feature_stride=8,score_thresh=0.0,"
+                         "warmup_steps=1"]
+
+
+def bridge_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 31: the variables files and checkpoints of `train_eval_synth`
+    on the card. Returns, per kernel, its launches in each run."""
+    import tempfile
+
+    from step_tpu_torch import train_eval_synth
+    from step_tpu_torch.convert import from_jax_variables
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import make_batch
+    from step_tpu_torch.inference import detect_clip
+    from step_tpu_torch.models.detector import STEPDetector
+    from step_tpu_torch.train.fit import fit
+    from step_tpu_torch.utils.msgpack_codec import read_variables
+
+    t31 = time.time()
+    out = {name: dict(bridge_launches={}) for name in KERNELS}
+    maps = ("frame_mAP@0.5", "frame_mAP@0.2")
+    argv = [*BRIDGE_SYNTH, "--device", dev.type]
+    args = train_eval_synth.parse_args(argv)
+    cfg = train_eval_synth.synth_config(args)
+    syn = train_eval_synth.synth_data(cfg, args)
+
+    def synth(label, *extra):
+        reset_counts()
+        record, _ = quiet_main(train_eval_synth, [*argv, *extra])
+        counts = read_counts()
+        for name, n in counts.items():
+            out[name]["bridge_launches"][label] = n
+        check(dev.type != "cuda" or (counts["nms_many"] > 0 and counts["tube_roi_align"] > 0),
+              f"{label}: launches {counts}")
+        check(record["device"] == torch.cuda.get_device_name(dev)
+              and all(0.0 <= record[k] <= 1.0 for k in maps), f"{label}: {record}")
+        return record
+
+    with tempfile.TemporaryDirectory() as tmp:
+        v1, v2, ckpt = (os.path.join(tmp, n) for n in ("v1.msgpack", "v2.msgpack", "ckpt"))
+        trained = synth("train_save", "--save-variables", v1)
+        loaded = synth("load_variables", "--load-variables", v1)
+        print(f"[31] train_eval_synth ({cfg.backbone_depth}, {cfg.image_size} px, "
+              f"{args.steps} steps, {smi_line}): trained {[trained[k] for k in maps]} "
+              f"(loss {trained['loss_curve']}), --load-variables in a fresh call "
+              f"{[loaded[k] for k in maps]}; {os.path.getsize(v1)} bytes of variables",
+              flush=True)
+        check(all(loaded[k] == trained[k] for k in maps) and loaded["train_s"] == 0.0,
+              f"--load-variables evaluates {loaded}, training evaluated {trained}")
+
+        clips = train_eval_synth.SyntheticClips(syn, args.steps * cfg.batch_size, 7)
+        state = fit(cfg, DataLoader(clips, cfg, shuffle=False, seed=7), num_epochs=1,
+                    ckpt_dir=ckpt, device=dev, handle_signals=False)
+        state.model.eval()
+        direct = train_eval_synth.evaluate(state.model, cfg, syn, args.eval_clips,
+                                           args.eval_batch, dev)
+        restored = synth("load_ckpt_dir", "--load-ckpt-dir", ckpt, "--save-variables", v2)
+        check(all(restored[k] == direct[k] for k in maps),
+              f"--load-ckpt-dir evaluates {restored}, the fit() model {direct}")
+        sd = state.model.state_dict()
+        reread = from_jax_variables(read_variables(v2), cfg)
+        check(reread.keys() == sd.keys()
+              and all(torch.equal(reread[k], sd[k].cpu()) for k in sd),
+              "the variables file re-read differs from the fit() model's weights")
+        model = STEPDetector(cfg).eval()
+        model.load_state_dict(reread)
+        model = model.to(dev)
+        raw = make_batch(train_eval_synth.EVAL_SEED, args.eval_batch, syn)
+        rgb = torch.from_numpy(build_model_batch(raw, cfg, train=False)["rgb"]).to(dev)
+        props, pmask = STEPDetector.initial_proposals(cfg, args.eval_batch, device=dev)
+        a, b = detect_clip(state.model, rgb, props, pmask), detect_clip(model, rgb, props, pmask)
+        check(all(torch.equal(a[k], b[k]) for k in a),
+              "detections from the re-read variables differ from the fit() model's")
+        print(f"[31] fit() {state.step} steps → --load-ckpt-dir "
+              f"{[restored[k] for k in maps]} = the fit() model's "
+              f"{[direct[k] for k in maps]}; its --save-variables re-read by the port's "
+              f"decoder equals the weights bit for bit ({len(sd)} tensors) and detects "
+              f"the same; launches {read_counts()}", flush=True)
+    try:
+        import tensorstore  # noqa: F401
+        print("[31] tensorstore is installed, but the JAX package that writes orbax "
+              "checkpoints is not: the orbax reader is held by the CPU tests", flush=True)
+    except ImportError:
+        print("[31] the orbax reader (utils/jax_checkpoint.py) is NOT run here: this "
+              "machine has no tensorstore; the CPU tests hold it, and a JAX run reaches "
+              "the card through convert_jax_checkpoint", flush=True)
+    print(f"    phase 31 took {time.time() - t31:.1f} s", flush=True)
+    return out
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
     import socket
@@ -3945,6 +4297,9 @@ def main() -> None:
     classifier = classifier_phases(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     serving = serving_phases(dev, rng, seeded, smi.stdout.strip(), reset_counts, read_counts)
     parallel = parallel_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
+    kernel_program = kernel_program_phases(dev, rng, seeded, smi.stdout.strip(),
+                                           reset_counts, read_counts)
+    bridge = bridge_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -3970,7 +4325,7 @@ def main() -> None:
          "launches": launches[name], **results[name], **video[name], **training[name],
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
-         **serving[name], **parallel[name]}
+         **serving[name], **parallel[name], **kernel_program[name], **bridge[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

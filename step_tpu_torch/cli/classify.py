@@ -12,9 +12,10 @@ the top `--top-k` classes printed as `probability  name`.
 
 Weights come from a torch I3D checkpoint in any public naming
 (`--torch-ckpt`, converted by `models/convert.py`), or from a directory of
-the port's own checkpoints (`--ckpt-dir`, `<step>.pt` files as
-`utils/checkpoint.py` writes them: the newest one's "model" entry is the
-classifier's state_dict), in place of the JAX package's orbax directory.
+checkpoints (`--ckpt-dir`): the port's own `<step>.pt` files, whose newest
+"model" entry is the classifier's state_dict, or, where `tensorstore` is
+installed, the JAX package's orbax directory of an `I3DClassifier`
+(`utils/checkpoint.py::load_model_state`).
 `--device cpu` runs on the CPU.
 """
 
@@ -34,7 +35,8 @@ def parse_args(argv=None):
     p.add_argument("--torch-ckpt", default=None,
                    help="torch I3D state_dict (.pt/.pth) to convert on the fly")
     p.add_argument("--ckpt-dir", default=None,
-                   help="directory of the port's checkpoints holding the classifier")
+                   help="directory of the port's checkpoints (or the JAX package's "
+                        "orbax checkpoints, with tensorstore) holding the classifier")
     p.add_argument("--labels", default=None, help="text file, one class name per line")
     p.add_argument("--num-classes", type=int, default=400)
     p.add_argument("--num-frames", type=int, default=64,

@@ -29,7 +29,9 @@ def parse_args(argv=None):
     p.add_argument("--output", default="out.mp4")
     p.add_argument("--preset", default="streaming")
     p.add_argument("--ckpt-dir", default=None,
-                   help="the port's checkpoints (random weights if absent)")
+                   help="the port's checkpoints, or the JAX package's orbax "
+                        "directories where tensorstore is installed (random weights "
+                        "if absent)")
     p.add_argument("--score-thresh", type=float, default=0.3)
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--class-names", default=None, help="comma-separated names")

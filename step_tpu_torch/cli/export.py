@@ -9,6 +9,17 @@ it: `cli/serve.py` passes a checkpoint's at call time.
     python -m step_tpu_torch.cli.export --preset ucf_3step --batch-size 8 \\
         --optimized --out detect.pt2
 
+The kernel configuration (K3, K4 and K5 as nodes of the program beside K1
+and K2) is the unfolded tree with the JAX CLI's own switches, read at
+trace time and kept by the program:
+
+    STEP_TPU_POOL3D=pallas python -m step_tpu_torch.cli.export \\
+        --preset ucf_3step --batch-size 8 --set fused_bn_relu=True --out kernels.pt2
+
+(not `--optimized`: BN folding wins over `fused_bn_relu`).
+`cli/serve.py` serves it with the same preset and `--set` flags and no
+environment variable.
+
 The program runs on the device it was traced on (`--device`, the card by
 default), in the installation that wrote it. `--platforms` (the JAX
 package's lowering targets) has no meaning for a traced PyTorch program

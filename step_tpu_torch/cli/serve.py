@@ -11,6 +11,13 @@ No model is built and nothing is traced at serving time: the program is
 loaded and called on the newest checkpoint's weights, folded by
 `models/optimize.py` when the program was exported with `--optimized`
 (pass the same preset, `--optimized` and `--set` flags as to the export).
+A program of the kernel configuration (exported with `--set
+fused_bn_relu=True` under `STEP_TPU_POOL3D=pallas`, `cli/export.py`)
+holds its K3, K4 and K5 nodes and is served with `--set
+fused_bn_relu=True`; the pool switch was read when it was traced, so the
+serving process sets no environment variable. `--ckpt-dir` takes the
+port's checkpoints or, where `tensorstore` is installed, the JAX
+package's orbax directories (`utils/checkpoint.py::load_model_state`).
 
     python -m step_tpu_torch.cli.serve --program detect.pt2 --preset ucf_3step \\
         --optimized --ckpt-dir runs/ucf/ckpt --frames-dir /data/frames/video1 \\

@@ -3,7 +3,8 @@ dataset in its layout): frame-mAP@0.5 and video-mAP over linked tubes; or
 on AVA: keyframe frame-mAP@0.5.
 
 Port of the JAX package's `test.py`. It restores the newest checkpoint of
-`--ckpt-dir` (the port's own, `utils/checkpoint.py`), runs
+`--ckpt-dir` (the port's own, or the JAX package's orbax directories where
+`tensorstore` is installed: `utils/checkpoint.py`), runs
 `evaluate.evaluate_ucf` or, for an AVA preset, `evaluate.evaluate_ava` on
 the card (`--device cpu` for the CPU), and prints each result, and for
 UCF the phase timings and the JPEG decoder that ran:

@@ -65,40 +65,80 @@ def kernel_weight(weight: torch.Tensor, dtype: torch.dtype,
     return make() if cache is None else derived(cache, (weight,), make, dtype)
 
 
+def unpack_kernel_weight(w: torch.Tensor, C: int, K: int) -> torch.Tensor:
+    """`kernel_weight`'s layout back to OIDHW `[K, C, 3, 3, 3]`, in the
+    layout's dtype: tap-major `[27, C, K]` (float32) or the packed
+    `[Kw, Rpad]` matrix, whose padding is dropped."""
+    if w.dim() == 3:
+        return w.permute(2, 1, 0).reshape(K, C, 3, 3, 3)
+    cpad = -(-C // 8) * 8                    # as `kernels.conv_packed_shape`
+    taps = w[:K, :27 * cpad].reshape(K, 27, cpad)[:, :, :C]
+    return taps.reshape(K, 3, 3, 3, C).permute(0, 4, 1, 2, 3)
+
+
+@torch.library.custom_op("step::conv3x3x3_bn_relu", mutates_args=(), device_types="cpu")
+def conv3x3x3_bn_relu_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """`step::conv3x3x3_bn_relu`, K3 as a custom operator, so that
+    `torch.export` keeps it as one node of a served program: on a CPU
+    tensor the plain version, on a CUDA tensor the kernel
+    (`_conv3x3x3_bn_relu_cuda`), on a fake tensor the shape. x is
+    `[N, C, T, H, W]`; w is the weight in the kernel's layout for x's
+    dtype (`kernel_weight`), which the CPU version unpacks
+    (`unpack_kernel_weight`); scale and bias are float32 `[K]`. Each
+    returns a `channels_last_3d` tensor `[N, K, T, H, W]`."""
+    weight = unpack_kernel_weight(w, x.shape[1], scale.shape[0])
+    return conv3x3x3_bn_relu_plain(x, weight, scale, bias).contiguous(
+        memory_format=torch.channels_last_3d)
+
+
+@conv3x3x3_bn_relu_op.register_fake
+def _conv3x3x3_bn_relu_fake(x, w, scale, bias):
+    N, _, T, H, W = x.shape
+    return torch.empty((N, scale.shape[0], T, H, W), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last_3d)
+
+
+@conv3x3x3_bn_relu_op.register_kernel("cuda")
+def _conv3x3x3_bn_relu_cuda(x, w, scale, bias):
+    """The kernel (`csrc/conv3d.cu`), which reads the channels-last view of
+    x (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is copied
+    into it first): in bfloat16 the tensor-core kernel, in float32 the
+    CUDA-core kernel. Counted by `conv3x3x3_bn_relu.launches`."""
+    from step_tpu_torch import kernels
+
+    N, _, T, H, W = x.shape
+    out = kernels.empty_ncdhw((N, scale.shape[0], T, H, W), x)
+    kernels.conv3x3x3_bn_relu_forward(kernels.ndhwc(x), w, scale.contiguous(),
+                                      bias.contiguous(), kernels.ndhwc(out))
+    conv3x3x3_bn_relu.launches += 1
+    return out
+
+
 def conv3x3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,
                       scale: torch.Tensor, bias: torch.Tensor,
                       weight_cache: dict | None = None) -> torch.Tensor:
     """relu(conv3d_SAME(x, weight) * scale + bias) for x `[N, C, T, H, W]`,
     weight `[K, C, 3, 3, 3]` (cast to x's dtype), scale and bias `[K]`
-    (`conv3x3x3_bn_relu_plain`'s contract) → `[N, K, T, H, W]`.
+    (`conv3x3x3_bn_relu_plain`'s contract) → a `channels_last_3d` tensor
+    `[N, K, T, H, W]`.
 
-    A CUDA tensor goes to the hand-written kernel (`csrc/conv3d.cu`), which
-    reads the channels-last view of x (`kernels.ndhwc`: a tensor not in
-    `channels_last_3d` order is copied into it first) and returns a
-    `channels_last_3d` tensor: in bfloat16 the tensor-core kernel, with the
-    weight packed by `pack_conv3x3x3_weight`; in float32 the CUDA-core
-    kernel, with tap-major weights `[27, C, K]`. `weight_cache` keeps that
-    layout between calls (`kernel_weight`). A CPU tensor goes to the plain
-    version. `conv3x3x3_bn_relu.launches` counts kernel launches.
+    The weight goes into the kernel's layout for x's dtype
+    (`kernel_weight`; `weight_cache` keeps it between calls, and under
+    `torch.export` the layout is made in the program), then through
+    `step::conv3x3x3_bn_relu`: the hand-written kernel (`csrc/conv3d.cu`)
+    on a CUDA tensor, the plain version on a CPU tensor. Inference only:
+    the operator has no backward. `conv3x3x3_bn_relu.launches` counts
+    kernel launches.
     """
-    if x.device.type == "cpu":
-        return conv3x3x3_bn_relu_plain(x, weight, scale, bias)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3x3_bn_relu: no kernel for device {x.device}")
-    from step_tpu_torch import kernels
-
-    N, C, T, H, W = x.shape
-    K = weight.shape[0]
+    K, C = weight.shape[0], x.shape[1]
     if tuple(weight.shape) != (K, C, 3, 3, 3):
         raise ValueError(f"conv3x3x3_bn_relu: weight {tuple(weight.shape)} is "
                          f"not [K, {C}, 3, 3, 3]")
-    w = kernel_weight(weight, x.dtype, weight_cache)
-    out = kernels.empty_ncdhw((N, K, T, H, W), x)
-    kernels.conv3x3x3_bn_relu_forward(
-        kernels.ndhwc(x), w, scale.to(torch.float32).contiguous(),
-        bias.to(torch.float32).contiguous(), kernels.ndhwc(out))
-    conv3x3x3_bn_relu.launches += 1
-    return out
+    return conv3x3x3_bn_relu_op(x, kernel_weight(weight, x.dtype, weight_cache),
+                                scale.to(torch.float32), bias.to(torch.float32))
 
 
 conv3x3x3_bn_relu.launches = 0

@@ -42,12 +42,33 @@ def max_pool3x3_kernel(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("step::max_pool3x3_same", mutates_args=(), device_types="cpu")
+def max_pool3x3_same_op(x: torch.Tensor) -> torch.Tensor:
+    """`step::max_pool3x3_same`, K5 as a custom operator, so that
+    `torch.export` keeps it as one node of a served program: on a CPU
+    tensor the plain version, on a CUDA tensor the kernel
+    (`max_pool3x3_kernel`), on a fake tensor the shape. Each returns a
+    `channels_last_3d` tensor."""
+    return max_pool3x3_same_plain(x).contiguous(memory_format=torch.channels_last_3d)
+
+
+@max_pool3x3_same_op.register_fake
+def _max_pool3x3_same_fake(x):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last_3d)
+
+
+max_pool3x3_same_op.register_kernel("cuda")(max_pool3x3_kernel)
+
+
 def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
     """3x3x3 / stride 1 / SAME max pool of an NCDHW tensor
-    (`max_pool3x3_same_plain`'s contract), bit for bit.
+    (`max_pool3x3_same_plain`'s contract), bit for bit, as a
+    `channels_last_3d` tensor.
 
-    A CUDA tensor goes to the hand-written kernel (`max_pool3x3_kernel`),
-    a CPU tensor to the plain version; under autograd both go through
+    Through `step::max_pool3x3_same`: the hand-written kernel on a CUDA
+    tensor, the plain version on a CPU tensor. The operator is inference
+    only; under autograd both devices go through
     `pool_grad.max_pool_3d_s1_sepgrad`, so the result has a `grad_fn`.
     `max_pool3x3_same.launches` counts kernel launches.
     """
@@ -57,9 +78,7 @@ def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
         from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
 
         return max_pool_3d_s1_sepgrad(x, (3, 3, 3))
-    if x.device.type == "cpu":
-        return max_pool3x3_same_plain(x)
-    return max_pool3x3_kernel(x)
+    return max_pool3x3_same_op(x)
 
 
 max_pool3x3_same.launches = 0

@@ -3,8 +3,11 @@
 Port of `step_tpu/train/fit.py` for one card: iterate the loader, run
 `train_step` (a batch's flow, where the dataset reads it, goes with it to
 the card), log the metrics, checkpoint every `ckpt_every` steps and at
-the end, resume exactly mid-epoch, and on SIGTERM or SIGINT write a last
-checkpoint and return. The step's metrics stay on the card until a log
+the end, resume exactly mid-epoch (from the port's checkpoints or, where
+`tensorstore` is installed, the JAX package's orbax ones), and on SIGTERM
+or SIGINT write a last checkpoint and return. With a `log_dir` the
+metrics also go to TensorBoard where `tensorboard` is installed
+(`MetricsLogger`). The step's metrics stay on the card until a log
 window closes (`MetricsLogger.print_every` steps), so the host runs ahead
 of the card between windows. `pretrained_i3d` starts the backbone from a
 Kinetics I3D checkpoint (`models/convert.py`) with fresh optimizer
@@ -26,6 +29,7 @@ from __future__ import annotations
 import json
 import os
 import signal
+import socket
 import time
 from typing import Callable, Optional
 
@@ -44,16 +48,59 @@ from step_tpu_torch.train.trainer import (TrainState, batch_to_device,
 from step_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 
 
-class MetricsLogger:
-    """Console and JSONL metrics (`<log_dir>/metrics.jsonl`, one record a
-    step)."""
+class TensorBoardScalars:
+    """Scalars in a TensorBoard event file in `path`, written with the
+    `tensorboard` package's record writer and protos:
+    `torch.utils.tensorboard.SummaryWriter` is not used, since importing it
+    imports `tensorflow` where that is installed, and `tensorflow` imports
+    JAX. The JAX package's `tensorflow` writer belongs to the TPU image and
+    is not carried."""
 
-    def __init__(self, log_dir: Optional[str] = None, print_every: int = 20):
+    def __init__(self, path: str):
+        from tensorboard.compat.proto import event_pb2, summary_pb2
+        from tensorboard.summary.writer.record_writer import RecordWriter
+
+        self._event_pb2, self._summary_pb2 = event_pb2, summary_pb2
+        os.makedirs(path, exist_ok=True)
+        name = f"events.out.tfevents.{int(time.time())}.{socket.gethostname()}.{os.getpid()}"
+        self._file = open(os.path.join(path, name), "wb")
+        self._records = RecordWriter(self._file)
+        self._write(file_version="brain.Event:2")
+
+    def _write(self, **fields):
+        event = self._event_pb2.Event(wall_time=time.time(), **fields)
+        self._records.write(event.SerializeToString())
+
+    def add_scalar(self, tag: str, value: float, global_step: int) -> None:
+        entry = self._summary_pb2.Summary.Value(tag=tag, simple_value=value)
+        self._write(step=global_step, summary=self._summary_pb2.Summary(value=[entry]))
+
+    def flush(self) -> None:
+        self._records.flush()
+
+    def close(self) -> None:
+        self._records.close()
+
+
+class MetricsLogger:
+    """Console, JSONL (`<log_dir>/metrics.jsonl`, one record a step) and,
+    with `tensorboard` where it is installed, TensorBoard scalars
+    (`<log_dir>/tb`) under the JAX package's tags: each float of the record
+    under its key, each list of floats as `key/i`."""
+
+    def __init__(self, log_dir: Optional[str] = None, print_every: int = 20,
+                 tensorboard: bool = True):
         self.print_every = print_every
         self.jsonl = None
+        self.tb = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
             self.jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+            if tensorboard:
+                try:
+                    self.tb = TensorBoardScalars(os.path.join(log_dir, "tb"))
+                except ImportError:         # no `tensorboard` package
+                    pass
 
     def log(self, step: int, metrics: dict, extra: Optional[dict] = None):
         record = {"step": step}
@@ -64,6 +111,14 @@ class MetricsLogger:
         if self.jsonl:
             self.jsonl.write(json.dumps(record) + "\n")
             self.jsonl.flush()
+        if self.tb is not None:
+            for k, v in record.items():
+                if isinstance(v, float):
+                    self.tb.add_scalar(k, v, global_step=step)
+                elif isinstance(v, list) and v and isinstance(v[0], float):
+                    for i, vi in enumerate(v):
+                        self.tb.add_scalar(f"{k}/{i}", vi, global_step=step)
+            self.tb.flush()
         if step % self.print_every == 0:
             print(f"step {step}: loss={record.get('loss', float('nan')):.4f} "
                   f"clips/s={record.get('clips_per_sec', 0.0):.1f}", flush=True)
@@ -71,6 +126,8 @@ class MetricsLogger:
     def close(self):
         if self.jsonl:
             self.jsonl.close()
+        if self.tb is not None:
+            self.tb.close()
 
 
 def _state_tensors(state: TrainState) -> list:

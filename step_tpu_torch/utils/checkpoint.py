@@ -8,8 +8,16 @@ so they restore bit for bit, with the name of their blocking; moments
 saved in another blocking are refused, `train/optim_int8.py`), the step,
 the dropout generator's state and the data iterator's position
 `{epoch, batch_index}` (the loader's per-epoch order is seeded, so `fit`
-resumes mid-epoch without replaying a batch). The newest `max_to_keep` are kept. Reading the JAX package's
-orbax checkpoints is not ported.
+resumes mid-epoch without replaying a batch). The newest `max_to_keep` are
+kept.
+
+`load_model_state` and `restore_checkpoint` also read the JAX package's
+orbax checkpoints (`<step>/default/` directories, `utils/jax_checkpoint.py`)
+where `tensorstore` is installed: the newest step of either format is
+read, the port's file where both hold it. So `cli.test`, `cli.serve`,
+`cli.demo`, `cli.classify --ckpt-dir` and `fit(resume=True)` take a run
+trained by the JAX package; `jax_checkpoint.convert_jax_checkpoint` writes
+it as the port's `<step>.pt` for a machine without `tensorstore`.
 """
 
 from __future__ import annotations
@@ -61,22 +69,34 @@ def save_checkpoint(ckpt_dir: str, state: TrainState,
     return state.step
 
 
-def _checkpoint_file(ckpt_dir: str, step: Optional[int]) -> str:
-    """The file of the checkpoint at `step` (the newest by default); raises
-    FileNotFoundError if there is none."""
-    steps = checkpoint_steps(ckpt_dir)
-    if step is None and steps:
-        step = steps[-1]
-    if step is None or step not in steps:
-        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}"
-                                + ("" if step is None else f" at step {step}"))
-    return os.path.join(ckpt_dir, f"{step}.pt")
+def _checkpoint(ckpt_dir: str, step: Optional[int]) -> tuple[str, int]:
+    """("pt", step) or ("orbax", step) of the checkpoint at `step` (the
+    newest of either format by default; the port's where both hold a
+    step); raises FileNotFoundError if there is none."""
+    from step_tpu_torch.utils.jax_checkpoint import orbax_steps
+
+    pt, orbax = checkpoint_steps(ckpt_dir), orbax_steps(ckpt_dir)
+    if step is None and (pt or orbax):
+        step = max(pt + orbax)
+    if step is not None and step in pt:
+        return "pt", step
+    if step is not None and step in orbax:
+        return "orbax", step
+    raise FileNotFoundError(f"no checkpoint found in {ckpt_dir}"
+                            + ("" if step is None else f" at step {step}"))
 
 
 def load_model_state(ckpt_dir: str, step: Optional[int] = None) -> dict:
     """The model state_dict of the checkpoint at `step` (the newest by
-    default), on the CPU: what `cli/classify.py --ckpt-dir` reads."""
-    return torch.load(_checkpoint_file(ckpt_dir, step), map_location="cpu")["model"]
+    default), on the CPU: what the CLIs' `--ckpt-dir` reads. A JAX orbax
+    checkpoint gives its detector or `I3DClassifier` variables, converted."""
+    kind, step = _checkpoint(ckpt_dir, step)
+    if kind == "orbax":
+        from step_tpu_torch.utils import jax_checkpoint
+
+        return jax_checkpoint.variables_state_dict(
+            jax_checkpoint.read_orbax_checkpoint(ckpt_dir, step))
+    return torch.load(os.path.join(ckpt_dir, f"{step}.pt"), map_location="cpu")["model"]
 
 
 def restore_checkpoint(ckpt_dir: str, state: TrainState,
@@ -84,9 +104,16 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     """Load the checkpoint at `step` (the newest by default) into `state`,
     on the model's device → (state, data_iter_state). Raises
     FileNotFoundError if there is none, and ValueError for int8 moments
-    blocked otherwise than `state`'s optimizer blocks them."""
+    blocked otherwise than `state`'s optimizer blocks them. A JAX orbax
+    checkpoint goes through `jax_checkpoint.restore_orbax_checkpoint`; the
+    dropout generator then keeps its seeded state."""
+    kind, step = _checkpoint(ckpt_dir, step)
+    if kind == "orbax":
+        from step_tpu_torch.utils.jax_checkpoint import restore_orbax_checkpoint
+
+        return restore_orbax_checkpoint(ckpt_dir, state, step)
     device = next(state.model.parameters()).device
-    path = _checkpoint_file(ckpt_dir, step)
+    path = os.path.join(ckpt_dir, f"{step}.pt")
     payload = torch.load(path, map_location=device)
     optim_int8.check_restorable(payload["opt_state"], state.opt_state, path)
     state.model.load_state_dict(payload["model"])

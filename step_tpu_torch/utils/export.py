@@ -10,17 +10,28 @@ program takes the model's parameters and buffers as its first input
 (`torch.func.functional_call`), so one artifact serves any fine-tune of
 its config.
 
-The two hand kernels of the path stay in the program as the custom
-operators `step::nms_surface` (K1, `inference.py`) and
-`step::tube_roi_align` (K2, `ops/roi_align.py`): one node each a call,
-which launches the kernel when the program runs on the card (and counts
-the launch) and the plain version on the CPU. The program is an
-`ExportedProgram` that a Python process loads after importing those
-operators (`load_detect_fn` does); the kernels are a ctypes library with
-no PyTorch headers, so no ahead-of-time compiled package can link them.
+The hand kernels of the path stay in the program as custom operators, one
+node a call: K1 `step::nms_surface` (`inference.py`) and K2
+`step::tube_roi_align` (`ops/roi_align.py`) in every program, and in the
+kernel configuration K3 `step::conv3x3x3_bn_relu` (`ops/conv3d.py`), K4
+`step::scale_bias_relu` (`ops/fused_bn_relu.py`) and K5
+`step::max_pool3x3_same` (`ops/pool.py`). Each node launches its kernel
+when the program runs on the card (and counts the launch) and the plain
+version on the CPU. The program is an `ExportedProgram` that a Python
+process loads after importing those operators (`load_detect_fn` does);
+the kernels are a ctypes library with no PyTorch headers, so no
+ahead-of-time compiled package can link them.
 `torch.export` records the device of every tensor the program makes, so a
 program runs on the device it was exported on, and the format is that of
 the installation that wrote it: export and serve in the same one.
+
+The kernel configuration is the unfolded tree with `cfg.fused_bn_relu`
+(BN folding wins over it, so not `bn_folded`) traced with
+`STEP_TPU_POOL3D=pallas` in the environment. Both switches are read at
+trace time: the program keeps the choice, and the process that serves it
+sets no variable. K3's weight layout (`ops/conv3d.py::kernel_weight`) is
+made from the weight input inside the program on every request, so the
+weights stay an input; eager serving keeps it cached per unit.
 
 Usage:
     blob = export_detect_fn(cfg, batch_size=8)            # bytes, on the card
@@ -132,6 +143,9 @@ def load_program(blob):
     reads both the program's callable and its input specs loads it once
     here and hands the ExportedProgram to both."""
     import step_tpu_torch.inference  # noqa: F401  (step::nms_surface)
+    import step_tpu_torch.ops.conv3d  # noqa: F401  (step::conv3x3x3_bn_relu)
+    import step_tpu_torch.ops.fused_bn_relu  # noqa: F401  (step::scale_bias_relu)
+    import step_tpu_torch.ops.pool  # noqa: F401  (step::max_pool3x3_same)
     import step_tpu_torch.ops.roi_align  # noqa: F401  (step::tube_roi_align)
 
     if isinstance(blob, torch.export.ExportedProgram):

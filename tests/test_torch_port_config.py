@@ -4,9 +4,11 @@ the port imports nothing of the JAX package.
 `step_tpu_torch/config.py` is a copy of `step_tpu/config.py`: every preset
 and the default config must give the same fields with the same values.
 The import guard runs in a fresh interpreter whose import system refuses
-`jax*` and `step_tpu` / `step_tpu.*`, and imports every module of the port
+`jax*`, `step_tpu` / `step_tpu.*` and flax, orbax and optax (which import
+JAX), and imports every module of the port
 (the CLIs and the UCF reader among them, with cv2 left unimported) and
-`chip_smoke.py` (as a module, without running it).
+`chip_smoke.py` (as a module, without running it); tensorstore and msgpack
+are left unimported.
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -43,12 +45,12 @@ import importlib, importlib.util, pkgutil, sys
 class Refuse:
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib") or top.startswith("jax") or top == "step_tpu":
+        if (top.startswith("jax") or top in ("step_tpu", "flax", "orbax", "optax")):
             raise ImportError(f"refused import of {name}")
         return None
 
 for mod in list(sys.modules):
-    if mod.split(".")[0] in ("jax", "jaxlib", "step_tpu"):
+    if mod.split(".")[0] in ("jax", "jaxlib", "step_tpu", "flax", "orbax", "optax"):
         del sys.modules[mod]
 sys.meta_path.insert(0, Refuse())
 
@@ -68,16 +70,21 @@ dist_worker = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(dist_worker)
 dist_worker.eval_models(), dist_worker.fit_loader(2, 1)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] == "step_tpu" or m.split(".")[0].startswith("jax"))
+             if m.split(".")[0] in ("step_tpu", "flax", "orbax", "optax")
+             or m.split(".")[0].startswith("jax"))
 assert not bad, bad
+# tensorstore (the orbax reader) and msgpack are never imported by the port
+# (the variables files carry their own codec), tensorstore only lazily
+assert "tensorstore" not in sys.modules and "msgpack" not in sys.modules
 # cv2 is imported where a frame is read or written, never at import
 assert "cv2" not in sys.modules
 print(" ".join(names))
 """
 
 # Modules the guard must reach: the evaluation slice's, AVA's and the
-# pretrained start's, int8 moments', the classifier's, serving's and data
-# parallelism's among them.
+# pretrained start's, int8 moments', the classifier's, serving's, data
+# parallelism's and the checkpoint and variables bridge's among them. The
+# guard refuses flax, orbax and optax too, which import JAX.
 _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
               "step_tpu_torch.data.augmentations", "step_tpu_torch.utils.cli",
@@ -88,7 +95,9 @@ _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.utils.vis", "step_tpu_torch.cli.export",
               "step_tpu_torch.cli.serve", "step_tpu_torch.cli.demo",
               "step_tpu_torch.parallel.mesh", "step_tpu_torch.parallel.distributed",
-              "step_tpu_torch.data.memory")
+              "step_tpu_torch.data.memory", "step_tpu_torch.utils.msgpack_codec",
+              "step_tpu_torch.utils.jax_checkpoint", "step_tpu_torch.utils.checkpoint",
+              "step_tpu_torch.train.fit", "step_tpu_torch.convert")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():

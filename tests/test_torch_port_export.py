@@ -2,8 +2,11 @@
 `cli/export.py`) on the CPU, at tiny depth in float32.
 
   * K1 and K2 are the custom operators `step::nms_surface` and
-    `step::tube_roi_align`: `torch.library.opcheck` holds their schemas,
-    fake (shape) functions and dispatch.
+    `step::tube_roi_align`, K3, K4 and K5 `step::conv3x3x3_bn_relu`,
+    `step::scale_bias_relu` and `step::max_pool3x3_same`:
+    `torch.library.opcheck` holds their schemas, fake (shape and stride)
+    functions and dispatch, the backbone's in float32 and bfloat16, at an
+    odd channel count and on an input not in `channels_last_3d` order.
   * The loaded program equals eager `detect_clip` bit for bit (the same
     operations on the same device), holds one `nms_surface` and one
     `tube_roi_align` a step, and carries no weight: a second state_dict
@@ -35,6 +38,7 @@ from step_tpu_torch.config import PRESETS
 from step_tpu_torch.convert import from_jax_variables
 from step_tpu_torch.inference import detect_clip, nms_surface
 from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.ops.conv3d import kernel_weight
 from step_tpu_torch.utils import export
 from step_tpu_torch.utils.init import init_detector_
 
@@ -77,7 +81,21 @@ def _opcheck_cases():
     scores = t(rng.rand(2, 5, 3))
     mask = t(rng.rand(2, 5) > 0.2)
     feats = t(rng.randn(2, 3, 4, 4, 8))
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        x = t(rng.randn(2, 5, 3, 4, 6)).to(dtype)            # contiguous NCDHW, odd C
+        w = t(rng.randn(7, 5, 3, 3, 3) / 12)
+        cases.update({
+            f"scale_bias_relu_{tag}": (torch.ops.step.scale_bias_relu.default,
+                                       (x, t(rng.rand(5) + 0.5), t(rng.randn(5)))),
+            f"max_pool3x3_same_{tag}": (torch.ops.step.max_pool3x3_same.default, (x,)),
+            f"conv3x3x3_bn_relu_{tag}": (torch.ops.step.conv3x3x3_bn_relu.default,
+                                         (x, kernel_weight(w, dtype), t(rng.rand(7) + 0.5),
+                                          t(rng.randn(7)))),
+        })
     return {
+        **cases,
         "nms_surface": (torch.ops.step.nms_surface.default,
                         (tubes, scores, mask, 4, 0.5, 0.05)),
         "nms_surface_bf16": (torch.ops.step.nms_surface.default,

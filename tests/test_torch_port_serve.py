@@ -8,8 +8,10 @@
     `cli.export` then `cli.serve` on the same video and checkpoint give the
     same detections (frames and classes equal, scores within rtol 1e-5 /
     atol 1e-6, boxes within rtol 1e-4 / atol 1e-3 px, that test's
-    bounds), as the evaluated model and as the `--optimized` tree. Both
-    pin the cv2 decoder (`STEP_TPU_DISABLE_NATIVE`).
+    bounds), as the evaluated model, as the `--optimized` tree and as the
+    kernel configuration (`--set fused_bn_relu=True`, exported under
+    `STEP_TPU_POOL3D=pallas` and served without it). Both pin the cv2
+    decoder (`STEP_TPU_DISABLE_NATIVE`).
   * A directory of videos, served with the next video's decode in
     flight, gives each video the detections of its standalone serve.
   * The refusals: a flow-stream config, a config whose wire format is not
@@ -38,9 +40,14 @@ from step_tpu_torch.cli import test as cli_test
 from step_tpu_torch.cli import train as cli_train
 from step_tpu_torch.config import PRESETS
 from step_tpu_torch.utils import vis
+from step_tpu_torch.utils.export import program_op_counts
 from tests.test_cli_e2e import TINY_SET
 from tests.test_data import _write_jpg
 from tests.test_serve_protocol import TINY3_SET, mini_ucf3  # noqa: F401  (a fixture)
+
+
+# the kernel configuration: K3, K4 and K5 as nodes of the program
+KERNELS = ("--set", "fused_bn_relu=True")
 
 
 def _quiet(fn, argv):
@@ -85,13 +92,17 @@ def checkpoint(mini_ucf3, tmp_path_factory):  # noqa: F811
 @pytest.fixture(scope="module")
 def programs(tmp_path_factory):
     """The tiny 3-chunk detect program at B=2, exported once as the
-    evaluated model (key ()) and as the `--optimized` tree."""
+    evaluated model (key ()), as the `--optimized` tree and as the kernel
+    configuration (key `KERNELS`)."""
     root = tmp_path_factory.mktemp("programs")
     out = {}
-    for optimized in ((), ("--optimized",)):
+    for optimized in ((), ("--optimized",), KERNELS):
         out[optimized] = str(root / f"detect{len(optimized)}.pt2")
-        _quiet(cli_export.main, ["--batch-size", "2", "--out", out[optimized],
-                                 "--device", "cpu", *TINY3_SET, *optimized])
+        with pytest.MonkeyPatch.context() as mp:
+            if optimized == KERNELS:            # the pool switch, read at trace time
+                mp.setenv("STEP_TPU_POOL3D", "pallas")
+            _quiet(cli_export.main, ["--batch-size", "2", "--out", out[optimized],
+                                     "--device", "cpu", *TINY3_SET, *optimized])
     return out
 
 
@@ -102,17 +113,23 @@ def _serve(program, ckpt, frames_dir, out, *extra):
                                    *extra])
 
 
-@pytest.mark.parametrize("optimized", [(), ("--optimized",)])
+@pytest.mark.parametrize("optimized", [(), ("--optimized",), KERNELS])
 def test_serve_matches_test_cli(mini_ucf3, checkpoint, programs, tmp_path,  # noqa: F811
                                 monkeypatch, optimized):
     monkeypatch.setenv("STEP_TPU_DISABLE_NATIVE", "1")
     dump = str(tmp_path / "test_dets.pkl")
+    if optimized == KERNELS:
+        monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
     _quiet(cli_test.main, ["--data-root", mini_ucf3, "--ckpt-dir", checkpoint,
                            "--dump", dump, "--device", "cpu", *TINY3_SET, *optimized])
+    monkeypatch.delenv("STEP_TPU_POOL3D", raising=False)  # the program keeps its pools
     with open(dump, "rb") as f:
         test_dets = [d for d in pickle.load(f)["detections"] if d[0][0] == "Run/v2"]
 
     program = programs[optimized]
+    nodes = program_op_counts(program)
+    assert ({"conv3x3x3_bn_relu", "scale_bias_relu", "max_pool3x3_same"} <= set(nodes)) \
+        == (optimized == KERNELS), nodes
     frames = os.path.join(mini_ucf3, "rgb-images", "Run", "v2")
     served = str(tmp_path / "served.pkl")
     serve_dets = _serve(program, checkpoint, frames, served, *optimized)
