@@ -233,6 +233,16 @@ Phases, each fatal on failure (exit code 1, no result line):
      whose file re-read by the port's decoder equals the weights bit for
      bit and detects the same. The orbax reader needs `tensorstore`, which
      the card's machine lacks: the phase says it was not run.
+ 32. the benches (`bench_phases`), each `main(argv)` in-process at a
+     reduced size: `step_tpu_torch.bench` with `--config main` and
+     `--config kernel` at B=8 (5 chained requests), `bench_train` at B=8
+     (4 steps, `--skip-fit`), `bench_stream` over 8 chunks with
+     `--decompose`, `bench_linking_stream` over 8 clips: every field of
+     each JSON line, `mfu` in (0, 1.05], the card's name in `device`; K1
+     and K2 launched in each serving run, K3, K4 and K5 too under `--config
+     kernel`, K2 and K5 in training; both configurations count the same
+     FLOPs, and the tiny float32 detector's request and train-step FLOPs
+     on the card equal the CPU's; `STEP_TPU_POOL3D` as it was before.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -271,7 +281,8 @@ request of the phase-30 programs (K3, K4 and K5 also `kernel_program_ms`,
 their device ms inside the B=8 program by the profiler,
 `kernel_program_bound_ms` and `kernel_program_max_abs_err`, K3
 `kernel_program_pack_ms`), with the request medians of the program and of
-eager, and `bridge_launches`, its launches in each phase-31 run. The last
+eager, `bridge_launches`, its launches in each phase-31 run, and
+`bench_launches`, in each phase-32 bench run. The last
 is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -3368,6 +3379,118 @@ def bridge_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
     return out
 
 
+# Phase 32: the benches at a reduced size; the fields each JSON line must
+# hold (a value, or null where the run leaves it out).
+BENCH_B, BENCH_ITERS, BENCH_CHUNKS = 8, 5, 8
+BENCH_TINY = "backbone_depth=tiny,feature_stride=8,image_size=64,compute_dtype=float32"
+BENCH_FIELDS = {
+    "bench": ("metric", "value", "unit", "vs_baseline", "vs_baseline_denominator", "mfu",
+              "request_flops", "request_ms_median", "p50_latency_ms", "p90_latency_ms",
+              "latency_chained_mean_ms", "latency_readback_overhead_ms",
+              "latency_semantics", "batch", "iters", "compile_s", "peak_memory_gib",
+              "cudnn_benchmark", "config", "device"),
+    "bench_train": ("metric", "value", "unit", "step_ms", "timed_steps", "mfu",
+                    "step_flops", "batch", "remat_steps", "freeze_submodules",
+                    "compile_s", "peak_memory_gib", "config", "device"),
+    "bench_stream": ("metric", "chunks", "clip_batch", "iters", "stream_ms_per_video",
+                     "stream_clips_per_sec", "per_clip_ms_per_video",
+                     "per_clip_clips_per_sec", "speedup", "stem_ms", "refine_nms_ms",
+                     "config", "device"),
+    "bench_linking_stream": ("metric", "clips", "clip_batch", "iters",
+                             "detect_ms_per_video", "link_ms_per_video",
+                             "link_share_pct", "clips_per_sec_end_to_end",
+                             "link_ms_by_bucket", "memory", "config", "device"),
+}
+
+
+def bench_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 32: each bench's `main(argv)` at a reduced size. Returns, per
+    kernel, its launches in each bench run."""
+    from step_tpu_torch import bench, bench_linking_stream, bench_stream, bench_train
+
+    t32 = time.time()
+    out = {name: dict(bench_launches={}) for name in KERNELS}
+    pool = os.environ.get("STEP_TPU_POOL3D")
+    kind = torch.cuda.get_device_name(dev)
+
+    def run(label, module, argv, launched=()):
+        reset_counts()
+        rc, text = quiet_main(module, argv)
+        counts = read_counts()
+        check(rc == 0, f"[32] {label}: exit code {rc}")
+        rec = json.loads(text.strip().splitlines()[-1])
+        for name, n in counts.items():
+            out[name]["bench_launches"][label] = n
+        for name in launched:
+            check(counts[name] > 0, f"[32] {label}: {name} never launched ({counts})")
+        return rec, counts
+
+    def held(label, module, argv, launched):
+        rec, counts = run(label, module, argv, launched)
+        missing = [k for k in BENCH_FIELDS[module.__name__.rsplit(".", 1)[1]]
+                   if rec.get(k) is None]
+        check(not missing, f"[32] {label}: fields missing or null: {missing}")
+        check(rec["device"]["name"] == kind and rec["device"]["platform"] == "gpu"
+              and rec["device"]["count"] == torch.cuda.device_count(),
+              f"[32] {label}: device {rec['device']}")
+        if "mfu" in rec:
+            check(rec["mfu"] is not None and 0.0 < rec["mfu"] <= 1.05,
+                  f"[32] {label}: mfu {rec['mfu']}")
+        print(f"[32] {label} ({smi_line}): {json.dumps(rec)}; launches {counts}",
+              flush=True)
+        return rec
+
+    serve = {}
+    for config, launched in (("main", ("nms_many", "tube_roi_align")),
+                             ("kernel", KERNELS)):
+        serve[config] = held(f"bench --config {config}", bench,
+                             ["--config", config, "--batch", str(BENCH_B),
+                              "--iters", str(BENCH_ITERS)], launched)
+    check(serve["main"]["request_flops"] == serve["kernel"]["request_flops"],
+          f"[32] the configurations count {serve['main']['request_flops']} and "
+          f"{serve['kernel']['request_flops']} FLOPs")
+    train = held("bench_train", bench_train,
+                 ["--batch", str(BENCH_B), "--iters", "4", "--skip-fit"],
+                 ("tube_roi_align", "max_pool3x3_same"))
+    held("bench_stream", bench_stream,
+         ["--chunks", str(BENCH_CHUNKS), "--clip-batch", str(BENCH_CHUNKS), "--decompose"],
+         ("nms_many", "tube_roi_align"))
+    held("bench_linking_stream", bench_linking_stream,
+         ["--clips", str(BENCH_CHUNKS), "--clip-batch", str(BENCH_CHUNKS)],
+         ("nms_many", "tube_roi_align"))
+
+    # The counter on the card against the CPU: the custom operators are one
+    # op each on both, and the backwards (cuDNN's convolution_backward, K2's
+    # plain backward) count alike.
+    for config in ("main", "kernel"):
+        tiny = ["--config", config, "--batch", "2", "--iters", "2", "--set", BENCH_TINY]
+        card, _ = run(f"bench tiny {config}", bench, tiny + ["--device", "cuda"])
+        cpu, _ = run(f"bench tiny {config} cpu", bench, tiny + ["--device", "cpu"])
+        check(card["request_flops"] == cpu["request_flops"],
+              f"[32] tiny {config} request: {card['request_flops']} FLOPs on the card, "
+              f"{cpu['request_flops']} on the CPU")
+    from step_tpu_torch import PRESETS
+    from step_tpu_torch.train.trainer import batch_to_device, create_train_state
+    from step_tpu_torch.utils.cli import apply_overrides
+
+    cfg = apply_overrides(PRESETS["ucf_3step"], [BENCH_TINY]).replace(batch_size=2)
+    host = bench_train.make_batches(cfg, 1)[0]
+    flops = {}
+    for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        state = create_train_state(cfg, 0, device=d)
+        flops[where] = bench_train.step_flops(cfg, state.model, batch_to_device(host, d), d)
+    check(flops["card"] == flops["cpu"],
+          f"[32] tiny train step: {flops['card']} FLOPs on the card, {flops['cpu']} on the CPU")
+    check(os.environ.get("STEP_TPU_POOL3D") == pool,
+          f"[32] the benches left STEP_TPU_POOL3D={os.environ.get('STEP_TPU_POOL3D')}")
+    print(f"[32] FLOPs a request: {serve['main']['request_flops']} in both configurations "
+          f"at B={BENCH_B}; a train step {train['step_flops']} at B={BENCH_B}; the tiny "
+          f"detector's request and train step ({flops['card']}) count alike on the card "
+          f"and the CPU", flush=True)
+    print(f"    phase 32 took {time.time() - t32:.1f} s", flush=True)
+    return out
+
+
 def free_port() -> int:
     """A free TCP port on 127.0.0.1 for a process group's rendezvous."""
     import socket
@@ -4300,6 +4423,7 @@ def main() -> None:
     kernel_program = kernel_program_phases(dev, rng, seeded, smi.stdout.strip(),
                                            reset_counts, read_counts)
     bridge = bridge_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
+    benches = bench_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
                 **{k: kernel_launches[k] for k in ("max_pool3x3_same",
@@ -4325,7 +4449,8 @@ def main() -> None:
          "launches": launches[name], **results[name], **video[name], **training[name],
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
-         **serving[name], **parallel[name], **kernel_program[name], **bridge[name]}
+         **serving[name], **parallel[name], **kernel_program[name], **bridge[name],
+         **benches[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu_plain
 from step_tpu_torch.utils.tensor_cache import derived
@@ -113,6 +114,18 @@ def _conv3x3x3_bn_relu_cuda(x, w, scale, bias):
                                       bias.contiguous(), kernels.ndhwc(out))
     conv3x3x3_bn_relu.launches += 1
     return out
+
+
+@register_flop_formula(torch.ops.step.conv3x3x3_bn_relu)
+def _conv3x3x3_bn_relu_flop(x_shape, w_shape, scale_shape, bias_shape,
+                            out_shape=None, **kwargs) -> int:
+    """`torch.utils.flop_counter`'s count for `step::conv3x3x3_bn_relu`,
+    which it cannot see into: 2·N·T·H·W·K·27·C, what its formula for aten's
+    convolution counts at the same shape. The BN affine and the ReLU count
+    nothing, as aten's elementwise ops count nothing."""
+    N, C = x_shape[:2]
+    T, H, W = out_shape[2:]
+    return 2 * N * T * H * W * scale_shape[0] * 27 * C
 
 
 def conv3x3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,

@@ -85,13 +85,15 @@ def layer_of(name: str) -> str:
     return "other elementwise / reductions"
 
 
-def build(path: str, dev: torch.device):
+def build(path: str, dev: torch.device, cfg=None):
+    """(config, model) of `path` on `dev`, from `cfg` where given, else the
+    path's preset. Sets `STEP_TPU_POOL3D` for the serving paths."""
     from step_tpu_torch import PRESETS
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
     from step_tpu_torch.utils.init import init_detector_
 
-    cfg = PRESETS[PRESET_OF[path]]
+    cfg = cfg or PRESETS[PRESET_OF[path]]
     if path.startswith("train"):
         from step_tpu_torch.train.trainer import create_train_state
 

@@ -83,7 +83,7 @@ print(" ".join(names))
 
 # Modules the guard must reach: the evaluation slice's, AVA's and the
 # pretrained start's, int8 moments', the classifier's, serving's, data
-# parallelism's and the checkpoint and variables bridge's among them. The
+# parallelism's, the checkpoint and variables bridge's and the benches' among them. The
 # guard refuses flax, orbax and optax too, which import JAX.
 _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.data.ucf", "step_tpu_torch.data.native_loader",
@@ -97,7 +97,9 @@ _MUST_WALK = ("step_tpu_torch.cli.train", "step_tpu_torch.cli.test",
               "step_tpu_torch.parallel.mesh", "step_tpu_torch.parallel.distributed",
               "step_tpu_torch.data.memory", "step_tpu_torch.utils.msgpack_codec",
               "step_tpu_torch.utils.jax_checkpoint", "step_tpu_torch.utils.checkpoint",
-              "step_tpu_torch.train.fit", "step_tpu_torch.convert")
+              "step_tpu_torch.train.fit", "step_tpu_torch.convert",
+              "step_tpu_torch.bench", "step_tpu_torch.bench_train",
+              "step_tpu_torch.bench_stream", "step_tpu_torch.bench_linking_stream")
 
 
 def test_port_and_chip_smoke_import_nothing_of_the_jax_package():
