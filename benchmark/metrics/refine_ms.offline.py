@@ -1,0 +1,15 @@
+"""Device milliseconds a request of the work launched between the
+backbone's end and the detector's return, the `refine` span: the scene
+context and the three refinement steps (ROI-align, `nets.TwoBranchHead`,
+`tubes/` box decoding and extension)."""
+
+UNIT = "ms"
+BETTER = "lower"
+SOURCE = "device_trace"
+LAYER = "refinement steps"
+MOVES = "clips_per_s"
+
+
+def read(m):
+    ops = m.trace.launched_in("refine") if m.trace else []
+    return sum(e["dur"] for e in ops) * 1e-3 / m.trace.records["units"] if ops else None
