@@ -737,6 +737,14 @@ def median_wall_ms(fn, runs: int = VIDEO_RUNS):
     return float(np.median(times)), times
 
 
+def device_work(event) -> bool:
+    """A profile's kernel or copy on the card, not a span's range there
+    (the port's spans are ranges on the device too while a profiler
+    records)."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not event.is_user_annotation)
+
+
 def cuda_kernels_in(fn) -> int:
     """The CUDA kernels one call of `fn` launches, counted by torch.profiler."""
     return profiled(fn)[0]
@@ -749,8 +757,7 @@ def profiled(fn) -> tuple[int, float]:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if device_work(e)]
     return (sum(e.count for e in events),
             sum(e.self_device_time_total for e in events) / 1e3)
 
@@ -3127,8 +3134,7 @@ def device_ms_by_kernel(fn, fragments: dict) -> tuple[dict, float]:
     with torch.profiler.profile(activities=acts) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.key_averages() if device_work(e)]
     out = {label: [0, 0.0] for label in fragments}
     for e in events:
         for label, keys in fragments.items():
@@ -3562,7 +3568,7 @@ def step_profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = [e for e in events if device_work(e)]
     nccl = [e for e in cuda if "nccl" in e.key.lower()]
     return dict(kernels=sum(e.count for e in cuda),
                 device_ms=sum(e.self_device_time_total for e in cuda) / 1e3,
@@ -4152,8 +4158,7 @@ def main() -> None:
     with torch.profiler.profile(activities=activities) as prof:
         nms_surface(tubes, tscores, pmask, cfg)
         torch.cuda.synchronize()
-    surface_launches = sum(e.count for e in prof.key_averages()
-                           if e.device_type == torch.autograd.DeviceType.CUDA)
+    surface_launches = sum(e.count for e in prof.key_averages() if device_work(e))
     nms_wrapper_ms = cuda_ms(lambda: nms_surface(tubes, tscores, pmask, cfg))
     nms_plain_ms = cuda_ms(lambda: nms_surface_plain(tubes, tscores, pmask, cfg))
     print(f"[3] K1 nms_surface B={B}: wrapper {nms_wrapper_ms:.4f} ms, plain "

@@ -21,6 +21,7 @@ import numpy as np
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.data.pipeline import build_model_batch
 from step_tpu_torch.parallel.distributed import process_shard
+from step_tpu_torch.utils.spans import span
 
 _STACK_KEYS = ("rgb", "flow", "gt_tubes", "gt_labels", "gt_mask")
 
@@ -121,7 +122,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                batch = q.get()
+                with span("loader.wait"):
+                    batch = q.get()
                 if batch is None:
                     break
                 if isinstance(batch, Exception):

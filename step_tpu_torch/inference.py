@@ -35,6 +35,7 @@ from step_tpu_torch.ops.nms import _f32, kernel_valid, nms_many_plain, premask_s
 from step_tpu_torch.parallel.distributed import shard_rows
 from step_tpu_torch.parallel.mesh import mesh_group
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
+from step_tpu_torch.utils.spans import span
 
 
 def class_scores_from_logits(cls_logits: torch.Tensor, cfg: StepConfig) -> torch.Tensor:
@@ -159,12 +160,13 @@ nms_surface.launches = 0
 def _detections(outputs, prop_mask: torch.Tensor, cfg: StepConfig):
     """The last step's tubes and class scores of the detector's outputs,
     through the NMS surface."""
-    tubes = outputs["tubes"][-1]
-    scores = class_scores_from_logits(outputs["cls_logits"][-1], cfg)
-    # Padding slots are never supervised, so their logits mean nothing:
-    # zero them before anyone reads the scores.
-    scores = scores * prop_mask[..., None].to(scores.dtype)
-    return nms_surface(tubes, scores, prop_mask, cfg)
+    with span("detect.nms"):
+        tubes = outputs["tubes"][-1]
+        scores = class_scores_from_logits(outputs["cls_logits"][-1], cfg)
+        # Padding slots are never supervised, so their logits mean nothing:
+        # zero them before anyone reads the scores.
+        scores = scores * prop_mask[..., None].to(scores.dtype)
+        return nms_surface(tubes, scores, prop_mask, cfg)
 
 
 @torch.inference_mode()
@@ -204,10 +206,11 @@ def detect_clip_late_fusion(model_rgb, model_flow, rgb: torch.Tensor,
     out_rgb = model_rgb(rgb, proposals)
     out_flow = model_flow(flow, proposals)
     w = cfg.late_fusion_weight
-    scores = (w * class_scores_from_logits(out_rgb["cls_logits"][-1], cfg)
-              + (1.0 - w) * class_scores_from_logits(out_flow["cls_logits"][-1], cfg))
-    scores = scores * prop_mask[..., None].to(scores.dtype)
-    return nms_surface(out_rgb["tubes"][-1], scores, prop_mask, cfg)
+    with span("detect.nms"):
+        scores = (w * class_scores_from_logits(out_rgb["cls_logits"][-1], cfg)
+                  + (1.0 - w) * class_scores_from_logits(out_flow["cls_logits"][-1], cfg))
+        scores = scores * prop_mask[..., None].to(scores.dtype)
+        return nms_surface(out_rgb["tubes"][-1], scores, prop_mask, cfg)
 
 
 FLOW_DATASET_ERROR = ("two-stream/late-fusion/flow-stream eval needs a "

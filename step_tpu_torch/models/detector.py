@@ -60,6 +60,7 @@ from step_tpu_torch.preprocess import device_preprocess, device_preprocess_flow
 from step_tpu_torch.tubes.boxes import clip_boxes, decode_boxes
 from step_tpu_torch.tubes.proposals import initial_cuboids
 from step_tpu_torch.tubes.tube_ops import chunk_frame_mask, extrapolate_tubes
+from step_tpu_torch.utils.spans import span
 
 
 # The operations whose outputs `remat_policy="dots"` keeps: convolutions and
@@ -131,11 +132,13 @@ class STEPDetector(nn.Module):
         cfg = self.cfg
         dtype = getattr(torch, cfg.compute_dtype)
         train = train and "features" not in cfg.freeze_submodules
-        x = (device_preprocess(rgb) if cfg.input_stream == "rgb"
-             else device_preprocess_flow(rgb))
-        if flow is not None:
-            flow = device_preprocess_flow(flow).to(dtype)
-        return self.features(x.to(dtype), chunks, train, flow)
+        with span("model.preprocess"):
+            x = (device_preprocess(rgb) if cfg.input_stream == "rgb"
+                 else device_preprocess_flow(rgb)).to(dtype)
+            if flow is not None:
+                flow = device_preprocess_flow(flow).to(dtype)
+        with span("model.backbone"):
+            return self.features(x, chunks, train, flow)
 
     def refine(self, feat: torch.Tensor, proposals: torch.Tensor,
                train: bool = False, generator: torch.Generator | None = None):
@@ -145,43 +148,47 @@ class STEPDetector(nn.Module):
         `train` runs the heads in train mode (unless `steps` is frozen):
         train-mode BatchNorm, and with `cfg.dropout_rate` > 0 dropout masks
         drawn from `generator`, which is then required."""
-        cfg = self.cfg
-        train = train and "steps" not in cfg.freeze_submodules
-        drop = train and cfg.dropout_rate > 0
-        if drop and generator is None:
-            raise ValueError("training with dropout needs a torch.Generator "
-                             "for its masks (generator=...)")
-        remat = None
-        if train and cfg.remat_steps:
-            context_fn = (functools.partial(create_selective_checkpoint_contexts,
-                                            _save_dots)
-                          if cfg.remat_policy == "dots" else None)
-            kw = {"context_fn": context_fn} if context_fn else {}
-            remat = functools.partial(checkpoint, use_reentrant=False, **kw)
-        ctx = self.context(feat) if self.context is not None else None
-        tubes = proposals.to(torch.float32)
-        B, P, T = tubes.shape[:3]
-        if T != cfg.total_frames:
-            raise ValueError(f"proposals cover {T} frames, config {cfg.total_frames}")
-        t_idx = feature_time_indices(T, feat.shape[1], device=tubes.device)
-        ctx_flat = (None if ctx is None
-                    else ctx[:, None].expand(B, P, ctx.shape[-1]).reshape(B * P, -1))
-        outputs = {k: [] for k in ("cls_logits", "deltas", "proposals",
-                                   "tubes", "frame_mask")}
-        for step, head in enumerate(self.steps):
-            fmask = chunk_frame_mask(step, cfg.num_chunks, cfg.frames_per_chunk,
-                                     cfg.temporal_extension, device=tubes.device)
-            masks = (self._dropout_masks(head, B, P, feat.shape[1], generator, feat.device)
-                     if drop else None)
-            args = (head, feat, tubes, ctx_flat, fmask, t_idx, train, masks)
-            cls_logits, deltas, filled = (remat(self._step, *args) if remat
-                                          else self._step(*args))
-            for key, value in (("cls_logits", cls_logits), ("deltas", deltas),
-                               ("proposals", tubes), ("tubes", filled),
-                               ("frame_mask", fmask)):
-                outputs[key].append(value)
-            tubes = filled.detach()
-        return {k: torch.stack(v) for k, v in outputs.items()}
+        with span("model.refine"):
+            cfg = self.cfg
+            train = train and "steps" not in cfg.freeze_submodules
+            drop = train and cfg.dropout_rate > 0
+            if drop and generator is None:
+                raise ValueError("training with dropout needs a torch.Generator "
+                                 "for its masks (generator=...)")
+            remat = None
+            if train and cfg.remat_steps:
+                context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                                _save_dots)
+                              if cfg.remat_policy == "dots" else None)
+                kw = {"context_fn": context_fn} if context_fn else {}
+                remat = functools.partial(checkpoint, use_reentrant=False, **kw)
+            ctx = None
+            if self.context is not None:
+                with span("model.context"):
+                    ctx = self.context(feat)
+            tubes = proposals.to(torch.float32)
+            B, P, T = tubes.shape[:3]
+            if T != cfg.total_frames:
+                raise ValueError(f"proposals cover {T} frames, config {cfg.total_frames}")
+            t_idx = feature_time_indices(T, feat.shape[1], device=tubes.device)
+            ctx_flat = (None if ctx is None
+                        else ctx[:, None].expand(B, P, ctx.shape[-1]).reshape(B * P, -1))
+            outputs = {k: [] for k in ("cls_logits", "deltas", "proposals",
+                                       "tubes", "frame_mask")}
+            for step, head in enumerate(self.steps):
+                fmask = chunk_frame_mask(step, cfg.num_chunks, cfg.frames_per_chunk,
+                                         cfg.temporal_extension, device=tubes.device)
+                masks = (self._dropout_masks(head, B, P, feat.shape[1], generator, feat.device)
+                         if drop else None)
+                args = (head, feat, tubes, ctx_flat, fmask, t_idx, train, masks)
+                cls_logits, deltas, filled = (remat(self._step, *args) if remat
+                                              else self._step(*args))
+                for key, value in (("cls_logits", cls_logits), ("deltas", deltas),
+                                   ("proposals", tubes), ("tubes", filled),
+                                   ("frame_mask", fmask)):
+                    outputs[key].append(value)
+                tubes = filled.detach()
+            return {k: torch.stack(v) for k, v in outputs.items()}
 
     def _dropout_masks(self, head, B, P, Tp, generator, device):
         """A step's dropout keep-masks for B clips of P tubes. In a
@@ -205,13 +212,15 @@ class STEPDetector(nn.Module):
         pooled = tube_roi_align(feat, tubes, cfg.pooled_size,
                                 1.0 / cfg.feature_stride, cfg.sampling_ratio)
         pooled = pooled.reshape(B * P, *pooled.shape[2:])  # [B*P, T', 7, 7, C]
-        cls_logits, deltas = head(pooled, ctx_flat, fmask[t_idx], train, masks)
+        with span("model.head"):
+            cls_logits, deltas = head(pooled, ctx_flat, fmask[t_idx], train, masks)
         cls_logits = cls_logits.reshape(B, P, -1)
         deltas = deltas.reshape(B, P, T, 4)
-        decoded = decode_boxes(deltas, tubes, cfg.box_variances)
-        decoded = clip_boxes(decoded, cfg.image_size, cfg.image_size)
-        filled = extrapolate_tubes(decoded * fmask[:, None], fmask,
-                                   float(cfg.image_size))
+        with span("model.boxes"):
+            decoded = decode_boxes(deltas, tubes, cfg.box_variances)
+            decoded = clip_boxes(decoded, cfg.image_size, cfg.image_size)
+            filled = extrapolate_tubes(decoded * fmask[:, None], fmask,
+                                       float(cfg.image_size))
         return cls_logits, deltas, filled
 
     @staticmethod

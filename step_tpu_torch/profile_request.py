@@ -2,7 +2,7 @@
 on the card.
 
     python3 -m step_tpu_torch.profile_request
-        [--path main|kernel|video|stream|train|train_two_stream|two_stream|ava]
+        [--path main|kernel|video|stream|train|train_dp|train_two_stream|two_stream|ava]
         [--batch 8] [--requests 10] [--out profile.json]
 
 Builds the detector at full width and depth with seeded weights (seed 0),
@@ -22,6 +22,11 @@ drives:
   train   one `train_step` of `ucf_3step` (the training init, float32
           weights, bf16 compute, remat "dots", AdamW) on `--batch`
           synthetic uint8 clips already on the card;
+  train_dp  the same step through a one-rank data-parallel mesh
+          (`make_parallel_train_step`: NCCL on the card), each step's
+          batch taken from a `DataLoader` of synthetic clips (two worker
+          threads, three batches ahead) and uploaded, so that the
+          `loader.wait` and `train.reduce` spans open;
   train_two_stream  the same for `two_stream_train`, both stems and the
           fusion unit trained, each clip with its int8 flow (`make_flow`);
   two_stream  `two_stream_train` on the main path's tree (both stems and
@@ -40,14 +45,18 @@ more with `torch.profiler` and prints that request's wall time (the
 profiler adds to it), the summed device time, the busy share (device time
 / wall time), the number of kernels, the device time by layer (each
 hand-written kernel, cuDNN convolutions, PyTorch pools, layout
-conversions, copies, other elementwise work) and the heaviest kernels by
-name. Needs a CUDA device; without one it exits non-zero.
+conversions, copies, other elementwise work), the device time launched
+under each of the port's spans (`utils/spans.SPANS`, which any profiler
+session turns on: a span's time holds the spans nested in it) beside the
+host ms it was open, and the heaviest kernels by name. Needs a CUDA device; without one it exits
+non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import os
 import sys
@@ -55,6 +64,8 @@ import time
 
 import numpy as np
 import torch
+
+from step_tpu_torch.utils.spans import SPANS
 
 # Kernel name fragments → layer, first match wins.
 LAYERS = (
@@ -73,6 +84,7 @@ LAYERS = (
 
 
 PRESET_OF = {"main": "ucf_3step", "kernel": "ucf_3step", "train": "ucf_3step",
+             "train_dp": "ucf_3step",
              "train_two_stream": "two_stream_train",
              "video": "streaming", "stream": "streaming",
              "two_stream": "two_stream_train", "ava": "ava_3step"}
@@ -83,6 +95,26 @@ def layer_of(name: str) -> str:
         if any(k in name for k in keys):
             return layer
     return "other elementwise / reductions"
+
+
+def span_ms(events, names=SPANS) -> dict:
+    """{span: (device ms, host ms, times opened)} of the spans `names` in a
+    profile's `events()`: the device time of the work launched, on any
+    thread, while each was open (so a backward's, which autograd runs on a
+    thread of its own), that of the spans nested in it included; and the
+    time it was open on the host (a wait launches nothing, so only its
+    host ms tells)."""
+    cpu = torch.autograd.DeviceType.CPU
+    launched = [(e.time_range.start, sum(k.duration for k in e.kernels))
+                for e in events if e.device_type == cpu and e.kernels]
+    out = {}
+    for s in events:
+        if s.name in names and s.device_type == cpu:
+            a, b = s.time_range.start, s.time_range.end
+            ms, host, n = out.get(s.name, (0.0, 0.0, 0))
+            out[s.name] = (ms + sum(us for t, us in launched if a <= t <= b) / 1e3,
+                           host + (b - a) / 1e3, n + 1)
+    return out
 
 
 def build(path: str, dev: torch.device, cfg=None):
@@ -138,6 +170,8 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
                 raw["flow"] = np.stack([make_flow(rgb) for rgb in raw["rgb"]])
             return batch_to_device(build_model_batch(raw, cfg, train=True,
                                                      emit_uint8=True), dev)
+        if path == "train_dp":
+            return data_parallel_steps(cfg, model, syn, batch, dev), lambda: None
         return (lambda b: train_step(model, b, cfg), make)
     if path in ("main", "kernel", "ava", "two_stream"):
         props, pmask = STEPDetector.initial_proposals(cfg, batch, device=dev)
@@ -162,6 +196,23 @@ def request_fn(path: str, cfg, model, batch: int, dev: torch.device):
         windows = chunks[centers].reshape(batch, cfg.total_frames, S, S, 3)
         return detect_video(model, windows, tiling_stride=c)
     return video, make
+
+
+def data_parallel_steps(cfg, state, syn, batch: int, dev: torch.device):
+    """A request of `train_dp`: the next batch of an endless `DataLoader`
+    over synthetic clips (seeded from 0), uploaded, then one step of
+    `make_parallel_train_step` on a one-rank mesh of `dev`'s kind. The
+    request's argument is unused."""
+    from step_tpu_torch.data.loader import DataLoader
+    from step_tpu_torch.parallel import create_mesh
+    from step_tpu_torch.train.trainer import batch_to_device, make_parallel_train_step
+    from step_tpu_torch.train_eval_synth import SyntheticClips
+
+    step = make_parallel_train_step(cfg, state.model, create_mesh(device_type=dev.type))
+    loader = DataLoader(SyntheticClips(syn, 4 * batch, 0), cfg, batch_size=batch,
+                        num_workers=2, prefetch=3, emit_uint8=True)
+    batches = itertools.chain.from_iterable(map(loader.epoch, itertools.count()))
+    return lambda _: step(state, batch_to_device(next(batches), dev))
 
 
 def main(argv=None) -> int:
@@ -203,7 +254,9 @@ def main(argv=None) -> int:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = evt.self_cuda_time_total
-        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # a span's range on the device (`is_user_annotation`) is no kernel
+        if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not evt.is_user_annotation):
             ms, n = kernels.get(evt.key, (0.0, 0))
             kernels[evt.key] = (ms + us / 1e3, n + evt.count)
     device_ms = sum(ms for ms, _ in kernels.values())
@@ -219,6 +272,7 @@ def main(argv=None) -> int:
     if device_ms == 0.0:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
+    spans = span_ms(prof.events())
     layers = {}
     for name, (ms, n) in kernels.items():
         ms0, n0 = layers.get(layer_of(name), (0.0, 0))
@@ -231,6 +285,8 @@ def main(argv=None) -> int:
         "busy_share": device_ms / wall_ms,
         "kernels": sum(n for _, n in kernels.values()),
         "backwards": {k: {"ms": ms, "calls": n} for k, (ms, n) in backwards.items()},
+        "spans": {k: {"ms": spans[k][0], "host_ms": spans[k][1], "calls": spans[k][2]}
+                  for k in SPANS if k in spans},
         "layers": {k: {"ms": ms, "calls": n, "share": ms / device_ms}
                    for k, (ms, n) in sorted(layers.items(), key=lambda kv: -kv[1][0])},
         "top": [{"name": k[:120], "ms": ms, "calls": n}
@@ -247,6 +303,11 @@ def main(argv=None) -> int:
         print(f"  {v['ms']:9.3f} ms {v['share']:6.1%} {v['calls']:5d}  {layer}")
     for fn, v in result["backwards"].items():
         print(f"  {v['ms']:9.3f} ms        {v['calls']:5d}  under {fn} (children included)")
+    if result["spans"]:
+        print("  device time launched under the port's spans (host ms open):")
+    for name, v in result["spans"].items():
+        print(f"  {v['ms']:9.3f} ms {v['ms'] / device_ms:6.1%} {v['calls']:5d}  {name} "
+              f"({v['host_ms']:.3f} ms)")
     print("  heaviest kernels:")
     for k in result["top"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}  {k['name']}")

@@ -39,6 +39,7 @@ from step_tpu_torch.parallel.mesh import mesh_group
 from step_tpu_torch.train import optim_int8
 from step_tpu_torch.train.losses import step_losses
 from step_tpu_torch.utils.init import init_detector_train_
+from step_tpu_torch.utils.spans import span
 
 CLIP_NORM = 10.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -275,11 +276,14 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig, _reduce=None):
     for i in range(accum):
         part = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
         primary, flow = model_inputs(part, cfg)
-        outputs = model(primary, part["proposals"], flow, train=True,
-                        generator=state.generator)
-        loss, metrics = step_losses(outputs, part["gt_tubes"], part["gt_labels"],
-                                    part["gt_mask"], part["prop_mask"], cfg)
-        loss.backward()
+        with span("train.forward"):
+            outputs = model(primary, part["proposals"], flow, train=True,
+                            generator=state.generator)
+        with span("train.loss"):
+            loss, metrics = step_losses(outputs, part["gt_tubes"], part["gt_labels"],
+                                        part["gt_mask"], part["prop_mask"], cfg)
+        with span("train.backward"):
+            loss.backward()
         bns, means, variances = _bn_updates(model)
         metrics = {k: v.detach() for k, v in metrics.items()}
         if m_sum is None:
@@ -297,11 +301,13 @@ def train_step(state: TrainState, batch: dict, cfg: StepConfig, _reduce=None):
         bn_sum = tuple(torch._foreach_mul(stats, inv) if stats else stats
                        for stats in bn_sum)
     if _reduce is not None:
-        grads, m_sum = _reduce(grads, m_sum)
-    metrics = dict(m_sum, grad_norm=global_norm(grads))
-    state.optimizer.update(params, grads, state.opt_state, metrics["grad_norm"])
-    if bns:
-        with torch.no_grad():
+        with span("train.reduce"):
+            grads, m_sum = _reduce(grads, m_sum)
+    with span("train.optimizer"):
+        metrics = dict(m_sum, grad_norm=global_norm(grads))
+        state.optimizer.update(params, grads, state.opt_state, metrics["grad_norm"])
+    with span("train.bn_commit"), torch.no_grad():
+        if bns:
             torch._foreach_copy_([m.running_mean for m in bns], bn_sum[0])
             torch._foreach_copy_([m.running_var for m in bns], bn_sum[1])
     for p in params:

@@ -352,6 +352,33 @@ def test_tiny_detector_on_card_matches_cpu(cuda):
         assert torch.equal(surface[key].cpu(), ref[key]), key
 
 
+def test_program_spans_split_a_main_path_request(cuda):
+    """A B=2 main-path request under the whole profiler: the device time
+    launched under `model.preprocess`, `model.backbone`, `model.refine` and
+    `detect.nms` sums to that launched under a span around the call, within
+    2%, and each of them launched work."""
+    from step_tpu_torch.bench import pool_switch_kept
+    from step_tpu_torch.profile_request import build, span_ms
+
+    with pool_switch_kept():
+        cfg, model = build("main", cuda)
+        props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
+        rgb = torch.from_numpy(np.random.RandomState(5).randint(
+            0, 256, (2, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
+            .astype(np.uint8)).to(cuda)
+        detect_clip(model, rgb, props, pmask)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            with torch.profiler.record_function("request"):
+                detect_clip(model, rgb, props, pmask)
+            torch.cuda.synchronize()
+    stages = ("model.preprocess", "model.backbone", "model.refine", "detect.nms")
+    ms = span_ms(prof.events(), stages + ("request",))
+    assert all(ms[s][0] > 0 and ms[s][2] == 1 for s in stages), ms
+    assert sum(ms[s][0] for s in stages) == pytest.approx(ms["request"][0], rel=0.02), ms
+
+
 def _ncdhw(seed, shape, dtype, channels_last=True):
     """A random NCDHW tensor on the card, channels_last_3d unless asked."""
     x = torch.from_numpy(np.random.RandomState(seed).randn(*shape).astype(np.float32))
