@@ -28,8 +28,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      made ready for serving by `optimize_for_inference` (BN folded, the
      Inception 1x1x1 convs fused, as the JAX package serves it), bfloat16,
      serving uint8 clips through `detect_clip` at B=1 and B=8 — output
-     shapes, finite values, and both kernels' launch counters above zero
-     (K1's counts `nms_many` and `nms_surface` launches);
+     shapes, finite values, K1's and K2's launch counters above zero (K1's
+     counts `nms_many` and `nms_surface` launches), no K3 or K4, and the
+     pools measured: K5 13 and the strided pool kernel 3 launches a
+     request, as `backbone_launches` and `strided_launches` list them;
   7. K5, 3x3x3 max pool: kernel against its plain version at each of the
      six shapes a B=8 request of the kernel configuration pools
      (`backbone_launches`), float32 and bfloat16, with signed zeros, +-inf
@@ -45,9 +47,9 @@ Phases, each fatal on failure (exit code 1, no result line):
  10. the kernel path: the same `ucf_3step` at full width and depth, seeded
      weights left unfolded, `fused_bn_relu=True` and
      `STEP_TPU_POOL3D=pallas`, bfloat16, serving B=1 and B=8 — the checks of
-     phase 6, and all five launch counters above zero;
+     phase 6, and all six launch counters above zero;
  11. the same weights in float32 at B=1: the kernel path against the main
-     path (folded, cuDNN, PyTorch pools) — tube scores within 1e-3, tubes
+     path (folded, cuDNN) — tube scores within 1e-3, tubes
      within 1e-2 px;
  12. the video path: the `streaming` preset at full width on the main
      path's tree (bf16, the same seeded weights), a 288-frame uint8 video
@@ -179,7 +181,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      tolerances, 4 `fit()` steps at B=8;
  24. `I3DClassifier` (`classifier_phases`): 64-frame clips at 224 px from a
      written checkpoint, bf16, B=1 and B=8 request medians on the main
-     configuration (cuDNN convs, PyTorch pools, no kernel launched) and the
+     configuration (cuDNN convs; the pool kernels its only kernels) and the
      kernel configuration; one more request at each batch whose every K3,
      K4 and K5 call is held against its plain version on its own inputs
      (`held_backbone`) and counted by shape against `classifier_launches`;
@@ -191,8 +193,10 @@ Phases, each fatal on failure (exit code 1, no result line):
  25. the exported program (`serving_phases`): `ucf_3step` on
      `optimize_for_inference`'s tree, bf16, exported with `torch.export` at
      B=8 and B=1 on the card (`utils/export.py`): its bytes under 10% of the
-     state dict's (the weights are an input), 1 `step::nms_surface` and 3
-     `step::tube_roi_align` nodes; loaded and run on uint8 clips, K1 1 and
+     state dict's (the weights are an input), 1 `step::nms_surface`, 3
+     `step::tube_roi_align`, 13 `step::max_pool3x3_same` and 3
+     `step::max_pool3d_same` nodes (a program traced on the card holds its
+     pools as the kernels' nodes); loaded and run on uint8 clips, K1 1 and
      K2 3 launches a request, every K1 and K2 call of a B=8 request held
      against its plain version on its own inputs and timed on them; the
      served request's median at B=8 and B=1 beside eager `detect_clip`'s;
@@ -218,7 +222,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      switch in the environment: its bytes under 10% of the state dict's;
      K3 `step::conv3x3x3_bn_relu`, K4 `step::scale_bias_relu` and K5
      `step::max_pool3x3_same` nodes as `backbone_launches` counts them (27,
-     54, 13) beside K1 1 and K2 3; one launch a node in a served request;
+     54, 13) beside K1 1, K2 3 and the strided `step::max_pool3d_same` 3;
+     one launch a node in a served request;
      every K3, K4 and K5 launch of the program held against its plain
      version on its own inputs (`held_backbone_launches`: K5 by raw bits,
      K4 within one bf16 step, K3 by `k3_close`); their device ms inside
@@ -243,6 +248,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      kernel`, K2 and K5 in training; both configurations count the same
      FLOPs, and the tiny float32 detector's request and train-step FLOPs
      on the card equal the CPU's; `STEP_TPU_POOL3D` as it was before.
+ 33. the pools of a main-path request (`pool_b32_phase`) at B=32, at B=1
+     and on a B=1 request's chunk stems: K5 at its 13 launches and the
+     strided kernel (`ops/pool.py::max_pool3d_same`, `csrc/pool3d_same.cu`)
+     at the stem's MaxPool_2a, 3a and 4a, each against its plain version
+     by raw bits in f32 and bf16 with `with_specials`, and its bf16 device
+     time beside its bytes bound, its plain version's and the library's
+     (`F.max_pool3d`; for a strided pool on the input padded beforehand);
+     the launches a request the shape tables list, at B=32 and B=1, must
+     equal those phase 6 measured.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -251,8 +265,9 @@ between CUDA events (`device_ms`), so the host's cost per call is left
 out; `wrapper_ms` is the Python wrapper's time, back to back. Phases 7 and
 8 also sum launches x device time over a request. The second-to-last line
 is a JSON object describing each kernel: launches counted on the path that
-runs it (K1 and K2 on the main path, phase 6; K3, K4 and K5 on the kernel
-path, phase 10, which must equal the launches phases 7 and 8 list), max
+runs it (K1, K2, K5 and the strided pool on the main path, phase 6; K3 and
+K4 on the kernel path, phase 10, which must equal the launches phases 7
+and 8 list), max
 error, kernel, wrapper and plain times, the bound (the larger of the bytes
 it must move over 3.35 TB/s and its operations over the peak rate for
 their type) and the time of one PyTorch call for the same function where
@@ -282,13 +297,18 @@ their device ms inside the B=8 program by the profiler,
 `kernel_program_bound_ms` and `kernel_program_max_abs_err`, K3
 `kernel_program_pack_ms`), with the request medians of the program and of
 eager, `bridge_launches`, its launches in each phase-31 run, and
-`bench_launches`, in each phase-32 bench run. The last
+`bench_launches`, in each phase-32 bench run, and the pools'
+`b32_request`, `b32_shapes`, `b1_request`, `b1_shapes`, `chunk_b1_request`
+and `chunk_b1_shapes` (phase 33). The entry `max_pool3d_same` (the strided
+pool, which replaces no TPU kernel; `replaces` null) has no phase 1-11
+numbers. The last
 is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -354,7 +374,7 @@ DEMO_FRAMES, DEMO_SIZE = 60, (240, 320)
 # evaluation on 1 synthetic video of EVAL_FRAMES frames (10 windows).
 DP_STEPS, DP2_STEPS, DP_TIMED, DP_EVAL_VIDEOS = 4, 3, 6, 1
 KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
-           "conv3x3x3_bn_relu")
+           "conv3x3x3_bn_relu", "max_pool3d_same")
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -580,6 +600,117 @@ def pool_case(shape, gen: torch.Generator) -> dict:
                 plain_ms=cuda_ms(lambda: max_pool3x3_same_plain(x16)),
                 library_ms=cuda_ms(lambda: F.max_pool3d(x16, 3, 1, 1)),
                 **bound(2 * x16.numel() * 2, 26 * x16.numel(), F32_FLOPS))
+
+
+# The strided SAME pools of the stem, (window, stride) by name.
+STRIDED_POOLS = {"MaxPool_2a": ((1, 3, 3), (1, 2, 2)), "MaxPool_3a": ((1, 3, 3), (1, 2, 2)),
+                 "MaxPool_4a": ((3, 3, 3), (2, 2, 2))}
+# The strided pools of an `I3DClassifier` request: the stem's three and MaxPool_5a.
+CLASSIFIER_STRIDED = 4
+
+
+def strided_launches(cfg, B: int) -> dict:
+    """The strided pools of one request at batch B: {(name, NCDHW input
+    shape): launches}, the stem's MaxPool_2a, 3a and 4a once each (on the
+    B * num_chunks chunks with `chunk_stem`, as `backbone_launches`)."""
+    up = lambda n, s: -(-n // s)  # noqa: E731
+    chunks = cfg.num_chunks if cfg.chunk_stem else 1
+    N = B * chunks
+    T1, S1 = up(cfg.total_frames // chunks, 2), up(cfg.image_size, 2)
+    S2, S3 = up(S1, 2), up(up(S1, 2), 2)
+    return {("MaxPool_2a", (N, 64, T1, S1, S1)): 1, ("MaxPool_3a", (N, 192, T1, S2, S2)): 1,
+            ("MaxPool_4a", (N, 480, T1, S3, S3)): 1}
+
+
+def strided_pool_case(shape, window, stride, gen: torch.Generator) -> dict:
+    """The strided pool kernel (`ops/pool.py::max_pool3d_same`) at one NCDHW
+    shape: against its plain version (`F.pad(-inf)` + `F.max_pool3d`) in
+    float32 and bfloat16, with `with_specials` mixed in, by raw bits; its
+    bf16 device, wrapper and plain times, the library's (`F.max_pool3d` on
+    the input padded beforehand, so without the pad's copy) and its bound
+    (x read once, out written once)."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3d_same_plain,
+                                         max_pool3d_same_shape, same_padding)
+
+    x32 = torch.randn(shape, device=gen.device, generator=gen).contiguous(
+        memory_format=torch.channels_last_3d)
+    x16 = x32.to(torch.bfloat16)
+    for x in (with_specials(x32, gen), with_specials(x16, gen)):
+        before = max_pool3d_same.launches
+        got, want = max_pool3d_same(x, window, stride), max_pool3d_same_plain(x, window, stride)
+        torch.cuda.synchronize()
+        check(max_pool3d_same.launches == before + 1, "max_pool3d_same did not launch once")
+        check(got.shape == want.shape and got.is_contiguous(
+            memory_format=torch.channels_last_3d), f"strided pool {shape}: {got.shape}")
+        differ = raw_bits(got.contiguous()) != raw_bits(want.contiguous())
+        check(not bool(differ.any()),
+              f"strided pool {window}/{stride} {x.dtype} {shape} differs from plain in "
+              f"{int(differ.sum())} elements, {int(differ[want.isnan()].sum())} of them NaN")
+    del x32, got, want
+    out16 = kernels.empty_ncdhw(max_pool3d_same_shape(shape, stride), x16)
+    sym, pad = same_padding(x16, window, stride)
+    padded = x16 if pad is None else F.pad(x16, pad, value=float("-inf"))
+    return dict(max_abs_err=0.0,
+                ms=device_ms(lambda: kernels.max_pool3d_same_forward(
+                    kernels.ndhwc(x16), kernels.ndhwc(out16), window, stride)),
+                wrapper_ms=cuda_ms(lambda: max_pool3d_same(x16, window, stride)),
+                plain_ms=cuda_ms(lambda: max_pool3d_same_plain(x16, window, stride)),
+                library_ms=cuda_ms(lambda: F.max_pool3d(padded, window, stride, sym or 0)),
+                **bound((x16.numel() + out16.numel()) * 2,
+                        math.prod(window) * out16.numel(), F32_FLOPS))
+
+
+def pool_b32_phase(dev, per_request: dict) -> dict:
+    """Phase 33: every max pool of a main-path `ucf_3step` request on the
+    kernel that pools it there, at B=32 (the benchmark's cells), at B=1
+    (live serving) and on a B=1 request's chunk stems (`chunk_stem`, T' =
+    6, the streaming path's): K5 at the 13 stride-1 launches (the stem's
+    seven, each step's tail's two) and the strided kernel at the stem's
+    three, each held against its plain version by raw bits and timed beside
+    its bound, its plain version and the library's call. At B=32 and B=1
+    the launches a request that `backbone_launches` and `strided_launches`
+    list must equal `per_request`, the counts a request of phase 6 (the
+    main path at B=1 and B=8) measured. Returns
+    {"max_pool3x3_same": ..., "max_pool3d_same": ...} for the JSON line:
+    `b32_request` and `b32_shapes`, `b1_…` and `chunk_b1_…`."""
+    from step_tpu_torch import PRESETS
+
+    t33 = time.time()
+    cfg = PRESETS["ucf_3step"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 33)
+    out = {"max_pool3x3_same": {}, "max_pool3d_same": {}}
+    for key, c, B in (("b32", cfg, 32), ("b1", cfg, 1),
+                      ("chunk_b1", cfg.replace(chunk_stem=True), 1)):
+        k5 = [(f"3x3x3/1 {list(s)}", n, s, None)
+              for s, n in backbone_launches(c, B)[1].items()]
+        strided = [(f"{name} {list(s)}", n, s, STRIDED_POOLS[name])
+                   for (name, s), n in strided_launches(c, B).items()]
+        for kernel, cases in (("max_pool3x3_same", k5), ("max_pool3d_same", strided)):
+            total = dict(ms=0.0, bound_ms=0.0, plain_ms=0.0, library_ms=0.0, launches=0)
+            rows = {}
+            for label, n, shape, pool in cases:
+                r = pool_case(shape, gen) if pool is None else strided_pool_case(shape, *pool, gen)
+                torch.cuda.empty_cache()
+                rows[label] = dict(r, launches=n)
+                for k in ("ms", "bound_ms", "plain_ms", "library_ms"):
+                    total[k] += n * r[k]
+                total["launches"] += n
+                print(f"[33] {kernel} {key} {label} x{n}: the plain version's bits; kernel "
+                      f"{r['ms']:.4f} ms, {r['bound_ms'] / r['ms']:.1%} of the "
+                      f"{r['bound_ms']:.4f} ms bound; wrapper {r['wrapper_ms']:.4f}, plain "
+                      f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f} ms", flush=True)
+            check(key == "chunk_b1" or total["launches"] == per_request[kernel],
+                  f"{kernel} {key}: the tables list {total['launches']} launches a request, "
+                  f"the main path measured {per_request[kernel]}")
+            print(f"[33] {kernel} {key}: {total['launches']} launches a request, kernels "
+                  f"{total['ms']:.4f} ms ({total['bound_ms'] / total['ms']:.1%} of the "
+                  f"{total['bound_ms']:.4f} ms bound), plain {total['plain_ms']:.4f}, library "
+                  f"{total['library_ms']:.4f} ms", flush=True)
+            out[kernel].update({f"{key}_request": total, f"{key}_shapes": rows})
+    print(f"    phase 33 took {time.time() - t33:.1f} s", flush=True)
+    return out
 
 
 def bn_case(shape, gen: torch.Generator) -> dict:
@@ -1423,7 +1554,8 @@ def eval_phases(dev, seeded, smi_line: str, reset_counts, read_counts) -> dict:
 
     out = {name: dict(eval_launches={}) for name in ("max_pool3x3_same",
                                                      "fused_scale_bias_relu",
-                                                     "conv3x3x3_bn_relu")}
+                                                     "conv3x3x3_bn_relu",
+                                                     "max_pool3d_same")}
     for name in ("nms_many", "tube_roi_align"):
         out[name] = dict(eval_launches={}, eval_launches_per_batch={}, eval_shapes={})
 
@@ -2663,12 +2795,19 @@ def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
                               f"{logits.dtype}")
                     counts = read_counts()
                     medians[(config, b)] = float(np.median(times[1:]))
-                    if not fused:
-                        check(not any(counts.values()),
-                              f"the main configuration launched {counts}")
+                    if not fused:      # the pool kernels alone
+                        pools = {"max_pool3x3_same": len(batch) * sum(
+                                     classifier_launches(b, T, S)[1].values()),
+                                 "max_pool3d_same": len(batch) * CLASSIFIER_STRIDED}
+                        check(all(counts[k] == pools.get(k, 0) for k in counts),
+                              f"the main configuration launched {counts}, not {pools}")
+                        out["max_pool3d_same"]["classifier_launches"][f"main_b{b}"] = \
+                            counts["max_pool3d_same"]
                         continue
+                    check(counts["max_pool3d_same"] == len(batch) * CLASSIFIER_STRIDED,
+                          f"classifier kernel configuration B={b}: strided pools {counts}")
                     for name in ("max_pool3x3_same", "fused_scale_bias_relu",
-                                 "conv3x3x3_bn_relu"):
+                                 "conv3x3x3_bn_relu", "max_pool3d_same"):
                         out[name]["classifier_launches"][f"kernel_b{b}"] = counts[name]
                     # one more request, each K3, K4 and K5 call held against
                     # plain and counted by shape against classifier_launches
@@ -2882,9 +3021,10 @@ def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -
           flush=True)
     check(len(blobs[8]) < 0.1 * sd_bytes,
           f"the program takes {len(blobs[8])} bytes, 10% or more of the weights' {sd_bytes}")
-    check(nodes == {"nms_surface": 1, "tube_roi_align": scfg.num_steps},
-          f"the program holds {nodes}, not 1 nms_surface and {scfg.num_steps} "
-          "tube_roi_align")
+    want_nodes = {"nms_surface": 1, "tube_roi_align": scfg.num_steps,
+                  "max_pool3x3_same": sum(backbone_launches(scfg, 8)[1].values()),
+                  "max_pool3d_same": sum(strided_launches(scfg, 8).values())}
+    check(nodes == want_nodes, f"the program holds {nodes}, not {want_nodes}")
     t0 = time.time()
     runs = {b: export.load_detect_fn(blob) for b, blob in blobs.items()}
     print(f"    loaded both programs in {time.time() - t0:.1f} s", flush=True)
@@ -3173,11 +3313,12 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
     want_nodes = {"conv3x3x3_bn_relu": sum(k3_shapes.values()),
                   "scale_bias_relu": sum(k4_shapes.values()),
                   "max_pool3x3_same": sum(k5_shapes.values()),
+                  "max_pool3d_same": sum(strided_launches(cfg, 8).values()),
                   "nms_surface": 1, "tube_roi_align": cfg.num_steps}
     node_of = {"conv3x3x3_bn_relu": "conv3x3x3_bn_relu",
                "fused_scale_bias_relu": "scale_bias_relu",
                "max_pool3x3_same": "max_pool3x3_same", "nms_many": "nms_surface",
-               "tube_roi_align": "tube_roi_align"}
+               "tube_roi_align": "tube_roi_align", "max_pool3d_same": "max_pool3d_same"}
 
     def model_of(c):
         m = STEPDetector(c).eval()
@@ -3580,15 +3721,16 @@ def step_profile(fn) -> dict:
 
 
 def kernel_counters():
-    """(reset, read) of the K1, K2 and K5 launch counters, for a process
-    that has not built `main`'s."""
+    """(reset, read) of the K1, K2, K5 and strided pool launch counters,
+    for a process that has not built `main`'s."""
     from step_tpu_torch.inference import nms_surface
     from step_tpu_torch.ops.nms import nms_many
-    from step_tpu_torch.ops.pool import max_pool3x3_same
+    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
     from step_tpu_torch.ops.roi_align import tube_roi_align
 
     counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
-                "max_pool3x3_same": (max_pool3x3_same,)}
+                "max_pool3x3_same": (max_pool3x3_same,),
+                "max_pool3d_same": (max_pool3d_same,)}
 
     def reset():
         for fns in counters.values():
@@ -4052,7 +4194,7 @@ def main() -> None:
     from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
     from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
     from step_tpu_torch.ops.nms import _f32, nms_many, nms_many_plain, premask_scores
-    from step_tpu_torch.ops.pool import max_pool3x3_same
+    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
     from step_tpu_torch.utils.init import init_detector_
 
@@ -4278,7 +4420,8 @@ def main() -> None:
     counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
                 "max_pool3x3_same": (max_pool3x3_same,),
                 "fused_scale_bias_relu": (fused_scale_bias_relu,),
-                "conv3x3x3_bn_relu": (conv3x3x3_bn_relu,)}
+                "conv3x3x3_bn_relu": (conv3x3x3_bn_relu,),
+                "max_pool3d_same": (max_pool3d_same,)}
 
     def reset_counts():
         for fns in counters.values():
@@ -4296,6 +4439,19 @@ def main() -> None:
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB", flush=True)
     for name in ("nms_many", "tube_roi_align"):
         check(main_launches[name] > 0, f"kernel {name} never launched on the main path")
+    # Every pool of a request runs a hand-written kernel: K5 at each stride-1
+    # pool `backbone_launches` lists, the strided kernel at the stem's three.
+    main_req = len(SERVE_BATCHES) * REQUESTS_PER_BATCH
+    main_pools = {"max_pool3x3_same": sum(backbone_launches(cfg, 1)[1].values()),
+                  "max_pool3d_same": sum(strided_launches(cfg, 1).values())}
+    for name, n in main_pools.items():
+        check(main_launches[name] == main_req * n,
+              f"{name}: {main_launches[name]} launches on the main path in {main_req} "
+              f"requests, not {n} a request")
+    check(not any(main_launches[k] for k in ("fused_scale_bias_relu", "conv3x3x3_bn_relu")),
+          f"the main path launched K3 or K4: {main_launches}")
+    print(f"    pools of the main path: K5 {main_pools['max_pool3x3_same']} and the strided "
+          f"kernel {main_pools['max_pool3d_same']} a request, as listed", flush=True)
     del model
 
     # ---- 7. K5: 3x3x3 max pool, at every launch shape of a B=8 request --
@@ -4382,7 +4538,8 @@ def main() -> None:
         check(n > 0, f"kernel {name} never launched on the kernel path")
     n_req = len(SERVE_BATCHES) * KERNEL_PATH_REQUESTS
     for name, shapes in (("fused_scale_bias_relu", k4_shapes),
-                         ("max_pool3x3_same", k5_shapes)):
+                         ("max_pool3x3_same", k5_shapes),
+                         ("max_pool3d_same", strided_launches(cfg, B))):
         check(kernel_launches[name] == n_req * sum(shapes.values()),
               f"{name}: {kernel_launches[name]} launches in {n_req} requests, but "
               f"phases 7-8 list {sum(shapes.values())} a request")
@@ -4429,10 +4586,11 @@ def main() -> None:
                                            reset_counts, read_counts)
     bridge = bridge_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
     benches = bench_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
+    pools_b32 = pool_b32_phase(dev, {k: main_launches[k] // main_req for k in main_pools})
 
-    launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align")},
-                **{k: kernel_launches[k] for k in ("max_pool3x3_same",
-                                                   "fused_scale_bias_relu",
+    launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align",
+                                                 "max_pool3x3_same", "max_pool3d_same")},
+                **{k: kernel_launches[k] for k in ("fused_scale_bias_relu",
                                                    "conv3x3x3_bn_relu")}}
     meta = {
         "nms_many": ("step_tpu_torch/csrc/nms.cu", "step_tpu/ops/nms_pallas.py:38"),
@@ -4444,6 +4602,7 @@ def main() -> None:
                                   "step_tpu/ops/fused_bn_relu.py:32"),
         "conv3x3x3_bn_relu": ("step_tpu_torch/csrc/conv3d.cu",
                               "step_tpu/ops/conv3d_pallas.py:45"),
+        "max_pool3d_same": ("step_tpu_torch/csrc/pool3d_same.cu", None),
     }
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] == "step_tpu" or m.startswith("jax"))
@@ -4451,11 +4610,12 @@ def main() -> None:
     print(f"all phases took {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name], **video[name], **training[name],
+         "launches": launches[name], **results.get(name, {}), **video[name],
+         **training[name],
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
          **serving[name], **parallel[name], **kernel_program[name], **bridge[name],
-         **benches[name]}
+         **benches[name], **pools_b32.get(name, {})}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

@@ -38,12 +38,14 @@ Workload (`bench.py:86-100`): weights from seed 0 (`utils/init.py`), the
 input `RandomState(0).rand(B, 18, 224, 224, 3)` as float32 in [0, 1] on the
 card, and `STEPDetector.initial_proposals`. `--config main` serves the
 tree `bench.py` serves: `optimize_for_inference` (BN folded, the Inception
-1x1x1 convs fused), bf16, cuDNN convs and PyTorch pools, K1 and K2;
-`--config kernel` the unfolded weights with `fused_bn_relu=True` and
-`STEP_TPU_POOL3D=pallas`: K3, K4 and K5 as well (`profile_request.build`).
+1x1x1 convs fused), bf16, cuDNN convs, K1 and K2, and every max pool on
+a hand-written kernel (K5 and `ops/pool.py::max_pool3d_same`, as on any
+path on the card); `--config kernel` the unfolded weights with
+`fused_bn_relu=True` and `STEP_TPU_POOL3D=pallas`: K3 and K4 as well
+(`profile_request.build`).
 Both count the same FLOPs: K3's operator carries aten's convolution count
-(`ops/conv3d.py`), K1, K2, K4 and K5 count none, as aten's pools and
-elementwise ops count none. The block-diagonal 3x3x3 merge
+(`ops/conv3d.py`), K1, K2, K4, K5 and the strided pool count none, as
+aten's pools and elementwise ops count none. The block-diagonal 3x3x3 merge
 (`fuse_inception3`) would add the products with its zero blocks, so the
 bench does not serve it.
 
@@ -77,7 +79,7 @@ BATCH = 128
 ITERS = 30
 CONFIGS = {
     "main": "optimize_for_inference: BN folded, Inception 1x1x1 fused, cuDNN convs, "
-            "PyTorch pools, K1, K2",
+            "K1, K2, K5 and the strided pool kernel",
     "kernel": "unfolded, fused_bn_relu, STEP_TPU_POOL3D=pallas: K1-K5",
 }
 M12 = "(ROADMAP M12: the port does not carry the TPU compiler's options)"

@@ -9,9 +9,12 @@ it: `cli/serve.py` passes a checkpoint's at call time.
     python -m step_tpu_torch.cli.export --preset ucf_3step --batch-size 8 \\
         --optimized --out detect.pt2
 
-The kernel configuration (K3, K4 and K5 as nodes of the program beside K1
+On the card every program holds its max pools as the pool kernels' nodes
+(K5 `step::max_pool3x3_same`, the strided `step::max_pool3d_same`). The
+kernel configuration (K3, K4 and K5 as nodes of the program beside K1
 and K2) is the unfolded tree with the JAX CLI's own switches, read at
-trace time and kept by the program:
+trace time and kept by the program (`STEP_TPU_POOL3D` matters only to a
+program traced on the CPU):
 
     STEP_TPU_POOL3D=pallas python -m step_tpu_torch.cli.export \\
         --preset ucf_3step --batch-size 8 --set fused_bn_relu=True --out kernels.pt2

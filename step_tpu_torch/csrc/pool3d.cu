@@ -39,10 +39,11 @@
 //     the rule below; there is no -inf padding.
 //   * Bit-exactness: every pass scans its three taps in ascending order,
 //     takes the later value if "v > m || isnan(v)" (the rule of PyTorch's
-//     max_pool3d) and keeps the winning value's bits. Reducing w, then h,
-//     then t so picks the first maximum in (t, h, w) order, or the last NaN,
-//     as the 27-tap scan does: the result equals the plain version bit for
-//     bit, NaN payloads and +-0 included.
+//     max_pool3d; `step::merge` in max_merge.cuh, which the strided pool
+//     of pool3d_same.cu shares) and keeps the winning value's bits.
+//     Reducing w, then h, then t so picks the first maximum in (t, h, w)
+//     order, or the last NaN, as the 27-tap scan does: the result equals
+//     the plain version bit for bit, NaN payloads and +-0 included.
 //   * A C that is not a multiple of the vector, or an unaligned pointer,
 //     takes the same kernel on one-element vectors with plain loads.
 
@@ -53,6 +54,7 @@
 
 #include <algorithm>
 
+#include "max_merge.cuh"
 #include "sm_count.cuh"
 
 namespace {
@@ -64,39 +66,8 @@ constexpr int MAX_POS = 64;      // tile positions, tH * tW
 constexpr int MAX_STAGES = 8;    // frames staged ahead
 constexpr int STAGE_BYTES = 16 * 1024;   // what the staging ring may hold
 
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec {
-  T v[V];
-};
-
-// m takes v, lane by lane, where v > m or v is NaN, keeping v's bits.
-template <int V>
-__device__ __forceinline__ void merge(Vec<float, V>& m, const Vec<float, V>& v) {
-#pragma unroll
-  for (int j = 0; j < V; ++j)
-    if (v.v[j] > m.v[j] || isnan(v.v[j])) m.v[j] = v.v[j];
-}
-__device__ __forceinline__ void merge(Vec<__nv_bfloat16, 1>& m,
-                                      const Vec<__nv_bfloat16, 1>& v) {
-  const float f = __bfloat162float(v.v[0]);
-  if (f > __bfloat162float(m.v[0]) || isnan(f)) m.v[0] = v.v[0];
-}
-// Two lanes at a time: set.bf16x2 gives each 16-bit half a mask of ones
-// where its comparison holds (gt: ordered, so +0 > -0 is false; neu: true
-// for a NaN), and the masks select the bits.
-__device__ __forceinline__ void merge(Vec<__nv_bfloat16, 8>& m,
-                                      const Vec<__nv_bfloat16, 8>& v) {
-  uint32_t* mm = reinterpret_cast<uint32_t*>(m.v);
-  const uint32_t* vv = reinterpret_cast<const uint32_t*>(v.v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    uint32_t gt, nan;
-    asm("set.gt.u32.bf16x2 %0, %1, %2;" : "=r"(gt) : "r"(vv[j]), "r"(mm[j]));
-    asm("set.neu.u32.bf16x2 %0, %1, %1;" : "=r"(nan) : "r"(vv[j]));
-    const uint32_t take = gt | nan;
-    mm[j] = (vv[j] & take) | (mm[j] & ~take);
-  }
-}
+using step::merge;
+using step::Vec;
 
 template <typename T, int V>
 __device__ __forceinline__ Vec<T, V> max3(Vec<T, V> a, const Vec<T, V>& b,

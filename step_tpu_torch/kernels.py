@@ -30,9 +30,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "bn_relu.cu", "conv3d.cu",
-           "errors.cu")
-HEADERS = ("wgmma.cuh", "sm_count.cuh")
+SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "pool3d_same.cu", "bn_relu.cu",
+           "conv3d.cu", "errors.cu")
+HEADERS = ("wgmma.cuh", "sm_count.cuh", "max_merge.cuh")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
 # no multiply-add may be contracted into an FMA (the float32 conv and the
 # ROI-align kernels ask for their FMAs explicitly, with fmaf). -Xptxas -v
@@ -117,6 +117,8 @@ def library() -> ctypes.CDLL:
     lib.step_tube_roi_align.restype = i
     lib.step_max_pool3x3.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.step_max_pool3x3.restype = i
+    lib.step_max_pool3d_same.argtypes = [p, p] + [i] * 12 + [p]
+    lib.step_max_pool3d_same.restype = i
     lib.step_scale_bias_relu.argtypes = [p, p, p, p, i, ctypes.c_int64, i, p]
     lib.step_scale_bias_relu.restype = i
     lib.step_conv3x3x3_bn_relu_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
@@ -250,13 +252,17 @@ def ndhwc(x: torch.Tensor) -> torch.Tensor:
     tensors in `channels_last_3d` order, where this is a free permute; a
     tensor in another order is first copied into it, explicitly
     (`x.contiguous(memory_format=torch.channels_last_3d)`), so no kernel
-    ever reads strided memory."""
+    ever reads strided memory. `ndhwc.copies` counts those copies."""
     if x.dim() != 5:
         raise ValueError(f"expected an NCDHW tensor, got shape {tuple(x.shape)}")
     view = x.permute(0, 2, 3, 4, 1)
     if not view.is_contiguous():
         view = x.contiguous(memory_format=torch.channels_last_3d).permute(0, 2, 3, 4, 1)
+        ndhwc.copies += 1
     return view
+
+
+ndhwc.copies = 0
 
 
 def empty_ncdhw(shape, like: torch.Tensor) -> torch.Tensor:
@@ -279,6 +285,38 @@ def max_pool3x3_forward(x: torch.Tensor, out: torch.Tensor) -> None:
         err = lib.step_max_pool3x3(x.data_ptr(), out.data_ptr(),
                                    _DTYPE_CODE[x.dtype], *x.shape, _stream(dev))
     _raise_on(err, "max_pool3x3 kernel launch")
+
+
+def max_pool3d_same_contract(window, stride) -> tuple[tuple, tuple]:
+    """(window, stride) as int tuples if `csrc/pool3d_same.cu` takes them
+    (three axes, each window 1 to 3, each stride 1 or 2); else ValueError."""
+    window, stride = tuple(int(k) for k in window), tuple(int(s) for s in stride)
+    if len(window) != 3 or len(stride) != 3 or not (
+            all(1 <= k <= 3 for k in window) and all(1 <= s <= 2 for s in stride)):
+        raise ValueError(f"max_pool3d_same kernel takes windows of 1 to 3 and strides of "
+                         f"1 or 2 on each axis, got window {window}, stride {stride}")
+    return window, stride
+
+
+def max_pool3d_same_forward(x: torch.Tensor, out: torch.Tensor, window, stride) -> None:
+    """Launch `csrc/pool3d_same.cu`: x `[N, T, H, W, C]` and out `[N,
+    ceil(T/st), ceil(H/sh), ceil(W/sw), C]`, f32 or bf16; `window` and
+    `stride` (t, h, w), each window 1 to 3 and each stride 1 or 2; TF-SAME
+    padding of -inf."""
+    _need_cuda(x, "max_pool3d_same")
+    dev = x.device
+    if x.dim() != 5:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected [N, T, H, W, C]")
+    window, stride = max_pool3d_same_contract(window, stride)
+    N, T, H, W, C = x.shape
+    shape = (N, *(-(-n // s) for n, s in zip((T, H, W), stride)), C)
+    _check(x, "x", tuple(_DTYPE_CODE), x.shape, dev)
+    _check(out, "out", x.dtype, shape, dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.step_max_pool3d_same(x.data_ptr(), out.data_ptr(), _DTYPE_CODE[x.dtype],
+                                       *x.shape, *window, *stride, _stream(dev))
+    _raise_on(err, "max_pool3d_same kernel launch")
 
 
 def scale_bias_relu_forward(x: torch.Tensor, scale: torch.Tensor,

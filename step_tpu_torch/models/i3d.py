@@ -20,15 +20,22 @@ package takes the fused BN + ReLU only in inference, `step_tpu/models/
 i3d.py:186`), and a BN-folded unit refuses. Under autograd every stride-1
 max pool goes through `ops/pool_grad.py::max_pool_3d_s1_sepgrad` (K5 on
 the card for 3x3x3), whose backward credits every tied maximum as the JAX
-package's default does; strided pools keep PyTorch's backward.
+package's default does; strided pools keep PyTorch's pool and backward.
+
+Pools in inference (`max_pool_3d`): on the card every max pool runs a
+hand-written channels-last kernel, K5 (`ops/pool.py::max_pool3x3_same`)
+for the 3x3x3 stride-1 pools and `ops/pool.py::max_pool3d_same` for the
+strided ones, whatever the configuration; on the CPU the plain versions.
 
 Inference variants, as in the JAX package:
   * `fused_bn_relu` (BN not folded): each Unit3D's BN + ReLU runs through
     `ops/fused_bn_relu.py` (kernel K4); a 3x3x3 stride-1 unit runs conv, BN
     and ReLU as one `ops/conv3d.py` call (kernel K3), whose contract is
     exactly that unit's;
-  * `STEP_TPU_POOL3D=pallas`, read on every call: each 3x3x3 stride-1 max
-    pool goes through `ops/pool.py` (kernel K5);
+  * `STEP_TPU_POOL3D=pallas`, read on every call: on a CPU tensor each
+    3x3x3 stride-1 max pool goes through `ops/pool.py::max_pool3x3_same`,
+    so that a program traced on the CPU holds `step::max_pool3x3_same`
+    nodes (on the card K5 runs with or without it);
   * `fused_inception` (BN folded): an Inception block's three 1x1x1 branch
     convs run as one conv "b012", then split; `fused_inception3` also runs
     the two 3x3x3 branch convs as one block-diagonal conv "b12" (weights
@@ -41,7 +48,6 @@ casts them to its compute dtype).
 
 from __future__ import annotations
 
-import math
 import os
 
 import torch
@@ -51,7 +57,8 @@ import torch.nn.functional as F
 
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
-from step_tpu_torch.ops.pool import max_pool3x3_same
+from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3d_same_plain, max_pool3x3_same,
+                                     same_padding)
 from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
 from step_tpu_torch.parallel.distributed import all_reduce_sum
 from step_tpu_torch.utils.tensor_cache import derived
@@ -75,47 +82,44 @@ BN_EPS = 1e-3
 BN_MOMENTUM = 0.9           # flax's running-average decay (`step_tpu/models/i3d.py:44`)
 
 
-def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
-    """TF-SAME (low, high) padding of an axis of size n for kernel k, stride s."""
-    pad = max((math.ceil(n / s) - 1) * s + k - n, 0)
-    return pad // 2, pad - pad // 2
-
-
-def _same_padding(x: torch.Tensor, kernel, stride):
-    """(symmetric padding or None, F.pad list) for an NCDHW tensor."""
-    pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(3)]
-    if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, kernel)):
-        return tuple(lo for lo, _ in pads), None
-    return None, [p for lo_hi in reversed(pads) for p in lo_hi]
-
-
 def conv3d_same(x: torch.Tensor, weight: torch.Tensor,
                 bias: torch.Tensor | None, stride) -> torch.Tensor:
     """3-D convolution with TF-SAME padding; weights cast to x's dtype."""
     w = weight.to(x.dtype)
     b = None if bias is None else bias.to(x.dtype)
-    sym, pad = _same_padding(x, w.shape[2:], stride)
+    sym, pad = same_padding(x, w.shape[2:], stride)
     if sym is not None:
         return F.conv3d(x, w, b, stride, sym)
     return F.conv3d(F.pad(x, pad), w, b, stride)
 
 
 def max_pool_3d(x: torch.Tensor, window, stride) -> torch.Tensor:
-    """3-D max pool with TF-SAME padding of -inf. Under autograd a
-    stride-1 pool goes to `ops/pool_grad.py::max_pool_3d_s1_sepgrad`.
-    Otherwise, with `STEP_TPU_POOL3D=pallas` (read on every call, as the
-    JAX package reads it) a 3x3x3 stride-1 pool goes to
-    `ops/pool.py::max_pool3x3_same`."""
+    """3-D max pool with TF-SAME padding of -inf, routed by what the call
+    shows: its device, autograd and the window and stride.
+
+    Under autograd a stride-1 pool goes to `ops/pool_grad.py::
+    max_pool_3d_s1_sepgrad` and a strided one to PyTorch's pool and its
+    backward. A CUDA tensor with autograd off takes a hand-written
+    channels-last kernel: K5 (`ops/pool.py::max_pool3x3_same`) for 3x3x3
+    stride 1, `ops/pool.py::max_pool3d_same` for every other window, which
+    refuses a window over 3 or a stride over 2. A CPU tensor takes the
+    plain versions; there `STEP_TPU_POOL3D=pallas` (read on every call, as
+    the JAX package reads it) only makes a 3x3x3 stride-1 pool the
+    `step::max_pool3x3_same` node of a program traced on the CPU, which is
+    that variable's one role."""
     window, stride = tuple(window), tuple(stride)
-    if stride == (1, 1, 1) and torch.is_grad_enabled() and x.requires_grad:
-        return max_pool_3d_s1_sepgrad(x, window)
-    if (os.environ.get("STEP_TPU_POOL3D", "direct") == "pallas"
-            and window == (3, 3, 3) and stride == (1, 1, 1)):
+    s1 = stride == (1, 1, 1)
+    if torch.is_grad_enabled() and x.requires_grad:
+        if s1:
+            return max_pool_3d_s1_sepgrad(x, window)
+    elif x.device.type == "cuda":
+        if window == (3, 3, 3) and s1:
+            return max_pool3x3_same(x)
+        return max_pool3d_same(x, window, stride)
+    elif (os.environ.get("STEP_TPU_POOL3D", "direct") == "pallas"
+            and window == (3, 3, 3) and s1):
         return max_pool3x3_same(x)
-    sym, pad = _same_padding(x, window, stride)
-    if sym is not None:
-        return F.max_pool3d(x, window, stride, sym)
-    return F.max_pool3d(F.pad(x, pad, value=float("-inf")), window, stride)
+    return max_pool3d_same_plain(x, window, stride)
 
 
 class BatchNorm(nn.Module):
@@ -382,8 +386,9 @@ class I3DClassifier(nn.Module):
     and the mean of the logits over time (the TF I3D convention).
 
     It takes the detector's variant flags (`bn_folded`, `fused_bn_relu`,
-    `fused_inception`), so under `fused_bn_relu` and `STEP_TPU_POOL3D=pallas`
-    its units and pools run kernels K3, K4 and K5. Weights come from
+    `fused_inception`), so under `fused_bn_relu` its units run kernels K3
+    and K4; on the card its pools run K5 and `ops/pool.py::max_pool3d_same`
+    in any configuration. Weights come from
     `models/convert.py::convert_torch_i3d` or the JAX package's tree through
     `step_tpu_torch/convert.py::from_jax_classifier_variables`."""
 

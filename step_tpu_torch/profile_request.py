@@ -10,9 +10,11 @@ in bfloat16, in one of the serving configurations that `chip_smoke.py`
 drives:
 
   main    `ucf_3step`, BN folded and the Inception 1x1x1 convs fused
-          (`optimize_for_inference`): cuDNN convs, PyTorch pools, K1, K2;
+          (`optimize_for_inference`): cuDNN convs, K1, K2, and the pool
+          kernels (K5 and `ops/pool.py::max_pool3d_same`), which every
+          path runs on the card;
   kernel  `ucf_3step`, weights left unfolded, `fused_bn_relu=True` and
-          `STEP_TPU_POOL3D=pallas`: K3, K4 and K5 as well;
+          `STEP_TPU_POOL3D=pallas`: K3 and K4 as well;
   video   `streaming` on the main path's tree: a request is one video of
           `--batch` chunks (6 frames each) tiled into as many windows one
           chunk apart, through `detect_video` (tiling_stride 6), linking
@@ -43,10 +45,12 @@ warm-up requests, times `--requests` more (host clock around each
 synchronized request) and prints each and their median, then profiles one
 more with `torch.profiler` and prints that request's wall time (the
 profiler adds to it), the summed device time, the busy share (device time
-/ wall time), the number of kernels, the device time by layer (each
-hand-written kernel, cuDNN convolutions, PyTorch pools, layout
-conversions, copies, other elementwise work), the device time launched
-under each of the port's spans (`utils/spans.SPANS`, which any profiler
+/ wall time), the number of kernels, how many max pools ran on each
+hand-written pool kernel and on PyTorch and how many inputs the pool
+kernels had to copy into `channels_last_3d` (`kernels.ndhwc.copies`), the
+device time by layer (each hand-written kernel, cuDNN convolutions,
+PyTorch pools, layout conversions, copies, other elementwise work), the
+device time launched under each of the port's spans (`utils/spans.SPANS`, which any profiler
 session turns on: a span's time holds the spans nested in it) beside the
 host ms it was open, and the heaviest kernels by name. Needs a CUDA device; without one it exits
 non-zero.
@@ -75,6 +79,7 @@ LAYERS = (
                                        "conv3x3x3_bn_relu_kernel")),
     ("K4 bn_relu (csrc/bn_relu.cu)", ("scale_bias_relu_kernel",)),
     ("K5 max_pool3x3 (csrc/pool3d.cu)", ("max_pool3x3_kernel",)),
+    ("strided max pool (csrc/pool3d_same.cu)", ("max_pool3d_same_kernel",)),
     ("PyTorch pools", ("max_pool", "pool3d", "pool2d")),
     ("layout conversions", ("nhwcToNchw", "nchwToNhwc")),
     ("cuDNN / cuBLAS conv and matmul", ("xmma", "implicit_gemm", "conv", "cudnn",
@@ -229,6 +234,12 @@ def main(argv=None) -> int:
         return 1
     from torch.profiler import ProfilerActivity, profile
 
+    from step_tpu_torch.kernels import ndhwc
+    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
+
+    def pool_counts():
+        return max_pool3x3_same.launches, max_pool3d_same.launches, ndhwc.copies
+
     dev = torch.device("cuda", 0)
     cfg, model = build(args.path, dev)
     run, make = request_fn(args.path, cfg, model, args.batch, dev)
@@ -243,11 +254,13 @@ def main(argv=None) -> int:
             run(inputs[i % 3])
             torch.cuda.synchronize()
             request_ms.append((time.perf_counter() - t0) * 1e3)
+        before = pool_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             run(inputs[2])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+        after = pool_counts()
 
     kernels = {}
     for evt in prof.key_averages():
@@ -277,6 +290,11 @@ def main(argv=None) -> int:
     for name, (ms, n) in kernels.items():
         ms0, n0 = layers.get(layer_of(name), (0.0, 0))
         layers[layer_of(name)] = (ms0 + ms, n0 + n)
+    k5, strided, copies = (a - b for a, b in zip(after, before))
+    pools = {"max_pool3x3_same": k5, "max_pool3d_same": strided,
+             "pytorch": sum(n for name, (_, n) in kernels.items()
+                            if layer_of(name) == "PyTorch pools"),
+             "ndhwc_copies": copies}
     result = {
         "device": torch.cuda.get_device_name(0), "path": args.path,
         "batch": args.batch, "request_ms": request_ms,
@@ -284,6 +302,7 @@ def main(argv=None) -> int:
         "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "kernels": sum(n for _, n in kernels.values()),
+        "pools": pools,
         "backwards": {k: {"ms": ms, "calls": n} for k, (ms, n) in backwards.items()},
         "spans": {k: {"ms": spans[k][0], "host_ms": spans[k][1], "calls": spans[k][2]}
                   for k in SPANS if k in spans},
@@ -299,6 +318,9 @@ def main(argv=None) -> int:
     print(f"{args.path} path, B={args.batch}, {result['device']}: wall {wall_ms:.2f} ms "
           f"(profiled), device {device_ms:.2f} ms, busy {result['busy_share']:.1%}, "
           f"{result['kernels']} kernels")
+    print(f"  max pools of the request: {pools['max_pool3x3_same']} on K5, "
+          f"{pools['max_pool3d_same']} on the strided kernel, {pools['pytorch']} on PyTorch; "
+          f"{pools['ndhwc_copies']} inputs copied into channels_last_3d for a kernel")
     for layer, v in result["layers"].items():
         print(f"  {v['ms']:9.3f} ms {v['share']:6.1%} {v['calls']:5d}  {layer}")
     for fn, v in result["backwards"].items():

@@ -12,10 +12,12 @@ its config.
 
 The hand kernels of the path stay in the program as custom operators, one
 node a call: K1 `step::nms_surface` (`inference.py`) and K2
-`step::tube_roi_align` (`ops/roi_align.py`) in every program, and in the
-kernel configuration K3 `step::conv3x3x3_bn_relu` (`ops/conv3d.py`), K4
-`step::scale_bias_relu` (`ops/fused_bn_relu.py`) and K5
-`step::max_pool3x3_same` (`ops/pool.py`). Each node launches its kernel
+`step::tube_roi_align` (`ops/roi_align.py`) in every program; in a program
+traced on the card every max pool, K5 `step::max_pool3x3_same` and the
+strided `step::max_pool3d_same` (`ops/pool.py`); and in the kernel
+configuration K3 `step::conv3x3x3_bn_relu` (`ops/conv3d.py`), K4
+`step::scale_bias_relu` (`ops/fused_bn_relu.py`) and, traced on the CPU,
+K5. Each node launches its kernel
 when the program runs on the card (and counts the launch) and the plain
 version on the CPU. The program is an `ExportedProgram` that a Python
 process loads after importing those operators (`load_detect_fn` does);
@@ -29,7 +31,10 @@ The kernel configuration is the unfolded tree with `cfg.fused_bn_relu`
 (BN folding wins over it, so not `bn_folded`) traced with
 `STEP_TPU_POOL3D=pallas` in the environment. Both switches are read at
 trace time: the program keeps the choice, and the process that serves it
-sets no variable. K3's weight layout (`ops/conv3d.py::kernel_weight`) is
+sets no variable. The variable's one role is that choice in a program
+traced on the CPU (a 3x3x3 stride-1 pool as the `step::max_pool3x3_same`
+node, the strided pools PyTorch's either way); on the card the pools are
+the kernels' nodes whatever it says (`models/i3d.py::max_pool_3d`). K3's weight layout (`ops/conv3d.py::kernel_weight`) is
 made from the weight input inside the program on every request, so the
 weights stay an input; eager serving keeps it cached per unit.
 
@@ -145,7 +150,7 @@ def load_program(blob):
     import step_tpu_torch.inference  # noqa: F401  (step::nms_surface)
     import step_tpu_torch.ops.conv3d  # noqa: F401  (step::conv3x3x3_bn_relu)
     import step_tpu_torch.ops.fused_bn_relu  # noqa: F401  (step::scale_bias_relu)
-    import step_tpu_torch.ops.pool  # noqa: F401  (step::max_pool3x3_same)
+    import step_tpu_torch.ops.pool  # noqa: F401  (step::max_pool3x3_same, max_pool3d_same)
     import step_tpu_torch.ops.roi_align  # noqa: F401  (step::tube_roi_align)
 
     if isinstance(blob, torch.export.ExportedProgram):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch.utils._python_dispatch
 
 from step_tpu_torch.config import PRESETS
 from step_tpu_torch.inference import (detect_clip, detect_video_stream,
@@ -31,7 +32,8 @@ from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
 from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                               fused_scale_bias_relu_plain)
 from step_tpu_torch.ops.nms import EPS, NEG, _f32, nms_many, nms_many_plain, premask_scores
-from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
+from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3x3_same,
+                                    max_pool3x3_same_plain)
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 from step_tpu_torch.utils.init import init_detector_
@@ -90,6 +92,17 @@ def special_values(seed: int, shape, dtype: torch.dtype) -> torch.Tensor:
 
 def raw_bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32 if t.element_size() == 4 else torch.int16)
+
+
+def pad_then_pool(x: torch.Tensor, window, stride) -> torch.Tensor:
+    """A TF-SAME max pool as written out: -inf pads on each axis (the odd
+    cell on the high side), then PyTorch's pool. The strided pool kernel
+    must give its bits; the CPU tests use it too."""
+    pads = []
+    for n, k, s in reversed(list(zip(x.shape[2:], window, stride))):
+        pad = max((-(-n // s) - 1) * s + k - n, 0)
+        pads += [pad // 2, pad - pad // 2]
+    return F.max_pool3d(F.pad(x, pads, value=float("-inf")), window, stride)
 
 
 @pytest.fixture
@@ -442,6 +455,161 @@ def test_pool_kernel_keeps_nan_payloads_and_signed_zeros(cuda, shape, dtype):
     nan = want.isnan()
     assert torch.equal(got.isnan(), nan) and torch.equal(raw_bits(got[~nan]),
                                                          raw_bits(want[~nan]))
+
+
+# The strided pool kernel (csrc/pool3d_same.cu): the stem's MaxPool_2a, 3a
+# and 4a at B=2, the classifier's MaxPool_5a at B=1, MaxPool_2a at a chunk
+# stem's T = 3, then odd H and W, C = 13 (one-element vectors) and a window
+# of three sizes.
+STRIDED_POOL_CASES = [((2, 64, 9, 112, 112), (1, 3, 3), (1, 2, 2)),
+                      ((2, 192, 9, 56, 56), (1, 3, 3), (1, 2, 2)),
+                      ((2, 480, 9, 28, 28), (3, 3, 3), (2, 2, 2)),
+                      ((1, 832, 8, 7, 7), (2, 2, 2), (2, 2, 2)),
+                      ((2, 64, 3, 112, 112), (1, 3, 3), (1, 2, 2)),
+                      ((1, 40, 5, 17, 23), (3, 3, 3), (2, 2, 2)),
+                      ((2, 13, 5, 9, 11), (1, 3, 3), (1, 2, 2)),
+                      ((1, 24, 4, 7, 9), (3, 2, 1), (1, 2, 2))]
+
+
+@pytest.mark.parametrize("shape,window,stride", STRIDED_POOL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_pool_kernel_equals_pad_then_pool(cuda, shape, window, stride, dtype):
+    x = _ncdhw(8, shape, dtype)
+    before = max_pool3d_same.launches
+    got = max_pool3d_same(x, window, stride)
+    assert max_pool3d_same.launches == before + 1
+    want = pad_then_pool(x, window, stride)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert torch.equal(raw_bits(got), raw_bits(want))
+
+
+@pytest.mark.parametrize("shape,window,stride", STRIDED_POOL_CASES[3:])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_strided_pool_kernel_keeps_nan_payloads_signed_zeros_and_inf(cuda, shape, window,
+                                                                     stride, dtype):
+    """On +-0, +-inf and NaNs with payloads the kernel gives the bits of
+    the -inf pad and PyTorch's scan on the card. The CPU's pool gives the
+    same bits but for NaN payloads in bfloat16, which it computes in float32
+    and returns as the canonical NaN: there the NaNs fall where the
+    kernel's do."""
+    x = special_values(16, shape, dtype).contiguous(memory_format=torch.channels_last_3d)
+    got = max_pool3d_same(x.to(cuda), window, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_bits(got), raw_bits(pad_then_pool(x.to(cuda), window, stride)))
+    on_cpu, got = pad_then_pool(x, window, stride), got.cpu()
+    nan = on_cpu.isnan()
+    assert torch.equal(got.isnan(), nan)
+    assert torch.equal(raw_bits(got[~nan]), raw_bits(on_cpu[~nan]))
+    if dtype == torch.float32:
+        assert torch.equal(raw_bits(got), raw_bits(on_cpu))
+
+
+def test_strided_pool_kernel_copies_an_input_that_is_not_channels_last(cuda):
+    from step_tpu_torch import kernels
+
+    x = _ncdhw(9, (2, 40, 9, 15, 17), torch.bfloat16, channels_last=False)
+    before = kernels.ndhwc.copies
+    got = max_pool3d_same(x, (3, 3, 3), (2, 2, 2))
+    assert kernels.ndhwc.copies == before + 1
+    assert torch.equal(raw_bits(got), raw_bits(pad_then_pool(x, (3, 3, 3), (2, 2, 2))))
+
+
+# K5 at B=32 main-path shapes: Mixed_3c's 116 MB input is more than the
+# 50 MB L2; the tails' 209 MB too.
+@pytest.mark.parametrize("shape", [(32, 256, 9, 28, 28), (512, 832, 5, 7, 7)])
+def test_pool_kernel_equals_plain_above_l2(cuda, shape):
+    x = _ncdhw(10, shape, torch.bfloat16)
+    got, want = max_pool3x3_same(x), max_pool3x3_same_plain(x)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_bits(got), raw_bits(want))
+
+
+class _StepOps(torch.utils._python_dispatch.TorchDispatchMode):
+    """The `step::` operators called while it is active."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.name().startswith("step::"):
+            self.names.append(func.name())
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("window,stride,op", [((3, 3, 3), (1, 1, 1), "max_pool3x3_same"),
+                                              ((1, 3, 3), (1, 2, 2), "max_pool3d_same"),
+                                              ((2, 2, 2), (2, 2, 2), "max_pool3d_same")])
+def test_eager_pools_launch_without_the_operator_and_exports_keep_it(cuda, window, stride,
+                                                                     op):
+    """An eager no-grad pool of a CUDA tensor launches its kernel without
+    the custom operator's dispatch; `torch.export` on the card still
+    records the operator as one node, and the program gives the same bits."""
+    from step_tpu_torch.models.i3d import max_pool_3d
+
+    class Pool(torch.nn.Module):
+        def forward(self, x):
+            return max_pool_3d(x, window, stride)
+
+    x = _ncdhw(4, (2, 24, 5, 9, 11), torch.bfloat16)
+    counter = max_pool3x3_same if op == "max_pool3x3_same" else max_pool3d_same
+    before = counter.launches
+    with torch.no_grad(), _StepOps() as seen:
+        got = Pool()(x)
+    assert seen.names == [] and counter.launches == before + 1
+    with torch.no_grad():
+        program = torch.export.export(Pool(), (x,))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    assert targets.count(f"step.{op}.default") == 1 and not any(
+        "max_pool3d" in t and not t.startswith("step.") for t in targets), targets
+    with torch.no_grad():
+        again = program.module()(x)
+    torch.cuda.synchronize()
+    assert torch.equal(raw_bits(got), raw_bits(again))
+    assert torch.equal(raw_bits(got), raw_bits(pad_then_pool(x, window, stride)))
+
+
+def test_main_path_pools_run_on_the_hand_written_kernels(cuda, monkeypatch):
+    """A no-grad B=2 `ucf_3step` main-path request (bf16, BN folded): its
+    profile holds no PyTorch pool, K5 launches 13 times and the strided
+    kernel 3 (MaxPool_2a, 3a, 4a), no pool input is copied into
+    channels_last_3d, and its five outputs equal those of the same request
+    with PyTorch's pools (the plain versions swapped in) bit for bit."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.bench import pool_switch_kept
+    from step_tpu_torch.models import i3d
+    from step_tpu_torch.ops.pool import max_pool3d_same_plain
+    from step_tpu_torch.profile_request import build
+
+    with pool_switch_kept():
+        cfg, model = build("main", cuda)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
+    rgb = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 256, (2, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
+        .astype(np.uint8)).to(cuda)
+    with torch.no_grad():
+        detect_clip(model, rgb, props, pmask)
+        counts = (max_pool3x3_same.launches, max_pool3d_same.launches, kernels.ndhwc.copies)
+        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            got = detect_clip(model, rgb, props, pmask)
+            torch.cuda.synchronize()
+        after = (max_pool3x3_same.launches, max_pool3d_same.launches, kernels.ndhwc.copies)
+        monkeypatch.setattr(i3d, "max_pool3x3_same", max_pool3x3_same_plain)
+        monkeypatch.setattr(i3d, "max_pool3d_same", max_pool3d_same_plain)
+        want = detect_clip(model, rgb, props, pmask)
+    names = {e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert not [n for n in names if "max_pool3d_with_indices" in n], names
+    assert any("max_pool3x3_kernel" in n for n in names)
+    assert any("max_pool3d_same_kernel" in n for n in names)
+    assert [a - b for a, b in zip(after, counts)] == [13, 3, 0]
+    assert got.keys() == want.keys() and len(got) == 5
+    for key in got:
+        assert torch.equal(raw_bits(got[key]) if got[key].is_floating_point() else got[key],
+                           raw_bits(want[key]) if want[key].is_floating_point()
+                           else want[key]), key
 
 
 @pytest.mark.parametrize("shape", [(2, 64, 9, 28, 28), (3, 13, 5, 7, 7), (1, 5, 1, 1, 1),
