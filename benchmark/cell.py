@@ -113,7 +113,7 @@ def new_records() -> dict:
     return {"units": 0, "clips": 0, "latencies_s": [], "loader_wait_s": 0.0}
 
 
-def windows(run, seconds, trace, traffic, model, device, notes):
+def windows(run, seconds, trace, traffic, device, notes):
     """The timed window, `run(records, stop)` until `seconds` have passed
     (the collector quiet); with `trace` then `timeline_units` under the
     profiler of the device alone, and `trace_units` under the whole
@@ -130,11 +130,8 @@ def windows(run, seconds, trace, traffic, model, device, notes):
         lambda: run(timed, done(traffic["timeline_units"])), device, spans=False), timed,
         markers=torch.device(device).type == "cuda")
     traced = new_records()
-    spans = tracing.Spans(model)
-    try:
+    with tracing.Spans():
         events = tracing.profiled(lambda: run(traced, done(traffic["trace_units"])), device)
-    finally:
-        spans.close()
     per_unit = lambda r: r["window_s"] / r["units"]  # noqa: E731
     notes["seconds_a_unit"] = {"timed": per_unit(records), "timeline": per_unit(timed),
                                "traced": per_unit(traced)}
@@ -197,8 +194,7 @@ def serve(workload, config, cfg, seeds, seconds, trace, device, t_start, make_se
             rec["window_s"] = t1 - first
 
     notes = {}
-    records, timeline, traced = windows(run, seconds, trace, t, trace and server.model,
-                                         device, notes)
+    records, timeline, traced = windows(run, seconds, trace, t, device, notes)
     peak = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
     del server
     _release(device)
@@ -290,8 +286,7 @@ def train(workload, config, cfg, seeds, seconds, trace, device, t_start, make_tr
 
     notes = {}
     try:
-        records, timeline, traced = windows(run, seconds, trace, t, trace and trainer.model,
-                                             device, notes)
+        records, timeline, traced = windows(run, seconds, trace, t, device, notes)
     finally:
         feed.close()
     failed = int((~torch.isfinite(torch.stack(losses))).sum()) if losses else 0

@@ -1,5 +1,7 @@
-"""Device milliseconds a request of the work launched inside the backbone
-(`models/nets.py::FeatureNet`, `models/i3d.py`), the `features` span."""
+"""Device milliseconds a request of the work launched inside the program's
+`model.backbone` span (`STEPDetector.stem`): the backbone,
+`models/nets.py::FeatureNet` over `models/i3d.py`. None where the program
+opens no such span."""
 
 UNIT = "ms"
 BETTER = "lower"
@@ -9,5 +11,5 @@ MOVES = "clips_per_s"
 
 
 def read(m):
-    ops = m.trace.launched_in("features") if m.trace else []
+    ops = m.trace.launched_in("model.backbone") if m.trace else []
     return sum(e["dur"] for e in ops) * 1e-3 / m.trace.records["units"] if ops else None

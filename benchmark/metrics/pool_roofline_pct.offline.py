@@ -3,7 +3,9 @@ device time of all max-pool kernels. The least time is the configuration's
 pool bytes a clip (inputs read once, outputs written once, at the shapes
 the reference runs them) over the H100's 3.35 TB/s; it reads the same work
 whatever implements the pools. Summed kernels: names holding one of
-KERNELS (PyTorch's max pools, the port's K5 `max_pool3x3_kernel`)."""
+KERNELS, on the card the port's K5 `max_pool3x3_kernel` (3x3x3 stride 1,
+in the backbone and the heads' tails) and its strided
+`max_pool3d_same_kernel` (MaxPool_2a, 3a, 4a)."""
 
 from benchmark.work import PEAK_HBM_BYTES_PER_S
 

@@ -1,7 +1,7 @@
-"""Device milliseconds a request of the work launched between the
-backbone's end and the detector's return, the `refine` span: the scene
-context and the three refinement steps (ROI-align, `nets.TwoBranchHead`,
-`tubes/` box decoding and extension)."""
+"""Device milliseconds a request of the work launched inside the program's
+`model.refine` span (`STEPDetector.refine`): the scene context and the
+three refinement steps (ROI-align, `nets.TwoBranchHead`, `tubes/` box
+decoding and extension). None where the program opens no such span."""
 
 UNIT = "ms"
 BETTER = "lower"
@@ -11,5 +11,5 @@ MOVES = "clips_per_s"
 
 
 def read(m):
-    ops = m.trace.launched_in("refine") if m.trace else []
+    ops = m.trace.launched_in("model.refine") if m.trace else []
     return sum(e["dur"] for e in ops) * 1e-3 / m.trace.records["units"] if ops else None

@@ -4,8 +4,10 @@ API. Nothing else in the benchmark imports the program.
 Serving builds the main path that `step_tpu_torch.cli.serve` and the
 program's own bench serve: `models/optimize.optimize_for_inference` of the
 raw weights (BN folded, the Inception 1x1x1 convs fused), the tree in the
-compute dtype, cuDNN convolutions, PyTorch pools (`STEP_TPU_POOL3D` set to
-"direct"), kernels K1 (NMS) and K2 (ROI-align). Training builds the
+compute dtype, cuDNN convolutions, every max pool on a hand-written
+channels-last kernel (K5 for the 3x3x3 stride-1 pools, the strided SAME
+kernel for the others; `STEP_TPU_POOL3D`, set to "direct", matters only on
+the CPU), kernels K1 (NMS) and K2 (ROI-align). Training builds the
 preset's train state around the raw weights and steps it as `fit()` does:
 the loader's next batch, `batch_to_device`, `train_step`.
 """

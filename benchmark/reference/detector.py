@@ -2,22 +2,33 @@
 
 A frozen copy of the detector's mathematics, written apart from the
 program so that the benchmark can judge it: the input normalization, the
-I3D stem to Mixed_4f and the I3D tail (TF-SAME padding, BatchNorm on its
-running statistics or, in training, on the batch's), the scene context,
-each refinement step's two-branch head, tube ROI-align, box decoding,
-clipping and the linear-motion extension in time, the class scores and
-the per-frame, per-class greedy NMS surface.
+backbone that `cfg.backbone` names, the scene context, each refinement
+step's I3D tail (`inception.py`: TF-SAME padding, BatchNorm on its running
+statistics or, in training, on the batch's) and two-branch head, tube
+ROI-align, box decoding, clipping and the linear-motion extension in time,
+the class scores and the per-frame, per-class greedy NMS surface.
+
+A backbone is the file `backbones/<cfg.backbone>.py` (under `BACKBONES`),
+loaded by its path; `config` refuses a name with no file. It holds:
+  parameter_shapes(cfg)    name → (shape, kind) of its weights, every name
+                           under `features.`, of kinds that
+                           `work.make_weights` draws
+  out_channels(cfg)        the channels C of the map it returns
+  forward(P, cfg, x, run)  the normalized clip `[B, T, H, W, 3]` float32 →
+                           the channels-last map `[B, T', H', W', C]` at
+                           spatial stride `cfg.feature_stride`, rounded where
+                           the program rounds (`run.prec`), each kernel it
+                           runs noted with `run.record`
 
 Weights are a dict of float32 tensors under the detector's state_dict names
 (`parameter_shapes`), unfolded: BatchNorm stays a separate affine here,
-whatever the served tree folds. Activations are NCDHW in the backbone and
-channels-last around it. Nothing here imports the program.
+whatever the served tree folds. Activations are channels-last around the
+backbone and NCDHW in the heads' tail. Nothing here imports the program.
 
 Departures from the published description, each kept as the program has it:
 ROI-align is Detectron's legacy form (no half-pixel offset, an ROI at least
-one cell wide); a stride-1 max pool under autograd credits every tied
-maximum (`_MaxPoolS1`); the regression branch resizes its T' deltas to T
-frames by linear interpolation.
+one cell wide); the regression branch resizes its T' deltas to T frames by
+linear interpolation.
 
 `Precision` rounds the activations and weights where the program rounds to
 its compute dtype. The reference itself keeps float32 (`FLOAT32`); the
@@ -26,28 +37,16 @@ control of the check puts a lower precision there.
 
 from __future__ import annotations
 
-import math
+import importlib.resources
+import importlib.util
 import types
 
 import torch
 import torch.nn.functional as F
 
-INCEPTION_CHANNELS = {
-    "Mixed_3b": (64, 96, 128, 16, 32, 32),
-    "Mixed_3c": (128, 128, 192, 32, 96, 64),
-    "Mixed_4b": (192, 96, 208, 16, 48, 64),
-    "Mixed_4c": (160, 112, 224, 24, 64, 64),
-    "Mixed_4d": (128, 128, 256, 24, 64, 64),
-    "Mixed_4e": (112, 144, 288, 32, 64, 64),
-    "Mixed_4f": (256, 160, 320, 32, 128, 128),
-    "Mixed_5b": (256, 160, 320, 32, 128, 128),
-    "Mixed_5c": (384, 192, 384, 48, 128, 128),
-}
-TINY_A = (16, 16, 24, 8, 16, 8)
-TINY_B = (32, 24, 48, 8, 24, 24)
-STEM_BLOCKS = ("Mixed_3b", "Mixed_3c", "Mixed_4b", "Mixed_4c", "Mixed_4d",
-               "Mixed_4e", "Mixed_4f")
-BN_EPS = 1e-3
+from benchmark.reference import inception as units
+
+BACKBONES = importlib.resources.files(__package__) / "backbones"
 CONTEXT_DIM = 256
 REG_CHANNELS = 64
 RGB_MEAN = (0.485, 0.456, 0.406)
@@ -58,9 +57,21 @@ NMS_NEG = -1e9
 MAX_SCALE_DELTA = 4.0
 
 
+def load_backbone(name: str):
+    """The module of `BACKBONES/<name>.py`; a name with no file is refused,
+    naming the path looked for."""
+    path = BACKBONES / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"no backbone {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"benchmark_backbone_{name}", str(path))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def config(fields: dict) -> types.SimpleNamespace:
     """The configuration's fields as attributes, with the sizes derived
-    from them."""
+    from them and its backbone's module (`net`)."""
     c = types.SimpleNamespace(**fields)
     c.total_frames = c.frames_per_chunk * c.num_chunks
     c.num_cls_outputs = c.num_classes if c.multilabel else c.num_classes + 1
@@ -71,6 +82,7 @@ def config(fields: dict) -> types.SimpleNamespace:
             raise ValueError(f"the reference has no {key}={getattr(c, key)!r}")
     if c.sampling_ratio <= 0:
         raise ValueError("the reference samples a fixed grid (sampling_ratio > 0)")
+    c.net = load_backbone(c.backbone)
     return c
 
 
@@ -98,55 +110,23 @@ FLOAT32 = Precision()
 
 
 # ---------------------------------------------------------------- parameters
-def _unit_shapes(name, cin, cout, kernel):
-    out = {f"{name}.conv.weight": ((cout, cin) + tuple(kernel), "conv")}
-    for part, kind in (("weight", "bn_weight"), ("bias", "bn_bias"),
-                       ("running_mean", "bn_mean"), ("running_var", "bn_var")):
-        out[f"{name}.bn.{part}"] = ((cout,), kind)
-    return out
-
-
-def _block_shapes(name, cin, c):
-    out = {}
-    for branch, i, o, k in (("b0", cin, c[0], 1), ("b1a", cin, c[1], 1),
-                            ("b1b", c[1], c[2], 3), ("b2a", cin, c[3], 1),
-                            ("b2b", c[3], c[4], 3), ("b3b", cin, c[5], 1)):
-        out.update(_unit_shapes(f"{name}.{branch}", i, o, (k, k, k)))
-    return out, c[0] + c[2] + c[4] + c[5]
-
-
-def stem_blocks(cfg):
-    """(name, channels) of the stem's Inception blocks at the configured depth."""
-    if cfg.backbone_depth == "tiny":
-        return (("Mixed_3b", TINY_A), ("Mixed_4f", TINY_B))
-    return tuple((n, INCEPTION_CHANNELS[n]) for n in STEM_BLOCKS)
-
-
 def tail_blocks(cfg):
     if cfg.backbone_depth == "tiny":
-        return (("Mixed_5c", TINY_B),)
-    return (("Mixed_5b", INCEPTION_CHANNELS["Mixed_5b"]),
-            ("Mixed_5c", INCEPTION_CHANNELS["Mixed_5c"]))
+        return (("Mixed_5c", units.TINY_B),)
+    return (("Mixed_5b", units.INCEPTION_CHANNELS["Mixed_5b"]),
+            ("Mixed_5c", units.INCEPTION_CHANNELS["Mixed_5c"]))
 
 
 def parameter_shapes(cfg) -> dict:
     """name → (shape, kind) of every weight and BatchNorm statistic, under
-    the detector's state_dict names. Kinds: conv, linear, reg (the box
-    regression's Dense), bias, bn_weight, bn_bias, bn_mean, bn_var."""
-    out = {}
-    stem = "features.stem_rgb"
-    first = 16 if cfg.backbone_depth == "tiny" else 64
-    out.update(_unit_shapes(f"{stem}.Conv3d_1a_7x7", 3, first,
-                            (3, 7, 7) if cfg.backbone_depth == "tiny" else (7, 7, 7)))
-    cin = first
-    if cfg.backbone_depth != "tiny":
-        out.update(_unit_shapes(f"{stem}.Conv3d_2b_1x1", 64, 64, (1, 1, 1)))
-        out.update(_unit_shapes(f"{stem}.Conv3d_2c_3x3", 64, 192, (3, 3, 3)))
-        cin = 192
-    for name, c in stem_blocks(cfg):
-        shapes, cin = _block_shapes(f"{stem}.{name}", cin, c)
-        out.update(shapes)
-    feat = cin
+    the detector's state_dict names: the backbone's, the context's, each
+    step's. Kinds here: conv, linear, reg (the box regression's Dense),
+    bias, bn_weight, bn_bias, bn_mean, bn_var."""
+    out = dict(cfg.net.parameter_shapes(cfg))
+    stray = [n for n in out if not n.startswith("features.")]
+    if stray:
+        raise ValueError(f"backbone {cfg.backbone!r} names weights outside features.: {stray}")
+    feat = cfg.net.out_channels(cfg)
     if cfg.use_context:
         out["context.proj.weight"] = ((CONTEXT_DIM, feat), "linear")
         out["context.proj.bias"] = ((CONTEXT_DIM,), "bias")
@@ -154,7 +134,7 @@ def parameter_shapes(cfg) -> dict:
     for s in range(cfg.num_steps):
         cin = feat
         for name, c in tail_blocks(cfg):
-            shapes, cin = _block_shapes(f"steps.{s}.tail.{name}", cin, c)
+            shapes, cin = units.block_shapes(f"steps.{s}.tail.{name}", cin, c)
             out.update(shapes)
         grid = cfg.pooled_size * cfg.pooled_size * REG_CHANNELS
         out[f"steps.{s}.cls.weight"] = ((cfg.num_cls_outputs, cin + ctx), "linear")
@@ -168,131 +148,6 @@ def parameter_shapes(cfg) -> dict:
 
 def is_statistic(name: str) -> bool:
     return name.endswith(".running_mean") or name.endswith(".running_var")
-
-
-# ---------------------------------------------------------------- I3D
-def same_pads(n: int, k: int, s: int):
-    pad = max((math.ceil(n / s) - 1) * s + k - n, 0)
-    return pad // 2, pad - pad // 2
-
-
-def _pad_list(x, kernel, stride):
-    pads = [same_pads(x.shape[2 + i], kernel[i], stride[i]) for i in range(3)]
-    return [p for lo_hi in reversed(pads) for p in lo_hi]
-
-
-def conv3d_same(x, w, b, stride, prec):
-    return F.conv3d(F.pad(x, _pad_list(x, w.shape[2:], stride)), prec(w),
-                    None if b is None else prec(b), stride)
-
-
-def _pool1d(x, dim, k):
-    lo = (k - 1) // 2
-    y = x.clone()
-    for o in range(k):
-        t = o - lo
-        a, b = max(0, -t), min(x.shape[dim], x.shape[dim] - t)
-        if t and b > a:
-            view = y.narrow(dim, a, b - a)
-            torch.maximum(view, x.narrow(dim, a + t, b - a), out=view)
-    return y
-
-
-def _pool1d_grad(x, y, g, dim, k):
-    lo = (k - 1) // 2
-    zero = torch.zeros((), dtype=x.dtype, device=x.device)
-    grad = torch.zeros_like(x)
-    for o in range(k):
-        t = lo - o
-        a, b = max(0, -t), min(x.shape[dim], x.shape[dim] - t)
-        if b <= a:
-            continue
-        n = b - a
-        grad.narrow(dim, a, n).add_(torch.where(
-            x.narrow(dim, a, n) == y.narrow(dim, a + t, n), g.narrow(dim, a + t, n), zero))
-    return grad
-
-
-class _MaxPoolS1(torch.autograd.Function):
-    """Stride-1 SAME max pool whose backward credits every tied maximum,
-    stage by stage over T, H and W."""
-
-    @staticmethod
-    def forward(ctx, x, window):
-        ctx.window = window
-        ctx.save_for_backward(x)
-        pad = [p for k in reversed(window) for p in ((k - 1) // 2, k - 1 - (k - 1) // 2)]
-        return F.max_pool3d(F.pad(x, pad, value=float("-inf")), window, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        stages, cur = [], x
-        for dim, k in zip((2, 3, 4), ctx.window):
-            if k > 1:
-                y = _pool1d(cur, dim, k)
-                stages.append((cur, y, dim, k))
-                cur = y
-        for cur, y, dim, k in reversed(stages):
-            g = _pool1d_grad(cur, y, g, dim, k)
-        return g, None
-
-
-def max_pool(x, window, stride, rec=None):
-    window, stride = tuple(window), tuple(stride)
-    if rec is not None:
-        rec.append(("max_pool", tuple(x.shape), window, stride))
-    if stride == (1, 1, 1) and torch.is_grad_enabled() and x.requires_grad:
-        return _MaxPoolS1.apply(x, window)
-    pad = _pad_list(x, window, stride)
-    return F.max_pool3d(F.pad(x, pad, value=float("-inf")), window, stride)
-
-
-def batch_norm(x, P, name, train, stats):
-    """flax's BatchNorm in float32: running statistics, or in training the
-    batch's (mean and the clamped E[x^2] - mean^2, kept in `stats`)."""
-    shape = (1, -1, 1, 1, 1)
-    if train:
-        dims = (0, 2, 3, 4)
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-        stats[name] = (mean.detach(), var.detach())
-    else:
-        mean, var = P[f"{name}.running_mean"], P[f"{name}.running_var"]
-    mul = torch.rsqrt(var.reshape(shape) + BN_EPS) * P[f"{name}.weight"].reshape(shape)
-    return (x - mean.reshape(shape)) * mul + P[f"{name}.bias"].reshape(shape)
-
-
-def unit(x, P, name, stride, run):
-    x = conv3d_same(x, P[f"{name}.conv.weight"], None, stride, run.prec)
-    return run.prec(F.relu(batch_norm(x, P, f"{name}.bn", run.train, run.stats)))
-
-
-def inception(x, P, name, run):
-    b3 = unit(max_pool(x, (3, 3, 3), (1, 1, 1), run.rec), P, f"{name}.b3b", (1, 1, 1), run)
-    b0 = unit(x, P, f"{name}.b0", (1, 1, 1), run)
-    b1 = unit(unit(x, P, f"{name}.b1a", (1, 1, 1), run), P, f"{name}.b1b", (1, 1, 1), run)
-    b2 = unit(unit(x, P, f"{name}.b2a", (1, 1, 1), run), P, f"{name}.b2b", (1, 1, 1), run)
-    return torch.cat([b0, b1, b2, b3], dim=1)
-
-
-def i3d_stem(x, P, cfg, run):
-    """NCDHW clip → the Mixed_4f map."""
-    s = "features.stem_rgb"
-    x = unit(x, P, f"{s}.Conv3d_1a_7x7", (2, 2, 2), run)
-    x = max_pool(x, (1, 3, 3), (1, 2, 2), run.rec)
-    if cfg.backbone_depth == "tiny":
-        x = inception(x, P, f"{s}.Mixed_3b", run)
-        x = max_pool(x, (3, 3, 3), (2, 2, 2), run.rec)
-        return inception(x, P, f"{s}.Mixed_4f", run)
-    x = unit(x, P, f"{s}.Conv3d_2b_1x1", (1, 1, 1), run)
-    x = unit(x, P, f"{s}.Conv3d_2c_3x3", (1, 1, 1), run)
-    x = max_pool(x, (1, 3, 3), (1, 2, 2), run.rec)
-    x = inception(inception(x, P, f"{s}.Mixed_3b", run), P, f"{s}.Mixed_3c", run)
-    x = max_pool(x, (3, 3, 3), (2, 2, 2), run.rec)
-    for name in STEM_BLOCKS[2:]:
-        x = inception(x, P, f"{s}.{name}", run)
-    return x
 
 
 # ---------------------------------------------------------------- boxes and tubes
@@ -391,16 +246,16 @@ def _taps(c, limit):
     return lo, torch.clamp(lo + 1, max=limit - 1), (1.0 - frac) * ok, frac * ok
 
 
-def roi_align(feat, tubes, cfg, prec, rec=None):
+def roi_align(feat, tubes, cfg, run):
     """Tube ROI-align by bilinear taps: feat `[B, T', H, W, C]`, tubes `[B,
     N, T, 4]` → `[B, N, T', S, S, C]`; slice t' pools the boxes of frame
     `feature_time_indices(T, T')[t']`, each bin the mean of its
-    `sampling_ratio`² samples."""
+    `sampling_ratio`² samples. Recorded as a `roi_align` kernel: the map and
+    its output read and written once, the float32 tubes read once, 4
+    corners x 2 operations a sample of each output element."""
     B, Tp, H, W, C = feat.shape
     N, T = tubes.shape[1:3]
     S, r = cfg.pooled_size, cfg.sampling_ratio
-    if rec is not None:
-        rec.append(("roi_align", tuple(feat.shape), tuple(tubes.shape), (B, N, Tp, S, S, C)))
     boxes = tubes[:, :, feature_time_indices(T, Tp, feat.device)] / cfg.feature_stride
     x1, y1 = boxes[..., 0], boxes[..., 1]
     roi_w = torch.clamp(boxes[..., 2] - x1, min=1.0)
@@ -419,17 +274,26 @@ def roi_align(feat, tubes, cfg, prec, rec=None):
         rows, 4, idx[:, :, :, None, :, None].expand(B, N, Tp, S, S * r, C))
     out = pick(lo) * wl[:, :, :, None, :, None] + pick(hi) * wh[:, :, :, None, :, None]
     out = out.reshape(B, N, Tp, S, S, r, C).sum(dim=5) / float(r * r)
-    return prec(out)
+    run.record("roi_align", (feat.numel() + out.numel()) * run.width + tubes.numel() * 4,
+               out.numel() * r * r * 8)
+    return run.prec(out)
 
 
 # ---------------------------------------------------------------- the detector
 class Run:
     """What one forward carries: the precision, train mode, the BatchNorm
-    batch statistics it made, and an optional recorder of the pools and
-    ROI-aligns it ran (their shapes)."""
+    batch statistics it made, and an optional record `rec` of the kernels
+    it ran, each `(kind, bytes, operations or None)` with its bytes at
+    `width` bytes an element of the compute dtype."""
 
-    def __init__(self, prec=FLOAT32, train=False, rec=None):
-        self.prec, self.train, self.stats, self.rec = prec, train, {}, rec
+    def __init__(self, prec=FLOAT32, train=False, rec=None, width=4):
+        self.prec, self.train, self.stats, self.rec, self.width = prec, train, {}, rec, width
+
+    def record(self, kind: str, nbytes: int, ops: int | None = None):
+        """Note one kernel of `kind` that moves `nbytes` (and does `ops`
+        operations, where a roofline reads them)."""
+        if self.rec is not None:
+            self.rec.append((kind, nbytes, ops))
 
 
 def _linear(x, P, name, prec):
@@ -448,7 +312,7 @@ def head(P, s, cfg, pooled, ctx, tmask, run, keep):
     prec = run.prec
     x = pooled.permute(0, 4, 1, 2, 3)
     for name, _ in tail_blocks(cfg):
-        x = inception(x, P, f"steps.{s}.tail.{name}", run)
+        x = units.inception(x, P, f"steps.{s}.tail.{name}", run)
     N, Tp = x.shape[0], x.shape[2]
     spatial = prec(x.mean(dim=(3, 4)))
     w = tmask / torch.clamp(tmask.sum(), min=HEAD_EPS)
@@ -473,8 +337,7 @@ def dropout_masks(cfg, B, generator, device, Tp):
     mask."""
     N = B * cfg.max_proposals
     ctx = CONTEXT_DIM if cfg.use_context else 0
-    c_out = tail_blocks(cfg)[-1][1]
-    feat = c_out[0] + c_out[2] + c_out[4] + c_out[5]
+    feat = units.block_out(tail_blocks(cfg)[-1][1])
     grid = cfg.pooled_size * cfg.pooled_size * REG_CHANNELS
     keep = 1.0 - cfg.dropout_rate
     return [(torch.rand((N, feat + ctx), generator=generator, device=device) < keep,
@@ -494,8 +357,7 @@ def forward(P, cfg, rgb, proposals, run=None, masks=None):
     proposals `[B, P, T, 4]` → per-step outputs stacked on a leading S
     axis: cls_logits, deltas, proposals, tubes, frame_mask."""
     run = run or Run()
-    x = preprocess(rgb, run.prec).permute(0, 4, 1, 2, 3)
-    feat = i3d_stem(x, P, cfg, run).permute(0, 2, 3, 4, 1)           # [B, T', H', W', C]
+    feat = cfg.net.forward(P, cfg, preprocess(rgb, run.prec), run)    # [B, T', H', W', C]
     ctx = None
     if cfg.use_context:
         ctx = run.prec(F.relu(_linear(feat.mean(dim=(1, 2, 3)), P, "context.proj", run.prec)))
@@ -506,7 +368,7 @@ def forward(P, cfg, rgb, proposals, run=None, masks=None):
     out = {k: [] for k in ("cls_logits", "deltas", "proposals", "tubes", "frame_mask")}
     for s in range(cfg.num_steps):
         fmask = chunk_frame_mask(s, cfg, tubes.device)
-        pooled = roi_align(feat, tubes, cfg, run.prec, run.rec)
+        pooled = roi_align(feat, tubes, cfg, run)
         pooled = pooled.reshape(B * NP, *pooled.shape[2:])
         logits, deltas = head(P, s, cfg, pooled, ctx_flat, fmask[t_idx], run,
                               None if masks is None else masks[s])

@@ -95,7 +95,7 @@ def test_per_layer_metrics_sit_in_cells_that_report_what_they_move(bench):
         assert "\n" not in m["layer"] and 1 <= len(m["layer"]) <= 200
 
 
-@pytest.mark.parametrize("name", ["ucf_3step", "ava_3step"])
+@pytest.mark.parametrize("name", [c["name"] for c in load("BENCHMARK.json")["configs"]])
 def test_configuration_is_the_preset_and_its_work_is_counted_over_the_reference(bench, name):
     from step_tpu_torch import PRESETS
 
@@ -113,15 +113,26 @@ def test_configuration_is_the_preset_and_its_work_is_counted_over_the_reference(
     assert c["work"] == work.work_per_clip(ref.config(c["config"]))
 
 
+def literals_of(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)}
+
+
 def test_the_harness_holds_no_branch_for_a_cell_a_configuration_or_a_metric(bench):
     words = {w["name"] for w in bench["workloads"]} | {w["traffic"] for w in bench["workloads"]}
     words |= {c["name"] for c in bench["configs"]}
     words |= {m["name"] for m in bench["end_to_end"] + bench["per_layer"]}
     for fname in os.listdir(HERE):
-        if not fname.endswith(".py"):
-            continue
-        with open(os.path.join(HERE, fname)) as f:
-            tree = ast.parse(f.read())
-        literals = {n.value for n in ast.walk(tree)
-                    if isinstance(n, ast.Constant) and isinstance(n.value, str)}
-        assert not literals & words, (fname, literals & words)
+        if fname.endswith(".py"):
+            literals = literals_of(os.path.join(HERE, fname))
+            assert not literals & words, (fname, literals & words)
+
+
+def test_the_detector_names_no_backbone(bench):
+    """The shared detector finds its backbone by `cfg.backbone` alone."""
+    names = {f[:-3] for f in os.listdir(os.path.join(HERE, "reference", "backbones"))
+             if f.endswith(".py")}
+    names |= {load(*c["file"].split("/"))["config"]["backbone"] for c in bench["configs"]}
+    assert names and not literals_of(os.path.join(HERE, "reference", "detector.py")) & names

@@ -99,8 +99,8 @@ def event(cat, name, ts, dur, corr=None):
 TRACE = [
     event("user_annotation", "window", 0, 1000),
     event("user_annotation", "upload", 0, 100),
-    event("user_annotation", "features", 100, 300),
-    event("user_annotation", "refine", 400, 500),
+    event("user_annotation", "model.backbone", 100, 300),
+    event("user_annotation", "model.refine", 400, 500),
     event("cuda_runtime", "cudaMemcpyAsync", 10, 5, 1),
     event("cuda_runtime", "cudaLaunchKernel", 150, 5, 2),
     event("cuda_runtime", "cudaLaunchKernel", 450, 5, 3),
@@ -127,7 +127,8 @@ def test_the_trace_gives_busy_and_idle_shares_and_attributes_work_to_spans():
     assert load_metric("mfu.offline").read(m) == pytest.approx(100 * 2e-6 / 1e-3)
     assert load_metric("launches.live").read(m) == 1.0
     gaps = dict(t.idle_gaps())
-    assert gaps == pytest.approx({"upload": 20e-6, "features": 60e-6, "refine": 500e-6})
+    assert gaps == pytest.approx({"upload": 20e-6, "model.backbone": 60e-6,
+                                  "model.refine": 500e-6})
     assert t.device_ops()[0][0].startswith("max_pool3d")
 
 

@@ -44,12 +44,16 @@ def test_only_the_program_adapter_imports_the_program():
         if os.path.basename(path) != "program.py":
             assert "step_tpu_torch" not in imported(path) or "tests" in path, path
     for path in sources("reference"):
-        assert imported(path) <= {"__future__", "math", "types", "numpy", "torch", "benchmark"}
+        assert imported(path) <= {"__future__", "importlib", "math", "types", "numpy", "torch",
+                                  "benchmark"}
 
 
 def test_the_reference_loads_nothing_of_the_program_or_jax():
-    code = ("import sys; import benchmark.reference.detector, benchmark.reference.training, "
-            "benchmark.work, benchmark.check, benchmark.traffic; "
+    """Every configuration's backbone loaded too (`detector.config`)."""
+    code = ("import json, sys; import benchmark.reference.detector as d, "
+            "benchmark.reference.training, benchmark.work, benchmark.check, benchmark.traffic; "
+            "[d.config(json.load(open(c['file']))['config']) "
+            "for c in json.load(open('BENCHMARK.json'))['configs']]; "
             "print(sorted({m.split('.')[0] for m in sys.modules}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))

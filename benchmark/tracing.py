@@ -1,12 +1,11 @@
-"""Spans around the program's layers, the profiler over a traced window,
-and the reduction of its trace to the numbers the per-layer metrics read.
+"""Spans around the benchmark's own steps, the profiler over a traced
+window, and the reduction of its trace to the numbers the per-layer
+metrics read.
 
-Spans are `torch.profiler.record_function` ranges opened and closed by the
-benchmark while a `Spans` is open: around its own steps (`request`,
-`upload`, `detect`, `readback`, `loader_next`, `step`) and, through
-forward pre- and post-hooks on the program's modules, around the detector
-(`model`), its backbone (`features`), the scene context (`context`), the
-refinement after the backbone (`refine`) and each step's head (`head`). A
+Spans are `torch.profiler.record_function` ranges. The benchmark opens its
+own (`request`, `upload`, `detect`, `readback`, `loader_next`, `step`) while
+a `Spans` is open; the program opens its own inside them under any profiler
+(`model.backbone`, `model.refine`, `model.head`, `detect.nms`, ...). A
 device operation belongs to the spans its launch lies in (the runtime call
 of the same correlation id).
 
@@ -35,47 +34,14 @@ _ON = [False]
 
 
 class Spans:
-    """Spans on: the benchmark's own, and forward hooks that open and
-    close them on a detector's modules; `close()` turns them off and
-    removes the hooks."""
+    """The benchmark's own spans on while open (`with Spans():`)."""
 
-    def __init__(self, model):
+    def __enter__(self):
         _ON[0] = True
-        self.open, self.handles = [], []
-        self._hook(model, "model", post=self._model_done)
-        self._hook(model.features, "features", post=self._features_done)
-        if getattr(model, "context", None) is not None:
-            self._hook(model.context, "context")
-        for head in model.steps:
-            self._hook(head, "head")
+        return self
 
-    def _push(self, name):
-        span = record_function(name)
-        span.__enter__()
-        self.open.append(span)
-
-    def _pop(self):
-        self.open.pop().__exit__(None, None, None)
-
-    def _features_done(self):
-        self._pop()
-        self._push("refine")
-
-    def _model_done(self):
-        self._pop()             # refine
-        self._pop()             # model
-
-    def _hook(self, module, name, post=None):
-        self.handles.append(module.register_forward_pre_hook(lambda *_: self._push(name)))
-        done = post or self._pop
-        self.handles.append(module.register_forward_hook(lambda *_: done()))
-
-    def close(self):
+    def __exit__(self, *exc):
         _ON[0] = False
-        for h in self.handles:
-            h.remove()
-        while self.open:
-            self._pop()
 
 
 def span(name: str):

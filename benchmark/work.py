@@ -25,6 +25,10 @@ PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES_PER_S = 3.35e12
 # std * sqrt(fan_in) of the weights drawn from a normal, by kind
 GAIN = {"conv": math.sqrt(2.0), "linear": 1.0, "reg": 0.25}
+# the range of the weights drawn uniformly, by kind (BatchNorm's and
+# LayerNorm's affine and BatchNorm's statistics); kind "bias" is 0
+UNIFORM = {"bn_weight": (0.9, 1.1), "bn_bias": (-0.1, 0.1), "bn_mean": (-0.1, 0.1),
+           "bn_var": (0.8, 1.2), "ln_weight": (0.9, 1.1), "ln_bias": (-0.1, 0.1)}
 
 
 def sub_seeds(seed: int) -> dict:
@@ -38,22 +42,20 @@ def sub_seeds(seed: int) -> dict:
 
 def make_weights(cfg, seed: int, device) -> dict:
     """The detector's raw, unfolded float32 weights drawn on `device` from
-    `seed` in two calls: convolutions normal with std sqrt(2 / fan_in),
-    linear layers sqrt(1 / fan_in), the box regression's a quarter of that
-    (its deltas then come out near unit scale, as the encoding's variances
-    make a trained regressor's; at the full std they saturate the decoder's
-    clamp), biases 0, BatchNorm weight in [0.9,
-    1.1], bias and running mean in [-0.1, 0.1], running variance in [0.8,
-    1.2]."""
+    `seed` in two calls, each kind as `GAIN` and `UNIFORM` say: one normal
+    draw for every kind of `GAIN`, at std gain * sqrt(1 / fan_in) (the box
+    regression's gain is a quarter of a linear layer's, so its deltas come
+    out near unit scale, as the encoding's variances make a trained
+    regressor's; at the full std they saturate the decoder's clamp), one
+    uniform draw for every kind of `UNIFORM`, biases 0. A kind in neither
+    is refused."""
     shapes = ref.parameter_shapes(cfg)
     g = torch.Generator(device=device).manual_seed(seed)
     sizes = {n: math.prod(s) for n, (s, _) in shapes.items()}
-    drawn = [n for n, (_, k) in shapes.items() if k in GAIN]
-    normal = torch.randn(sum(sizes[n] for n in drawn), generator=g, device=device)
-    uniform = torch.rand(sum(sizes[n] for n, (_, k) in shapes.items() if k.startswith("bn")),
+    normal = torch.randn(sum(sizes[n] for n, (_, k) in shapes.items() if k in GAIN),
                          generator=g, device=device)
-    ranges = {"bn_weight": (0.9, 1.1), "bn_bias": (-0.1, 0.1), "bn_mean": (-0.1, 0.1),
-              "bn_var": (0.8, 1.2)}
+    uniform = torch.rand(sum(sizes[n] for n, (_, k) in shapes.items() if k in UNIFORM),
+                         generator=g, device=device)
     out, i, j = {}, 0, 0
     for name, (shape, kind) in shapes.items():
         n = sizes[name]
@@ -61,12 +63,14 @@ def make_weights(cfg, seed: int, device) -> dict:
             std = GAIN[kind] * math.sqrt(shape[0] / n)
             out[name] = (normal[i:i + n] * std).reshape(shape)
             i += n
+        elif kind in UNIFORM:
+            lo, hi = UNIFORM[kind]
+            out[name] = (lo + (hi - lo) * uniform[j:j + n]).reshape(shape)
+            j += n
         elif kind == "bias":
             out[name] = torch.zeros(shape, device=device)
         else:
-            lo, hi = ranges[kind]
-            out[name] = (lo + (hi - lo) * uniform[j:j + n]).reshape(shape)
-            j += n
+            raise ValueError(f"no draw for {name}, a weight of kind {kind!r}")
     return out
 
 
@@ -105,26 +109,23 @@ def flops_per_clip(cfg, train: bool) -> int:
 
 
 def kernel_work_per_clip(cfg) -> dict:
-    """Bytes (and ROI-align's operations) of one clip's 3-D max pools and
-    tube ROI-aligns, from the shapes the reference's forward runs them at:
-    `pool3d_bytes`, `roi_align_bytes`, `roi_align_ops` (4 corners x 2
-    float32 operations per sample per output element)."""
+    """`<kind>_bytes` (and `<kind>_ops`, where the kind's records give
+    operations) of one clip, summed over every kernel the reference's
+    forward records (`Run.record`), at the compute dtype's width: the 3-D
+    max pools' `pool3d_bytes`, the tube ROI-aligns' `roi_align_bytes` and
+    `roi_align_ops`, and whatever kinds the configuration's backbone
+    records."""
     weights, rgb, props, _ = _meta_inputs(cfg)
+    width = torch.tensor([], dtype=getattr(torch, cfg.compute_dtype)).element_size()
     rec = []
     with torch.no_grad():
-        ref.forward(weights, cfg, rgb, props, ref.Run(rec=rec))
-    width = torch.tensor([], dtype=getattr(torch, cfg.compute_dtype)).element_size()
-    pool = roi = roi_ops = 0
-    for entry in rec:
-        if entry[0] == "max_pool":
-            shape, window, stride = entry[1:]
-            out = shape[:2] + tuple(-(-n // s) for n, s in zip(shape[2:], stride))
-            pool += (math.prod(shape) + math.prod(out)) * width
-        else:
-            feat, tubes, out = entry[1:]
-            roi += (math.prod(feat) + math.prod(out)) * width + math.prod(tubes) * 4
-            roi_ops += math.prod(out) * cfg.sampling_ratio ** 2 * 8
-    return {"pool3d_bytes": pool, "roi_align_bytes": roi, "roi_align_ops": roi_ops}
+        ref.forward(weights, cfg, rgb, props, ref.Run(rec=rec, width=width))
+    out = {}
+    for kind, nbytes, ops in rec:
+        out[f"{kind}_bytes"] = out.get(f"{kind}_bytes", 0) + nbytes
+        if ops is not None:
+            out[f"{kind}_ops"] = out.get(f"{kind}_ops", 0) + ops
+    return out
 
 
 def work_per_clip(cfg) -> dict:
