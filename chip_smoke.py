@@ -257,6 +257,15 @@ Phases, each fatal on failure (exit code 1, no result line):
      (`F.max_pool3d`; for a strided pool on the input padded beforehand);
      the launches a request the shape tables list, at B=32 and B=1, must
      equal those phase 6 measured.
+ 34. the ViT-B/16 detector (`vit_phase`): the benchmark's `ava_videomae_b16`
+     built as `benchmark/program.py::Server` builds it, one B=32 request
+     through `detect_clip` with the launch counts set to 0 just before:
+     K1 1, K2 3, K5 6 (the heads' tails at [512, 768|832, 9, 7, 7]), the
+     strided pool, K3 and K4 0; each K1 and K2 call of the request held
+     against its plain version, each K5 launch by raw bits at its
+     launcher; K2 at [32, 9, 14, 14, 768] on phase 4's boxes (f32 within
+     1e-4, bf16 within one step) and K5 at the two tail shapes as phase 33
+     holds its pools.
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -299,7 +308,8 @@ their device ms inside the B=8 program by the profiler,
 eager, `bridge_launches`, its launches in each phase-31 run, and
 `bench_launches`, in each phase-32 bench run, and the pools'
 `b32_request`, `b32_shapes`, `b1_request`, `b1_shapes`, `chunk_b1_request`
-and `chunk_b1_shapes` (phase 33). The entry `max_pool3d_same` (the strided
+and `chunk_b1_shapes` (phase 33), and `vit_launches` and `vit_shapes`
+(phase 34). The entry `max_pool3d_same` (the strided
 pool, which replaces no TPU kernel; `replaces` null) has no phase 1-11
 numbers. The last
 is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
@@ -710,6 +720,108 @@ def pool_b32_phase(dev, per_request: dict) -> dict:
                   f"{total['library_ms']:.4f} ms", flush=True)
             out[kernel].update({f"{key}_request": total, f"{key}_shapes": rows})
     print(f"    phase 33 took {time.time() - t33:.1f} s", flush=True)
+    return out
+
+
+# A request of the ViT detector at B=32: K1 once on the C = 60 surface, K2
+# once a refinement step on the [32, 9, 14, 14, 768] map, K5 at the two
+# pools of each step's tail on the pooled tubes, no strided pool (the ViT
+# has none), no K3 or K4.
+VIT_B = 32
+VIT_LAUNCHES = {"nms_many": 1, "tube_roi_align": 3, "max_pool3x3_same": 6,
+                "max_pool3d_same": 0, "fused_scale_bias_relu": 0, "conv3x3x3_bn_relu": 0}
+
+
+def vit_phase(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
+    """Phase 34, the benchmark's `ava_videomae_b16` detector (VideoMAE
+    ViT-B/16 at published widths, `models/vit.py`) built as the benchmark
+    builds it (`benchmark/program.py::Server` on `benchmark/work.py`'s
+    seeded weights: BN-folded heads, the tree in bfloat16) and served one
+    B=32 request of 224 px uint8 clips through `detect_clip`, the launch
+    counts set to 0 just before and read just after: they must equal
+    `VIT_LAUNCHES`. Every K1 and K2 call of that request is held against its
+    plain version on its own inputs (`held_run`; K2 also on its features in
+    float32 within 1e-4), every K5 launch at its launcher by raw bits
+    (`held_backbone_launches`), and K5 at each tail shape against its plain
+    version in f32 and bf16 with `with_specials` (`pool_case`). Returns, per
+    kernel, `vit_launches` and `vit_shapes` for the JSON line."""
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.bench import pool_switch_kept
+    from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
+
+    t34 = time.time()
+    out = {name: dict(vit_launches={}, vit_shapes={}) for name in KERNELS}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs", "ava_videomae_b16.json")) as f:
+        fields = json.load(f)["config"]
+    with pool_switch_kept():
+        server = Server(fields, work.make_weights(reference.config(fields), SEED + 34, dev),
+                        dev)
+        cfg = server.cfg
+        T, S = cfg.total_frames, cfg.image_size
+        props, pmask = server.proposals(VIT_B)
+        clips = [torch.from_numpy(rng.randint(0, 256, (VIT_B, T, S, S, 3)).astype(np.uint8))
+                 .to(dev) for _ in range(2)]
+        server.detect(clips[0], props, pmask)       # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        errors = {}
+        t0 = time.perf_counter()
+        with held_backbone_launches(errors) as held:
+            _, counts, _ = held_run("serve_b32", lambda: server.detect(clips[1], props, pmask),
+                                    reset_counts, read_counts, out, "vit")
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+    check(counts == VIT_LAUNCHES,
+          f"a B={VIT_B} request of the ViT detector launched {counts}, not {VIT_LAUNCHES}")
+    tails = {(VIT_B * cfg.max_proposals, c, T // 2, cfg.pooled_size, cfg.pooled_size):
+             cfg.num_steps for c in (768, 832)}
+    k5_held = {}
+    for shape, _ in held.get("max_pool3x3_same", []):
+        k5_held[shape] = k5_held.get(shape, 0) + 1
+    check(k5_held == tails and not held.get("fused_scale_bias_relu")
+          and not held.get("conv3x3x3_bn_relu"),
+          f"the ViT request's K3/K4/K5 launches at their launchers: "
+          f"{ {k: len(v) for k, v in held.items()} }, K5 at {k5_held}, not {tails}")
+    print(f"[34] ava_videomae_b16 B={VIT_B} ({smi_line}): launches {counts}; every K5 "
+          f"launch the plain version's bits (tails {sorted(k5_held)}); request wall "
+          f"{wall:.1f} ms with every call held; peak memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    del server, clips
+    # K2 at the request's map shape on phase 4's boxes (partly, wholly
+    # outside, zero-area), float32 within 1e-4 and bfloat16 within one step
+    Hf = S // cfg.feature_stride
+    feat_np, tubes_np = roi_inputs(rng, VIT_B, T // 2, Hf, 768, cfg.max_proposals, T, S)
+    feat32, tubes = torch.from_numpy(feat_np).to(dev), torch.from_numpy(tubes_np).to(dev)
+    for f in (feat32, feat32.to(torch.bfloat16)):
+        got = tube_roi_align(f, tubes, cfg.pooled_size, 1.0 / cfg.feature_stride,
+                             cfg.sampling_ratio)
+        want = tube_roi_align_plain(f, tubes, cfg.pooled_size, 1.0 / cfg.feature_stride,
+                                    cfg.sampling_ratio)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ok = (torch.allclose(got, want, rtol=1e-4, atol=1e-4) if f.dtype == torch.float32
+              else bf16_close(got, want))
+        check(ok and got.dtype == f.dtype and float(want[:, 0].abs().max()) == 0.0,
+              f"K2 at {list(f.shape)} {f.dtype} differs from plain: max |err| {err}")
+        out["tube_roi_align"]["vit_shapes"][f"random boxes {list(f.shape)} {f.dtype}"] = dict(
+            max_abs_err=err)
+        print(f"[34] K2 at {list(f.shape)} {f.dtype}, phase 4's boxes: max |err| {err:.3g} "
+              f"({'tol 1e-4' if f.dtype == torch.float32 else 'one bf16 step'})", flush=True)
+    del feat32, tubes, got, want
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 34)
+    for shape, n in tails.items():
+        r = pool_case(shape, gen)
+        torch.cuda.empty_cache()
+        out["max_pool3x3_same"]["vit_shapes"][f"tail {list(shape)}"] = dict(r, launches=n)
+        print(f"[34] K5 max_pool3x3 {list(shape)} x{n} a request: the plain version's bits in "
+              f"f32 and bf16, NaN payloads included; bf16 kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_ms']:.4f} ms bound), plain "
+              f"{r['plain_ms']:.4f} ms", flush=True)
+    print(f"    phase 34 took {time.time() - t34:.1f} s", flush=True)
     return out
 
 
@@ -4587,6 +4699,7 @@ def main() -> None:
     bridge = bridge_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
     benches = bench_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
     pools_b32 = pool_b32_phase(dev, {k: main_launches[k] // main_req for k in main_pools})
+    vit = vit_phase(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align",
                                                  "max_pool3x3_same", "max_pool3d_same")},
@@ -4615,7 +4728,7 @@ def main() -> None:
          **evaluation[name], **two_stream[name], **late_fusion[name], **ava[name],
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
          **serving[name], **parallel[name], **kernel_program[name], **bridge[name],
-         **benches[name], **pools_b32.get(name, {})}
+         **benches[name], **pools_b32.get(name, {}), **vit[name]}
         for name, (src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))

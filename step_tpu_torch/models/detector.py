@@ -29,6 +29,12 @@ detector). `cfg.two_stream` takes flow as a second input beside the RGB,
 through a second stem and the fusion unit (`nets.FeatureNet`). Each input
 is normalized in float32 and then cast to `cfg.compute_dtype`.
 
+`cfg.backbone` picks the backbone (`BACKBONES`): "i3d", `nets.FeatureNet`
+with every variant above, or "videomae_vit_b16", the ViT-B/16 of
+`models/vit.py` (joint attention over the whole clip, so no chunk stems, no
+second stream and no flow input); an unknown name is refused. The heads'
+I3D tails take the backbone's channels on its T' slices (`feature_frames`).
+
 `forward` is `stem` (normalize, backbone) then `refine` (context, the S
 steps); the streaming entry points of `inference.py` call the two apart.
 
@@ -53,6 +59,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from step_tpu_torch.config import StepConfig
+from step_tpu_torch.models import vit
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
                                         TwoBranchHead, draw_dropout_masks)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
@@ -75,13 +82,41 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
-def feature_frames(cfg: StepConfig) -> int:
-    """T', the time axis of the shared feature map: the stem halves time
-    twice (Conv3d_1a and MaxPool_4a, TF-SAME), on the whole clip or on each
-    chunk under `chunk_stem` (5 on `ucf_3step`, 6 with chunk stems)."""
+def _i3d_frames(cfg: StepConfig) -> int:
     chunks = cfg.num_chunks if cfg.chunk_stem else 1
     half = lambda n: -(-n // 2)  # noqa: E731
     return chunks * half(half(cfg.total_frames // chunks))
+
+
+def _i3d(cfg: StepConfig) -> nn.Module:
+    return FeatureNet(cfg.backbone_depth, cfg.bn_folded, cfg.fused_bn_relu,
+                      cfg.fused_inception, cfg.fused_inception3 == "all",
+                      cfg.chunk_stem, cfg.num_chunks, cfg.two_stream,
+                      3 if cfg.input_stream == "rgb" else 2)
+
+
+def _vit(cfg: StepConfig) -> nn.Module:
+    for refused, why in ((cfg.chunk_stem, "chunk_stem"), (cfg.two_stream, "two_stream"),
+                         (cfg.input_stream != "rgb", f"input_stream={cfg.input_stream!r}")):
+        if refused:
+            raise ValueError(f"{vit.NAME} attends jointly over one whole RGB clip: "
+                             f"{why} is refused")
+    return vit.VideoMAEViT(cfg.backbone_depth, cfg.feature_stride, cfg.total_frames,
+                           cfg.image_size)
+
+
+# `cfg.backbone` → (the builder of the shared feature map's backbone, its T')
+BACKBONES = {"i3d": (_i3d, _i3d_frames),
+             vit.NAME: (_vit, lambda cfg: vit.feature_frames(cfg.total_frames))}
+
+
+def feature_frames(cfg: StepConfig) -> int:
+    """T', the time axis of the shared feature map, by the backbone's
+    temporal stride. I3D halves time twice (Conv3d_1a and MaxPool_4a,
+    TF-SAME), on the whole clip or on each chunk under `chunk_stem` (5 on
+    `ucf_3step`, 6 with chunk stems); the ViT takes one slice a tubelet of
+    2 frames (9 of 18)."""
+    return BACKBONES[cfg.backbone][1](cfg)
 
 
 class STEPDetector(nn.Module):
@@ -91,12 +126,12 @@ class STEPDetector(nn.Module):
         super().__init__()
         if cfg.input_stream not in ("rgb", "flow"):
             raise ValueError(f"unknown input_stream {cfg.input_stream!r}")
+        if cfg.backbone not in BACKBONES:
+            raise ValueError(f"unknown backbone {cfg.backbone!r}; "
+                             f"known: {', '.join(BACKBONES)}")
         self.cfg = cfg
         variants = (cfg.bn_folded, cfg.fused_bn_relu, cfg.fused_inception)
-        self.features = FeatureNet(cfg.backbone_depth, *variants,
-                                   cfg.fused_inception3 == "all",
-                                   cfg.chunk_stem, cfg.num_chunks, cfg.two_stream,
-                                   3 if cfg.input_stream == "rgb" else 2)
+        self.features = BACKBONES[cfg.backbone][0](cfg)
         c = self.features.out_channels
         self.context = ContextNet(c) if cfg.use_context else None
         ctx_dim = CONTEXT_DIM if cfg.use_context else 0

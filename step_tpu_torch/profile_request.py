@@ -3,7 +3,7 @@ on the card.
 
     python3 -m step_tpu_torch.profile_request
         [--path main|kernel|video|stream|train|train_dp|train_two_stream|two_stream|ava]
-        [--batch 8] [--requests 10] [--out profile.json]
+        [--backbone i3d|videomae_vit_b16] [--batch 8] [--requests 10] [--out profile.json]
 
 Builds the detector at full width and depth with seeded weights (seed 0),
 in bfloat16, in one of the serving configurations that `chip_smoke.py`
@@ -36,13 +36,18 @@ drives:
   ava     `ava_3step` on the main path's tree: 60 sigmoid classes, the
           context branch.
 
+`--backbone` swaps the path's preset's backbone (`cfg.backbone`): `--path
+ava --backbone videomae_vit_b16` is the benchmark's `ava_videomae_b16`
+detector, the ViT-B/16 of `models/vit.py` on the main path's tree.
+
 A request of `main`, `kernel` and `ava` uploads `--batch` uint8 clips,
 one of `two_stream` the clips and their int8 flow, one of `video` and
 `stream` a uint8 video; then it detects. For `train` it also
 prints the device time under each plain backward (the stride-1 pool's and
 ROI-align's autograd Functions, children included). The script serves two
 warm-up requests, times `--requests` more (host clock around each
-synchronized request) and prints each and their median, then profiles one
+synchronized request) and prints each, their median and the peak memory
+allocated from the warm-ups on, then profiles one
 more with `torch.profiler` and prints that request's wall time (the
 profiler adds to it), the summed device time, the busy share (device time
 / wall time), the number of kernels, how many max pools ran on each
@@ -82,6 +87,8 @@ LAYERS = (
     ("strided max pool (csrc/pool3d_same.cu)", ("max_pool3d_same_kernel",)),
     ("PyTorch pools", ("max_pool", "pool3d", "pool2d")),
     ("layout conversions", ("nhwcToNchw", "nchwToNhwc")),
+    ("attention (SDPA)", ("flash", "fmha", "sdpa")),
+    ("LayerNorm", ("layer_norm",)),
     ("cuDNN / cuBLAS conv and matmul", ("xmma", "implicit_gemm", "conv", "cudnn",
                                         "cutlass", "gemm", "sm90_", "sm80_")),
     ("copies", ("Memcpy", "Memset", "copy_kernel")),
@@ -223,6 +230,8 @@ def data_parallel_steps(cfg, state, syn, batch: int, dev: torch.device):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--path", choices=tuple(PRESET_OF), default="main")
+    ap.add_argument("--backbone", default=None,
+                    help="the preset's backbone swapped for this one (cfg.backbone)")
     ap.add_argument("--batch", type=int, default=8,
                     help="clips a request (main, kernel) or chunks a video (video, stream)")
     ap.add_argument("--requests", type=int, default=10)
@@ -240,11 +249,15 @@ def main(argv=None) -> int:
     def pool_counts():
         return max_pool3x3_same.launches, max_pool3d_same.launches, ndhwc.copies
 
+    from step_tpu_torch import PRESETS
+
     dev = torch.device("cuda", 0)
-    cfg, model = build(args.path, dev)
+    cfg = PRESETS[PRESET_OF[args.path]]
+    cfg, model = build(args.path, dev, cfg.replace(backbone=args.backbone or cfg.backbone))
     run, make = request_fn(args.path, cfg, model, args.batch, dev)
     inputs = [make() for _ in range(3)]
     request_ms = []
+    torch.cuda.reset_peak_memory_stats(dev)
     with contextlib.nullcontext() if args.path.startswith("train") else torch.no_grad():
         for x in inputs[:2]:
             run(x)
@@ -254,6 +267,7 @@ def main(argv=None) -> int:
             run(inputs[i % 3])
             torch.cuda.synchronize()
             request_ms.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
         before = pool_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -296,10 +310,10 @@ def main(argv=None) -> int:
                             if layer_of(name) == "PyTorch pools"),
              "ndhwc_copies": copies}
     result = {
-        "device": torch.cuda.get_device_name(0), "path": args.path,
+        "device": torch.cuda.get_device_name(0), "path": args.path, "backbone": cfg.backbone,
         "batch": args.batch, "request_ms": request_ms,
         "request_ms_median": float(np.median(request_ms)) if request_ms else None,
-        "wall_ms": wall_ms, "device_ms": device_ms,
+        "memory_peak_bytes": peak, "wall_ms": wall_ms, "device_ms": device_ms,
         "busy_share": device_ms / wall_ms,
         "kernels": sum(n for _, n in kernels.values()),
         "pools": pools,
@@ -314,10 +328,10 @@ def main(argv=None) -> int:
     if request_ms:
         print(f"{args.path} path, B={args.batch}: request wall ms "
               f"{', '.join(f'{t:.2f}' for t in request_ms)}; median "
-              f"{result['request_ms_median']:.2f}")
-    print(f"{args.path} path, B={args.batch}, {result['device']}: wall {wall_ms:.2f} ms "
-          f"(profiled), device {device_ms:.2f} ms, busy {result['busy_share']:.1%}, "
-          f"{result['kernels']} kernels")
+              f"{result['request_ms_median']:.2f}; peak memory {peak / 2**30:.2f} GiB")
+    print(f"{args.path} path ({cfg.backbone}), B={args.batch}, {result['device']}: "
+          f"wall {wall_ms:.2f} ms (profiled), device {device_ms:.2f} ms, "
+          f"busy {result['busy_share']:.1%}, {result['kernels']} kernels")
     print(f"  max pools of the request: {pools['max_pool3x3_same']} on K5, "
           f"{pools['max_pool3d_same']} on the strided kernel, {pools['pytorch']} on PyTorch; "
           f"{pools['ndhwc_copies']} inputs copied into channels_last_3d for a kernel")

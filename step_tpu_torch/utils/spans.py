@@ -13,7 +13,12 @@ exported program holds no profiler node.
 
   model.preprocess  `STEPDetector.stem`: the input's normalization and the
                     cast to the compute dtype
-  model.backbone    `STEPDetector.stem`: the `FeatureNet` call
+  model.backbone    `STEPDetector.stem`: the backbone's call (`FeatureNet`
+                    or `vit.VideoMAEViT`)
+  model.attention   inside `model.backbone`, a ViT block's attention call
+                    (`F.scaled_dot_product_attention`), one a block
+  model.mlp         inside `model.backbone`, a ViT block's fc1, GELU and
+                    fc2, one a block
   model.refine      all of `STEPDetector.refine`, the context included
   model.context     `STEPDetector.refine`: the `ContextNet` call
   model.head        a refinement step's `TwoBranchHead` call (its I3D tail
@@ -42,8 +47,8 @@ import contextlib
 
 import torch
 
-SPANS = ("model.preprocess", "model.backbone", "model.refine", "model.context",
-         "model.head", "model.boxes", "detect.nms",
+SPANS = ("model.preprocess", "model.backbone", "model.attention", "model.mlp",
+         "model.refine", "model.context", "model.head", "model.boxes", "detect.nms",
          "train.forward", "train.loss", "train.backward", "train.reduce",
          "train.optimizer", "train.bn_commit", "loader.wait")
 

@@ -1002,6 +1002,43 @@ def test_tiny_two_stream_and_ava_detectors_on_card_match_cpu(cuda, name, over):
                                    rtol=0, atol=1e-4)
 
 
+def test_vit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
+    """The benchmark's `ava_videomae_b16` detector at published widths
+    (VideoMAE ViT-B/16, `models/vit.py`), built and served as the benchmark
+    serves it (`benchmark/program.py::Server`: BN-folded heads, the tree in
+    bfloat16, K1, K2 and the K5 tail pools at T' = 9, C = 768/832) on a
+    B=32 request of 224 px clips; its first 2 clips judged by the float32
+    reference (`benchmark/check.py`) under the cell's limits."""
+    import json
+    import os
+
+    from benchmark import check, work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.bench import pool_switch_kept
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+    with open(os.path.join(root, "configs", "ava_videomae_b16.json")) as f:
+        fields = json.load(f)["config"]
+    with open(os.path.join(root, "workloads", "ava_videomae_b16.offline_b32.json")) as f:
+        limits = json.load(f)["limits"]
+    rc = reference.config(fields)
+    weights = work.make_weights(rc, 2 ** 31 + 3, cuda)
+    with pool_switch_kept():
+        server = Server(fields, weights, cuda)
+        props, pmask = server.proposals(32)
+        rgb = torch.from_numpy(np.random.RandomState(8).randint(
+            0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
+        out = server.detect(rgb, props, pmask)
+    assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
+    served = {k: v[:2].cpu() for k, v in out.items()}
+    del server, out
+    readings, _ = check.serve_readings(weights, rc, [(rgb[:2].cpu(), props[:2].cpu(),
+                                                      pmask[:2].cpu(), served)], cuda)
+    ok, checks = check.verdict(readings, limits)
+    assert ok, checks
+
+
 # ---- the I3D classifier's shapes and the int8 optimizer --------------------
 
 # `I3DClassifier` on 64 frames at 224 px (B=1): the stem at T = 32 and 16,
