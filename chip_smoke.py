@@ -266,6 +266,19 @@ Phases, each fatal on failure (exit code 1, no result line):
      launcher; K2 at [32, 9, 14, 14, 768] on phase 4's boxes (f32 within
      1e-4, bf16 within one step) and K5 at the two tail shapes as phase 33
      holds its pools.
+ 35. the stem conv kernel (`stem_phase`, `ops/stem_conv.py`,
+     `csrc/stem_conv.cu`; it replaces no TPU kernel): its HGMMA
+     instructions counted; at the served stem [32, 18, 224, 224, 3] (bias
+     and ReLU), B=1, a B=1 request's chunk stems [3, 6, 224, 224, 3] and
+     the flow stem [32, 18, 224, 224, 2], each held against its plain
+     version (`stem_close`) and timed beside its operations bound, its
+     plain version and two library yardsticks the port never calls:
+     today's path before it (`F.pad`, cuDNN's bf16 conv with the bias, a
+     ReLU) and cuDNN on the input and weight zero-padded to 8 channels;
+     then one B=32 request of the benchmark's `ucf_3step` and of its
+     `ava_videomae_b16` detector (built as `benchmark/program.py::Server`
+     builds them), every stem launch held against plain at its launcher:
+     1 and 0 launches (`STEM_LAUNCHES`).
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -311,7 +324,9 @@ eager, `bridge_launches`, its launches in each phase-31 run, and
 and `chunk_b1_shapes` (phase 33), and `vit_launches` and `vit_shapes`
 (phase 34). The entry `max_pool3d_same` (the strided
 pool, which replaces no TPU kernel; `replaces` null) has no phase 1-11
-numbers. The last
+numbers; the entry `stem_conv` (the stem conv, `replaces` null) holds
+phase 35's alone: `launches` a request of each served detector, and
+`shapes`, each shape's numbers. The last
 is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -399,9 +414,10 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def hgmma_count(library, nvcc: str) -> int:
-    """HGMMA instructions in the SASS of the bf16 conv kernels, read with
-    the cuobjdump beside nvcc."""
+def hgmma_count(library, nvcc: str, kernel: str = "conv_bf16_kernel") -> int:
+    """HGMMA instructions in the SASS of the kernels whose names hold
+    `kernel` (K3's bf16 kernels by default), read with the cuobjdump beside
+    nvcc."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
                           text=True, timeout=300)
@@ -409,7 +425,7 @@ def hgmma_count(library, nvcc: str) -> int:
     n, in_conv = 0, False
     for line in sass.stdout.splitlines():
         if "Function :" in line:
-            in_conv = "conv_bf16_kernel" in line
+            in_conv = kernel in line
         elif in_conv and "HGMMA" in line:
             n += 1
     return n
@@ -468,7 +484,9 @@ def backbone_launches(cfg, B: int):
     configuration at batch B: K4 and K5 as {NCDHW input shape: launches},
     K3 as {(NCDHW input shape, output channels): launches}. Every unit whose
     kernel is not 3x3x3 stride 1 ends in K4 (the stem's Conv3d_1a and
-    Conv3d_2b, and the four 1x1x1 units of each Inception block); every
+    Conv3d_2b, and the four 1x1x1 units of each Inception block), but in
+    bfloat16 Conv3d_1a runs the stem kernel (`ops/stem_conv.py`), whose
+    epilogue applies its BN and ReLU; every
     3x3x3 stride-1 unit is K3 (Conv3d_2c, and b1b and b2b of each block);
     each Inception block pools its input with K5 — the stem's once, each
     step's tail once per refinement step, on the pooled tubes of all
@@ -487,7 +505,9 @@ def backbone_launches(cfg, B: int):
     S3 = up(S2, 2)
     T4, S4 = up(T1, 2), up(S3, 2)
     streams = 2 if cfg.two_stream else 1
-    k4 = {(N, 64, T1, S1, S1): streams, (N, 64, T1, S2, S2): streams}
+    k4 = {(N, 64, T1, S2, S2): streams}
+    if cfg.compute_dtype != "bfloat16":
+        k4 = {(N, 64, T1, S1, S1): streams, **k4}
     k3 = {((N, 64, T1, S2, S2), 192): streams}
     k5 = {}
     where = {"Mixed_3": (N, T1, S3, streams), "Mixed_4": (N, T4, S4, streams),
@@ -823,6 +843,169 @@ def vit_phase(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
               f"{r['plain_ms']:.4f} ms", flush=True)
     print(f"    phase 34 took {time.time() - t34:.1f} s", flush=True)
     return out
+
+
+# A B=32 request's stem conv launches: one on `ucf_3step`'s RGB stem, none on
+# the ViT detector, which has no I3D stem.
+STEM_LAUNCHES = {"ucf_3step": 1, "ava_videomae_b16": 0}
+STEM_SHAPES = {"served B=32": (32, 18, 224, 224, 3), "B=1": (1, 18, 224, 224, 3),
+               "chunk stems B=1": (3, 6, 224, 224, 3), "flow B=32": (32, 18, 224, 224, 2)}
+
+
+def stem_close(got, want, x, weight, scale) -> bool:
+    """The stem kernel's bf16 output against its plain version on the same
+    inputs x (NCDHW), weight and scale: one rounding step, 2^-15, and
+    K3_BF16_SUM_RTOL of the sum of |x * w| * |scale| each output adds up
+    (1,029 float32 products summed in other orders)."""
+    from step_tpu_torch.ops.pool import same_padding
+
+    w = weight.to(torch.bfloat16).float().abs()
+    sym, pad = same_padding(x, (7, 7, 7), (2, 2, 2))
+    xa = x.float().abs()
+    terms = (F.conv3d(xa, w, None, 2, sym) if sym is not None
+             else F.conv3d(F.pad(xa, pad), w, None, 2))
+    if scale is not None:
+        terms = terms * scale.abs().view(1, -1, 1, 1, 1)
+    err = (got.float() - want.float()).abs()
+    return bool((err <= BF16_RTOL * want.float().abs() + K3_BF16_ATOL
+                 + K3_BF16_SUM_RTOL * terms).all())
+
+
+def stem_bound(x_shape) -> dict:
+    """The stem conv's least time: 2 * 343 C * 64 operations an output
+    position at the bf16 tensor peak, or its bf16 input and output once."""
+    N, T, H, W, C = x_shape
+    positions = N * -(-T // 2) * -(-H // 2) * -(-W // 2)
+    return bound(2 * (N * T * H * W * C + positions * 64), 2 * positions * 64 * 343 * C,
+                 BF16_TENSOR_FLOPS)
+
+
+def stem_case(shape, gen: torch.Generator) -> dict:
+    """The stem kernel at one `[N, T, H, W, C]` input with the folded
+    bias and the ReLU: held against the plain version (`stem_close`), its
+    device and wrapper ms, its plain version's, today's path before it
+    (`F.pad`, cuDNN's bf16 conv with the bias, the ReLU: `library_ms`) and
+    cuDNN on the input and weight zero-padded to 8 channels
+    (`library_pad8_ms`), both on the device as the kernel is timed."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.models.i3d import conv3d_same
+    from step_tpu_torch.ops.stem_conv import pack_stem_weight, stem_conv, stem_conv_plain
+
+    N, T, H, W, C = shape
+    x = torch.randn(shape, generator=gen, device=gen.device).to(torch.bfloat16)
+    xc = x.permute(0, 4, 1, 2, 3)                 # the detector's NCDHW view
+    weight = torch.randn(64, C, 7, 7, 7, generator=gen, device=gen.device) / math.sqrt(343 * C)
+    bias = torch.randn(64, generator=gen, device=gen.device) * 0.1
+    got = stem_conv(xc, weight, None, bias)
+    want = stem_conv_plain(xc, weight, None, bias)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(stem_close(got, want, xc, weight, None),
+          f"stem conv at {list(shape)} differs from plain: max |err| {err}")
+    packed = pack_stem_weight(weight)
+    out = torch.empty(kernels.stem_conv_shape(shape), dtype=torch.bfloat16, device=x.device)
+    ms = device_ms(lambda: kernels.stem_conv_forward(x, packed, None, bias, out, True))
+    wb, bb = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+    library_ms = device_ms(lambda: F.relu(conv3d_same(xc, wb, bb, (2, 2, 2))), n=4, reps=2)
+    x8 = F.pad(x, (0, 8 - C)).permute(0, 4, 1, 2, 3)
+    w8 = F.pad(wb, (0, 0, 0, 0, 0, 0, 0, 8 - C)).contiguous(
+        memory_format=torch.channels_last_3d)
+    pad8_ms = device_ms(lambda: F.relu(conv3d_same(x8, w8, bb, (2, 2, 2))), n=2, reps=2)
+    del x8, w8
+    r = dict(max_abs_err=err, ms=ms, wrapper_ms=cuda_ms(lambda: stem_conv(xc, weight, None, bias)),
+             plain_ms=cuda_ms(lambda: stem_conv_plain(xc, weight, None, bias), iters=3, warmup=1),
+             library_ms=library_ms, library_pad8_ms=pad8_ms, **stem_bound(shape))
+    return r
+
+
+@contextlib.contextmanager
+def held_stem_launches(errors: dict):
+    """Each stem conv launch while the block runs, at its launcher
+    (`kernels.stem_conv_forward`), held against its plain version on its
+    own inputs (`stem_close`); yields the list of launch shapes and fills
+    `errors["stem_conv"]` with the largest |error|."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.stem_conv import stem_conv_plain, unpack_stem_weight
+
+    launcher, seen = kernels.stem_conv_forward, []
+
+    def run(x, w, scale, bias, out, relu):
+        launcher(x, w, scale, bias, out, relu)
+        xc = x.permute(0, 4, 1, 2, 3)
+        weight = unpack_stem_weight(w, x.shape[4])
+        want = stem_conv_plain(xc, weight, scale, bias, relu)
+        got = out.permute(0, 4, 1, 2, 3)
+        err = float((got.float() - want.float()).abs().max())
+        check(stem_close(got, want, xc, weight, scale),
+              f"a stem conv launch at {list(x.shape)} differs from plain: max |err| {err}")
+        errors["stem_conv"] = max(errors.get("stem_conv", 0.0), err)
+        seen.append(tuple(x.shape))
+
+    kernels.stem_conv_forward = run
+    try:
+        yield seen
+    finally:
+        kernels.stem_conv_forward = launcher
+
+
+def stem_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
+    """Phase 35, the stem conv kernel: each of `STEM_SHAPES` against its
+    plain version and timed (`stem_case`), then a B=32 request of each
+    detector of `STEM_LAUNCHES`, built as `benchmark/program.py::Server`
+    builds it, with every stem launch held against plain. Returns the
+    kernel's JSON entry: `launches` a request of each detector, `shapes`."""
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.bench import pool_switch_kept
+    from step_tpu_torch.ops.stem_conv import stem_conv
+
+    t35 = time.time()
+    check(n_hgmma > 0, "the stem conv kernels hold no HGMMA instruction")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 35)
+    shapes = {}
+    for label, shape in STEM_SHAPES.items():
+        r = shapes[f"{label} {list(shape)}"] = stem_case(shape, gen)
+        torch.cuda.empty_cache()
+        print(f"[35] stem conv {label} {list(shape)}, bias + ReLU: max |err| "
+              f"{r['max_abs_err']:.3g} (one bf16 step + accumulation); kernel {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_ms']:.4f} ms bound, "
+              f"{r['bound_by']}), wrapper {r['wrapper_ms']:.4f}, plain {r['plain_ms']:.4f}, "
+              f"today's F.pad + cuDNN + ReLU {r['library_ms']:.4f}, cuDNN on 8 channels "
+              f"{r['library_pad8_ms']:.4f} ms", flush=True)
+    launches = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, n_want in STEM_LAUNCHES.items():
+        with open(os.path.join(here, "benchmark", "configs", f"{name}.json")) as f:
+            fields = json.load(f)["config"]
+        with pool_switch_kept():
+            server = Server(fields, work.make_weights(reference.config(fields), SEED + 35, dev),
+                            dev)
+            cfg = server.cfg
+            T, S = cfg.total_frames, cfg.image_size
+            props, pmask = server.proposals(32)
+            clips = [torch.from_numpy(rng.randint(0, 256, (32, T, S, S, 3)).astype(np.uint8))
+                     .to(dev) for _ in range(2)]
+            server.detect(clips[0], props, pmask)       # warm-up
+            torch.cuda.synchronize()
+            errors = {}
+            before = stem_conv.launches
+            with held_stem_launches(errors) as seen:
+                out = server.detect(clips[1], props, pmask)
+                torch.cuda.synchronize()
+        n = stem_conv.launches - before
+        check(n == n_want == len(seen) and bool(torch.isfinite(out["tubes"]).all()),
+              f"a B=32 request of {name} launched the stem conv {n} times ({len(seen)} "
+              f"held), not {n_want}")
+        launches[f"{name}_b32"] = n
+        print(f"[35] {name} B=32 ({smi_line}): {n} stem conv launch(es) a request "
+              f"{seen}, each held against plain (max |err| {errors.get('stem_conv')})",
+              flush=True)
+        del server, clips, out
+        torch.cuda.empty_cache()
+    print(f"    phase 35 took {time.time() - t35:.1f} s", flush=True)
+    return dict(launches=launches, hgmma=n_hgmma, shapes=shapes)
 
 
 def bn_case(shape, gen: torch.Generator) -> dict:
@@ -2776,10 +2959,11 @@ def frame_fc_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
 
 
 def classifier_launches(B: int, T: int = 64, S: int = 224):
-    """The K4, K5 and K3 launches of one `I3DClassifier` request of the
+    """The K4, K5 and K3 launches of one bf16 `I3DClassifier` request of the
     kernel configuration at batch B on T frames of S px, keyed as
-    `backbone_launches` keys them: the stem as the detector's, then
-    MaxPool_5a and the tail's two blocks on the whole clip's features."""
+    `backbone_launches` keys them: the stem as the detector's (Conv3d_1a on
+    the stem kernel, no K4), then MaxPool_5a and the tail's two blocks on
+    the whole clip's features."""
     from step_tpu_torch.models.i3d import INCEPTION_CHANNELS
 
     up = lambda n, s: -(-n // s)  # noqa: E731
@@ -2788,7 +2972,7 @@ def classifier_launches(B: int, T: int = 64, S: int = 224):
     S3 = up(S2, 2)
     T4, S4 = up(T1, 2), up(S3, 2)
     T5, S5 = up(T4, 2), up(S4, 2)
-    k4 = {(B, 64, T1, S1, S1): 1, (B, 64, T1, S2, S2): 1}
+    k4 = {(B, 64, T1, S2, S2): 1}
     k3 = {((B, 64, T1, S2, S2), 192): 1}
     k5 = {}
     where = {"Mixed_3": (T1, S3), "Mixed_4": (T4, S4), "Mixed_5": (T5, S5)}
@@ -3133,7 +3317,7 @@ def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -
           flush=True)
     check(len(blobs[8]) < 0.1 * sd_bytes,
           f"the program takes {len(blobs[8])} bytes, 10% or more of the weights' {sd_bytes}")
-    want_nodes = {"nms_surface": 1, "tube_roi_align": scfg.num_steps,
+    want_nodes = {"nms_surface": 1, "tube_roi_align": scfg.num_steps, "stem_conv": 1,
                   "max_pool3x3_same": sum(backbone_launches(scfg, 8)[1].values()),
                   "max_pool3d_same": sum(strided_launches(scfg, 8).values())}
     check(nodes == want_nodes, f"the program holds {nodes}, not {want_nodes}")
@@ -3426,7 +3610,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
                   "scale_bias_relu": sum(k4_shapes.values()),
                   "max_pool3x3_same": sum(k5_shapes.values()),
                   "max_pool3d_same": sum(strided_launches(cfg, 8).values()),
-                  "nms_surface": 1, "tube_roi_align": cfg.num_steps}
+                  "nms_surface": 1, "tube_roi_align": cfg.num_steps, "stem_conv": 1}
     node_of = {"conv3x3x3_bn_relu": "conv3x3x3_bn_relu",
                "fused_scale_bias_relu": "scale_bias_relu",
                "max_pool3x3_same": "max_pool3x3_same", "nms_many": "nms_surface",
@@ -4332,7 +4516,9 @@ def main() -> None:
                 or "wgmma" in line):
             print("    " + line.strip())
     n_hgmma = hgmma_count(path, kernels.nvcc_path())
-    print(f"    HGMMA instructions in K3's bf16 kernels: {n_hgmma}", flush=True)
+    n_stem_hgmma = hgmma_count(path, kernels.nvcc_path(), "stem_conv_kernel")
+    print(f"    HGMMA instructions in K3's bf16 kernels: {n_hgmma}; in the stem conv "
+          f"kernels: {n_stem_hgmma}", flush=True)
 
     rng = np.random.RandomState(SEED)
     results = {}
@@ -4600,7 +4786,7 @@ def main() -> None:
               f"step); bf16 kernel device {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} "
               f"of the {r['bound_ms']:.4f} ms bound), wrapper {r['wrapper_ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms", flush=True)
-        if shape == next(iter(k4_shapes)):      # Conv3d_1a's output stands for K4
+        if shape == next(iter(k4_shapes)):      # Conv3d_2b's output stands for K4
             results["fused_scale_bias_relu"] = {k: v for k, v in r.items()
                                                 if k not in ("err32", "rows")}
     print(f"    K4 per B={B} request ({sum(k4_shapes.values())} launches): device "
@@ -4700,6 +4886,7 @@ def main() -> None:
     benches = bench_phases(dev, smi.stdout.strip(), reset_counts, read_counts)
     pools_b32 = pool_b32_phase(dev, {k: main_launches[k] // main_req for k in main_pools})
     vit = vit_phase(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
+    stem = stem_phase(dev, rng, smi.stdout.strip(), n_stem_hgmma)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align",
                                                  "max_pool3x3_same", "max_pool3d_same")},
@@ -4729,7 +4916,9 @@ def main() -> None:
          **pretrained[name], **int8[name], **frame_fc[name], **classifier[name],
          **serving[name], **parallel[name], **kernel_program[name], **bridge[name],
          **benches[name], **pools_b32.get(name, {}), **vit[name]}
-        for name, (src, rep) in meta.items()]}))
+        for name, (src, rep) in meta.items()] + [
+        {"name": "stem_conv", "route": "cuda", "source": "step_tpu_torch/csrc/stem_conv.cu",
+         "replaces": None, **stem}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "pool3d_same.cu", "bn_relu.cu",
-           "conv3d.cu", "errors.cu")
+           "conv3d.cu", "stem_conv.cu", "errors.cu")
 HEADERS = ("wgmma.cuh", "sm_count.cuh", "max_merge.cuh")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
 # no multiply-add may be contracted into an FMA (the float32 conv and the
@@ -125,6 +125,8 @@ def library() -> ctypes.CDLL:
     lib.step_conv3x3x3_bn_relu_f32.restype = i
     lib.step_conv3x3x3_bn_relu_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
     lib.step_conv3x3x3_bn_relu_bf16.restype = i
+    lib.step_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
+    lib.step_stem_conv.restype = i
     lib.step_cuda_error_string.argtypes = [i]
     lib.step_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -407,3 +409,55 @@ def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
                 out.data_ptr(), N, T, H, W, C, K, cpad, rpad, conv_tile_n(K),
                 int(warpgroups), _stream(dev))
     _raise_on(err, "conv3x3x3_bn_relu kernel launch")
+
+
+# The stem conv kernel (csrc/stem_conv.cu): input channels it takes, and its
+# output channels, one wgmma width.
+STEM_CHANNELS = (2, 3)
+STEM_OUT = 64
+
+
+def stem_packed_shape(C: int) -> tuple[int, int]:
+    """(segment, Rpad) of the stem kernel's packed weight for C input
+    channels: each of the 49 (dt, dh) row segments holds the 7 dw taps x C
+    channels padded to a multiple of 8 (24 for C = 3, 16 for C = 2), and
+    the 49 segments are padded to CONV_TILE_K."""
+    seg = -(-7 * C // 8) * 8
+    return seg, -(-49 * seg // CONV_TILE_K) * CONV_TILE_K
+
+
+def stem_conv_shape(shape) -> tuple:
+    """The `[N, ceil(T/2), ceil(H/2), ceil(W/2), 64]` output of the stem
+    kernel for an `[N, T, H, W, C]` input."""
+    N, T, H, W = shape[:4]
+    return (N, -(-T // 2), -(-H // 2), -(-W // 2), STEM_OUT)
+
+
+def stem_conv_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+                      bias: torch.Tensor | None, out: torch.Tensor, relu: bool) -> None:
+    """Launch `csrc/stem_conv.cu`: x `[N, T, H, W, C]` bf16 (C 2 or 3), w
+    the packed `[64, Rpad]` bf16 weight of `ops/stem_conv.py::
+    pack_stem_weight`, scale and bias `[64]` f32 or None (1 and 0), out
+    `[N, ceil(T/2), ceil(H/2), ceil(W/2), 64]` bf16; the 7x7x7 stride-2
+    TF-SAME convolution, then the scale, the bias and, with `relu`, the
+    ReLU."""
+    _need_cuda(x, "stem_conv")
+    dev = x.device
+    if x.dim() != 5 or x.shape[4] not in STEM_CHANNELS:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected [N, T, H, W, C] with C "
+                         f"in {STEM_CHANNELS}")
+    C = x.shape[4]
+    _check(x, "x", torch.bfloat16, x.shape, dev)
+    _check(w, "w", torch.bfloat16, (STEM_OUT, stem_packed_shape(C)[1]), dev)
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t is not None:
+            _check(t, name, torch.float32, (STEM_OUT,), dev)
+    _check(out, "out", torch.bfloat16, stem_conv_shape(x.shape), dev)
+    if w.data_ptr() % 16 or out.data_ptr() % 4:
+        raise ValueError("stem_conv: w must be 16-byte and out 4-byte aligned")
+    lib = library()
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        err = lib.step_stem_conv(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(bias),
+                                 out.data_ptr(), *x.shape, int(bool(relu)), _stream(dev))
+    _raise_on(err, "stem_conv kernel launch")

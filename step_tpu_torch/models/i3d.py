@@ -36,6 +36,9 @@ Inference variants, as in the JAX package:
     3x3x3 stride-1 max pool goes through `ops/pool.py::max_pool3x3_same`,
     so that a program traced on the CPU holds `step::max_pool3x3_same`
     nodes (on the card K5 runs with or without it);
+  * the stem unit (Conv3d_1a_7x7) of a bf16 CUDA tensor with autograd off
+    runs the hand-written stem kernel (`ops/stem_conv.py`) in every
+    variant, the unit's bias or BN affine and its ReLU in the epilogue;
   * `fused_inception` (BN folded): an Inception block's three 1x1x1 branch
     convs run as one conv "b012", then split; `fused_inception3` also runs
     the two 3x3x3 branch convs as one block-diagonal conv "b12" (weights
@@ -60,7 +63,9 @@ from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_rel
 from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3d_same_plain, max_pool3x3_same,
                                      same_padding)
 from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
+from step_tpu_torch.ops.stem_conv import stem_conv, stem_kernel_takes
 from step_tpu_torch.parallel.distributed import all_reduce_sum
+from step_tpu_torch.utils.spans import span
 from step_tpu_torch.utils.tensor_cache import derived
 
 # Inception-v1 branch widths: (b0_1x1, b1_reduce, b1_3x3, b2_reduce, b2_3x3, b3_pool_proj)
@@ -212,7 +217,14 @@ class Unit3D(nn.Module):
     `bn_folded` the BatchNorm is gone and the conv carries a bias;
     `bn_folded` wins over `fused_bn_relu`, as in the JAX package. With
     `fused_bn_relu` a 3x3x3 stride-1 unit runs as one `conv3x3x3_bn_relu`
-    and any other as conv + `fused_scale_bias_relu`."""
+    and any other as conv + `fused_scale_bias_relu`.
+
+    The stem unit (7x7x7, stride 2, 2 or 3 channels to 64) of a bf16 CUDA
+    tensor with autograd off runs `ops/stem_conv.py::stem_conv`, the
+    hand-written kernel, in every variant: with the folded bias and the
+    ReLU, with `fused_bn_relu`'s affine and the ReLU, or alone before an
+    unfolded BN and the ReLU. Training, autograd, float32 and the CPU keep
+    `conv3d_same`."""
 
     def __init__(self, cin: int, cout: int, kernel=(1, 1, 1),
                  stride=(1, 1, 1), bn_folded: bool = False,
@@ -226,6 +238,12 @@ class Unit3D(nn.Module):
                              and self.stride == (1, 1, 1))
         self._kernel_weight = {}    # the conv kernel's weight layout, reused
 
+    def _stem_kernel(self, x: torch.Tensor) -> bool:
+        if not stem_kernel_takes(x, self.conv.weight, self.stride):
+            return False
+        return not (torch.is_grad_enabled()
+                    and any(t.requires_grad for t in (x, *self.parameters())))
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
             if self.bn is None:
@@ -238,6 +256,15 @@ class Unit3D(nn.Module):
         if self.conv_bn_relu:
             return conv3x3x3_bn_relu(x, self.conv.weight, *self.bn.scale_bias(),
                                      weight_cache=self._kernel_weight)
+        if self._stem_kernel(x):
+            if self.bn is None:
+                return stem_conv(x, self.conv.weight, None, self.conv.bias,
+                                 weight_cache=self._kernel_weight)
+            if self.fused:
+                return stem_conv(x, self.conv.weight, *self.bn.scale_bias(),
+                                 weight_cache=self._kernel_weight)
+            x = stem_conv(x, self.conv.weight, relu=False, weight_cache=self._kernel_weight)
+            return F.relu(self.bn(x))
         x = conv3d_same(x, self.conv.weight, self.conv.bias, self.stride)
         if self.fused:
             return fused_scale_bias_relu(x, *self.bn.scale_bias())
@@ -328,13 +355,13 @@ class I3DStem(nn.Module):
         self.depth = depth
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
-        if self.depth == "tiny":
+        with span("model.stem"):
             x = self.Conv3d_1a_7x7(x, train)
+        if self.depth == "tiny":
             x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))
             x = self.Mixed_3b(x, train)
             x = max_pool_3d(x, (3, 3, 3), (2, 2, 2))
             return self.Mixed_4f(x, train)
-        x = self.Conv3d_1a_7x7(x, train)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))
         x = self.Conv3d_2c_3x3(self.Conv3d_2b_1x1(x, train), train)
         x = max_pool_3d(x, (1, 3, 3), (1, 2, 2))

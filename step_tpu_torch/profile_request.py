@@ -80,6 +80,7 @@ from step_tpu_torch.utils.spans import SPANS
 LAYERS = (
     ("K1 nms (csrc/nms.cu)", ("nms_groups_kernel", "nms_many_kernel")),
     ("K2 roi_align (csrc/roi_align.cu)", ("tube_roi_align_kernel",)),
+    ("stem conv (csrc/stem_conv.cu)", ("stem_conv_kernel",)),
     ("K3 conv3x3x3 (csrc/conv3d.cu)", ("conv_bf16_kernel", "conv_f32_kernel",
                                        "conv3x3x3_bn_relu_kernel")),
     ("K4 bn_relu (csrc/bn_relu.cu)", ("scale_bias_relu_kernel",)),

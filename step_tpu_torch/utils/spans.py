@@ -15,6 +15,8 @@ exported program holds no profiler node.
                     cast to the compute dtype
   model.backbone    `STEPDetector.stem`: the backbone's call (`FeatureNet`
                     or `vit.VideoMAEViT`)
+  model.stem        inside `model.backbone`, an I3D stem's first unit
+                    (`I3DStem.forward`: Conv3d_1a_7x7), one a stem
   model.attention   inside `model.backbone`, a ViT block's attention call
                     (`F.scaled_dot_product_attention`), one a block
   model.mlp         inside `model.backbone`, a ViT block's fc1, GELU and
@@ -47,7 +49,7 @@ import contextlib
 
 import torch
 
-SPANS = ("model.preprocess", "model.backbone", "model.attention", "model.mlp",
+SPANS = ("model.preprocess", "model.backbone", "model.stem", "model.attention", "model.mlp",
          "model.refine", "model.context", "model.head", "model.boxes", "detect.nms",
          "train.forward", "train.loss", "train.backward", "train.reduce",
          "train.optimizer", "train.bn_commit", "loader.wait")

@@ -13,6 +13,9 @@ adaptive sampling grid. BN + ReLU: 1e-6 in float32, one bf16 step in
 bfloat16. Conv + BN + ReLU: 1e-4 in float32 (summation order over 27 * C
 products), one bf16 step in bfloat16 (the tensor cores multiply bf16
 exactly and accumulate in float32, in another order than the plain conv).
+The stem conv: one bf16 step plus 2^-15 and 2^-20 of the sum of |x * w|
+an output adds up (`stem_close`: 1,029 float32 products summed in other
+orders).
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -33,7 +36,7 @@ from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                               fused_scale_bias_relu_plain)
 from step_tpu_torch.ops.nms import EPS, NEG, _f32, nms_many, nms_many_plain, premask_scores
 from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3x3_same,
-                                    max_pool3x3_same_plain)
+                                    max_pool3x3_same_plain, same_padding)
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 from step_tpu_torch.utils.init import init_detector_
@@ -699,6 +702,144 @@ def test_conv_unit_weight_cache_follows_load_state_dict(cuda, dtype):
         want = conv3x3x3_bn_relu_plain(x, state["conv.weight"], *unit.bn.scale_bias())
     torch.cuda.synchronize()
     _close(got, want, dtype, 1e-4)
+
+
+# ---- the stem unit's convolution (csrc/stem_conv.cu) ----------------------
+
+def stem_close(got, want, x, weight, scale) -> bool:
+    """The stem kernel against its plain version on the same inputs: one
+    bf16 rounding step, 2^-15, and 2^-20 of the sum of |x * w| * |scale|
+    that each output adds up. Both multiply bf16 values exactly and sum
+    the 1,029 (343 C) products in float32, in other orders; the sums'
+    difference, ~1e-5 at these shapes, moves an output across a rounding
+    boundary or off a ReLU's zero."""
+    w = weight.to(torch.bfloat16).float().abs()
+    sym, pad = same_padding(x, (7, 7, 7), (2, 2, 2))
+    xa = x.float().abs()
+    terms = (F.conv3d(xa, w, None, 2, sym) if sym is not None
+             else F.conv3d(F.pad(xa, pad), w, None, 2))
+    if scale is not None:
+        terms = terms * scale.abs().view(1, -1, 1, 1, 1)
+    err = (got.float() - want.float()).abs()
+    return bool((err <= BF16_RTOL * want.float().abs() + 2.0 ** -15
+                 + 2.0 ** -20 * terms).all())
+
+
+# The served stem [32, 18, 224, 224, 3], B=1, the chunk stems of a B=2
+# request (3 chunks of 6 frames each), the flow stem (C = 2), and a ragged
+# shape whose T, H and W are odd and fill no 8 x 16 tile.
+STEM_SHAPES = [(32, 18, 224, 224, 3), (1, 18, 224, 224, 3), (6, 6, 224, 224, 3),
+               (2, 18, 224, 224, 2), (2, 7, 33, 45, 3)]
+STEM_EPILOGUES = {"bias_relu": (False, True, True), "scale_bias_relu": (True, True, True),
+                  "none": (False, False, False)}
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+@pytest.mark.parametrize("epilogue", sorted(STEM_EPILOGUES))
+def test_stem_kernel_matches_plain(cuda, shape, epilogue):
+    from step_tpu_torch.ops.stem_conv import stem_conv, stem_conv_plain
+
+    N, T, H, W, C = shape
+    x = torch.from_numpy(np.random.RandomState(21).randn(*shape).astype(np.float32))
+    x = x.to(cuda, torch.bfloat16).permute(0, 4, 1, 2, 3)      # the detector's view
+    rng = np.random.RandomState(22)
+    w = torch.from_numpy((rng.randn(64, C, 7, 7, 7) / np.sqrt(343 * C)).astype(np.float32))
+    use_scale, use_bias, relu = STEM_EPILOGUES[epilogue]
+    scale = torch.from_numpy((rng.rand(64) + 0.5).astype(np.float32)).cuda() if use_scale else None
+    bias = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).cuda() if use_bias else None
+    w = w.cuda()
+    before = stem_conv.launches
+    got = stem_conv(x, w, scale, bias, relu)
+    assert stem_conv.launches == before + 1
+    want = stem_conv_plain(x, w, scale, bias, relu)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (N, 64, -(-T // 2), -(-H // 2), -(-W // 2))
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert stem_close(got, want, x, w, scale)
+    assert float(want.float().abs().max()) > 0.5            # not a trivial output
+
+
+def test_stem_unit_routes_by_what_the_call_shows(cuda):
+    """Each variant of the stem unit in bf16 with autograd off runs the
+    kernel once and gives the unit's result; with autograd, in float32 and
+    in training it keeps cuDNN (no launch) and its gradients."""
+    from step_tpu_torch.models.i3d import Unit3D, conv3d_same
+    from step_tpu_torch.ops.stem_conv import stem_conv
+
+    x = _ncdhw(23, (2, 3, 6, 32, 48), torch.bfloat16)
+    for folded, fused in ((True, False), (False, True), (False, False)):
+        unit = Unit3D(3, 64, (7, 7, 7), (2, 2, 2), bn_folded=folded,
+                      fused_bn_relu=fused).eval().to(cuda)
+        with torch.no_grad():
+            for p in unit.parameters():
+                p.uniform_(-0.05, 0.05)
+            before = stem_conv.launches
+            got = unit(x)
+            assert stem_conv.launches == before + 1
+            y = conv3d_same(x.float(), unit.conv.weight.to(torch.bfloat16).float(),
+                            unit.conv.bias, (2, 2, 2))
+            want = (fused_scale_bias_relu_plain(y, *unit.bn.scale_bias()) if fused
+                    else F.relu(y if unit.bn is None else unit.bn(y.to(torch.bfloat16))))
+        torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=2e-3)
+    before = stem_conv.launches
+    out = unit(x)                                         # autograd on: cuDNN
+    assert out.requires_grad and stem_conv.launches == before
+    out.float().sum().backward()
+    assert unit.conv.weight.grad is not None
+    with torch.no_grad():
+        unit(x.float())
+        unit(x, train=True)
+    assert stem_conv.launches == before
+
+
+def test_stem_kernel_launches_once_a_ucf_request_and_never_in_vit_or_training(cuda):
+    """One launch a B=32 main-path `ucf_3step` request (bf16, BN folded),
+    none in a B=32 request of the ViT cell's detector and none in a
+    full-depth training step."""
+    import json
+    import os
+
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.bench import pool_switch_kept
+    from step_tpu_torch.data.pipeline import build_model_batch
+    from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
+    from step_tpu_torch.ops.stem_conv import stem_conv
+    from step_tpu_torch.profile_request import build
+    from step_tpu_torch.train.trainer import batch_to_device, create_train_state, train_step
+
+    rgb = torch.from_numpy(np.random.RandomState(24).randint(
+        0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
+    with pool_switch_kept():
+        cfg, model = build("main", cuda)
+        props, pmask = STEPDetector.initial_proposals(cfg, 32, device=cuda)
+        with torch.no_grad():
+            before = stem_conv.launches
+            out = detect_clip(model, rgb, props, pmask)
+            torch.cuda.synchronize()
+        assert stem_conv.launches == before + 1 and torch.isfinite(out["tubes"]).all()
+        del model, out
+        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+        with open(os.path.join(root, "configs", "ava_videomae_b16.json")) as f:
+            fields = json.load(f)["config"]
+        server = Server(fields, work.make_weights(reference.config(fields), 5, cuda), cuda)
+        props, pmask = server.proposals(32)
+        before = stem_conv.launches
+        server.detect(rgb, props, pmask)
+        torch.cuda.synchronize()
+        assert stem_conv.launches == before
+        del server
+    tcfg = PRESETS["ucf_3step"].replace(image_size=96, batch_size=1, dropout_rate=0.0,
+                                        warmup_steps=2, max_gt_tubes=2)
+    syn = SyntheticConfig(image_size=96, num_frames=tcfg.total_frames,
+                          num_classes=tcfg.num_classes, max_boxes=2)
+    state = create_train_state(tcfg, seed=3, device=cuda)
+    batch = batch_to_device(build_model_batch(make_batch(4, 1, syn), tcfg, train=True), cuda)
+    before = stem_conv.launches
+    _, metrics = train_step(state, batch, tcfg)
+    assert stem_conv.launches == before and torch.isfinite(metrics["loss"])
 
 
 def test_bn_affine_cache_on_the_card(cuda):

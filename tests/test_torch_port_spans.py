@@ -6,6 +6,7 @@ depth in float32:
     a `train_step`;
   * under the profiler a `detect_clip` opens `model.preprocess`,
     `model.backbone`, `model.refine` and `detect.nms` once each,
+    `model.stem` once inside `model.backbone` (the I3D stem unit),
     `model.head` and `model.boxes` once a refinement step inside
     `model.refine`, and `model.context` once with the scene context and
     never without it; over the ViT backbone (`models/vit.py`)
@@ -153,9 +154,12 @@ def test_a_detection_opens_each_stage_once_and_each_step_inside_refine(opened, r
     events = opened[run]
     counts = _counts(events)
     steps = PRESETS["ucf_3step"].num_steps
-    assert counts == {"model.preprocess": 1, "model.backbone": 1, "model.refine": 1,
-                      "detect.nms": 1, "model.head": steps, "model.boxes": steps,
-                      **({"model.context": 1} if context else {})}
+    assert counts == {"model.preprocess": 1, "model.backbone": 1, "model.stem": 1,
+                      "model.refine": 1, "detect.nms": 1, "model.head": steps,
+                      "model.boxes": steps, **({"model.context": 1} if context else {})}
+    backbone = next(e.time_range for e in events if e.name == "model.backbone")
+    stem = next(e.time_range for e in events if e.name == "model.stem")
+    assert backbone.start <= stem.start <= stem.end <= backbone.end
     refine = next(e.time_range for e in events if e.name == "model.refine")
     for e in events:
         if e.name in ("model.head", "model.boxes", "model.context"):
