@@ -45,8 +45,8 @@ Phases, each fatal on failure (exit code 1, no result line):
      against cuDNN in bf16 and the bound, and the per-call weight
      re-layout;
  10. the kernel path: the same `ucf_3step` at full width and depth, seeded
-     weights left unfolded, `fused_bn_relu=True` and
-     `STEP_TPU_POOL3D=pallas`, bfloat16, serving B=1 and B=8 — the checks of
+     weights left unfolded, `fused_bn_relu=True`, bfloat16, serving B=1 and
+     B=8 — the checks of
      phase 6, and all six launch counters above zero;
  11. the same weights in float32 at B=1: the kernel path against the main
      path (folded, cuDNN) — tube scores within 1e-3, tubes
@@ -217,9 +217,8 @@ Phases, each fatal on failure (exit code 1, no result line):
  29. two gloo ranks on the one card against one process on the same global
      batches;
  30. the kernel configuration as a served program (`kernel_program_phases`):
-     `ucf_3step` unfolded with `fused_bn_relu`, exported under
-     `STEP_TPU_POOL3D=pallas` at B=8 and B=1 in bf16 and served with no
-     switch in the environment: its bytes under 10% of the state dict's;
+     `ucf_3step` unfolded with `fused_bn_relu`, exported on the card at B=8
+     and B=1 in bf16 and served: its bytes under 10% of the state dict's;
      K3 `step::conv3x3x3_bn_relu`, K4 `step::scale_bias_relu` and K5
      `step::max_pool3x3_same` nodes as `backbone_launches` counts them (27,
      54, 13) beside K1 1, K2 3 and the strided `step::max_pool3d_same` 3;
@@ -247,7 +246,7 @@ Phases, each fatal on failure (exit code 1, no result line):
      and K2 launched in each serving run, K3, K4 and K5 too under `--config
      kernel`, K2 and K5 in training; both configurations count the same
      FLOPs, and the tiny float32 detector's request and train-step FLOPs
-     on the card equal the CPU's; `STEP_TPU_POOL3D` as it was before.
+     on the card equal the CPU's.
  33. the pools of a main-path request (`pool_b32_phase`) at B=32, at B=1
      and on a B=1 request's chunk stems: K5 at its 13 launches and the
      strided kernel (`ops/pool.py::max_pool3d_same`, `csrc/pool3d_same.cu`)
@@ -353,7 +352,7 @@ BF16_RTOL = 2.0 ** -7           # one bf16 rounding step (8-bit significand)
 # terms the sum drifts from the plain version's rounded float32 sum. Where
 # BN and ReLU bring the output near 0 that drift is more than one bf16 step
 # of the output: about 1e-5 beyond it at the Inception widths on an H100
-# (step_tpu_torch/conv_tune.py measures it). Hence an absolute floor of
+# (phase 9 measures it). Hence an absolute floor of
 # 2^-15 for K3 in bf16, and 1e-5 elsewhere.
 K3_BF16_ATOL = 2.0 ** -15
 # On the classifier's own activations (phase 24: post-ReLU inputs up to ~40,
@@ -400,6 +399,14 @@ DEMO_FRAMES, DEMO_SIZE = 60, (240, 320)
 DP_STEPS, DP2_STEPS, DP_TIMED, DP_EVAL_VIDEOS = 4, 3, 6, 1
 KERNELS = ("nms_many", "tube_roi_align", "max_pool3x3_same", "fused_scale_bias_relu",
            "conv3x3x3_bn_relu", "max_pool3d_same")
+# The operators whose launches count for each of KERNELS, in the port's one
+# launch counter (`step_tpu_torch/ops/kernel_op.py::LAUNCHES`): K1 launches
+# through `nms_surface` on the main path and through `nms_many` elsewhere.
+KERNEL_OPS = {"nms_many": ("nms_many", "nms_surface"), "tube_roi_align": ("tube_roi_align",),
+              "max_pool3x3_same": ("max_pool3x3_same",),
+              "fused_scale_bias_relu": ("scale_bias_relu",),
+              "conv3x3x3_bn_relu": ("conv3x3x3_bn_relu",),
+              "max_pool3d_same": ("max_pool3d_same",)}
 # The H100 SXM's published peaks (NVIDIA's data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
@@ -660,6 +667,7 @@ def strided_pool_case(shape, window, stride, gen: torch.Generator) -> dict:
     the input padded beforehand, so without the pad's copy) and its bound
     (x read once, out written once)."""
     from step_tpu_torch import kernels
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
     from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3d_same_plain,
                                          max_pool3d_same_shape, same_padding)
 
@@ -667,10 +675,10 @@ def strided_pool_case(shape, window, stride, gen: torch.Generator) -> dict:
         memory_format=torch.channels_last_3d)
     x16 = x32.to(torch.bfloat16)
     for x in (with_specials(x32, gen), with_specials(x16, gen)):
-        before = max_pool3d_same.launches
+        before = LAUNCHES["max_pool3d_same"]
         got, want = max_pool3d_same(x, window, stride), max_pool3d_same_plain(x, window, stride)
         torch.cuda.synchronize()
-        check(max_pool3d_same.launches == before + 1, "max_pool3d_same did not launch once")
+        check(LAUNCHES["max_pool3d_same"] == before + 1, "max_pool3d_same did not launch once")
         check(got.shape == want.shape and got.is_contiguous(
             memory_format=torch.channels_last_3d), f"strided pool {shape}: {got.shape}")
         differ = raw_bits(got.contiguous()) != raw_bits(want.contiguous())
@@ -768,7 +776,6 @@ def vit_phase(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
     from benchmark import work
     from benchmark.program import Server
     from benchmark.reference import detector as reference
-    from step_tpu_torch.bench import pool_switch_kept
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 
     t34 = time.time()
@@ -776,24 +783,23 @@ def vit_phase(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
     here = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(here, "benchmark", "configs", "ava_videomae_b16.json")) as f:
         fields = json.load(f)["config"]
-    with pool_switch_kept():
-        server = Server(fields, work.make_weights(reference.config(fields), SEED + 34, dev),
-                        dev)
-        cfg = server.cfg
-        T, S = cfg.total_frames, cfg.image_size
-        props, pmask = server.proposals(VIT_B)
-        clips = [torch.from_numpy(rng.randint(0, 256, (VIT_B, T, S, S, 3)).astype(np.uint8))
-                 .to(dev) for _ in range(2)]
-        server.detect(clips[0], props, pmask)       # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        errors = {}
-        t0 = time.perf_counter()
-        with held_backbone_launches(errors) as held:
-            _, counts, _ = held_run("serve_b32", lambda: server.detect(clips[1], props, pmask),
-                                    reset_counts, read_counts, out, "vit")
-        wall = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated(dev)
+    server = Server(fields, work.make_weights(reference.config(fields), SEED + 34, dev),
+                    dev)
+    cfg = server.cfg
+    T, S = cfg.total_frames, cfg.image_size
+    props, pmask = server.proposals(VIT_B)
+    clips = [torch.from_numpy(rng.randint(0, 256, (VIT_B, T, S, S, 3)).astype(np.uint8))
+             .to(dev) for _ in range(2)]
+    server.detect(clips[0], props, pmask)       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    errors = {}
+    t0 = time.perf_counter()
+    with held_backbone_launches(errors) as held:
+        _, counts, _ = held_run("serve_b32", lambda: server.detect(clips[1], props, pmask),
+                                reset_counts, read_counts, out, "vit")
+    wall = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(dev)
     check(counts == VIT_LAUNCHES,
           f"a B={VIT_B} request of the ViT detector launched {counts}, not {VIT_LAUNCHES}")
     tails = {(VIT_B * cfg.max_proposals, c, T // 2, cfg.pooled_size, cfg.pooled_size):
@@ -957,8 +963,7 @@ def stem_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
     from benchmark import work
     from benchmark.program import Server
     from benchmark.reference import detector as reference
-    from step_tpu_torch.bench import pool_switch_kept
-    from step_tpu_torch.ops.stem_conv import stem_conv
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
 
     t35 = time.time()
     check(n_hgmma > 0, "the stem conv kernels hold no HGMMA instruction")
@@ -979,22 +984,21 @@ def stem_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
     for name, n_want in STEM_LAUNCHES.items():
         with open(os.path.join(here, "benchmark", "configs", f"{name}.json")) as f:
             fields = json.load(f)["config"]
-        with pool_switch_kept():
-            server = Server(fields, work.make_weights(reference.config(fields), SEED + 35, dev),
-                            dev)
-            cfg = server.cfg
-            T, S = cfg.total_frames, cfg.image_size
-            props, pmask = server.proposals(32)
-            clips = [torch.from_numpy(rng.randint(0, 256, (32, T, S, S, 3)).astype(np.uint8))
-                     .to(dev) for _ in range(2)]
-            server.detect(clips[0], props, pmask)       # warm-up
+        server = Server(fields, work.make_weights(reference.config(fields), SEED + 35, dev),
+                        dev)
+        cfg = server.cfg
+        T, S = cfg.total_frames, cfg.image_size
+        props, pmask = server.proposals(32)
+        clips = [torch.from_numpy(rng.randint(0, 256, (32, T, S, S, 3)).astype(np.uint8))
+                 .to(dev) for _ in range(2)]
+        server.detect(clips[0], props, pmask)       # warm-up
+        torch.cuda.synchronize()
+        errors = {}
+        before = LAUNCHES["stem_conv"]
+        with held_stem_launches(errors) as seen:
+            out = server.detect(clips[1], props, pmask)
             torch.cuda.synchronize()
-            errors = {}
-            before = stem_conv.launches
-            with held_stem_launches(errors) as seen:
-                out = server.detect(clips[1], props, pmask)
-                torch.cuda.synchronize()
-        n = stem_conv.launches - before
+        n = LAUNCHES["stem_conv"] - before
         check(n == n_want == len(seen) and bool(torch.isfinite(out["tubes"]).all()),
               f"a B=32 request of {name} launched the stem conv {n} times ({len(seen)} "
               f"held), not {n_want}")
@@ -1208,46 +1212,46 @@ def check_links(det, C: int, K: int, L: int, label: str) -> None:
 def recorded(fn, key, keep: bool = False):
     """The calls of the kernel wrapper `fn` while the block runs, as the
     port's modules make them: yields {key(*args): [launches, calls]}, where
-    launches is what those calls added to the wrapper's own count
-    (`fn.launches`) and calls lists each call's (args, output) when `keep`.
-    `fn` is replaced by a recorder in every module of the port that holds
-    it, its own module included; there the wrapper's count lands on the
-    recorder while the block runs and is added to `fn.launches` after."""
+    launches is the kernels those calls launched (`launched()`) and calls
+    lists each call's (args, output) when `keep`. `fn` is replaced by a
+    recorder in every module of the port that holds it (`swapped`)."""
     calls = {}
 
     def rec(*args, **kwargs):
-        before = fn.launches + rec.launches
+        before = launched()
         got = fn(*args, **kwargs)
         entry = calls.setdefault(key(*args), [0, []])
-        entry[0] += fn.launches + rec.launches - before
+        entry[0] += launched() - before
         if keep:
             entry[1].append((args, got))
         return got
 
-    rec.launches = 0
-    try:
-        with swapped(fn, rec):
-            yield calls
-    finally:
-        fn.launches += rec.launches
+    with swapped(fn, rec):
+        yield calls
+
+
+def launched() -> int:
+    """Every kernel launch the port has counted, of all operators
+    (`step_tpu_torch/ops/kernel_op.py::LAUNCHES`)."""
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
+
+    return sum(LAUNCHES.values())
 
 
 @contextlib.contextmanager
-def swapped(fn, replacement, callers_only: bool = False):
+def swapped(fn, replacement):
     """`fn` replaced by `replacement` in every module of the port that
-    holds it while the block runs; with `callers_only`, not in its own
-    module, where its launch counter stays its own."""
-    homes = [m for name, m in list(sys.modules.items())
+    holds it, under whatever name, while the block runs."""
+    homes = [(m, attr) for name, m in list(sys.modules.items())
              if name.split(".")[0] == "step_tpu_torch"
-             and getattr(m, fn.__name__, None) is fn
-             and not (callers_only and name == fn.__module__)]
-    for m in homes:
-        setattr(m, fn.__name__, replacement)
+             for attr, value in list(vars(m).items()) if value is fn]
+    for m, attr in homes:
+        setattr(m, attr, replacement)
     try:
         yield
     finally:
-        for m in homes:
-            setattr(m, fn.__name__, fn)
+        for m, attr in homes:
+            setattr(m, attr, fn)
 
 
 @contextlib.contextmanager
@@ -1500,11 +1504,7 @@ def video_phases(dev, rng, seeded, reset_counts, read_counts) -> dict:
     def kernel_path(cfg):
         model = STEPDetector(cfg).eval()
         model.load_state_dict(seeded)
-        os.environ["STEP_TPU_POOL3D"] = "pallas"
-        try:
-            return detect_clip(model.to(dev), clips2, props, pm2)
-        finally:
-            os.environ["STEP_TPU_POOL3D"] = "direct"
+        return detect_clip(model.to(dev), clips2, props, pm2)
 
     wrappers = (("conv3x3x3_bn_relu", conv3x3x3_bn_relu,
                  lambda x, w, *_: (tuple(x.shape), w.shape[0])),
@@ -2115,15 +2115,11 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
                  lambda x, w, *_: (tuple(x.shape), w.shape[0])),
                 ("fused_scale_bias_relu", fused_scale_bias_relu, shape_of),
                 ("max_pool3x3_same", max_pool3x3_same, shape_of))
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
     reset_counts()
-    try:
-        with contextlib.ExitStack() as stack:
-            seen = {name: stack.enter_context(recorded(fn, key)) for name, fn, key in wrappers}
-            kdet = detect_clip(kmodel, uint8_clips(2).to(dev), props, pm2, int8_flows(2).to(dev))
-            torch.cuda.synchronize()
-    finally:
-        os.environ["STEP_TPU_POOL3D"] = "direct"
+    with contextlib.ExitStack() as stack:
+        seen = {name: stack.enter_context(recorded(fn, key)) for name, fn, key in wrappers}
+        kdet = detect_clip(kmodel, uint8_clips(2).to(dev), props, pm2, int8_flows(2).to(dev))
+        torch.cuda.synchronize()
     counts = read_counts()
     check(bool(torch.isfinite(kdet["tube_scores"]).all()), "two-stream kernel path: not finite")
     k4s, k5s, k3s = backbone_launches(kcfg, 2)
@@ -2160,11 +2156,7 @@ def two_stream_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
     mmodel = served_model(cfg32, seeded, dev)
     props, pm1 = STEPDetector.initial_proposals(cfg, 1, device=dev)
     rgb1, flow1 = uint8_clips(1).to(dev), int8_flows(1).to(dev)
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
-    try:
-        got = detect_clip(kmodel, rgb1, props, pm1, flow1)
-    finally:
-        os.environ["STEP_TPU_POOL3D"] = "direct"
+    got = detect_clip(kmodel, rgb1, props, pm1, flow1)
     want = detect_clip(mmodel, rgb1, props, pm1, flow1)
     torch.cuda.synchronize()
     d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
@@ -2921,11 +2913,7 @@ def frame_fc_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
     mmodel = served_model(cfg32, seeded, dev)
     props, pm1 = STEPDetector.initial_proposals(cfg, 1, device=dev)
     clip = clips(1, 1)[0].to(dev)
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
-    try:
-        got = detect_clip(kmodel, clip, props, pm1)
-    finally:
-        os.environ["STEP_TPU_POOL3D"] = "direct"
+    got = detect_clip(kmodel, clip, props, pm1)
     want = detect_clip(mmodel, clip, props, pm1)
     torch.cuda.synchronize()
     d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
@@ -3005,7 +2993,7 @@ def held_backbone(errors: dict):
 
     def holding(name, fn, plain, key, close):
         def run(*args, **kwargs):
-            before = fn.launches + run.launches
+            before = launched()
             got = fn(*args, **kwargs)
             want = plain(*args)
             err = float((got.float() - want.float()).abs().max())
@@ -3013,10 +3001,8 @@ def held_backbone(errors: dict):
                                            f"from plain on its inputs: max |err| {err}")
             errors[name] = max(errors.get(name, 0.0), err)
             shapes = seen.setdefault(name, {})
-            shapes[key(*args)] = shapes.get(key(*args), 0) + fn.launches + run.launches \
-                - before
+            shapes[key(*args)] = shapes.get(key(*args), 0) + launched() - before
             return got
-        run.launches = 0
         return fn, run
 
     pairs = [holding("max_pool3x3_same", max_pool3x3_same, max_pool3x3_same_plain,
@@ -3027,14 +3013,10 @@ def held_backbone(errors: dict):
              holding("conv3x3x3_bn_relu", conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
                      lambda x, w, *_: (tuple(x.shape), w.shape[0]),
                      lambda a, b, x, w, scale, _: k3_close(a, b, x, w, scale))]
-    try:
-        with contextlib.ExitStack() as stack:
-            for fn, run in pairs:
-                stack.enter_context(swapped(fn, run))
-            yield seen
-    finally:
+    with contextlib.ExitStack() as stack:
         for fn, run in pairs:
-            fn.launches += run.launches
+            stack.enter_context(swapped(fn, run))
+        yield seen
 
 
 def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dict:
@@ -3074,61 +3056,57 @@ def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
         medians = {}
         for config, fused in (("main", False), ("kernel", True)):
             model = build(fused)
-            os.environ["STEP_TPU_POOL3D"] = "pallas" if fused else "direct"
-            try:
-                for b, batch in clips.items():
-                    times = []
-                    reset_counts()
-                    for clip in batch:
-                        torch.cuda.synchronize()
-                        t0 = time.perf_counter()
-                        logits, probs = classify(model, clip)
-                        torch.cuda.synchronize()
-                        times.append((time.perf_counter() - t0) * 1e3)
-                        check(tuple(logits.shape) == (b, 400) and logits.dtype == torch.bfloat16
-                              and bool(torch.isfinite(logits).all()),
-                              f"classifier {config} B={b}: logits {tuple(logits.shape)} "
-                              f"{logits.dtype}")
-                    counts = read_counts()
-                    medians[(config, b)] = float(np.median(times[1:]))
-                    if not fused:      # the pool kernels alone
-                        pools = {"max_pool3x3_same": len(batch) * sum(
-                                     classifier_launches(b, T, S)[1].values()),
-                                 "max_pool3d_same": len(batch) * CLASSIFIER_STRIDED}
-                        check(all(counts[k] == pools.get(k, 0) for k in counts),
-                              f"the main configuration launched {counts}, not {pools}")
-                        out["max_pool3d_same"]["classifier_launches"][f"main_b{b}"] = \
-                            counts["max_pool3d_same"]
-                        continue
-                    check(counts["max_pool3d_same"] == len(batch) * CLASSIFIER_STRIDED,
-                          f"classifier kernel configuration B={b}: strided pools {counts}")
-                    for name in ("max_pool3x3_same", "fused_scale_bias_relu",
-                                 "conv3x3x3_bn_relu", "max_pool3d_same"):
-                        out[name]["classifier_launches"][f"kernel_b{b}"] = counts[name]
-                    # one more request, each K3, K4 and K5 call held against
-                    # plain and counted by shape against classifier_launches
-                    errors = {}
-                    reset_counts()
-                    with held_backbone(errors) as seen:
-                        classify(model, batch[0])
-                        torch.cuda.synchronize()
-                    k4s, k5s, k3s = classifier_launches(b, T, S)
-                    for name, listed in (("conv3x3x3_bn_relu", k3s),
-                                         ("fused_scale_bias_relu", k4s),
-                                         ("max_pool3x3_same", k5s)):
-                        check(seen.get(name) == listed,
-                              f"classifier B={b}: {name} launched {seen.get(name)} by "
-                              f"shape, classifier_launches lists {listed}")
-                        check(counts[name] == len(batch) * sum(listed.values()),
-                              f"classifier B={b}: {counts[name]} {name} launches in "
-                              f"{len(batch)} requests, {sum(listed.values())} a request")
-                    print(f"[24] classifier kernel configuration B={b}: every launch held "
-                          f"against plain on its own inputs (max |err| {errors}); K3 "
-                          f"{sum(k3s.values())}, K4 {sum(k4s.values())}, K5 "
-                          f"{sum(k5s.values())} a request, by shape as "
-                          f"classifier_launches lists", flush=True)
-            finally:
-                os.environ["STEP_TPU_POOL3D"] = "direct"
+            for b, batch in clips.items():
+                times = []
+                reset_counts()
+                for clip in batch:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, probs = classify(model, clip)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    check(tuple(logits.shape) == (b, 400) and logits.dtype == torch.bfloat16
+                          and bool(torch.isfinite(logits).all()),
+                          f"classifier {config} B={b}: logits {tuple(logits.shape)} "
+                          f"{logits.dtype}")
+                counts = read_counts()
+                medians[(config, b)] = float(np.median(times[1:]))
+                if not fused:      # the pool kernels alone
+                    pools = {"max_pool3x3_same": len(batch) * sum(
+                                 classifier_launches(b, T, S)[1].values()),
+                             "max_pool3d_same": len(batch) * CLASSIFIER_STRIDED}
+                    check(all(counts[k] == pools.get(k, 0) for k in counts),
+                          f"the main configuration launched {counts}, not {pools}")
+                    out["max_pool3d_same"]["classifier_launches"][f"main_b{b}"] = \
+                        counts["max_pool3d_same"]
+                    continue
+                check(counts["max_pool3d_same"] == len(batch) * CLASSIFIER_STRIDED,
+                      f"classifier kernel configuration B={b}: strided pools {counts}")
+                for name in ("max_pool3x3_same", "fused_scale_bias_relu",
+                             "conv3x3x3_bn_relu", "max_pool3d_same"):
+                    out[name]["classifier_launches"][f"kernel_b{b}"] = counts[name]
+                # one more request, each K3, K4 and K5 call held against
+                # plain and counted by shape against classifier_launches
+                errors = {}
+                reset_counts()
+                with held_backbone(errors) as seen:
+                    classify(model, batch[0])
+                    torch.cuda.synchronize()
+                k4s, k5s, k3s = classifier_launches(b, T, S)
+                for name, listed in (("conv3x3x3_bn_relu", k3s),
+                                     ("fused_scale_bias_relu", k4s),
+                                     ("max_pool3x3_same", k5s)):
+                    check(seen.get(name) == listed,
+                          f"classifier B={b}: {name} launched {seen.get(name)} by "
+                          f"shape, classifier_launches lists {listed}")
+                    check(counts[name] == len(batch) * sum(listed.values()),
+                          f"classifier B={b}: {counts[name]} {name} launches in "
+                          f"{len(batch)} requests, {sum(listed.values())} a request")
+                print(f"[24] classifier kernel configuration B={b}: every launch held "
+                      f"against plain on its own inputs (max |err| {errors}); K3 "
+                      f"{sum(k3s.values())}, K4 {sum(k4s.values())}, K5 "
+                      f"{sum(k5s.values())} a request, by shape as "
+                      f"classifier_launches lists", flush=True)
             del model
         print(f"[24] I3DClassifier, {T} frames at {S} px, bf16, request medians of "
               f"{REQUESTS_PER_BATCH - 1} ({smi_line}): "
@@ -3167,11 +3145,7 @@ def classifier_phases(dev, rng, smi_line: str, reset_counts, read_counts) -> dic
         # float32 logits: the kernel configuration against the main one
         clip = clips[1][0]
         want, p_want = classify(build(False), clip, torch.float32)
-        os.environ["STEP_TPU_POOL3D"] = "pallas"
-        try:
-            got, p_got = classify(build(True), clip, torch.float32)
-        finally:
-            os.environ["STEP_TPU_POOL3D"] = "direct"
+        got, p_got = classify(build(True), clip, torch.float32)
         d_logits = float((got - want).abs().max()) / float(want.abs().max())
         d_probs = float((p_got - p_want).abs().max())
         check(d_logits <= 1e-3 and d_probs <= PATH_SCORE_TOL,
@@ -3622,11 +3596,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
         return m.to(dev)                    # float32 parameters, activations in c's dtype
 
     def exported(c, m, b):
-        os.environ["STEP_TPU_POOL3D"] = "pallas"        # read at trace time only
-        try:
-            return export.export_detect_fn(c, b, model=m, device=dev)
-        finally:
-            os.environ["STEP_TPU_POOL3D"] = "direct"
+        return export.export_detect_fn(c, b, model=m, device=dev)
 
     model = model_of(kcfg)
     weights = export.serving_weights(model.state_dict(), kcfg, dev)
@@ -3638,7 +3608,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
         export_s[b] = time.time() - t0
     nodes = export.program_op_counts(blobs[8])
     print(f"[30] exported the kernel configuration of ucf_3step (unfolded, fused_bn_relu, "
-          f"STEP_TPU_POOL3D=pallas at trace time), {kcfg.compute_dtype}, B=8 in "
+          f"traced on the card), {kcfg.compute_dtype}, B=8 in "
           f"{export_s[8]:.1f} s (B=1 {export_s[1]:.1f} s): {len(blobs[8])} bytes against "
           f"the state dict's {sd_bytes} ({len(blobs[8]) / sd_bytes:.2%}); nodes {nodes}",
           flush=True)
@@ -3688,11 +3658,9 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
                   flush=True)
         served_ms[b], served_all = median_wall_ms(
             lambda: runs[b](weights, clip, props, pmask), SERVED_REQUESTS)
-        os.environ["STEP_TPU_POOL3D"] = "pallas"
         want = detect_clip(model, clip, props, pmask)
         eager_ms[b], eager_all = median_wall_ms(
             lambda: detect_clip(model, clip, props, pmask), SERVED_REQUESTS)
-        os.environ["STEP_TPU_POOL3D"] = "direct"
         d_scores = float((got["tube_scores"].float() - want["tube_scores"].float()).abs().max())
         print(f"[30] B={b} kernel program ({smi_line}): median {served_ms[b]:.2f} ms "
               f"({', '.join(f'{t:.2f}' for t in served_all)}); eager kernel configuration "
@@ -3712,9 +3680,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
     props, pmask = STEPDetector.initial_proposals(kcfg32, 8, device=dev)
     clip = torch.from_numpy(rng.randint(0, 256, (8, T, S, S, 3)).astype(np.uint8)).to(dev)
     got = run32(export.serving_weights(model32.state_dict(), kcfg32, dev), clip, props, pmask)
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
     want = detect_clip(model32, clip, props, pmask)
-    os.environ["STEP_TPU_POOL3D"] = "direct"
     d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())
     d_tubes = float((got["tubes"] - want["tubes"]).abs().max())
     same_mask = torch.equal(got["frame_mask"], want["frame_mask"])
@@ -3853,7 +3819,6 @@ def bench_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
 
     t32 = time.time()
     out = {name: dict(bench_launches={}) for name in KERNELS}
-    pool = os.environ.get("STEP_TPU_POOL3D")
     kind = torch.cuda.get_device_name(dev)
 
     def run(label, module, argv, launched=()):
@@ -3924,8 +3889,6 @@ def bench_phases(dev, smi_line: str, reset_counts, read_counts) -> dict:
         flops[where] = bench_train.step_flops(cfg, state.model, batch_to_device(host, d), d)
     check(flops["card"] == flops["cpu"],
           f"[32] tiny train step: {flops['card']} FLOPs on the card, {flops['cpu']} on the CPU")
-    check(os.environ.get("STEP_TPU_POOL3D") == pool,
-          f"[32] the benches left STEP_TPU_POOL3D={os.environ.get('STEP_TPU_POOL3D')}")
     print(f"[32] FLOPs a request: {serve['main']['request_flops']} in both configurations "
           f"at B={BENCH_B}; a train step {train['step_flops']} at B={BENCH_B}; the tiny "
           f"detector's request and train step ({flops['card']}) count alike on the card "
@@ -3947,14 +3910,12 @@ def free_port() -> int:
 def held_calls():
     """Every K1, K2 and K5 call the port makes while the block runs, each
     held against its plain version on the same inputs as it is made: K1
-    (`nms_surface`) and K5 (`max_pool3x3_kernel`, the forward of the
+    (`nms_surface`) and K5 (`max_pool3x3_same`, also the forward of the
     training step's stride-1 pools) by raw bits, K2 (`tube_roi_align`, under
     autograd in training) within one bf16 step (float32: 1e-4). Yields
-    {kernel: [calls held, max |err|]}. The K2 and K5 counters count as the
-    block runs; K1's launches land on its wrapper and are added to
-    `nms_surface.launches` when the block ends."""
+    {kernel: [calls held, max |err|]}."""
     from step_tpu_torch.inference import nms_surface, nms_surface_plain
-    from step_tpu_torch.ops.pool import max_pool3x3_kernel, max_pool3x3_same_plain
+    from step_tpu_torch.ops.pool import max_pool3x3_same, max_pool3x3_same_plain
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 
     held = {"nms_many": [0, 0.0], "tube_roi_align": [0, 0.0], "max_pool3x3_same": [0, 0.0]}
@@ -3981,19 +3942,15 @@ def held_calls():
         return got
 
     def pool(x):
-        got = max_pool3x3_kernel(x)
+        got = max_pool3x3_same(x)
         check(torch.equal(raw_bits(got), raw_bits(max_pool3x3_same_plain(x))),
               f"K5 at {list(x.shape)} {x.dtype} differs from plain")
         held["max_pool3x3_same"][0] += 1
         return got
 
-    nms.launches = 0
-    try:
-        with swapped(nms_surface, nms), swapped(tube_roi_align, roi, callers_only=True), \
-                swapped(max_pool3x3_kernel, pool):
-            yield held
-    finally:
-        nms_surface.launches += nms.launches
+    with swapped(nms_surface, nms), swapped(tube_roi_align, roi), \
+            swapped(max_pool3x3_same, pool):
+        yield held
 
 
 def step_profile(fn) -> dict:
@@ -4017,24 +3974,17 @@ def step_profile(fn) -> dict:
 
 
 def kernel_counters():
-    """(reset, read) of the K1, K2, K5 and strided pool launch counters,
-    for a process that has not built `main`'s."""
-    from step_tpu_torch.inference import nms_surface
-    from step_tpu_torch.ops.nms import nms_many
-    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
-    from step_tpu_torch.ops.roi_align import tube_roi_align
-
-    counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
-                "max_pool3x3_same": (max_pool3x3_same,),
-                "max_pool3d_same": (max_pool3d_same,)}
+    """(reset, read) of the launch counts of each of KERNELS
+    (`KERNEL_OPS`)."""
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
 
     def reset():
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
+        for ops in KERNEL_OPS.values():
+            for op in ops:
+                LAUNCHES[op] = 0
 
     def read():
-        return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
+        return {name: sum(LAUNCHES[op] for op in ops) for name, ops in KERNEL_OPS.items()}
 
     return reset, read
 
@@ -4487,10 +4437,7 @@ def main() -> None:
     from step_tpu_torch.inference import detect_clip, nms_surface, nms_surface_plain
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
-    from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
-    from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu
     from step_tpu_torch.ops.nms import _f32, nms_many, nms_many_plain, premask_scores
-    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
     from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
     from step_tpu_torch.utils.init import init_detector_
 
@@ -4712,23 +4659,7 @@ def main() -> None:
                                                  ).astype(np.uint8))
                     for _ in range(n)] for b in batches}
 
-    os.environ["STEP_TPU_POOL3D"] = "direct"
-    # K1 launches through nms_surface on the main path, through nms_many
-    # elsewhere; its count is the sum.
-    counters = {"nms_many": (nms_many, nms_surface), "tube_roi_align": (tube_roi_align,),
-                "max_pool3x3_same": (max_pool3x3_same,),
-                "fused_scale_bias_relu": (fused_scale_bias_relu,),
-                "conv3x3x3_bn_relu": (conv3x3x3_bn_relu,),
-                "max_pool3d_same": (max_pool3d_same,)}
-
-    def reset_counts():
-        for fns in counters.values():
-            for fn in fns:
-                fn.launches = 0
-
-    def read_counts():
-        return {name: sum(fn.launches for fn in fns) for name, fns in counters.items()}
-
+    reset_counts, read_counts = kernel_counters()
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     serve(model, cfg, new_clips(SERVE_BATCHES, REQUESTS_PER_BATCH), dev, "main path")
@@ -4815,7 +4746,6 @@ def main() -> None:
                                             if k not in ("err32", "flop", "pack_ms")}
 
     # ---- 10. the kernel path: unfolded, fused_bn_relu, K5 pools, bf16 ----
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
     kcfg = cfg.replace(fused_bn_relu=True)
     t0 = time.time()
     seeded = init_detector_(STEPDetector(cfg).eval(), SEED).state_dict()
@@ -4823,7 +4753,7 @@ def main() -> None:
     kmodel.load_state_dict(seeded)
     kmodel = kmodel.to(dev)        # float32 parameters, bf16 activations
     print(f"[10] ucf_3step {cfg.backbone_depth}, unfolded, fused_bn_relu, "
-          f"STEP_TPU_POOL3D=pallas, {cfg.compute_dtype}: built in "
+          f"{cfg.compute_dtype}: built in "
           f"{time.time() - t0:.1f} s", flush=True)
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -4855,7 +4785,6 @@ def main() -> None:
     props, pmask = STEPDetector.initial_proposals(cfg, 1, device=dev)
     clip = new_clips((1,), 1)[1][0].to(dev)
     got = detect_clip(kmodel, clip, props, pmask)
-    os.environ["STEP_TPU_POOL3D"] = "direct"
     want = detect_clip(mmodel, clip, props, pmask)
     torch.cuda.synchronize()
     d_scores = float((got["tube_scores"] - want["tube_scores"]).abs().max())

@@ -41,7 +41,7 @@ tree `bench.py` serves: `optimize_for_inference` (BN folded, the Inception
 1x1x1 convs fused), bf16, cuDNN convs, K1 and K2, and every max pool on
 a hand-written kernel (K5 and `ops/pool.py::max_pool3d_same`, as on any
 path on the card); `--config kernel` the unfolded weights with
-`fused_bn_relu=True` and `STEP_TPU_POOL3D=pallas`: K3 and K4 as well
+`fused_bn_relu=True`: K3 and K4 as well
 (`profile_request.build`).
 Both count the same FLOPs: K3's operator carries aten's convolution count
 (`ops/conv3d.py`), K1, K2, K4, K5 and the strided pool count none, as
@@ -61,9 +61,7 @@ non-zero and prints no JSON.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
-import os
 import subprocess
 import sys
 import time
@@ -80,7 +78,7 @@ ITERS = 30
 CONFIGS = {
     "main": "optimize_for_inference: BN folded, Inception 1x1x1 fused, cuDNN convs, "
             "K1, K2, K5 and the strided pool kernel",
-    "kernel": "unfolded, fused_bn_relu, STEP_TPU_POOL3D=pallas: K1-K5",
+    "kernel": "unfolded, fused_bn_relu: K1-K5",
 }
 M12 = "(ROADMAP M12: the port does not carry the TPU compiler's options)"
 
@@ -117,20 +115,6 @@ def device_info(dev: torch.device) -> dict:
     return {"platform": "gpu", "name": torch.cuda.get_device_name(index),
             "power_limit": limit, "count": torch.cuda.device_count(),
             "peak_bf16_flops": BF16_TENSOR_FLOPS}
-
-
-@contextlib.contextmanager
-def pool_switch_kept():
-    """Restores `STEP_TPU_POOL3D` after the block: `profile_request.build`
-    sets it for the path it builds."""
-    pool = os.environ.get("STEP_TPU_POOL3D")
-    try:
-        yield
-    finally:
-        if pool is None:
-            os.environ.pop("STEP_TPU_POOL3D", None)
-        else:
-            os.environ["STEP_TPU_POOL3D"] = pool
 
 
 def count_flops(fn) -> int:
@@ -323,8 +307,7 @@ def report(name: str, args, run) -> int:
     if dev is None:
         return 1
     try:
-        with pool_switch_kept():
-            result = run(args, dev)
+        result = run(args, dev)
     except BadOutput as e:
         print(f"{name}: {e}", file=sys.stderr)
         return 1

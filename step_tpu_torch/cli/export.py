@@ -9,19 +9,17 @@ it: `cli/serve.py` passes a checkpoint's at call time.
     python -m step_tpu_torch.cli.export --preset ucf_3step --batch-size 8 \\
         --optimized --out detect.pt2
 
-On the card every program holds its max pools as the pool kernels' nodes
-(K5 `step::max_pool3x3_same`, the strided `step::max_pool3d_same`). The
-kernel configuration (K3, K4 and K5 as nodes of the program beside K1
-and K2) is the unfolded tree with the JAX CLI's own switches, read at
-trace time and kept by the program (`STEP_TPU_POOL3D` matters only to a
-program traced on the CPU):
+Every program holds its max pools as the pool kernels' nodes (K5
+`step::max_pool3x3_same`, the strided `step::max_pool3d_same`). The
+kernel configuration (K3 and K4 as nodes of the program as well) is the
+unfolded tree with the JAX CLI's own switch, read at trace time and kept
+by the program:
 
-    STEP_TPU_POOL3D=pallas python -m step_tpu_torch.cli.export \\
+    python -m step_tpu_torch.cli.export \\
         --preset ucf_3step --batch-size 8 --set fused_bn_relu=True --out kernels.pt2
 
 (not `--optimized`: BN folding wins over `fused_bn_relu`).
-`cli/serve.py` serves it with the same preset and `--set` flags and no
-environment variable.
+`cli/serve.py` serves it with the same preset and `--set` flags.
 
 The program runs on the device it was traced on (`--device`, the card by
 default), in the installation that wrote it. `--platforms` (the JAX

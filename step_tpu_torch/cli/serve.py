@@ -12,13 +12,9 @@ loaded and called on the newest checkpoint's weights, folded by
 `models/optimize.py` when the program was exported with `--optimized`
 (pass the same preset, `--optimized` and `--set` flags as to the export).
 A program of the kernel configuration (exported with `--set
-fused_bn_relu=True` under `STEP_TPU_POOL3D=pallas`, `cli/export.py`)
-holds its K3, K4 and K5 nodes and is served with `--set
-fused_bn_relu=True`; the pool switch was read when it was traced, so the
-serving process sets no environment variable. That choice is the
-variable's one role, and only in a program traced on the CPU: one traced
-on the card holds the pool kernels' nodes (K5 and the strided
-`step::max_pool3d_same`) in either configuration. `--ckpt-dir` takes the
+fused_bn_relu=True`, `cli/export.py`) holds its K3 and K4 nodes beside the
+pool kernels' (K5 and the strided `step::max_pool3d_same`, in every
+program) and is served with `--set fused_bn_relu=True`. `--ckpt-dir` takes the
 port's checkpoints or, where `tensorstore` is installed, the JAX
 package's orbax directories (`utils/checkpoint.py::load_model_state`).
 

@@ -31,6 +31,7 @@ import torch
 
 from step_tpu_torch.config import StepConfig
 from step_tpu_torch.models.detector import STEPDetector
+from step_tpu_torch.ops.kernel_op import kernel_op
 from step_tpu_torch.ops.nms import _f32, kernel_valid, nms_many_plain, premask_scores
 from step_tpu_torch.parallel.distributed import shard_rows
 from step_tpu_torch.parallel.mesh import mesh_group
@@ -88,20 +89,16 @@ def _surface(tubes, scores, frame_boxes, frame_scores, frame_mask):
     }
 
 
-@torch.library.custom_op("step::nms_surface", mutates_args=(), device_types="cpu")
-def nms_surface_op(tubes: torch.Tensor, scores: torch.Tensor, prop_mask: torch.Tensor,
-                   max_keep: int, iou_threshold: float,
-                   score_threshold: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`step::nms_surface`, the surface as a custom operator, so that
-    `torch.export` keeps it as one node of a served program → (frame_boxes,
-    frame_scores, frame_mask): on a CPU tensor the plain version, on a
-    CUDA tensor the kernel (`_nms_surface_cuda`), on a fake tensor the
-    shapes (`_nms_surface_fake`)."""
+def _nms_surface_cpu(tubes: torch.Tensor, scores: torch.Tensor, prop_mask: torch.Tensor,
+                     max_keep: int, iou_threshold: float,
+                     score_threshold: float) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`step::nms_surface`, the surface → (frame_boxes, frame_scores,
+    frame_mask): on a CPU tensor the plain version, on a CUDA tensor one
+    launch of `csrc/nms.cu`."""
     return _surface_plain(tubes, scores, prop_mask, max_keep, iou_threshold,
                           score_threshold)
 
 
-@nms_surface_op.register_fake
 def _nms_surface_fake(tubes, scores, prop_mask, max_keep, iou_threshold, score_threshold):
     B, _, T = tubes.shape[:3]
     shape = (B, T, scores.shape[-1], max_keep)
@@ -110,11 +107,9 @@ def _nms_surface_fake(tubes, scores, prop_mask, max_keep, iou_threshold, score_t
             tubes.new_empty(shape, dtype=torch.float32))
 
 
-@nms_surface_op.register_kernel("cuda")
-def _nms_surface_cuda(tubes, scores, prop_mask, max_keep, iou_threshold, score_threshold):
-    """One launch of `csrc/nms.cu`, which reads the tubes, scores and mask
-    through strides (B·T groups of P boxes shared by C problems) and writes
-    the three outputs; counted by `nms_surface.launches`."""
+def _nms_surface_launch(tubes, scores, prop_mask, max_keep, iou_threshold, score_threshold):
+    """The kernel reads the tubes, scores and mask through strides (B·T
+    groups of P boxes shared by C problems) and writes the three outputs."""
     from step_tpu_torch import kernels
 
     B, P, T = tubes.shape[:3]
@@ -125,12 +120,15 @@ def _nms_surface_cuda(tubes, scores, prop_mask, max_keep, iou_threshold, score_t
     frame_mask = torch.empty((B, T, C, max_keep), **out)
     if frame_mask.numel():
         kernels.nms_many_forward(
-            tubes.transpose(1, 2), scores[:, None].expand(B, T, P, C),
-            kernel_valid(prop_mask)[:, None].expand(B, T, P), frame_mask,
+            tubes.transpose(1, 2), scores.unsqueeze(1).expand(B, T, P, C),
+            kernel_valid(prop_mask).unsqueeze(1).expand(B, T, P), frame_mask,
             _f32(iou_threshold), _f32(score_threshold),
             out_boxes=frame_boxes, out_scores=frame_scores)
-        nms_surface.launches += 1
     return frame_boxes, frame_scores, frame_mask
+
+
+nms_surface_op = kernel_op("nms_surface", _nms_surface_cpu, _nms_surface_launch,
+                           _nms_surface_fake)
 
 
 def nms_surface(tubes: torch.Tensor, scores: torch.Tensor,
@@ -144,17 +142,11 @@ def nms_surface(tubes: torch.Tensor, scores: torch.Tensor,
     and frame_mask `[B, T, C, K]` float32, beside the tubes and scores.
 
     One call of `step::nms_surface` (`nms_surface_op`): a CPU tensor goes
-    to the plain version, a CUDA tensor to one launch of `csrc/nms.cu`;
-    `nms_surface.launches` counts those launches, in a served program too.
+    to the plain version, a CUDA tensor to one launch of `csrc/nms.cu`.
     """
-    if tubes.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"nms_surface: no kernel for device {tubes.device}")
     K = min(cfg.max_detections, tubes.shape[1])
     return _surface(tubes, scores, *nms_surface_op(
         tubes, scores, prop_mask, K, _f32(cfg.nms_thresh), _f32(cfg.score_thresh)))
-
-
-nms_surface.launches = 0
 
 
 def _detections(outputs, prop_mask: torch.Tensor, cfg: StepConfig):

@@ -377,8 +377,7 @@ def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
     is tap-major `[27, C, K]` (the CUDA-core kernel); in bfloat16 it is the
     packed `[Kw, Rpad]` matrix of `ops/conv3d.py::pack_conv3x3x3_weight`
     (the tensor-core kernel), whose block the launcher picks from the shape
-    unless `warpgroups` forces one (2, or the widest for the tile width;
-    `conv_tune.py` compares them)."""
+    unless `warpgroups` forces one (2, or the widest for the tile width)."""
     _need_cuda(x, "conv3x3x3_bn_relu")
     dev = x.device
     if x.dim() != 5 or w.dim() not in (2, 3) or out.dim() != 5:

@@ -22,20 +22,16 @@ max pool goes through `ops/pool_grad.py::max_pool_3d_s1_sepgrad` (K5 on
 the card for 3x3x3), whose backward credits every tied maximum as the JAX
 package's default does; strided pools keep PyTorch's pool and backward.
 
-Pools in inference (`max_pool_3d`): on the card every max pool runs a
-hand-written channels-last kernel, K5 (`ops/pool.py::max_pool3x3_same`)
-for the 3x3x3 stride-1 pools and `ops/pool.py::max_pool3d_same` for the
-strided ones, whatever the configuration; on the CPU the plain versions.
+Pools in inference (`max_pool_3d`) go to `ops/pool.py::max_pool_same`,
+which picks the kernel: on the card every max pool runs a hand-written
+channels-last kernel, whatever the configuration; on the CPU the
+operators' bodies, the plain versions.
 
 Inference variants, as in the JAX package:
   * `fused_bn_relu` (BN not folded): each Unit3D's BN + ReLU runs through
     `ops/fused_bn_relu.py` (kernel K4); a 3x3x3 stride-1 unit runs conv, BN
     and ReLU as one `ops/conv3d.py` call (kernel K3), whose contract is
     exactly that unit's;
-  * `STEP_TPU_POOL3D=pallas`, read on every call: on a CPU tensor each
-    3x3x3 stride-1 max pool goes through `ops/pool.py::max_pool3x3_same`,
-    so that a program traced on the CPU holds `step::max_pool3x3_same`
-    nodes (on the card K5 runs with or without it);
   * the stem unit (Conv3d_1a_7x7) of a bf16 CUDA tensor with autograd off
     runs the hand-written stem kernel (`ops/stem_conv.py`) in every
     variant, the unit's bias or BN affine and its ReLU in the epilogue;
@@ -51,8 +47,6 @@ casts them to its compute dtype).
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.distributed as dist
 import torch.nn as nn
@@ -60,8 +54,7 @@ import torch.nn.functional as F
 
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
-from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3d_same_plain, max_pool3x3_same,
-                                     same_padding)
+from step_tpu_torch.ops.pool import max_pool3d_same_plain, max_pool_same, same_padding
 from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
 from step_tpu_torch.ops.stem_conv import stem_conv, stem_kernel_takes
 from step_tpu_torch.parallel.distributed import all_reduce_sum
@@ -99,32 +92,17 @@ def conv3d_same(x: torch.Tensor, weight: torch.Tensor,
 
 
 def max_pool_3d(x: torch.Tensor, window, stride) -> torch.Tensor:
-    """3-D max pool with TF-SAME padding of -inf, routed by what the call
-    shows: its device, autograd and the window and stride.
+    """3-D max pool with TF-SAME padding of -inf, routed on autograd alone.
 
     Under autograd a stride-1 pool goes to `ops/pool_grad.py::
     max_pool_3d_s1_sepgrad` and a strided one to PyTorch's pool and its
-    backward. A CUDA tensor with autograd off takes a hand-written
-    channels-last kernel: K5 (`ops/pool.py::max_pool3x3_same`) for 3x3x3
-    stride 1, `ops/pool.py::max_pool3d_same` for every other window, which
-    refuses a window over 3 or a stride over 2. A CPU tensor takes the
-    plain versions; there `STEP_TPU_POOL3D=pallas` (read on every call, as
-    the JAX package reads it) only makes a 3x3x3 stride-1 pool the
-    `step::max_pool3x3_same` node of a program traced on the CPU, which is
-    that variable's one role."""
-    window, stride = tuple(window), tuple(stride)
-    s1 = stride == (1, 1, 1)
+    backward (`max_pool3d_same_plain`). Every other call goes to
+    `ops/pool.py::max_pool_same`, which picks the kernel on either device."""
     if torch.is_grad_enabled() and x.requires_grad:
-        if s1:
+        if tuple(stride) == (1, 1, 1):
             return max_pool_3d_s1_sepgrad(x, window)
-    elif x.device.type == "cuda":
-        if window == (3, 3, 3) and s1:
-            return max_pool3x3_same(x)
-        return max_pool3d_same(x, window, stride)
-    elif (os.environ.get("STEP_TPU_POOL3D", "direct") == "pallas"
-            and window == (3, 3, 3) and s1):
-        return max_pool3x3_same(x)
-    return max_pool3d_same_plain(x, window, stride)
+        return max_pool3d_same_plain(x, window, stride)
+    return max_pool_same(x, window, stride)
 
 
 class BatchNorm(nn.Module):

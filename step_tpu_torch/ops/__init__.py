@@ -1,2 +1,3 @@
-"""Tube ROI-align and batched NMS (port of `step_tpu/ops`): each a plain
-PyTorch version and a wrapper that launches the CUDA kernel on the card."""
+"""The port's hand-written kernels as operators (port of `step_tpu/ops`):
+each module holds a kernel's plain PyTorch version, its launcher and its
+`step::` operator, made by `kernel_op.kernel_op`."""

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.flop_counter import register_flop_formula
 
 from step_tpu_torch.ops.fused_bn_relu import fused_scale_bias_relu_plain
+from step_tpu_torch.ops.kernel_op import kernel_op
 from step_tpu_torch.utils.tensor_cache import derived
 
 
@@ -77,46 +77,37 @@ def unpack_kernel_weight(w: torch.Tensor, C: int, K: int) -> torch.Tensor:
     return taps.reshape(K, 3, 3, 3, C).permute(0, 4, 1, 2, 3)
 
 
-@torch.library.custom_op("step::conv3x3x3_bn_relu", mutates_args=(), device_types="cpu")
-def conv3x3x3_bn_relu_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                         bias: torch.Tensor) -> torch.Tensor:
-    """`step::conv3x3x3_bn_relu`, K3 as a custom operator, so that
-    `torch.export` keeps it as one node of a served program: on a CPU
-    tensor the plain version, on a CUDA tensor the kernel
-    (`_conv3x3x3_bn_relu_cuda`), on a fake tensor the shape. x is
-    `[N, C, T, H, W]`; w is the weight in the kernel's layout for x's
-    dtype (`kernel_weight`), which the CPU version unpacks
-    (`unpack_kernel_weight`); scale and bias are float32 `[K]`. Each
-    returns a `channels_last_3d` tensor `[N, K, T, H, W]`."""
+def _conv3x3x3_bn_relu_cpu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """`step::conv3x3x3_bn_relu`, K3: on a CPU tensor the plain version, on a
+    CUDA tensor `csrc/conv3d.cu`. x is `[N, C, T, H, W]`; w is the weight in
+    the kernel's layout for x's dtype (`kernel_weight`), which the CPU
+    version unpacks (`unpack_kernel_weight`); scale and bias are float32
+    `[K]`. Each returns a `channels_last_3d` tensor `[N, K, T, H, W]`."""
     weight = unpack_kernel_weight(w, x.shape[1], scale.shape[0])
     return conv3x3x3_bn_relu_plain(x, weight, scale, bias).contiguous(
         memory_format=torch.channels_last_3d)
 
 
-@conv3x3x3_bn_relu_op.register_fake
 def _conv3x3x3_bn_relu_fake(x, w, scale, bias):
     N, _, T, H, W = x.shape
     return torch.empty((N, scale.shape[0], T, H, W), dtype=x.dtype, device=x.device,
                        memory_format=torch.channels_last_3d)
 
 
-@conv3x3x3_bn_relu_op.register_kernel("cuda")
-def _conv3x3x3_bn_relu_cuda(x, w, scale, bias):
-    """The kernel (`csrc/conv3d.cu`), which reads the channels-last view of
-    x (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is copied
-    into it first): in bfloat16 the tensor-core kernel, in float32 the
-    CUDA-core kernel. Counted by `conv3x3x3_bn_relu.launches`."""
+def _conv3x3x3_bn_relu_launch(x, w, scale, bias):
+    """The kernel reads the channels-last view of x (`kernels.ndhwc`: a
+    tensor not in `channels_last_3d` order is copied into it first): in
+    bfloat16 the tensor-core kernel, in float32 the CUDA-core kernel."""
     from step_tpu_torch import kernels
 
     N, _, T, H, W = x.shape
     out = kernels.empty_ncdhw((N, scale.shape[0], T, H, W), x)
     kernels.conv3x3x3_bn_relu_forward(kernels.ndhwc(x), w, scale.contiguous(),
                                       bias.contiguous(), kernels.ndhwc(out))
-    conv3x3x3_bn_relu.launches += 1
     return out
 
 
-@register_flop_formula(torch.ops.step.conv3x3x3_bn_relu)
 def _conv3x3x3_bn_relu_flop(x_shape, w_shape, scale_shape, bias_shape,
                             out_shape=None, **kwargs) -> int:
     """`torch.utils.flop_counter`'s count for `step::conv3x3x3_bn_relu`,
@@ -126,6 +117,11 @@ def _conv3x3x3_bn_relu_flop(x_shape, w_shape, scale_shape, bias_shape,
     N, C = x_shape[:2]
     T, H, W = out_shape[2:]
     return 2 * N * T * H * W * scale_shape[0] * 27 * C
+
+
+conv3x3x3_bn_relu_op = kernel_op("conv3x3x3_bn_relu", _conv3x3x3_bn_relu_cpu,
+                                 _conv3x3x3_bn_relu_launch, _conv3x3x3_bn_relu_fake,
+                                 _conv3x3x3_bn_relu_flop)
 
 
 def conv3x3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,
@@ -141,17 +137,11 @@ def conv3x3x3_bn_relu(x: torch.Tensor, weight: torch.Tensor,
     `torch.export` the layout is made in the program), then through
     `step::conv3x3x3_bn_relu`: the hand-written kernel (`csrc/conv3d.cu`)
     on a CUDA tensor, the plain version on a CPU tensor. Inference only:
-    the operator has no backward. `conv3x3x3_bn_relu.launches` counts
-    kernel launches.
+    the operator has no backward.
     """
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"conv3x3x3_bn_relu: no kernel for device {x.device}")
     K, C = weight.shape[0], x.shape[1]
     if tuple(weight.shape) != (K, C, 3, 3, 3):
         raise ValueError(f"conv3x3x3_bn_relu: weight {tuple(weight.shape)} is "
                          f"not [K, {C}, 3, 3, 3]")
     return conv3x3x3_bn_relu_op(x, kernel_weight(weight, x.dtype, weight_cache),
                                 scale.to(torch.float32), bias.to(torch.float32))
-
-
-conv3x3x3_bn_relu.launches = 0

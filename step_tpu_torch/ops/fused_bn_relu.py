@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from step_tpu_torch.ops.kernel_op import kernel_op
+
 
 def bn_scale_bias(gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
                   var: torch.Tensor, eps: float = 1e-3):
@@ -34,38 +36,35 @@ def fused_scale_bias_relu_plain(x: torch.Tensor, scale: torch.Tensor,
     return torch.relu(y).to(x.dtype)
 
 
-@torch.library.custom_op("step::scale_bias_relu", mutates_args=(), device_types="cpu")
-def scale_bias_relu_op(x: torch.Tensor, scale: torch.Tensor,
-                       bias: torch.Tensor) -> torch.Tensor:
-    """`step::scale_bias_relu`, K4 as a custom operator, so that
-    `torch.export` keeps it as one node of a served program: on a CPU
-    tensor the plain version, on a CUDA tensor the kernel
-    (`_scale_bias_relu_cuda`), on a fake tensor the shape. x is
-    `[N, C, T, H, W]`, scale and bias float32 `[C]`; each returns a
-    `channels_last_3d` tensor."""
+def _scale_bias_relu_cpu(x: torch.Tensor, scale: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """`step::scale_bias_relu`, K4: on a CPU tensor the plain version, on a
+    CUDA tensor `csrc/bn_relu.cu`. x is `[N, C, T, H, W]`, scale and bias
+    float32 `[C]`; each returns a `channels_last_3d` tensor."""
     return fused_scale_bias_relu_plain(x, scale, bias).contiguous(
         memory_format=torch.channels_last_3d)
 
 
-@scale_bias_relu_op.register_fake
 def _scale_bias_relu_fake(x, scale, bias):
     return torch.empty(x.shape, dtype=x.dtype, device=x.device,
                        memory_format=torch.channels_last_3d)
 
 
-@scale_bias_relu_op.register_kernel("cuda")
-def _scale_bias_relu_cuda(x, scale, bias):
-    """The kernel (`csrc/bn_relu.cu`) over the `[rows, C]` channels-last
-    view (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is
-    copied into it first); counted by `fused_scale_bias_relu.launches`."""
+def _scale_bias_relu_launch(x, scale, bias):
+    """The kernel runs over the `[rows, C]` channels-last view
+    (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is copied
+    into it first)."""
     from step_tpu_torch import kernels
 
     C = x.shape[1]
     out = kernels.empty_ncdhw(x.shape, x)
     kernels.scale_bias_relu_forward(kernels.ndhwc(x).reshape(-1, C), scale.contiguous(),
                                     bias.contiguous(), kernels.ndhwc(out).view(-1, C))
-    fused_scale_bias_relu.launches += 1
     return out
+
+
+scale_bias_relu_op = kernel_op("scale_bias_relu", _scale_bias_relu_cpu,
+                               _scale_bias_relu_launch, _scale_bias_relu_fake)
 
 
 def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
@@ -74,14 +73,8 @@ def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     (`fused_scale_bias_relu_plain`'s contract), as a `channels_last_3d`
     tensor, through `step::scale_bias_relu`: the hand-written kernel
     (`csrc/bn_relu.cu`) on a CUDA tensor, the plain version on a CPU
-    tensor. Inference only: the operator has no backward.
-    `fused_scale_bias_relu.launches` counts kernel launches."""
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"fused_scale_bias_relu: no kernel for device {x.device}")
+    tensor. Inference only: the operator has no backward."""
     return scale_bias_relu_op(x, scale.to(torch.float32), bias.to(torch.float32))
-
-
-fused_scale_bias_relu.launches = 0
 
 
 def bn_relu_inference(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

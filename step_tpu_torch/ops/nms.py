@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from step_tpu_torch.ops.kernel_op import LAUNCHES
+
 NEG = -1e9
 EPS = 1e-8
 
@@ -99,7 +101,7 @@ def nms_many(boxes: torch.Tensor, scores: torch.Tensor,
     A CPU tensor goes to `premask_scores` and `nms_many_plain`; a CUDA
     tensor to the hand-written kernel (`csrc/nms.cu`: N groups of one
     problem, P up to `kernels.NMS_MAX_BOXES`), which pre-masks the scores
-    itself. `nms_many.launches` counts kernel launches.
+    itself, counted in `kernel_op.LAUNCHES["nms_many"]`.
     """
     if scores.device.type == "cpu":
         return nms_many_plain(boxes, premask_scores(scores, score_threshold, valid),
@@ -127,8 +129,5 @@ def nms_many(boxes: torch.Tensor, scores: torch.Tensor,
         None if valid is None else valid[:, None], keep_mask.view(N, 1, 1, max_keep),
         _f32(iou_threshold), _f32(score_threshold),
         keep_idx=keep_idx.view(N, 1, 1, max_keep))
-    nms_many.launches += 1
+    LAUNCHES["nms_many"] += 1
     return keep_idx, keep_mask
-
-
-nms_many.launches = 0

@@ -10,19 +10,18 @@ package leaves these pools to XLA's `reduce_window`). The window is padded
 with -inf, so a border output is the max over the taps inside the tensor.
 Tensors are the backbone's: NCDHW, in `channels_last_3d` memory order.
 
-`models/i3d.py::max_pool_3d` sends every pool of a CUDA tensor with
-autograd off to these kernels; an eager call launches the kernel itself,
-a traced one (`torch.export`) goes through the custom operator, so that
-the program keeps its node. On a CPU tensor it takes the plain
-versions, and `STEP_TPU_POOL3D=pallas` only decides whether a 3x3x3
-stride-1 pool is the `step::max_pool3x3_same` node of a program traced
-there; the strided pools of such a program stay PyTorch's.
+`max_pool_same`, the one entry point of `models/i3d.py::max_pool_3d` for a
+pool with autograd off, picks the kernel: K5 for 3x3x3 stride 1, the
+strided kernel otherwise. Both are `step::` operators
+(`ops/kernel_op.py`): on the CPU their bodies are the plain versions, on
+the card the kernels; an eager CUDA call launches the kernel itself, a
+traced one (`torch.export`, on either device) is one node of the program.
 
-Under autograd (an input that requires a gradient) the stride-1 pool goes
-through `ops/pool_grad.py::max_pool_3d_s1_sepgrad`, whose forward is K5 on
-the card and whose backward credits every tied maximum, as the JAX
-package's default backward does; the strided pools keep PyTorch's forward
-and backward.
+Under autograd (an input that requires a gradient) `max_pool_3d` sends a
+stride-1 pool to `ops/pool_grad.py::max_pool_3d_s1_sepgrad`, whose forward
+is K5 on the card and whose backward credits every tied maximum, as the
+JAX package's default backward does, and a strided pool to
+`max_pool3d_same_plain`, PyTorch's forward and backward.
 
 The TPU kernel's VMEM guard (`pool_pallas.py:67-77`, which sends the large
 28x28 Mixed_3 pools back to XLA) is not carried over: the CUDA kernel takes
@@ -36,15 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-
-def _eager_cuda(x: torch.Tensor) -> bool:
-    """Whether a call may launch the kernel itself rather than through its
-    custom operator: a plain CUDA tensor outside `torch.export` and
-    `torch.compile` (a tracer's tensors are fake or functional, and the
-    program must keep the operator's node). The operator's dispatch costs
-    some 25-40 us of host time a call on an H100 machine (`PERF.md` §6),
-    which a host-bound B=1 request would pay at each of its 16 pools."""
-    return x.is_cuda and type(x) is torch.Tensor and not torch.compiler.is_compiling()
+from step_tpu_torch.ops.kernel_op import kernel_op
 
 
 def max_pool3x3_same_plain(x: torch.Tensor) -> torch.Tensor:
@@ -53,62 +44,32 @@ def max_pool3x3_same_plain(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool3d(x, 3, 1, 1)
 
 
-def max_pool3x3_kernel(x: torch.Tensor) -> torch.Tensor:
-    """Launch K5 (`csrc/pool3d.cu`) on a CUDA tensor and count the launch
-    in `max_pool3x3_same.launches`. The kernel reads the channels-last
-    view (`kernels.ndhwc`: a tensor not in `channels_last_3d` order is
-    copied into it first) and returns a `channels_last_3d` tensor."""
+def _max_pool3x3_cpu(x: torch.Tensor) -> torch.Tensor:
+    """`step::max_pool3x3_same`, K5: the plain version
+    (`max_pool3x3_same_plain`) in `channels_last_3d` order on a CPU tensor,
+    `csrc/pool3d.cu` on a CUDA tensor."""
+    return max_pool3x3_same_plain(x).contiguous(memory_format=torch.channels_last_3d)
+
+
+def _max_pool3x3_launch(x):
+    """K5 reads the channels-last view (`kernels.ndhwc`: a tensor not in
+    `channels_last_3d` order is copied into it first)."""
     from step_tpu_torch import kernels
 
     out = kernels.empty_ncdhw(x.shape, x)
     kernels.max_pool3x3_forward(kernels.ndhwc(x), kernels.ndhwc(out))
-    max_pool3x3_same.launches += 1
     return out
 
 
-@torch.library.custom_op("step::max_pool3x3_same", mutates_args=(), device_types="cpu")
-def max_pool3x3_same_op(x: torch.Tensor) -> torch.Tensor:
-    """`step::max_pool3x3_same`, K5 as a custom operator, so that
-    `torch.export` keeps it as one node of a served program: on a CPU
-    tensor the plain version, on a CUDA tensor the kernel
-    (`max_pool3x3_kernel`), on a fake tensor the shape. Each returns a
-    `channels_last_3d` tensor."""
-    return max_pool3x3_same_plain(x).contiguous(memory_format=torch.channels_last_3d)
-
-
-@max_pool3x3_same_op.register_fake
-def _max_pool3x3_same_fake(x):
+def _max_pool3x3_fake(x):
     return torch.empty(x.shape, dtype=x.dtype, device=x.device,
                        memory_format=torch.channels_last_3d)
 
 
-max_pool3x3_same_op.register_kernel("cuda")(max_pool3x3_kernel)
-
-
-def max_pool3x3_same(x: torch.Tensor) -> torch.Tensor:
-    """3x3x3 / stride 1 / SAME max pool of an NCDHW tensor
-    (`max_pool3x3_same_plain`'s contract), bit for bit, as a
-    `channels_last_3d` tensor.
-
-    Through `step::max_pool3x3_same`: the hand-written kernel on a CUDA
-    tensor, the plain version on a CPU tensor; an eager CUDA call launches
-    the kernel without the operator's dispatch (`_eager_cuda`). The
-    operator is inference only; under autograd both devices go through
-    `pool_grad.max_pool_3d_s1_sepgrad`, so the result has a `grad_fn`.
-    `max_pool3x3_same.launches` counts kernel launches.
-    """
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"max_pool3x3_same: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and x.requires_grad:
-        from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
-
-        return max_pool_3d_s1_sepgrad(x, (3, 3, 3))
-    if _eager_cuda(x):
-        return max_pool3x3_kernel(x)
-    return max_pool3x3_same_op(x)
-
-
-max_pool3x3_same.launches = 0
+# 3x3x3 / stride 1 / SAME max pool of an NCDHW tensor, bit for bit the
+# plain version's, as a `channels_last_3d` tensor; inference only.
+max_pool3x3_same = kernel_op("max_pool3x3_same", _max_pool3x3_cpu, _max_pool3x3_launch,
+                             _max_pool3x3_fake)
 
 
 def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
@@ -143,65 +104,56 @@ def max_pool3d_same_shape(shape, stride) -> tuple:
     return (*shape[:2], *(-(-n // s) for n, s in zip(shape[2:], stride)))
 
 
-def max_pool3d_same_kernel(x: torch.Tensor, window: list[int],
-                           stride: list[int]) -> torch.Tensor:
-    """Launch `csrc/pool3d_same.cu` on a CUDA tensor and count the launch in
-    `max_pool3d_same.launches`. The kernel reads the channels-last view
-    (`kernels.ndhwc`, which copies a tensor in another order first) and
-    returns a `channels_last_3d` tensor."""
-    from step_tpu_torch import kernels
-
-    out = kernels.empty_ncdhw(max_pool3d_same_shape(x.shape, stride), x)
-    kernels.max_pool3d_same_forward(kernels.ndhwc(x), kernels.ndhwc(out), window, stride)
-    max_pool3d_same.launches += 1
-    return out
-
-
-@torch.library.custom_op("step::max_pool3d_same", mutates_args=(), device_types="cpu")
-def max_pool3d_same_op(x: torch.Tensor, window: list[int], stride: list[int]) -> torch.Tensor:
-    """`step::max_pool3d_same`, the strided pool kernel as a custom
-    operator, so that `torch.export` keeps it as one node: on a CPU tensor
-    the plain version, on a CUDA tensor the kernel
-    (`max_pool3d_same_kernel`), on a fake tensor the shape. Each returns a
-    `channels_last_3d` tensor."""
+def _max_pool3d_same_cpu(x: torch.Tensor, window: list[int],
+                         stride: list[int]) -> torch.Tensor:
+    """`step::max_pool3d_same`, the strided pool: the plain version
+    (`max_pool3d_same_plain`) in `channels_last_3d` order on a CPU tensor,
+    `csrc/pool3d_same.cu` on a CUDA tensor."""
     return max_pool3d_same_plain(x, window, stride).contiguous(
         memory_format=torch.channels_last_3d)
 
 
-@max_pool3d_same_op.register_fake
+def _max_pool3d_same_launch(x, window, stride):
+    """The kernel reads the channels-last view (`kernels.ndhwc`, which
+    copies a tensor in another order first)."""
+    from step_tpu_torch import kernels
+
+    out = kernels.empty_ncdhw(max_pool3d_same_shape(x.shape, stride), x)
+    kernels.max_pool3d_same_forward(kernels.ndhwc(x), kernels.ndhwc(out), window, stride)
+    return out
+
+
 def _max_pool3d_same_fake(x, window, stride):
     return torch.empty(max_pool3d_same_shape(x.shape, stride), dtype=x.dtype,
                        device=x.device, memory_format=torch.channels_last_3d)
 
 
-max_pool3d_same_op.register_kernel("cuda")(max_pool3d_same_kernel)
+max_pool3d_same_op = kernel_op("max_pool3d_same", _max_pool3d_same_cpu,
+                               _max_pool3d_same_launch, _max_pool3d_same_fake)
 
 
 def max_pool3d_same(x: torch.Tensor, window, stride) -> torch.Tensor:
     """Max pool of an NCDHW tensor with TF-SAME padding of -inf, each
     window 1 to 3 and each stride 1 or 2 (`max_pool3d_same_plain`'s
-    contract), bit for bit, as a `channels_last_3d` tensor.
-
-    Through `step::max_pool3d_same`: the hand-written kernel on a CUDA
-    tensor, the plain version on a CPU tensor; an eager CUDA call launches
-    the kernel without the operator's dispatch (`_eager_cuda`). It
-    refuses, on either
-    device, a window or stride outside the kernel's contract
+    contract), bit for bit, as a `channels_last_3d` tensor, through
+    `step::max_pool3d_same`. It refuses, on either device, a window or
+    stride outside the kernel's contract
     (`kernels.max_pool3d_same_contract`), and an input that requires a
     gradient: it is inference only (`models/i3d.py::max_pool_3d` keeps
-    PyTorch's pool and backward there). `max_pool3d_same.launches` counts
-    kernel launches.
-    """
+    PyTorch's pool and backward there)."""
     from step_tpu_torch import kernels
 
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"max_pool3d_same: no kernel for device {x.device}")
     if torch.is_grad_enabled() and x.requires_grad:
         raise ValueError("max_pool3d_same is inference only: its input requires a gradient")
     window, stride = kernels.max_pool3d_same_contract(window, stride)
-    if _eager_cuda(x):
-        return max_pool3d_same_kernel(x, list(window), list(stride))
     return max_pool3d_same_op(x, list(window), list(stride))
 
 
-max_pool3d_same.launches = 0
+def max_pool_same(x: torch.Tensor, window, stride) -> torch.Tensor:
+    """The inference max pool of `models/i3d.py::max_pool_3d`: K5
+    (`max_pool3x3_same`) for a 3x3x3 stride-1 window, the strided kernel
+    (`max_pool3d_same`) for every other, which refuses a window over 3 or a
+    stride over 2. On the CPU the operators' bodies are the plain versions."""
+    if tuple(window) == (3, 3, 3) and tuple(stride) == (1, 1, 1):
+        return max_pool3x3_same(x)
+    return max_pool3d_same(x, window, stride)

@@ -25,6 +25,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from step_tpu_torch.ops.pool import max_pool3x3_same
+
 
 def _same_pads(k: int) -> tuple[int, int]:
     """TF-SAME (low, high) padding of a stride-1 axis for window k."""
@@ -105,9 +107,7 @@ class _MaxPoolS1SepGrad(torch.autograd.Function):
         ctx.window = window
         ctx.save_for_backward(x)
         if x.device.type == "cuda" and window == (3, 3, 3):
-            from step_tpu_torch.ops.pool import max_pool3x3_kernel
-
-            return max_pool3x3_kernel(x)
+            return max_pool3x3_same(x)
         if x.device.type not in ("cpu", "cuda"):
             raise ValueError(f"max_pool_3d_s1_sepgrad: no path for device {x.device}")
         return max_pool_plain(x, window)

@@ -15,18 +15,20 @@ Layout is channels-last: features `[B, T', H, W, C]`, tubes `[B, N, T, 4]`,
 output `[B, N, T', pooled, pooled, C]`.
 
 The forward is the custom operator `step::tube_roi_align`
-(`tube_roi_align_op`): the plain version on the CPU, the kernel on the
-card, a shape function under `torch.export`, which so keeps each call as
-one node of a served program. Under autograd `tube_roi_align` is a
-`torch.autograd.Function` over it, the port of `_tube_roi_align_vjp`
-(`step_tpu/ops/roi_align_pallas.py:130-159`): the backward is autograd
-through `tube_roi_align_plain`, as the JAX package's backward is autodiff
-of its jnp reference.
+(`tube_roi_align_op`, `ops/kernel_op.py`): the plain version on the CPU,
+the kernel on the card, a shape function under `torch.export`, which so
+keeps each call as one node of a served program. Under autograd
+`tube_roi_align` is a `torch.autograd.Function` over it, the port of
+`_tube_roi_align_vjp` (`step_tpu/ops/roi_align_pallas.py:130-159`): the
+backward is autograd through `tube_roi_align_plain`, as the JAX package's
+backward is autodiff of its jnp reference.
 """
 
 from __future__ import annotations
 
 import torch
+
+from step_tpu_torch.ops.kernel_op import kernel_op
 
 # A sample coordinate parked far outside [-1, limit]: every mask drops it.
 # The adaptive branch uses it to disable padded samples with static shapes.
@@ -130,27 +132,21 @@ def tube_roi_align_plain(features: torch.Tensor, tubes: torch.Tensor,
     return (out / count).to(features.dtype)
 
 
-@torch.library.custom_op("step::tube_roi_align", mutates_args=(), device_types="cpu")
-def tube_roi_align_op(features: torch.Tensor, tubes: torch.Tensor, pooled_size: int,
-                      spatial_scale: float, sampling_ratio: int) -> torch.Tensor:
-    """`step::tube_roi_align`, the forward as a custom operator, so that
-    `torch.export` keeps it as one node of a served program: on a CPU
-    tensor the plain version, on a CUDA tensor the kernel
-    (`_tube_roi_align_cuda`), on a fake tensor the shape
-    (`_tube_roi_align_fake`). Each returns a contiguous tensor."""
+def _tube_roi_align_cpu(features: torch.Tensor, tubes: torch.Tensor, pooled_size: int,
+                        spatial_scale: float, sampling_ratio: int) -> torch.Tensor:
+    """`step::tube_roi_align`, the forward: on a CPU tensor the plain
+    version, on a CUDA tensor `csrc/roi_align.cu`. Each returns a
+    contiguous tensor."""
     return tube_roi_align_plain(features, tubes, pooled_size, spatial_scale,
                                 sampling_ratio).contiguous()
 
 
-@tube_roi_align_op.register_fake
 def _tube_roi_align_fake(features, tubes, pooled_size, spatial_scale, sampling_ratio):
     B, Tp, _, _, C = features.shape
     return features.new_empty((B, tubes.shape[1], Tp, pooled_size, pooled_size, C))
 
 
-@tube_roi_align_op.register_kernel("cuda")
-def _tube_roi_align_cuda(features, tubes, pooled_size, spatial_scale, sampling_ratio):
-    """The kernel (`csrc/roi_align.cu`); counted by `tube_roi_align.launches`."""
+def _tube_roi_align_launch(features, tubes, pooled_size, spatial_scale, sampling_ratio):
     from step_tpu_torch import kernels
 
     B, Tp, H, W, C = features.shape
@@ -163,8 +159,11 @@ def _tube_roi_align_cuda(features, tubes, pooled_size, spatial_scale, sampling_r
                       dtype=features.dtype, device=features.device)
     kernels.tube_roi_align_forward(features, tubes.to(torch.float32).contiguous(),
                                    out, spatial_scale, sampling_ratio)
-    tube_roi_align.launches += 1
     return out
+
+
+tube_roi_align_op = kernel_op("tube_roi_align", _tube_roi_align_cpu, _tube_roi_align_launch,
+                              _tube_roi_align_fake)
 
 
 class _TubeRoiAlign(torch.autograd.Function):
@@ -205,14 +204,8 @@ def tube_roi_align(features: torch.Tensor, tubes: torch.Tensor,
     version. When an input requires a gradient, the call goes through
     `_TubeRoiAlign`: the same forward, and autograd through the plain
     version backward (`dfeatures`, and `dtubes` when the tubes require it).
-    `tube_roi_align.launches` counts kernel launches.
     """
-    if features.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"tube_roi_align: no kernel for device {features.device}")
     args = (int(pooled_size), float(spatial_scale), int(sampling_ratio))
     if torch.is_grad_enabled() and (features.requires_grad or tubes.requires_grad):
         return _TubeRoiAlign.apply(features, tubes, *args)
     return tube_roi_align_op(features, tubes, *args)
-
-
-tube_roi_align.launches = 0

@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.flop_counter import register_flop_formula
 
+from step_tpu_torch.ops.kernel_op import kernel_op
 from step_tpu_torch.ops.pool import same_padding
 from step_tpu_torch.utils.tensor_cache import derived
 
@@ -84,41 +84,33 @@ def _out_shape(x_shape) -> tuple:
     return (N, 64, -(-T // 2), -(-H // 2), -(-W // 2))
 
 
-@torch.library.custom_op("step::stem_conv", mutates_args=(), device_types="cpu")
-def stem_conv_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
-                 bias: torch.Tensor | None, relu: bool) -> torch.Tensor:
-    """`step::stem_conv`, the stem kernel as a custom operator, so that
-    `torch.export` keeps it as one node of a served program: on a CPU
-    tensor the plain version, on a CUDA tensor the kernel
-    (`_stem_conv_cuda`), on a fake tensor the shape. x is `[N, C, T, H,
-    W]`; w the packed weight (`stem_kernel_weight`), which the CPU version
-    unpacks; scale and bias float32 `[64]` or None. Each returns a
-    `channels_last_3d` tensor `[N, 64, ceil(T/2), ceil(H/2), ceil(W/2)]`."""
+def _stem_conv_cpu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+                   bias: torch.Tensor | None, relu: bool) -> torch.Tensor:
+    """`step::stem_conv`, the stem kernel: on a CPU tensor the plain version,
+    on a CUDA tensor `csrc/stem_conv.cu`. x is `[N, C, T, H, W]`; w the
+    packed weight (`stem_kernel_weight`), which the CPU version unpacks;
+    scale and bias float32 `[64]` or None. Each returns a `channels_last_3d`
+    tensor `[N, 64, ceil(T/2), ceil(H/2), ceil(W/2)]`."""
     weight = unpack_stem_weight(w, x.shape[1])
     return stem_conv_plain(x, weight, scale, bias, relu).contiguous(
         memory_format=torch.channels_last_3d)
 
 
-@stem_conv_op.register_fake
 def _stem_conv_fake(x, w, scale, bias, relu):
     return torch.empty(_out_shape(x.shape), dtype=x.dtype, device=x.device,
                        memory_format=torch.channels_last_3d)
 
 
-@stem_conv_op.register_kernel("cuda")
-def _stem_conv_cuda(x, w, scale, bias, relu):
-    """The kernel (`csrc/stem_conv.cu`) on the channels-last view of x, read
-    in place; counted by `stem_conv.launches`."""
+def _stem_conv_launch(x, w, scale, bias, relu):
+    """The kernel reads the channels-last view of x in place."""
     from step_tpu_torch import kernels
 
     out = kernels.empty_ncdhw(_out_shape(x.shape), x)
     kernels.stem_conv_forward(x.permute(0, 2, 3, 4, 1), w, scale, bias, kernels.ndhwc(out),
                               relu)
-    stem_conv.launches += 1
     return out
 
 
-@register_flop_formula(torch.ops.step.stem_conv)
 def _stem_conv_flop(x_shape, w_shape, scale_shape, bias_shape, relu, out_shape=None,
                     **kwargs) -> int:
     """`torch.utils.flop_counter`'s count for `step::stem_conv`:
@@ -127,6 +119,10 @@ def _stem_conv_flop(x_shape, w_shape, scale_shape, bias_shape, relu, out_shape=N
     N, C = x_shape[:2]
     T, H, W = out_shape[2:]
     return 2 * N * T * H * W * 64 * 343 * C
+
+
+stem_conv_op = kernel_op("stem_conv", _stem_conv_cpu, _stem_conv_launch, _stem_conv_fake,
+                         _stem_conv_flop)
 
 
 def stem_kernel_takes(x: torch.Tensor, weight: torch.Tensor, stride) -> bool:
@@ -153,12 +149,9 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor | None 
     the hand-written kernel (`csrc/stem_conv.cu`) on a CUDA tensor, which
     reads x in place, the plain version on a CPU tensor. It refuses, on
     either device, another dtype, shape or memory order. Inference only:
-    the operator has no backward. `stem_conv.launches` counts kernel
-    launches."""
+    the operator has no backward."""
     from step_tpu_torch import kernels
 
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"stem_conv: no kernel for device {x.device}")
     if x.dtype != torch.bfloat16:
         raise ValueError(f"stem_conv takes bfloat16 activations, got {x.dtype}")
     if x.dim() != 5 or x.shape[1] not in kernels.STEM_CHANNELS:
@@ -177,6 +170,3 @@ def stem_conv(x: torch.Tensor, weight: torch.Tensor, scale: torch.Tensor | None 
                              f"{kernels.STEM_OUT}")
     return stem_conv_op(x, stem_kernel_weight(weight, weight_cache), f32(scale), f32(bias),
                         bool(relu))
-
-
-stem_conv.launches = 0

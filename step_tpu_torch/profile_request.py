@@ -13,8 +13,8 @@ drives:
           (`optimize_for_inference`): cuDNN convs, K1, K2, and the pool
           kernels (K5 and `ops/pool.py::max_pool3d_same`), which every
           path runs on the card;
-  kernel  `ucf_3step`, weights left unfolded, `fused_bn_relu=True` and
-          `STEP_TPU_POOL3D=pallas`: K3 and K4 as well;
+  kernel  `ucf_3step`, weights left unfolded, `fused_bn_relu=True`: K3
+          and K4 as well;
   video   `streaming` on the main path's tree: a request is one video of
           `--batch` chunks (6 frames each) tiled into as many windows one
           chunk apart, through `detect_video` (tiling_stride 6), linking
@@ -132,7 +132,7 @@ def span_ms(events, names=SPANS) -> dict:
 
 def build(path: str, dev: torch.device, cfg=None):
     """(config, model) of `path` on `dev`, from `cfg` where given, else the
-    path's preset. Sets `STEP_TPU_POOL3D` for the serving paths."""
+    path's preset."""
     from step_tpu_torch import PRESETS
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.optimize import optimize_for_inference
@@ -147,12 +147,10 @@ def build(path: str, dev: torch.device, cfg=None):
     cfg = cfg.replace(chunk_stem=path == "stream")
     seeded = init_detector_(STEPDetector(cfg).eval(), 0).state_dict()
     if path == "kernel":
-        os.environ["STEP_TPU_POOL3D"] = "pallas"
         cfg_run = cfg.replace(fused_bn_relu=True)
         model = STEPDetector(cfg_run).eval()
         model.load_state_dict(seeded)
         return cfg, model.to(dev)      # float32 parameters, bf16 activations
-    os.environ["STEP_TPU_POOL3D"] = "direct"
     cfg_run, state = optimize_for_inference(cfg, seeded)
     model = STEPDetector(cfg_run).eval()
     model.load_state_dict(state)
@@ -245,10 +243,10 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from step_tpu_torch.kernels import ndhwc
-    from step_tpu_torch.ops.pool import max_pool3d_same, max_pool3x3_same
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
 
     def pool_counts():
-        return max_pool3x3_same.launches, max_pool3d_same.launches, ndhwc.copies
+        return LAUNCHES["max_pool3x3_same"], LAUNCHES["max_pool3d_same"], ndhwc.copies
 
     from step_tpu_torch import PRESETS
 

@@ -12,14 +12,13 @@ its config.
 
 The hand kernels of the path stay in the program as custom operators, one
 node a call: K1 `step::nms_surface` (`inference.py`) and K2
-`step::tube_roi_align` (`ops/roi_align.py`) in every program; in a program
-traced on the card every max pool, K5 `step::max_pool3x3_same` and the
-strided `step::max_pool3d_same` (`ops/pool.py`); and in the kernel
-configuration K3 `step::conv3x3x3_bn_relu` (`ops/conv3d.py`), K4
-`step::scale_bias_relu` (`ops/fused_bn_relu.py`) and, traced on the CPU,
-K5. Each node launches its kernel
-when the program runs on the card (and counts the launch) and the plain
-version on the CPU. The program is an `ExportedProgram` that a Python
+`step::tube_roi_align` (`ops/roi_align.py`) and every max pool, K5
+`step::max_pool3x3_same` and the strided `step::max_pool3d_same`
+(`ops/pool.py`), in every program; in the kernel configuration also K3
+`step::conv3x3x3_bn_relu` (`ops/conv3d.py`) and K4 `step::scale_bias_relu`
+(`ops/fused_bn_relu.py`). Each node launches its kernel when the program
+runs on the card (and counts the launch, `ops/kernel_op.py::LAUNCHES`) and
+the plain version on the CPU. The program is an `ExportedProgram` that a Python
 process loads after importing those operators (`load_detect_fn` does);
 the kernels are a ctypes library with no PyTorch headers, so no
 ahead-of-time compiled package can link them.
@@ -28,13 +27,8 @@ program runs on the device it was exported on, and the format is that of
 the installation that wrote it: export and serve in the same one.
 
 The kernel configuration is the unfolded tree with `cfg.fused_bn_relu`
-(BN folding wins over it, so not `bn_folded`) traced with
-`STEP_TPU_POOL3D=pallas` in the environment. Both switches are read at
-trace time: the program keeps the choice, and the process that serves it
-sets no variable. The variable's one role is that choice in a program
-traced on the CPU (a 3x3x3 stride-1 pool as the `step::max_pool3x3_same`
-node, the strided pools PyTorch's either way); on the card the pools are
-the kernels' nodes whatever it says (`models/i3d.py::max_pool_3d`). K3's weight layout (`ops/conv3d.py::kernel_weight`) is
+(BN folding wins over it, so not `bn_folded`), read at trace time: the
+program keeps the choice. K3's weight layout (`ops/conv3d.py::kernel_weight`) is
 made from the weight input inside the program on every request, so the
 weights stay an input; eager serving keeps it cached per unit.
 

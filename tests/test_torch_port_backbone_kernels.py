@@ -28,6 +28,8 @@ from step_tpu.ops.pool_pallas import max_pool3x3_same_pallas
 from step_tpu_torch import kernels
 from step_tpu_torch.models import i3d
 from step_tpu_torch.ops import conv3d, fused_bn_relu, pool
+from step_tpu_torch.ops.kernel_op import LAUNCHES
+from tests.test_torch_port_pools import Ops
 from tests.test_torch_port_gpu import (pool_scan_model, pool_separable_model, raw_bits,
                                        special_values)
 
@@ -91,22 +93,19 @@ def test_pool_kernel_order_equals_pallas_bit_for_bit(dtype):
     np.testing.assert_array_equal(_ndhwc(got), want)
 
 
-def test_pool_dispatch_reads_the_variable_on_every_call(monkeypatch):
+def test_pool_dispatch_reads_the_variable_on_every_call():
+    """No-grad CPU pools reach their kernel's operator once a call, with no
+    environment variable to read: K5's for 3x3x3 stride 1, the strided
+    pool's for the other windows; each gives the plain version's values."""
     x = _ncdhw(np.random.RandomState(1).randn(2, 5, 7, 7, 16).astype(np.float32))
-    called = []
-    monkeypatch.setattr(i3d, "max_pool3x3_same",
-                        lambda t: called.append(t.shape) or pool.max_pool3x3_same(t))
-    monkeypatch.setenv("STEP_TPU_POOL3D", "direct")
-    ref = i3d.max_pool_3d(x, (3, 3, 3), (1, 1, 1))
-    assert called == []
-    monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
-    torch.testing.assert_close(i3d.max_pool_3d(x, (3, 3, 3), (1, 1, 1)), ref,
-                               rtol=0, atol=0)
-    assert called == [x.shape]
-    # other windows and strides keep F.max_pool3d
-    i3d.max_pool_3d(x, (1, 3, 3), (1, 2, 2))
-    i3d.max_pool_3d(x, (3, 3, 3), (2, 2, 2))
-    assert called == [x.shape]
+    for window, stride, op in [((3, 3, 3), (1, 1, 1), "step::max_pool3x3_same"),
+                               ((1, 3, 3), (1, 2, 2), "step::max_pool3d_same"),
+                               ((3, 3, 3), (2, 2, 2), "step::max_pool3d_same")]:
+        with torch.no_grad(), Ops() as ops:
+            got = i3d.max_pool_3d(x, window, stride)
+        torch.testing.assert_close(got, pool.max_pool3d_same_plain(x, window, stride),
+                                   rtol=0, atol=0)
+        assert [n for n in ops.names if n.startswith("step::")] == [op], (window, stride)
 
 
 def test_pool_plain_propagates_nan():
@@ -322,9 +321,7 @@ def test_wrappers_take_plain_path_on_cpu_and_raise_elsewhere():
     x = _ncdhw(rng.randn(2, 3, 4, 5, 8).astype(np.float32))
     w = torch.from_numpy(rng.randn(6, 8, 3, 3, 3).astype(np.float32))
     s, b = torch.ones(8), torch.zeros(8)
-    for fn in (pool.max_pool3x3_same, fused_bn_relu.fused_scale_bias_relu,
-               conv3d.conv3x3x3_bn_relu):
-        fn.launches = 0
+    before = dict(LAUNCHES)
     cases = [
         (pool.max_pool3x3_same, (x,), pool.max_pool3x3_same_plain),
         (fused_bn_relu.fused_scale_bias_relu, (x, s, b),
@@ -335,7 +332,7 @@ def test_wrappers_take_plain_path_on_cpu_and_raise_elsewhere():
     meta = torch.device("meta")
     for fn, args, plain in cases:
         torch.testing.assert_close(fn(*args), plain(*args), rtol=0, atol=0)
-        assert fn.launches == 0
+        assert dict(LAUNCHES) == before
         with pytest.raises(ValueError, match="no kernel"):
             fn(*(a.to(meta) for a in args))
 

@@ -8,8 +8,9 @@
     functions and dispatch, the backbone's in float32 and bfloat16, at an
     odd channel count and on an input not in `channels_last_3d` order.
   * The loaded program equals eager `detect_clip` bit for bit (the same
-    operations on the same device), holds one `nms_surface` and one
-    `tube_roi_align` a step, and carries no weight: a second state_dict
+    operations on the same device), holds one `nms_surface`, one
+    `tube_roi_align` a step and its pools as the pool kernels' nodes, and
+    carries no weight: a second state_dict
     through the same artifact equals eager on it and differs from the
     first, which a cached tensor baked in as a constant would not.
   * The port's served detections equal the JAX package's served detections
@@ -123,8 +124,12 @@ def test_loaded_program_equals_eager_detect_clip(served):
 
 def test_program_holds_the_kernels_as_nodes(served):
     cfg, _, blob, _ = served
+    # tiny depth: the stem's two strided pools, and the b3 pool of each of
+    # its two Inception blocks and of each head's one
     assert export.program_op_counts(blob) == {"nms_surface": 1,
-                                              "tube_roi_align": cfg.num_steps}
+                                              "tube_roi_align": cfg.num_steps,
+                                              "max_pool3d_same": 2,
+                                              "max_pool3x3_same": 2 + cfg.num_steps}
     assert export.detect_fn_input_specs(blob) == (
         ((B, cfg.total_frames, 32, 32, 3), torch.uint8),
         ((B, cfg.max_proposals, cfg.total_frames, 4), torch.float32),

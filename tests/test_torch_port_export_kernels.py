@@ -1,17 +1,18 @@
 """The port's exported kernel configuration (`utils/export.py`) on the CPU,
-at tiny depth in float32: unfolded weights with `fused_bn_relu=True` and
-`STEP_TPU_POOL3D=pallas` at trace time, so the program holds K3, K4 and K5
-as the custom operators `step::conv3x3x3_bn_relu`, `step::scale_bias_relu`
-and `step::max_pool3x3_same` beside K1 and K2.
+at tiny depth in float32: unfolded weights with `fused_bn_relu=True`, so
+the program holds K3, K4 and K5 as the custom operators
+`step::conv3x3x3_bn_relu`, `step::scale_bias_relu` and
+`step::max_pool3x3_same` beside K1, K2 and the strided pools'
+`step::max_pool3d_same`.
 
   * Its `step::` nodes equal the operator calls of one eager request of the
     same config, counted at the dispatcher.
-  * The loaded program equals eager `detect_clip` bit for bit, with no
-    environment variable set when it runs (the pool switch is read at
-    trace time), and carries no weight.
+  * The loaded program equals eager `detect_clip` bit for bit and carries
+    no weight.
   * It equals the JAX package's exported program of the same config
-    (`step_tpu.utils.export`, whose Pallas BN+ReLU and pool run in
-    interpret mode off the TPU) on the same weights and uint8 clips, at
+    (`step_tpu.utils.export` under `STEP_TPU_POOL3D=pallas`, which the JAX
+    package reads: its Pallas BN+ReLU and pool run in interpret mode off
+    the TPU) on the same weights and uint8 clips, at
     `test_torch_port_export.py`'s tolerances: tubes within 1e-3 px, tube
     scores within 1e-4, each package's NMS surface equal to the port's NMS
     of its tubes and scores. The JAX kernel configuration runs a 3x3x3
@@ -83,22 +84,18 @@ def _model(cfg, variables):
 @pytest.fixture(scope="module")
 def served():
     """The JAX config and variables, the port's model on them, and its
-    program exported on the CPU under `STEP_TPU_POOL3D=pallas`."""
+    program exported on the CPU."""
     jcfg = JAX_PRESETS["ucf_3step"].replace(**TINY)
     cfg = PRESETS["ucf_3step"].replace(**TINY)
     variables = _variables(jcfg, 0)
     model = _model(cfg, variables)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("STEP_TPU_POOL3D", "pallas")
-        blob = export.export_detect_fn(cfg, B, model=model, device="cpu")
+    blob = export.export_detect_fn(cfg, B, model=model, device="cpu")
     return jcfg, cfg, variables, model, blob, export.load_detect_fn(blob)
 
 
 def _eager(model, rgb, props, mask):
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("STEP_TPU_POOL3D", "pallas")
-        with OpCalls() as calls:
-            out = detect_clip(model, rgb, props, mask)
+    with OpCalls() as calls:
+        out = detect_clip(model, rgb, props, mask)
     return out, calls.counts
 
 
@@ -108,20 +105,18 @@ def _assert_equal(got, want):
         torch.testing.assert_close(got[key], want[key], rtol=0, atol=0, msg=key)
 
 
-def test_program_nodes_equal_the_eager_request_calls(served, monkeypatch):
+def test_program_nodes_equal_the_eager_request_calls(served):
     _, cfg, _, model, blob, _ = served
-    monkeypatch.delenv("STEP_TPU_POOL3D", raising=False)
     nodes = export.program_op_counts(blob)
     _, calls = _eager(model, *_inputs(cfg, 1))
     assert nodes == calls
     assert set(nodes) == {"conv3x3x3_bn_relu", "scale_bias_relu", "max_pool3x3_same",
-                          "nms_surface", "tube_roi_align"}
+                          "max_pool3d_same", "nms_surface", "tube_roi_align"}
     assert nodes["nms_surface"] == 1 and nodes["tube_roi_align"] == cfg.num_steps
 
 
-def test_program_equals_eager_without_the_switch(served, monkeypatch):
+def test_program_equals_eager_without_the_switch(served):
     _, cfg, _, model, _, run = served
-    monkeypatch.delenv("STEP_TPU_POOL3D", raising=False)
     rgb, props, mask = _inputs(cfg, 2)
     got = run(export.serving_weights(model.state_dict(), cfg, "cpu"), rgb, props, mask)
     want, _ = _eager(model, rgb, props, mask)

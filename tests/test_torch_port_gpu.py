@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-import torch.utils._python_dispatch
 
 from step_tpu_torch.config import PRESETS
 from step_tpu_torch.inference import (detect_clip, detect_video_stream,
@@ -34,6 +33,7 @@ from step_tpu_torch.models.detector import STEPDetector
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain
 from step_tpu_torch.ops.fused_bn_relu import (fused_scale_bias_relu,
                                               fused_scale_bias_relu_plain)
+from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.ops.nms import EPS, NEG, _f32, nms_many, nms_many_plain, premask_scores
 from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3x3_same,
                                     max_pool3x3_same_plain, same_padding)
@@ -42,6 +42,9 @@ from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
 from step_tpu_torch.utils.init import init_detector_
 
 pytestmark = pytest.mark.gpu
+
+# The kernel configuration's backbone operators: K3, K4, K5.
+KERNEL_CONFIG_OPS = ("conv3x3x3_bn_relu", "scale_bias_relu", "max_pool3x3_same")
 BF16_RTOL = 2.0 ** -7
 
 
@@ -206,9 +209,9 @@ def nms_inputs(seed: int, N: int, P: int, case: str = "ties"):
 def test_nms_kernel_equals_plain(cuda, N, P, K, thr, case):
     b, s, v, sthr = nms_inputs(N, N, P, case)
     boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in (b, s, v))
-    before = nms_many.launches
+    before = LAUNCHES["nms_many"]
     idx, mask = nms_many(boxes, scores, thr, K, sthr, valid)
-    assert nms_many.launches == before + 1
+    assert LAUNCHES["nms_many"] == before + 1
     ridx, rmask = nms_many_plain(boxes, premask_scores(scores, sthr, valid), thr, K)
     torch.cuda.synchronize()
     assert torch.equal(idx, ridx) and torch.equal(mask, rmask)
@@ -270,10 +273,10 @@ def test_nms_surface_kernel_equals_plain(cuda, B, P, dtype):
 def test_nms_surface_is_one_launch(cuda):
     cfg = PRESETS["ucf_3step"]
     tubes, scores, mask = (t.to(cuda) for t in surface_inputs(1, 2, 16, 18, 24))
-    surface, many = nms_surface.launches, nms_many.launches
+    surface, many = LAUNCHES["nms_surface"], LAUNCHES["nms_many"]
     for _ in range(3):
         nms_surface(tubes, scores, mask, cfg)
-    assert nms_surface.launches == surface + 3 and nms_many.launches == many
+    assert LAUNCHES["nms_surface"] == surface + 3 and LAUNCHES["nms_many"] == many
 
 
 def _roi_inputs(seed, B, Tp, H, C, N, T, dtype):
@@ -289,9 +292,9 @@ def _roi_inputs(seed, B, Tp, H, C, N, T, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_roi_kernel_matches_plain(cuda, pooled, ratio, C, dtype):
     feat, tubes = (t.to(cuda) for t in _roi_inputs(1, 2, 5, 14, C, 16, 18, dtype))
-    before = tube_roi_align.launches
+    before = LAUNCHES["tube_roi_align"]
     got = tube_roi_align(feat, tubes, pooled, 1 / 16, ratio)
-    assert tube_roi_align.launches == before + 1
+    assert LAUNCHES["tube_roi_align"] == before + 1
     want = tube_roi_align_plain(feat, tubes, pooled, 1 / 16, ratio)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -311,9 +314,9 @@ def test_roi_kernel_adaptive_matches_plain(cuda, C, dtype):
     tubes[:, :4] = torch.tensor([-300.0, -200.0, 500.0, 450.0])
     tubes[:, 4] = torch.tensor([10.0, 20.0, 30.0, 25.0])
     feat, tubes = feat.to(cuda), tubes.to(cuda)
-    before = tube_roi_align.launches
+    before = LAUNCHES["tube_roi_align"]
     got = tube_roi_align(feat, tubes, 7, 1 / 16, 0)
-    assert tube_roi_align.launches == before + 1
+    assert LAUNCHES["tube_roi_align"] == before + 1
     want = tube_roi_align_plain(feat, tubes, 7, 1 / 16, 0)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == want.shape
@@ -373,22 +376,20 @@ def test_program_spans_split_a_main_path_request(cuda):
     launched under `model.preprocess`, `model.backbone`, `model.refine` and
     `detect.nms` sums to that launched under a span around the call, within
     2%, and each of them launched work."""
-    from step_tpu_torch.bench import pool_switch_kept
     from step_tpu_torch.profile_request import build, span_ms
 
-    with pool_switch_kept():
-        cfg, model = build("main", cuda)
-        props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
-        rgb = torch.from_numpy(np.random.RandomState(5).randint(
-            0, 256, (2, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
-            .astype(np.uint8)).to(cuda)
-        detect_clip(model, rgb, props, pmask)
+    cfg, model = build("main", cuda)
+    props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
+    rgb = torch.from_numpy(np.random.RandomState(5).randint(
+        0, 256, (2, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
+        .astype(np.uint8)).to(cuda)
+    detect_clip(model, rgb, props, pmask)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("request"):
+            detect_clip(model, rgb, props, pmask)
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            with torch.profiler.record_function("request"):
-                detect_clip(model, rgb, props, pmask)
-            torch.cuda.synchronize()
     stages = ("model.preprocess", "model.backbone", "model.refine", "detect.nms")
     ms = span_ms(prof.events(), stages + ("request",))
     assert all(ms[s][0] > 0 and ms[s][2] == 1 for s in stages), ms
@@ -420,9 +421,9 @@ def _close(got, want, dtype, f32_tol):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pool_kernel_equals_plain(cuda, shape, dtype):
     x = _ncdhw(5, shape, dtype)
-    before = max_pool3x3_same.launches
+    before = LAUNCHES["max_pool3x3_same"]
     got = max_pool3x3_same(x)
-    assert max_pool3x3_same.launches == before + 1
+    assert LAUNCHES["max_pool3x3_same"] == before + 1
     want = max_pool3x3_same_plain(x)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
@@ -478,9 +479,9 @@ STRIDED_POOL_CASES = [((2, 64, 9, 112, 112), (1, 3, 3), (1, 2, 2)),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_strided_pool_kernel_equals_pad_then_pool(cuda, shape, window, stride, dtype):
     x = _ncdhw(8, shape, dtype)
-    before = max_pool3d_same.launches
+    before = LAUNCHES["max_pool3d_same"]
     got = max_pool3d_same(x, window, stride)
-    assert max_pool3d_same.launches == before + 1
+    assert LAUNCHES["max_pool3d_same"] == before + 1
     want = pad_then_pool(x, window, stride)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.is_contiguous(memory_format=torch.channels_last_3d)
@@ -528,27 +529,16 @@ def test_pool_kernel_equals_plain_above_l2(cuda, shape):
     assert torch.equal(raw_bits(got), raw_bits(want))
 
 
-class _StepOps(torch.utils._python_dispatch.TorchDispatchMode):
-    """The `step::` operators called while it is active."""
-
-    def __init__(self):
-        super().__init__()
-        self.names = []
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.name().startswith("step::"):
-            self.names.append(func.name())
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("window,stride,op", [((3, 3, 3), (1, 1, 1), "max_pool3x3_same"),
                                               ((1, 3, 3), (1, 2, 2), "max_pool3d_same"),
                                               ((2, 2, 2), (2, 2, 2), "max_pool3d_same")])
 def test_eager_pools_launch_without_the_operator_and_exports_keep_it(cuda, window, stride,
                                                                      op):
     """An eager no-grad pool of a CUDA tensor launches its kernel without
-    the custom operator's dispatch; `torch.export` on the card still
-    records the operator as one node, and the program gives the same bits."""
+    the custom operator's dispatch (the profiler records no `step::` call,
+    where a call of the operator itself shows one); `torch.export` on the
+    card still records the operator as one node, and the program gives the
+    same bits."""
     from step_tpu_torch.models.i3d import max_pool_3d
 
     class Pool(torch.nn.Module):
@@ -556,11 +546,17 @@ def test_eager_pools_launch_without_the_operator_and_exports_keep_it(cuda, windo
             return max_pool_3d(x, window, stride)
 
     x = _ncdhw(4, (2, 24, 5, 9, 11), torch.bfloat16)
-    counter = max_pool3x3_same if op == "max_pool3x3_same" else max_pool3d_same
-    before = counter.launches
-    with torch.no_grad(), _StepOps() as seen:
-        got = Pool()(x)
-    assert seen.names == [] and counter.launches == before + 1
+    def step_calls(fn):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as p:
+            out = fn()
+        return out, [e.key for e in p.key_averages() if e.key.startswith("step::")]
+
+    before = LAUNCHES[op]
+    with torch.no_grad():
+        got, seen = step_calls(lambda: Pool()(x))
+        assert seen == [] and LAUNCHES[op] == before + 1
+        _, control = step_calls(lambda: torch.ops.step.max_pool3x3_same(x))
+    assert control == ["step::max_pool3x3_same"]
     with torch.no_grad():
         program = torch.export.export(Pool(), (x,))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
@@ -580,27 +576,25 @@ def test_main_path_pools_run_on_the_hand_written_kernels(cuda, monkeypatch):
     channels_last_3d, and its five outputs equal those of the same request
     with PyTorch's pools (the plain versions swapped in) bit for bit."""
     from step_tpu_torch import kernels
-    from step_tpu_torch.bench import pool_switch_kept
-    from step_tpu_torch.models import i3d
+    from step_tpu_torch.ops import pool
     from step_tpu_torch.ops.pool import max_pool3d_same_plain
     from step_tpu_torch.profile_request import build
 
-    with pool_switch_kept():
-        cfg, model = build("main", cuda)
+    cfg, model = build("main", cuda)
     props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
     rgb = torch.from_numpy(np.random.RandomState(6).randint(
         0, 256, (2, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
         .astype(np.uint8)).to(cuda)
     with torch.no_grad():
         detect_clip(model, rgb, props, pmask)
-        counts = (max_pool3x3_same.launches, max_pool3d_same.launches, kernels.ndhwc.copies)
+        counts = (LAUNCHES["max_pool3x3_same"], LAUNCHES["max_pool3d_same"], kernels.ndhwc.copies)
         acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) as prof:
             got = detect_clip(model, rgb, props, pmask)
             torch.cuda.synchronize()
-        after = (max_pool3x3_same.launches, max_pool3d_same.launches, kernels.ndhwc.copies)
-        monkeypatch.setattr(i3d, "max_pool3x3_same", max_pool3x3_same_plain)
-        monkeypatch.setattr(i3d, "max_pool3d_same", max_pool3d_same_plain)
+        after = (LAUNCHES["max_pool3x3_same"], LAUNCHES["max_pool3d_same"], kernels.ndhwc.copies)
+        monkeypatch.setattr(pool, "max_pool3x3_same", max_pool3x3_same_plain)
+        monkeypatch.setattr(pool, "max_pool3d_same", max_pool3d_same_plain)
         want = detect_clip(model, rgb, props, pmask)
     names = {e.key for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA}
@@ -624,9 +618,9 @@ def test_bn_relu_kernel_matches_plain(cuda, shape, dtype):
     rng = np.random.RandomState(8)
     scale = torch.from_numpy((rng.rand(C) * 2 + 0.1).astype(np.float32)).cuda()
     bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
-    before = fused_scale_bias_relu.launches
+    before = LAUNCHES["scale_bias_relu"]
     got = fused_scale_bias_relu(x, scale, bias)
-    assert fused_scale_bias_relu.launches == before + 1
+    assert LAUNCHES["scale_bias_relu"] == before + 1
     want = fused_scale_bias_relu_plain(x, scale, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype, 1e-6)
@@ -642,9 +636,9 @@ def test_conv_bn_relu_kernel_matches_plain(cuda, N, C, T, H, W, K, dtype):
     scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
     bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
     w, scale, bias = w.cuda(), scale.cuda(), bias.cuda()
-    before = conv3x3x3_bn_relu.launches
+    before = LAUNCHES["conv3x3x3_bn_relu"]
     got = conv3x3x3_bn_relu(x, w, scale, bias)
-    assert conv3x3x3_bn_relu.launches == before + 1
+    assert LAUNCHES["conv3x3x3_bn_relu"] == before + 1
     want = conv3x3x3_bn_relu_plain(x, w, scale, bias)
     torch.cuda.synchronize()
     _close(got, want, dtype, 1e-4)
@@ -667,9 +661,9 @@ def test_conv_bf16_tensor_core_kernel_at_every_inception_width(cuda, C, K):
     scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
     bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
     w, scale, bias = w.cuda(), scale.cuda(), bias.cuda()
-    before = conv3x3x3_bn_relu.launches
+    before = LAUNCHES["conv3x3x3_bn_relu"]
     got = conv3x3x3_bn_relu(x, w, scale, bias)
-    assert conv3x3x3_bn_relu.launches == before + 1
+    assert LAUNCHES["conv3x3x3_bn_relu"] == before + 1
     want = conv3x3x3_bn_relu_plain(x, w, scale, bias)
     torch.cuda.synchronize()
     _close(got, want, torch.bfloat16, None)
@@ -748,9 +742,9 @@ def test_stem_kernel_matches_plain(cuda, shape, epilogue):
     scale = torch.from_numpy((rng.rand(64) + 0.5).astype(np.float32)).cuda() if use_scale else None
     bias = torch.from_numpy((rng.randn(64) * 0.1).astype(np.float32)).cuda() if use_bias else None
     w = w.cuda()
-    before = stem_conv.launches
+    before = LAUNCHES["stem_conv"]
     got = stem_conv(x, w, scale, bias, relu)
-    assert stem_conv.launches == before + 1
+    assert LAUNCHES["stem_conv"] == before + 1
     want = stem_conv_plain(x, w, scale, bias, relu)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (N, 64, -(-T // 2), -(-H // 2), -(-W // 2))
@@ -765,7 +759,6 @@ def test_stem_unit_routes_by_what_the_call_shows(cuda):
     kernel once and gives the unit's result; with autograd, in float32 and
     in training it keeps cuDNN (no launch) and its gradients."""
     from step_tpu_torch.models.i3d import Unit3D, conv3d_same
-    from step_tpu_torch.ops.stem_conv import stem_conv
 
     x = _ncdhw(23, (2, 3, 6, 32, 48), torch.bfloat16)
     for folded, fused in ((True, False), (False, True), (False, False)):
@@ -774,23 +767,23 @@ def test_stem_unit_routes_by_what_the_call_shows(cuda):
         with torch.no_grad():
             for p in unit.parameters():
                 p.uniform_(-0.05, 0.05)
-            before = stem_conv.launches
+            before = LAUNCHES["stem_conv"]
             got = unit(x)
-            assert stem_conv.launches == before + 1
+            assert LAUNCHES["stem_conv"] == before + 1
             y = conv3d_same(x.float(), unit.conv.weight.to(torch.bfloat16).float(),
                             unit.conv.bias, (2, 2, 2))
             want = (fused_scale_bias_relu_plain(y, *unit.bn.scale_bias()) if fused
                     else F.relu(y if unit.bn is None else unit.bn(y.to(torch.bfloat16))))
         torch.testing.assert_close(got.float(), want.float(), rtol=BF16_RTOL, atol=2e-3)
-    before = stem_conv.launches
+    before = LAUNCHES["stem_conv"]
     out = unit(x)                                         # autograd on: cuDNN
-    assert out.requires_grad and stem_conv.launches == before
+    assert out.requires_grad and LAUNCHES["stem_conv"] == before
     out.float().sum().backward()
     assert unit.conv.weight.grad is not None
     with torch.no_grad():
         unit(x.float())
         unit(x, train=True)
-    assert stem_conv.launches == before
+    assert LAUNCHES["stem_conv"] == before
 
 
 def test_stem_kernel_launches_once_a_ucf_request_and_never_in_vit_or_training(cuda):
@@ -803,43 +796,40 @@ def test_stem_kernel_launches_once_a_ucf_request_and_never_in_vit_or_training(cu
     from benchmark import work
     from benchmark.program import Server
     from benchmark.reference import detector as reference
-    from step_tpu_torch.bench import pool_switch_kept
     from step_tpu_torch.data.pipeline import build_model_batch
     from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
-    from step_tpu_torch.ops.stem_conv import stem_conv
     from step_tpu_torch.profile_request import build
     from step_tpu_torch.train.trainer import batch_to_device, create_train_state, train_step
 
     rgb = torch.from_numpy(np.random.RandomState(24).randint(
         0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
-    with pool_switch_kept():
-        cfg, model = build("main", cuda)
-        props, pmask = STEPDetector.initial_proposals(cfg, 32, device=cuda)
-        with torch.no_grad():
-            before = stem_conv.launches
-            out = detect_clip(model, rgb, props, pmask)
-            torch.cuda.synchronize()
-        assert stem_conv.launches == before + 1 and torch.isfinite(out["tubes"]).all()
-        del model, out
-        root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
-        with open(os.path.join(root, "configs", "ava_videomae_b16.json")) as f:
-            fields = json.load(f)["config"]
-        server = Server(fields, work.make_weights(reference.config(fields), 5, cuda), cuda)
-        props, pmask = server.proposals(32)
-        before = stem_conv.launches
-        server.detect(rgb, props, pmask)
+    cfg, model = build("main", cuda)
+    props, pmask = STEPDetector.initial_proposals(cfg, 32, device=cuda)
+    with torch.no_grad():
+        before = LAUNCHES["stem_conv"]
+        out = detect_clip(model, rgb, props, pmask)
         torch.cuda.synchronize()
-        assert stem_conv.launches == before
-        del server
+    assert LAUNCHES["stem_conv"] == before + 1 and torch.isfinite(out["tubes"]).all()
+    del model, out
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+    with open(os.path.join(root, "configs", "ava_videomae_b16.json")) as f:
+        fields = json.load(f)["config"]
+    server = Server(fields, work.make_weights(reference.config(fields), 5, cuda), cuda)
+    props, pmask = server.proposals(32)
+    before = LAUNCHES["stem_conv"]
+    server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["stem_conv"] == before
+    del server
     tcfg = PRESETS["ucf_3step"].replace(image_size=96, batch_size=1, dropout_rate=0.0,
                                         warmup_steps=2, max_gt_tubes=2)
     syn = SyntheticConfig(image_size=96, num_frames=tcfg.total_frames,
                           num_classes=tcfg.num_classes, max_boxes=2)
     state = create_train_state(tcfg, seed=3, device=cuda)
     batch = batch_to_device(build_model_batch(make_batch(4, 1, syn), tcfg, train=True), cuda)
-    before = stem_conv.launches
+    before = LAUNCHES["stem_conv"]
     _, metrics = train_step(state, batch, tcfg)
-    assert stem_conv.launches == before and torch.isfinite(metrics["loss"])
+    assert LAUNCHES["stem_conv"] == before and torch.isfinite(metrics["loss"])
 
 
 def test_bn_affine_cache_on_the_card(cuda):
@@ -888,7 +878,6 @@ def test_kernels_copy_inputs_that_are_not_channels_last(cuda):
 def test_kernel_path_detector_on_card_matches_cpu(cuda, monkeypatch):
     """The tiny detector with fused_bn_relu and the K5 pools, float32: the
     card (K3, K4, K5) against the CPU (their plain versions)."""
-    monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
     cfg = PRESETS["ucf_3step"].replace(backbone_depth="tiny", feature_stride=8,
                                        image_size=64, compute_dtype="float32",
                                        fused_bn_relu=True)
@@ -897,11 +886,9 @@ def test_kernel_path_detector_on_card_matches_cpu(cuda, monkeypatch):
     rgb = torch.from_numpy(np.random.RandomState(4).randint(
         0, 256, (2, cfg.total_frames, 64, 64, 3)).astype(np.uint8))
     ref = detect_clip(model, rgb, props, pmask)
-    counts = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
-                                   max_pool3x3_same)]
+    counts = [LAUNCHES[n] for n in KERNEL_CONFIG_OPS]
     got = detect_clip(model.to(cuda), rgb.to(cuda), props.to(cuda), pmask.to(cuda))
-    after = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
-                                  max_pool3x3_same)]
+    after = [LAUNCHES[n] for n in KERNEL_CONFIG_OPS]
     assert [a - b for a, b in zip(after, counts)] == [10, 21, 5]
     torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
     torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
@@ -974,14 +961,12 @@ def test_stream_matches_detect_clip_on_card(cuda):
 def test_chunk_stem_kernel_path_on_card_matches_cpu(cuda, monkeypatch):
     """The kernel configuration with chunk stems: K3 and K5 at T = 3 and
     2 (a 3-tap temporal window over 2 frames), on the card against the CPU."""
-    monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
     cfg, model, frames = _stream_setup(cuda, fused_bn_relu=True)
     clips = frames[:cfg.total_frames].reshape(1, cfg.total_frames, 64, 64, 3)
     props, pmask = STEPDetector.initial_proposals(cfg, 1, device=cuda)
-    fns = (conv3x3x3_bn_relu, fused_scale_bias_relu, max_pool3x3_same)
-    before = [f.launches for f in fns]
+    before = [LAUNCHES[n] for n in KERNEL_CONFIG_OPS]
     got = detect_clip(model, clips, props, pmask)
-    assert all(f.launches > n for f, n in zip(fns, before))
+    assert all(LAUNCHES[k] > n for k, n in zip(KERNEL_CONFIG_OPS, before))
     ref = detect_clip(model.cpu(), clips.cpu(), props.cpu(), pmask.cpu())
     torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
     torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
@@ -1098,9 +1083,9 @@ def test_bn_relu_kernel_at_the_fusion_shape(cuda, dtype):
     rng = np.random.RandomState(10)
     scale = torch.from_numpy((rng.rand(C) * 2 + 0.1).astype(np.float32)).cuda()
     bias = torch.from_numpy(rng.randn(C).astype(np.float32)).cuda()
-    before = fused_scale_bias_relu.launches
+    before = LAUNCHES["scale_bias_relu"]
     got = fused_scale_bias_relu(x, scale, bias)
-    assert fused_scale_bias_relu.launches == before + 1
+    assert LAUNCHES["scale_bias_relu"] == before + 1
     _close(got, fused_scale_bias_relu_plain(x, scale, bias), dtype, 1e-6)
 
 
@@ -1121,10 +1106,10 @@ def test_tiny_two_stream_and_ava_detectors_on_card_match_cpu(cuda, name, over):
     flow = torch.from_numpy(rng.randint(-127, 128, (2, 18, 64, 64, 2)).astype(np.int8))
     second = flow if cfg.two_stream else None
     ref = detect_clip(model, rgb, props, pmask, second)
-    k4 = fused_scale_bias_relu.launches
+    k4 = LAUNCHES["scale_bias_relu"]
     got = detect_clip(model.to(cuda), rgb.to(cuda), props.to(cuda), pmask.to(cuda),
                       None if second is None else second.to(cuda))
-    assert (fused_scale_bias_relu.launches > k4) == cfg.fused_bn_relu
+    assert (LAUNCHES["scale_bias_relu"] > k4) == cfg.fused_bn_relu
     torch.testing.assert_close(got["tubes"].cpu(), ref["tubes"], rtol=0, atol=1e-3)
     torch.testing.assert_close(got["tube_scores"].cpu(), ref["tube_scores"],
                                rtol=0, atol=1e-4)
@@ -1156,7 +1141,6 @@ def test_vit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
     from benchmark import check, work
     from benchmark.program import Server
     from benchmark.reference import detector as reference
-    from step_tpu_torch.bench import pool_switch_kept
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
     with open(os.path.join(root, "configs", "ava_videomae_b16.json")) as f:
@@ -1165,12 +1149,11 @@ def test_vit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
         limits = json.load(f)["limits"]
     rc = reference.config(fields)
     weights = work.make_weights(rc, 2 ** 31 + 3, cuda)
-    with pool_switch_kept():
-        server = Server(fields, weights, cuda)
-        props, pmask = server.proposals(32)
-        rgb = torch.from_numpy(np.random.RandomState(8).randint(
-            0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
-        out = server.detect(rgb, props, pmask)
+    server = Server(fields, weights, cuda)
+    props, pmask = server.proposals(32)
+    rgb = torch.from_numpy(np.random.RandomState(8).randint(
+        0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
+    out = server.detect(rgb, props, pmask)
     assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
     served = {k: v[:2].cpu() for k, v in out.items()}
     del server, out
@@ -1250,12 +1233,9 @@ def test_classifier_kernel_configuration_on_card_matches_cpu(cuda, monkeypatch):
         want = model(x)
         kmodel = I3DClassifier(num_classes=11, fused_bn_relu=True).eval()
         kmodel.load_state_dict(sd)
-        monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
-        before = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
-                                       max_pool3x3_same)]
+        before = [LAUNCHES[n] for n in KERNEL_CONFIG_OPS]
         got = kmodel.to(cuda)(x.to(cuda)).cpu()
-    after = [f.launches for f in (conv3x3x3_bn_relu, fused_scale_bias_relu,
-                                  max_pool3x3_same)]
+    after = [LAUNCHES[n] for n in KERNEL_CONFIG_OPS]
     assert all(a > b for a, b in zip(after, before))
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
 

@@ -2,9 +2,9 @@
 weights (bridged by `from_jax_variables`) and the same inputs, in float32
 on the CPU:
 
-  * the kernel configuration: unfolded variables with `fused_bn_relu=True`
-    and `STEP_TPU_POOL3D=pallas` (the JAX side runs its Pallas kernels in
-    interpret mode, as it does on any non-TPU backend);
+  * the kernel configuration: unfolded variables with `fused_bn_relu=True`,
+    the JAX side under `STEP_TPU_POOL3D=pallas` (it runs its Pallas kernels
+    in interpret mode, as it does on any non-TPU backend);
   * the serving configuration of `optimize_for_inference`: BN folded with
     `fused_inception`, and `fused_inception3` in "none", "tail" and "all";
   * bfloat16 BatchNorm, which must round where flax's does.
@@ -85,7 +85,7 @@ def test_kernel_configuration_matches_jax(setup, monkeypatch):
     monkeypatch.setattr(i3d, "conv3x3x3_bn_relu", counted("K3", conv3d.conv3x3x3_bn_relu))
     monkeypatch.setattr(i3d, "fused_scale_bias_relu",
                         counted("K4", fused_bn_relu.fused_scale_bias_relu))
-    monkeypatch.setattr(i3d, "max_pool3x3_same", counted("K5", pool.max_pool3x3_same))
+    monkeypatch.setattr(pool, "max_pool3x3_same", counted("K5", pool.max_pool3x3_same))
     model = _compare(TINY.replace(fused_bn_relu=True), variables, rgb, props)
     # tiny: stem Conv3d_1a + 2 blocks, 3 heads of 1 block; a block has two
     # 3x3x3 units, four others and one b3 pool

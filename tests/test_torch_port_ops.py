@@ -30,6 +30,7 @@ from step_tpu_torch import kernels
 from step_tpu_torch.config import PRESETS
 from step_tpu_torch.inference import nms_surface
 from step_tpu_torch.ops import nms, roi_align
+from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.preprocess import device_preprocess
 from step_tpu_torch.tubes import boxes, proposals, tube_ops
 from tests.test_torch_port_gpu import nms_inputs, nms_rank_model, surface_inputs
@@ -311,15 +312,14 @@ def test_nms_surface_matches_jax_past_32_boxes_with_a_nan_box():
 # ---------------------------------------------------------------- dispatch
 def test_wrappers_take_plain_path_on_cpu_and_raise_elsewhere():
     feat, tubes = _roi_inputs(7)
-    roi_align.tube_roi_align.launches = 0
-    nms.nms_many.launches = 0
+    before = dict(LAUNCHES)
     torch.testing.assert_close(
         roi_align.tube_roi_align(_t(feat), _t(tubes), 3, 1 / 16, 2),
         roi_align.tube_roi_align_plain(_t(feat), _t(tubes), 3, 1 / 16, 2),
         rtol=0, atol=0)
     b, s, v = _nms_inputs(0, 8, 4)
     nms.nms_many(_t(b), _t(s), 0.5, 4, 0.05, _t(v))
-    assert roi_align.tube_roi_align.launches == 0 and nms.nms_many.launches == 0
+    assert dict(LAUNCHES) == before
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel"):
         roi_align.tube_roi_align(_t(feat).to(meta), _t(tubes).to(meta))

@@ -1,15 +1,16 @@
-"""The routing of the backbone's max pools (`models/i3d.py::max_pool_3d`)
-and the strided pool's operator (`ops/pool.py::max_pool3d_same`), on the
-CPU.
+"""The routing of the backbone's max pools (`models/i3d.py::max_pool_3d`,
+then `ops/pool.py::max_pool_same`) and the strided pool's operator
+(`ops/pool.py::max_pool3d_same`), on the CPU.
 
-  * A CUDA tensor with autograd off takes a hand-written kernel for every
-    pool: `step::max_pool3x3_same` (K5) for 3x3x3 stride 1,
-    `step::max_pool3d_same` for the strided windows, whatever
-    `STEP_TPU_POOL3D` says. Fake CUDA tensors show the operators that a
-    call reaches without a card.
-  * A CPU tensor keeps the plain versions: the same bits as before, and
-    the variable's one role, a `step::max_pool3x3_same` node in a program
-    traced on the CPU under "pallas".
+  * A tensor with autograd off takes a hand-written kernel's operator for
+    every pool, on either device: `step::max_pool3x3_same` (K5) for 3x3x3
+    stride 1, `step::max_pool3d_same` for the strided windows, in float32
+    and bfloat16. Fake CUDA tensors show the operators that a call reaches
+    without a card.
+  * On the CPU those operators' bodies are the plain versions: the same
+    bits as `F.pad(-inf)` + `F.max_pool3d`, eager and in a program traced
+    on the CPU, which holds one operator node a pool. A window over 3 or a
+    stride over 2 is refused on the CPU as on the card.
   * Under autograd a strided pool keeps PyTorch's pool and backward, a
     stride-1 pool `ops/pool_grad.py`'s Function.
   * `step::max_pool3d_same` equals `F.pad(-inf)` + `F.max_pool3d` by raw
@@ -25,6 +26,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from step_tpu_torch.models import i3d
 from step_tpu_torch.ops import pool
+from step_tpu_torch.ops.kernel_op import LAUNCHES
 from tests.test_torch_port_gpu import pad_then_pool, raw_bits, special_values
 
 # The detector's and the classifier's pools: Mixed_* (3x3x3 stride 1),
@@ -57,16 +59,17 @@ def _routed_ops(window, stride, dtype=torch.bfloat16):
     return [n for n in ops.names if "pool" in n], y
 
 
-@pytest.mark.parametrize("variable", ["direct", "pallas"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,stride", POOLS)
-def test_cuda_pools_take_a_kernel_whatever_the_variable(monkeypatch, variable, window,
-                                                        stride):
-    monkeypatch.setenv("STEP_TPU_POOL3D", variable)
-    names, y = _routed_ops(window, stride)
+def test_cuda_pools_take_a_kernel_whatever_the_variable(dtype, window, stride):
+    """Every pool of a CUDA tensor reaches its kernel's operator, whatever
+    its dtype; the output keeps the dtype and `channels_last_3d` order."""
+    names, y = _routed_ops(window, stride, dtype)
     want = "step::max_pool3x3_same" if stride == (1, 1, 1) else "step::max_pool3d_same"
     assert names == [want]
     assert tuple(y.shape) == pool.max_pool3d_same_shape((2, 16, 9, 11, 13), stride)
     assert y.device.type == "cuda" and y.is_contiguous(memory_format=torch.channels_last_3d)
+    assert y.dtype == dtype
 
 
 OUTSIDE = [((1, 4, 4), (1, 2, 2)), ((3, 3, 3), (3, 3, 3)), ((1, 1, 5), (1, 1, 1))]
@@ -89,29 +92,48 @@ def test_cuda_pools_outside_the_kernels_contract_are_refused(window, stride):
 
 @pytest.mark.parametrize("window,stride", OUTSIDE)
 def test_cpu_pools_outside_the_kernels_contract_keep_the_plain_version(window, stride):
+    """A pool outside the strided kernel's contract is refused on the CPU,
+    as on the card: no PyTorch pool stands in for the kernel on either
+    device, and no model has such a pool."""
     x = special_values(5, (1, 4, 6, 9, 11), torch.float32)
-    with torch.no_grad():
-        got = i3d.max_pool_3d(x, window, stride)
-    assert torch.equal(raw_bits(got), raw_bits(pad_then_pool(x, window, stride)))
+    with torch.no_grad(), pytest.raises(ValueError, match="windows of 1 to 3"):
+        i3d.max_pool_3d(x, window, stride)
 
 
-@pytest.mark.parametrize("variable", ["direct", "pallas"])
+class _Pool(torch.nn.Module):
+    def __init__(self, window, stride):
+        super().__init__()
+        self.window, self.stride = window, stride
+
+    def forward(self, x):
+        return i3d.max_pool_3d(x, self.window, self.stride)
+
+
+@pytest.mark.parametrize("mode", ["eager", "traced"])
 @pytest.mark.parametrize("window,stride", POOLS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cpu_pools_keep_their_bits(monkeypatch, variable, window, stride, dtype):
+def test_cpu_pools_keep_their_bits(mode, window, stride, dtype):
     """On the CPU every pool gives `F.pad(-inf)` + `F.max_pool3d`'s bits,
-    on special values too; only a 3x3x3 stride-1 pool under "pallas"
-    reaches a `step::` operator (K5's, whose CPU implementation is that
-    plain pool)."""
-    monkeypatch.setenv("STEP_TPU_POOL3D", variable)
+    on special values too, eager and as a program traced on the CPU
+    (`torch.export`); each call reaches its one `step::` operator (K5's
+    for 3x3x3 stride 1, the strided pool's otherwise), whose CPU
+    implementation is that plain pool."""
     x = special_values(3, (2, 8, 5, 9, 11), dtype).contiguous(
         memory_format=torch.channels_last_3d)
-    with torch.no_grad(), Ops() as ops:
-        got = i3d.max_pool_3d(x, window, stride)
+    want_op = "max_pool3x3_same" if stride == (1, 1, 1) else "max_pool3d_same"
+    with torch.no_grad():
+        if mode == "eager":
+            with Ops() as ops:
+                got = _Pool(window, stride)(x)
+            steps = [n for n in ops.names if n.startswith("step::")]
+        else:
+            program = torch.export.export(_Pool(window, stride), (x,))
+            got = program.module()(x)
+            steps = [str(n.target).replace(".default", "").replace("step.", "step::")
+                     for n in program.graph.nodes
+                     if n.op == "call_function" and str(n.target).startswith("step.")]
     assert torch.equal(raw_bits(got), raw_bits(pad_then_pool(x, window, stride)))
-    steps = [n for n in ops.names if n.startswith("step::")]
-    kernel = variable == "pallas" and stride == (1, 1, 1)
-    assert steps == (["step::max_pool3x3_same"] if kernel else [])
+    assert steps == [f"step::{want_op}"]
 
 
 @pytest.mark.parametrize("window,stride", POOLS)
@@ -132,17 +154,19 @@ def test_autograd_keeps_the_training_pools(window, stride):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_strided_pool_op_equals_pad_then_pool(shape, window, stride, dtype):
     x = special_values(7, shape, dtype).contiguous(memory_format=torch.channels_last_3d)
+    before = LAUNCHES["max_pool3d_same"]
     got = pool.max_pool3d_same(x, window, stride)
     assert got.is_contiguous(memory_format=torch.channels_last_3d)
     assert torch.equal(raw_bits(got.contiguous()),
                        raw_bits(pad_then_pool(x, window, stride).contiguous()))
-    assert pool.max_pool3d_same.launches == 0          # no kernel on the CPU
+    assert LAUNCHES["max_pool3d_same"] == before        # no kernel on the CPU
 
 
 @pytest.mark.parametrize("window,stride", STRIDED)
 def test_strided_pool_op_passes_opcheck(window, stride):
     x = torch.randn(2, 8, 5, 9, 11).contiguous(memory_format=torch.channels_last_3d)
-    torch.library.opcheck(pool.max_pool3d_same_op, (x, list(window), list(stride)))
+    torch.library.opcheck(torch.ops.step.max_pool3d_same.default,
+                          (x, list(window), list(stride)))
 
 
 def test_strided_pool_op_is_one_node_of_an_exported_program():

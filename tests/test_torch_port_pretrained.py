@@ -22,7 +22,6 @@ against the JAX package, on the CPU.
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
-import os
 
 import jax
 import jax.numpy as jnp
@@ -201,12 +200,8 @@ def test_classifier_logits_equal_the_jax_package(classifier):
     # the kernel configuration (fused_bn_relu, K5 pools), plain versions here
     kmodel = I3DClassifier(num_classes=7, fused_bn_relu=True).eval()
     kmodel.load_state_dict(sd)
-    os.environ["STEP_TPU_POOL3D"] = "pallas"
-    try:
-        with torch.no_grad():
-            kernel = kmodel(torch.from_numpy(x)).numpy()
-    finally:
-        os.environ["STEP_TPU_POOL3D"] = "direct"
+    with torch.no_grad():
+        kernel = kmodel(torch.from_numpy(x)).numpy()
     np.testing.assert_allclose(kernel, got, rtol=1e-5, atol=1e-5 * np.abs(got).max())
 
 

@@ -9,8 +9,7 @@
     same detections (frames and classes equal, scores within rtol 1e-5 /
     atol 1e-6, boxes within rtol 1e-4 / atol 1e-3 px, that test's
     bounds), as the evaluated model, as the `--optimized` tree and as the
-    kernel configuration (`--set fused_bn_relu=True`, exported under
-    `STEP_TPU_POOL3D=pallas` and served without it). Both pin the cv2
+    kernel configuration (`--set fused_bn_relu=True`). Both pin the cv2
     decoder (`STEP_TPU_DISABLE_NATIVE`).
   * A directory of videos, served with the next video's decode in
     flight, gives each video the detections of its standalone serve.
@@ -98,11 +97,8 @@ def programs(tmp_path_factory):
     out = {}
     for optimized in ((), ("--optimized",), KERNELS):
         out[optimized] = str(root / f"detect{len(optimized)}.pt2")
-        with pytest.MonkeyPatch.context() as mp:
-            if optimized == KERNELS:            # the pool switch, read at trace time
-                mp.setenv("STEP_TPU_POOL3D", "pallas")
-            _quiet(cli_export.main, ["--batch-size", "2", "--out", out[optimized],
-                                     "--device", "cpu", *TINY3_SET, *optimized])
+        _quiet(cli_export.main, ["--batch-size", "2", "--out", out[optimized],
+                                 "--device", "cpu", *TINY3_SET, *optimized])
     return out
 
 
@@ -118,11 +114,8 @@ def test_serve_matches_test_cli(mini_ucf3, checkpoint, programs, tmp_path,  # no
                                 monkeypatch, optimized):
     monkeypatch.setenv("STEP_TPU_DISABLE_NATIVE", "1")
     dump = str(tmp_path / "test_dets.pkl")
-    if optimized == KERNELS:
-        monkeypatch.setenv("STEP_TPU_POOL3D", "pallas")
     _quiet(cli_test.main, ["--data-root", mini_ucf3, "--ckpt-dir", checkpoint,
                            "--dump", dump, "--device", "cpu", *TINY3_SET, *optimized])
-    monkeypatch.delenv("STEP_TPU_POOL3D", raising=False)  # the program keeps its pools
     with open(dump, "rb") as f:
         test_dets = [d for d in pickle.load(f)["detections"] if d[0][0] == "Run/v2"]
 
