@@ -194,9 +194,10 @@ Phases, each fatal on failure (exit code 1, no result line):
      `optimize_for_inference`'s tree, bf16, exported with `torch.export` at
      B=8 and B=1 on the card (`utils/export.py`): its bytes under 10% of the
      state dict's (the weights are an input), 1 `step::nms_surface`, 3
-     `step::tube_roi_align`, 13 `step::max_pool3x3_same` and 3
-     `step::max_pool3d_same` nodes (a program traced on the card holds its
-     pools as the kernels' nodes); loaded and run on uint8 clips, K1 1 and
+     `step::tube_roi_align`, 7 `step::max_pool3x3_same` (the heads' six
+     pools run inside their blocks), 3 `step::max_pool3d_same`, 6
+     `step::inception_block` and 3 `step::conv1x1x1_bias_relu` nodes (a
+     program traced on the card holds its pools as the kernels' nodes); loaded and run on uint8 clips, K1 1 and
      K2 3 launches a request, every K1 and K2 call of a B=8 request held
      against its plain version on its own inputs and timed on them; the
      served request's median at B=8 and B=1 beside eager `detect_clip`'s;
@@ -278,6 +279,22 @@ Phases, each fatal on failure (exit code 1, no result line):
      `ava_videomae_b16` detector (built as `benchmark/program.py::Server`
      builds them), every stem launch held against plain at its launcher:
      1 and 0 launches (`STEM_LAUNCHES`).
+ 36. the heads' served Inception block (`inception_phase`,
+     `ops/inception.py::inception_block`; the 1x1x1 GEMM `csrc/gemm.cu` and
+     the tube conv `csrc/conv3d.cu::tube_conv_kernel` replace no TPU
+     kernel beyond K3's): the tube conv's HGMMA instructions counted; at
+     each served block shape of the three cells (Mixed_5b and 5c at
+     [512, 832, 5, 7, 7]; the ViT cell's at [512, 768|832, 9, 7, 7]) and
+     of a B=1 request ([16, 832, 5, 7, 7]), the operator held against a
+     float32 model of its arithmetic (`block_close`) and timed, whole and
+     kernel by kernel, beside its bound, the plain version and today's path
+     (cuDNN conv, bias add, ReLU, slice copies, cat: the library yardstick,
+     which the port no longer calls) and, for each conv, cuDNN's conv alone;
+     then one B=32 request of `ucf_3step`, `ava_3step` and
+     `ava_videomae_b16` and one B=1 request of `ucf_3step`, built as
+     `benchmark/program.py::Server` builds them, every block held against
+     the model at its call: 6 blocks and 3 head reductions a request
+     (`INCEPTION_LAUNCHES`).
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -421,10 +438,10 @@ def bound(nbytes: float, ops: float, peak_ops: float) -> dict:
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
-def hgmma_count(library, nvcc: str, kernel: str = "conv_bf16_kernel") -> int:
+def hgmma_count(library, nvcc: str, kernel: str = "igemm_kernel") -> int:
     """HGMMA instructions in the SASS of the kernels whose names hold
-    `kernel` (K3's bf16 kernels by default), read with the cuobjdump beside
-    nvcc."""
+    `kernel` (the bf16 implicit GEMM of K3 and the 1x1x1 conv by default),
+    read with the cuobjdump beside nvcc."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True,
                           text=True, timeout=300)
@@ -1012,6 +1029,226 @@ def stem_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
     return dict(launches=launches, hgmma=n_hgmma, shapes=shapes)
 
 
+# The heads' Inception blocks: a B=32 request of each cell's configuration
+# runs six (two a head, three heads) and three head reductions; a B=1
+# request the same.
+INCEPTION_LAUNCHES = {"inception_block": 6, "conv1x1x1_bias_relu": 3}
+INCEPTION_SHAPES = {"I3D Mixed_5b B=32": (512, 832, 5, "Mixed_5b"),
+                    "I3D Mixed_5c B=32": (512, 832, 5, "Mixed_5c"),
+                    "ViT Mixed_5b B=32": (512, 768, 9, "Mixed_5b"),
+                    "ViT Mixed_5c B=32": (512, 832, 9, "Mixed_5c"),
+                    "I3D Mixed_5b B=1": (16, 832, 5, "Mixed_5b"),
+                    "I3D Mixed_5c B=1": (16, 832, 5, "Mixed_5c")}
+
+
+def block_model(x, weights, channels):
+    """The operator's arithmetic in float32 on bf16 x, from the units'
+    OIDHW weights and biases (w012, b012, w1b, b1b, w2b, b2b, w3b, b3b):
+    each unit's sum, bias and ReLU in float32, rounded once, b1 and b2 on
+    b012's rounded output; with the terms |y| * |w| each b1/b2 output adds
+    up (zero elsewhere)."""
+    w012, b012, w1b, b1b, w2b, b2b, w3b, b3b = (t.float() for t in weights)
+    c0, c1, c2, c3, c4, c5 = channels
+    unit = lambda t, w, b: torch.relu(F.conv3d(t, w, b, 1, w.shape[2] // 2))  # noqa: E731
+    xf = x.float()
+    y = unit(xf, w012, b012).to(torch.bfloat16).float()
+    y1, y2 = y[:, c0: c0 + c1], y[:, c0 + c1:]
+    out = torch.cat([y[:, :c0], unit(y1, w1b, b1b), unit(y2, w2b, b2b),
+                     unit(F.max_pool3d(xf, 3, 1, 1), w3b, b3b)], dim=1)
+    terms = torch.zeros_like(out)
+    terms[:, c0: c0 + c2] = F.conv3d(y1.abs(), w1b.abs(), None, 1, 1)
+    terms[:, c0 + c2: c0 + c2 + c4] = F.conv3d(y2.abs(), w2b.abs(), None, 1, 1)
+    return out, terms
+
+
+def block_close(got, want, terms) -> bool:
+    """One bf16 step of the output, 2^-15, and one bf16 step of each term
+    a b1/b2 output adds up: b012's rounding of a y may fall the other way
+    where its float32 sum is taken in another order."""
+    err = (got.float() - want).abs()
+    return bool((err <= BF16_RTOL * (want.abs() + terms) + 2.0 ** -15).all())
+
+
+def unpacked_block(weights, cin, channels):
+    """The units' OIDHW weights and float32 biases from the operator's
+    packed arguments (`ops/inception.py::block_kernel_weights`)."""
+    from step_tpu_torch.ops.conv3d import unpack_kernel_weight, unpack_tube_weight
+
+    w012, b012, w1b, b1b, w2b, b2b, w3b, b3b = weights
+    c0, c1, c2, c3, c4, c5 = channels
+    return (unpack_kernel_weight(w012, cin, c0 + c1 + c3, 1), b012,
+            unpack_tube_weight(w1b, c1, c2), b1b, unpack_tube_weight(w2b, c3, c4), b2b,
+            unpack_kernel_weight(w3b, cin, c5, 1), b3b)
+
+
+def block_case(shape, gen: torch.Generator) -> dict:
+    """The operator at one served shape `(N, Cin, T', block)`: held against
+    `block_model`, the whole block's device ms (its calls captured in a CUDA
+    graph) beside the sum of its kernels' bounds, the plain version's ms and
+    today's path's (`library_ms`); then each kernel on preallocated
+    outputs: its device ms, bound, today's unit (cuDNN conv with the bias,
+    the ReLU, on the slice: `library_ms`) and cuDNN's conv alone on a
+    channels-last input (`library_conv_ms`)."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.models.i3d import INCEPTION_CHANNELS, InceptionBlock
+    from step_tpu_torch.ops import inception
+
+    N, cin, T, name = shape
+    channels = INCEPTION_CHANNELS[name]
+    c0, c1, c2, c3, c4, c5 = channels
+    block = InceptionBlock(cin, channels, bn_folded=True, fused_inception=True).eval()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen, device=gen.device).cpu()
+                    / math.sqrt(max(p[0].numel(), 1)))
+    block = block.to(gen.device, torch.bfloat16).requires_grad_(False)
+    x = torch.relu(torch.randn((N, cin, T, 7, 7), generator=gen, device=gen.device)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last_3d)
+    units = (block.b012, block.b1b, block.b2b, block.b3b)
+    tensors = [t for u in units for t in (u.conv.weight, u.conv.bias)]
+    weights = inception.block_kernel_weights(tensors, torch.bfloat16)
+    with torch.no_grad():
+        got = inception.inception_block(x, weights, channels)
+        want, terms = block_model(x, tensors, channels)
+        torch.cuda.synchronize()
+        err = float((got.float() - want).abs().max())
+        check(block_close(got, want, terms),
+              f"the Inception block at {list(x.shape)} ({name}) differs from its model: "
+              f"max |err| {err}")
+        del want, terms
+        M = N * T * 49
+        xr = kernels.ndhwc(x)
+        out = torch.empty((N, T, 7, 7, c0 + c2 + c4 + c5), dtype=torch.bfloat16,
+                          device=x.device)
+        scratch = torch.empty((N, T, 7, 7, c1 + c3), dtype=torch.bfloat16, device=x.device)
+        pooled = torch.empty_like(xr)
+        w012, b012, w1b, b1b, w2b, b2b, w3b, b3b = weights
+        y = block.b012(x)
+        s1, s2 = y[:, c0: c0 + c1], y[:, c0 + c1:]
+        cl = lambda t: t.contiguous(memory_format=torch.channels_last_3d)  # noqa: E731
+        kernel_cases = {
+            "b012 1x1x1 GEMM (split epilogue)": (
+                lambda: kernels.igemm_forward(xr, w012, None, b012, (out[..., :c0], scratch), 1),
+                2 * M * (cin + c0 + c1 + c3), 2 * M * cin * (c0 + c1 + c3), block.b012, x),
+            "b1b tube conv": (
+                lambda: kernels.tube_conv_forward(scratch[..., :c1], w1b, b1b,
+                                                  out[..., c0: c0 + c2]),
+                2 * M * (c1 + c2), 2 * M * 27 * c1 * c2, block.b1b, s1),
+            "b2b tube conv": (
+                lambda: kernels.tube_conv_forward(scratch[..., c1:], w2b, b2b,
+                                                  out[..., c0 + c2: c0 + c2 + c4]),
+                2 * M * (c3 + c4), 2 * M * 27 * c3 * c4, block.b2b, s2),
+            "b3 pool (K5)": (lambda: kernels.max_pool3x3_forward(xr, pooled),
+                             2 * M * 2 * cin, 0, None, None),
+            "b3b 1x1x1 GEMM": (
+                lambda: kernels.igemm_forward(pooled, w3b, None, b3b, (out[..., -c5:],), 1),
+                2 * M * (cin + c5), 2 * M * cin * c5, block.b3b, x),
+        }
+        rows, total_bound = {}, 0.0
+        for label, (launch, nbytes, ops, unit, unit_in) in kernel_cases.items():
+            r = dict(ms=device_ms(launch), **bound(nbytes, ops, BF16_TENSOR_FLOPS))
+            if unit is not None:
+                from step_tpu_torch.models.i3d import conv3d_same
+                wb, bb = unit.conv.weight, unit.conv.bias
+                r["library_ms"] = device_ms(lambda: F.relu(conv3d_same(unit_in, wb, bb,
+                                                                       (1, 1, 1))), n=5, reps=2)
+                dense = cl(unit_in)
+                r["library_conv_ms"] = device_ms(lambda: conv3d_same(dense, wb, None,
+                                                                     (1, 1, 1)), n=5, reps=2)
+            total_bound += r["bound_ms"]
+            rows[label] = r
+        del y, s1, s2
+        r = dict(max_abs_err=err,
+                 ms=device_ms(lambda: inception.inception_block(x, weights, channels), n=5,
+                              reps=2),
+                 wrapper_ms=cuda_ms(lambda: inception.inception_block(x, weights, channels)),
+                 bound_ms=total_bound,
+                 plain_ms=cuda_ms(lambda: inception.inception_block_plain(x, *tensors, channels),
+                                  iters=5, warmup=1),
+                 library_ms=device_ms(lambda: block(x), n=5, reps=2), kernels=rows)
+    return r
+
+
+def inception_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
+    """Phase 36, the heads' served Inception block: each of
+    `INCEPTION_SHAPES` held and timed (`block_case`), then a B=32 request of
+    each cell's detector and a B=1 request of `ucf_3step`, built as
+    `benchmark/program.py::Server` builds them, with every block held
+    against its model at its call and the launches counted
+    (`INCEPTION_LAUNCHES`). Returns the entry's `shapes` and `launches`."""
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.models import i3d
+    from step_tpu_torch.ops import inception
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
+
+    t36 = time.time()
+    check(n_hgmma > 0, "the tube conv kernels hold no HGMMA instruction")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 36)
+    shapes = {}
+    for label, shape in INCEPTION_SHAPES.items():
+        r = shapes[f"{label} {list(shape[:3])} + [7, 7]"] = block_case(shape, gen)
+        torch.cuda.empty_cache()
+        print(f"[36] Inception block {label} {list(shape[:3])}: max |err| "
+              f"{r['max_abs_err']:.3g} against its model; block {r['ms']:.4f} ms "
+              f"({r['bound_ms'] / r['ms']:.1%} of the {r['bound_ms']:.4f} ms bound), "
+              f"wrapper {r['wrapper_ms']:.4f}, plain {r['plain_ms']:.4f}, today's path "
+              f"(library) {r['library_ms']:.4f} ms", flush=True)
+        for name, k in r["kernels"].items():
+            lib = (f"; today's unit {k['library_ms']:.4f}, cuDNN conv alone "
+                   f"{k['library_conv_ms']:.4f} ms" if "library_ms" in k else "")
+            print(f"       {name}: {k['ms']:.4f} ms ({k['bound_ms'] / k['ms']:.1%} of the "
+                  f"{k['bound_ms']:.4f} ms bound, {k['bound_by']}){lib}", flush=True)
+    launches = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name, B in (("ucf_3step", 32), ("ava_3step", 32), ("ava_videomae_b16", 32),
+                    ("ucf_3step", 1)):
+        with open(os.path.join(here, "benchmark", "configs", f"{name}.json")) as f:
+            fields = json.load(f)["config"]
+        server = Server(fields, work.make_weights(reference.config(fields), SEED + 36, dev),
+                        dev)
+        cfg = server.cfg
+        T, S = cfg.total_frames, cfg.image_size
+        props, pmask = server.proposals(B)
+        clips = [torch.from_numpy(rng.randint(0, 256, (B, T, S, S, 3)).astype(np.uint8))
+                 .to(dev) for _ in range(2)]
+        server.detect(clips[0], props, pmask)       # warm-up
+        torch.cuda.synchronize()
+        held, errors = [], []
+        real = i3d.inception_block
+
+        def hold(x, weights, channels):
+            got = real(x, weights, channels)
+            tensors = unpacked_block(weights, x.shape[1], channels)
+            want, terms = block_model(x, tensors, channels)
+            err = float((got.float() - want).abs().max())
+            check(block_close(got, want, terms),
+                  f"a block call at {list(x.shape)} differs from its model: max |err| {err}")
+            held.append(tuple(x.shape))
+            errors.append(err)
+            return got
+
+        before = {k: LAUNCHES[k] for k in INCEPTION_LAUNCHES}
+        with swapped(real, hold):
+            out = server.detect(clips[1], props, pmask)
+            torch.cuda.synchronize()
+        counts = {k: LAUNCHES[k] - before[k] for k in INCEPTION_LAUNCHES}
+        check(counts == INCEPTION_LAUNCHES and len(held) == 6
+              and bool(torch.isfinite(out["tubes"]).all()),
+              f"a B={B} request of {name} launched {counts} ({len(held)} blocks held), not "
+              f"{INCEPTION_LAUNCHES}")
+        launches[f"{name}_b{B}"] = dict(counts, max_abs_err=max(errors))
+        print(f"[36] {name} B={B} ({smi_line}): {counts} a request, blocks at "
+              f"{sorted(set(held))}, each held against its model (max |err| "
+              f"{max(errors):.3g})", flush=True)
+        del server, clips, out
+        torch.cuda.empty_cache()
+    print(f"    phase 36 took {time.time() - t36:.1f} s", flush=True)
+    return dict(launches=launches, hgmma=n_hgmma, shapes=shapes)
+
+
 def bn_case(shape, gen: torch.Generator) -> dict:
     """K4 at one NCDHW shape: float32 within 1e-6 and bfloat16 within one
     rounding step of the plain version; its bf16 device, wrapper and plain
@@ -1057,7 +1294,7 @@ def conv_case(shape, K: int, rng, dev) -> dict:
     (the library's yardstick), the plain version and the bound."""
     from step_tpu_torch import kernels
     from step_tpu_torch.ops.conv3d import (conv3x3x3_bn_relu, conv3x3x3_bn_relu_plain,
-                                           pack_conv3x3x3_weight)
+                                           pack_conv_weight)
 
     x32 = randn_cl(rng, shape, dev)
     w = torch.randn(K, shape[1], 3, 3, 3, device=dev) / (27 * shape[1]) ** 0.5
@@ -1076,7 +1313,7 @@ def conv_case(shape, K: int, rng, dev) -> dict:
     err16 = float((got.float() - want.float()).abs().max())
     check(got.dtype == torch.bfloat16 and bf16_close(got, want, K3_BF16_ATOL),
           f"K3 conv bf16 {shape}->{K} differs from plain: max |err| {err16}")
-    packed, out16 = pack_conv3x3x3_weight(w, torch.bfloat16), torch.empty_like(got)
+    packed, out16 = pack_conv_weight(w, torch.bfloat16), torch.empty_like(got)
     cache = {}          # as a Unit3D calls it: its bf16 weight layout cached
     w_fold = (w * scale.view(-1, 1, 1, 1, 1)).to(torch.bfloat16)
     b_fold = bias.to(torch.bfloat16)
@@ -1090,7 +1327,7 @@ def conv_case(shape, K: int, rng, dev) -> dict:
                                                      weight_cache=cache), iters=10),
         plain_ms=cuda_ms(lambda: conv3x3x3_bn_relu_plain(x16, w, scale, bias), iters=10),
         library_ms=cuda_ms(lambda: F.relu_(F.conv3d(x16, w_fold, b_fold, 1, 1)), iters=10),
-        pack_ms=cuda_ms(lambda: pack_conv3x3x3_weight(w, torch.bfloat16)),
+        pack_ms=cuda_ms(lambda: pack_conv_weight(w, torch.bfloat16)),
         **bound(x16.numel() * 2 + w16.numel() * 2 + M * K * 2 + 2 * K * 4, flop,
                 BF16_TENSOR_FLOPS))
 
@@ -3291,9 +3528,13 @@ def serving_phases(dev, rng, seeded, smi_line: str, reset_counts, read_counts) -
           flush=True)
     check(len(blobs[8]) < 0.1 * sd_bytes,
           f"the program takes {len(blobs[8])} bytes, 10% or more of the weights' {sd_bytes}")
+    # Each step's tail is two `step::inception_block` nodes, whose pools run
+    # inside them, and its reduction one `step::conv1x1x1_bias_relu`.
+    blocks = 2 * scfg.num_steps
     want_nodes = {"nms_surface": 1, "tube_roi_align": scfg.num_steps, "stem_conv": 1,
-                  "max_pool3x3_same": sum(backbone_launches(scfg, 8)[1].values()),
-                  "max_pool3d_same": sum(strided_launches(scfg, 8).values())}
+                  "max_pool3x3_same": sum(backbone_launches(scfg, 8)[1].values()) - blocks,
+                  "max_pool3d_same": sum(strided_launches(scfg, 8).values()),
+                  "inception_block": blocks, "conv1x1x1_bias_relu": scfg.num_steps}
     check(nodes == want_nodes, f"the program holds {nodes}, not {want_nodes}")
     t0 = time.time()
     runs = {b: export.load_detect_fn(blob) for b, blob in blobs.items()}
@@ -3556,7 +3797,7 @@ def device_ms_by_kernel(fn, fragments: dict) -> tuple[dict, float]:
             sum(e.self_device_time_total for e in events) / 1e3)
 
 
-BACKBONE_KERNEL_NAMES = {"conv3x3x3_bn_relu": ("conv_bf16_kernel", "conv_f32_kernel"),
+BACKBONE_KERNEL_NAMES = {"conv3x3x3_bn_relu": ("igemm_kernel", "conv_f32_kernel"),
                          "fused_scale_bias_relu": ("scale_bias_relu_kernel",),
                          "max_pool3x3_same": ("max_pool3x3_kernel",)}
 
@@ -3571,7 +3812,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
     from step_tpu_torch.inference import detect_clip
     from step_tpu_torch.models.detector import STEPDetector
     from step_tpu_torch.models.i3d import Unit3D
-    from step_tpu_torch.ops.conv3d import pack_conv3x3x3_weight
+    from step_tpu_torch.ops.conv3d import pack_conv_weight
     from step_tpu_torch.utils import export
 
     t30 = time.time()
@@ -3642,7 +3883,7 @@ def kernel_program_phases(dev, rng, seeded, smi_line: str, reset_counts,
             by_kernel, total_ms = device_ms_by_kernel(
                 lambda: runs[8](weights, clip, props, pmask), BACKBONE_KERNEL_NAMES)
             units = [u for u in model.modules() if isinstance(u, Unit3D) and u.conv_bn_relu]
-            n_pack, pack_ms = profiled(lambda: [pack_conv3x3x3_weight(u.conv.weight,
+            n_pack, pack_ms = profiled(lambda: [pack_conv_weight(u.conv.weight,
                                                                       torch.bfloat16)
                                                 for u in units])
             for name, (n, ms) in by_kernel.items():
@@ -4464,8 +4705,10 @@ def main() -> None:
             print("    " + line.strip())
     n_hgmma = hgmma_count(path, kernels.nvcc_path())
     n_stem_hgmma = hgmma_count(path, kernels.nvcc_path(), "stem_conv_kernel")
-    print(f"    HGMMA instructions in K3's bf16 kernels: {n_hgmma}; in the stem conv "
-          f"kernels: {n_stem_hgmma}", flush=True)
+    n_tube_hgmma = hgmma_count(path, kernels.nvcc_path(), "tube_conv_kernel")
+    print(f"    HGMMA instructions in the implicit GEMM's kernels (K3, the 1x1x1 conv): "
+          f"{n_hgmma}; in the stem conv kernels: {n_stem_hgmma}; in the tube conv "
+          f"kernels: {n_tube_hgmma}", flush=True)
 
     rng = np.random.RandomState(SEED)
     results = {}
@@ -4816,6 +5059,7 @@ def main() -> None:
     pools_b32 = pool_b32_phase(dev, {k: main_launches[k] // main_req for k in main_pools})
     vit = vit_phase(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     stem = stem_phase(dev, rng, smi.stdout.strip(), n_stem_hgmma)
+    blocks = inception_phase(dev, rng, smi.stdout.strip(), n_tube_hgmma)
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align",
                                                  "max_pool3x3_same", "max_pool3d_same")},
@@ -4847,7 +5091,10 @@ def main() -> None:
          **benches[name], **pools_b32.get(name, {}), **vit[name]}
         for name, (src, rep) in meta.items()] + [
         {"name": "stem_conv", "route": "cuda", "source": "step_tpu_torch/csrc/stem_conv.cu",
-         "replaces": None, **stem}]}))
+         "replaces": None, **stem},
+        {"name": "inception_block", "route": "cuda",
+         "source": "step_tpu_torch/csrc/gemm.cu, step_tpu_torch/csrc/conv3d.cu",
+         "replaces": "step_tpu/ops/conv3d_pallas.py:45 (the 3x3x3 convs)", **blocks}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

@@ -31,8 +31,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "pool3d_same.cu", "bn_relu.cu",
-           "conv3d.cu", "stem_conv.cu", "errors.cu")
-HEADERS = ("wgmma.cuh", "sm_count.cuh", "max_merge.cuh")
+           "conv3d.cu", "gemm.cu", "stem_conv.cu", "errors.cu")
+HEADERS = ("igemm.cuh", "wgmma.cuh", "sm_count.cuh", "max_merge.cuh")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
 # no multiply-add may be contracted into an FMA (the float32 conv and the
 # ROI-align kernels ask for their FMAs explicitly, with fmaf). -Xptxas -v
@@ -123,8 +123,12 @@ def library() -> ctypes.CDLL:
     lib.step_scale_bias_relu.restype = i
     lib.step_conv3x3x3_bn_relu_f32.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.step_conv3x3x3_bn_relu_f32.restype = i
-    lib.step_conv3x3x3_bn_relu_bf16.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, p]
-    lib.step_conv3x3x3_bn_relu_bf16.restype = i
+    for taps in IGEMM_TAPS.values():
+        fn = getattr(lib, taps)
+        fn.argtypes = [p, i, p, p, p, p, i, p, i] + [i] * 11 + [p]
+        fn.restype = i
+    lib.step_conv3x3x3_tube_bf16.argtypes = [p, i, p, p, p, i, i, i, i, i, i, p]
+    lib.step_conv3x3x3_tube_bf16.restype = i
     lib.step_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.step_stem_conv.restype = i
     lib.step_cuda_error_string.argtypes = [i]
@@ -360,11 +364,12 @@ def conv_tile_n(K: int) -> int:
     return min((n for n in CONV_TILE_N if n >= K), default=128)
 
 
-def conv_packed_shape(C: int, K: int) -> tuple[int, int, int]:
-    """(Kw, Rpad, Cpad) of the packed bf16 conv weight: C rounded up to 8,
-    the reduction 27 * Cpad rounded up to CONV_TILE_K, K up to its tile."""
+def conv_packed_shape(C: int, K: int, taps: int = 27) -> tuple[int, int, int]:
+    """(Kw, Rpad, Cpad) of the packed bf16 weight of a conv with `taps`
+    taps (27 or 1): C rounded up to 8, the reduction taps * Cpad rounded up
+    to CONV_TILE_K, K up to its tile."""
     cpad = -(-C // 8) * 8
-    rpad = -(-27 * cpad // CONV_TILE_K) * CONV_TILE_K
+    rpad = -(-taps * cpad // CONV_TILE_K) * CONV_TILE_K
     bn = conv_tile_n(K)
     return -(-K // bn) * bn, rpad, cpad
 
@@ -375,9 +380,10 @@ def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
     """Launch `csrc/conv3d.cu`: x `[N, T, H, W, C]` and out
     `[N, T, H, W, K]` in one dtype, scale and bias `[K]` f32. In float32 w
     is tap-major `[27, C, K]` (the CUDA-core kernel); in bfloat16 it is the
-    packed `[Kw, Rpad]` matrix of `ops/conv3d.py::pack_conv3x3x3_weight`
-    (the tensor-core kernel), whose block the launcher picks from the shape
-    unless `warpgroups` forces one (2, or the widest for the tile width)."""
+    packed `[Kw, Rpad]` matrix of `ops/conv3d.py::pack_conv_weight` (the
+    tensor-core kernel, `igemm_forward`), whose block the launcher picks
+    from the shape unless `warpgroups` forces one (2, or the widest for the
+    tile width)."""
     _need_cuda(x, "conv3x3x3_bn_relu")
     dev = x.device
     if x.dim() != 5 or w.dim() not in (2, 3) or out.dim() != 5:
@@ -392,22 +398,132 @@ def conv3x3x3_bn_relu_forward(x: torch.Tensor, w: torch.Tensor,
     _check(scale, "scale", torch.float32, (K,), dev)
     _check(bias, "bias", torch.float32, (K,), dev)
     _check(out, "out", x.dtype, (N, T, H, W, K), dev)
-    lib = library()
-    if x.dtype == torch.float32:
-        _check(w, "w", x.dtype, (27, C, K), dev)
-        with torch.cuda.device(dev):
-            err = lib.step_conv3x3x3_bn_relu_f32(
-                x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), N, T, H, W, C, K, _stream(dev))
-    else:
-        kw, rpad, cpad = conv_packed_shape(C, K)
-        _check(w, "w", x.dtype, (kw, rpad), dev)
-        with torch.cuda.device(dev):
-            err = lib.step_conv3x3x3_bn_relu_bf16(
-                x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), N, T, H, W, C, K, cpad, rpad, conv_tile_n(K),
-                int(warpgroups), _stream(dev))
+    if x.dtype == torch.bfloat16:
+        igemm_forward(x, w, scale, bias, (out,), 27, warpgroups)
+        return
+    _check(w, "w", x.dtype, (27, C, K), dev)
+    with torch.cuda.device(dev):
+        err = library().step_conv3x3x3_bn_relu_f32(
+            x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), N, T, H, W, C, K, _stream(dev))
     _raise_on(err, "conv3x3x3_bn_relu kernel launch")
+
+
+# The C entries of the bf16 implicit GEMM (csrc/igemm.cuh) by taps: the
+# 3x3x3 conv (csrc/conv3d.cu) and the 1x1x1 conv (csrc/gemm.cu).
+IGEMM_TAPS = {27: "step_conv3x3x3_bf16", 1: "step_conv1x1x1_bf16"}
+
+
+def row_stride(t: torch.Tensor, name: str) -> int:
+    """The row stride, in elements, of a channels-last `[N, T, H, W, C]`
+    view whose positions are evenly strided rows of contiguous channels: a
+    dense tensor (stride C) or a channel slice of a wider one. Else
+    ValueError."""
+    if t.dim() != 5 or t.stride(4) != 1:
+        raise ValueError(f"{name}: expected [N, T, H, W, C] with contiguous channels, "
+                         f"got shape {tuple(t.shape)} strides {t.stride()}")
+    ld, span = t.stride(3), 1
+    for d in (3, 2, 1, 0):
+        if t.shape[d] > 1 and t.stride(d) != span * ld:
+            raise ValueError(f"{name}: positions of shape {tuple(t.shape)} are not evenly "
+                             f"strided rows (strides {t.stride()})")
+        span *= t.shape[d]
+    return ld
+
+
+def igemm_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | None,
+                  bias: torch.Tensor, outs, taps: int, warpgroups: int = 0) -> None:
+    """Launch the bf16 tensor-core implicit GEMM (`csrc/igemm.cuh`) of a
+    stride-1 SAME conv with `taps` taps, 27 (3x3x3, `csrc/conv3d.cu`) or 1
+    (1x1x1, `csrc/gemm.cu`), with the affine or bias and the ReLU in its
+    epilogue: x `[N, T, H, W, C]` bf16 rows (`row_stride`: a channel slice
+    is read in place), w the packed `[Kw, Rpad]` weight of
+    `ops/conv3d.py::pack_conv_weight`, scale `[K]` f32 or None (1), bias
+    `[K]` f32; `outs` one or two bf16 `[N, T, H, W, k_i]` row views (each may
+    be a channel slice of a wider tensor) whose columns, concatenated, are
+    the K output channels. The 1x1x1 conv takes C a multiple of 8 and x
+    16-byte aligned."""
+    _need_cuda(x, "igemm")
+    dev = x.device
+    if taps not in IGEMM_TAPS or not 1 <= len(outs) <= 2:
+        raise ValueError(f"igemm: taps {taps} (1 or 27), {len(outs)} outputs (1 or 2)")
+    N, T, H, W, C = x.shape
+    ldx = row_stride(x, "x")
+    lds = [row_stride(o, f"out{i}") for i, o in enumerate(outs)]
+    K = sum(o.shape[4] for o in outs)
+    split = outs[0].shape[4]
+    _check(x, "x", torch.bfloat16, x.shape, dev, contiguous=False)
+    for i, o in enumerate(outs):
+        _check(o, f"out{i}", torch.bfloat16, (N, T, H, W, o.shape[4]), dev, contiguous=False)
+    if scale is not None:
+        _check(scale, "scale", torch.float32, (K,), dev)
+    _check(bias, "bias", torch.float32, (K,), dev)
+    kw, rpad, cpad = conv_packed_shape(C, K, taps)
+    _check(w, "w", torch.bfloat16, (kw, rpad), dev)
+    if taps == 1 and (C % 8 or ldx % 8 or x.data_ptr() % 16):
+        raise ValueError(f"igemm: the 1x1x1 conv takes C and the row stride in multiples "
+                         f"of 8 and a 16-byte aligned x, got C {C}, row stride {ldx}")
+    out1, ld1 = (outs[1].data_ptr(), lds[1]) if len(outs) == 2 else (None, 0)
+    with torch.cuda.device(dev):
+        err = getattr(library(), IGEMM_TAPS[taps])(
+            x.data_ptr(), ldx, w.data_ptr(), None if scale is None else scale.data_ptr(),
+            bias.data_ptr(), outs[0].data_ptr(), lds[0], out1, ld1, split,
+            N, T, H, W, C, K, cpad, rpad, conv_tile_n(K), int(warpgroups), _stream(dev))
+    _raise_on(err, f"igemm (taps {taps}) kernel launch")
+
+
+# The tube conv (csrc/conv3d.cu::tube_conv_kernel): the heads' 3x3x3 convs
+# over the 7x7 ROI grid, its output-channel tile widths (csrc/wgmma.cuh's
+# WgmmaRS) and the channels of one reduction chunk.
+TUBE_GRID = 7
+TUBE_TILE_N = (64, 128, 160)
+TUBE_CHUNK = 64
+
+
+def tube_tile_n(K: int) -> int:
+    """The tube conv's output-channel tile for K channels, chosen as
+    `conv_tile_n` chooses among `TUBE_TILE_N` (320 → 160, 384 → 128)."""
+    exact = [n for n in TUBE_TILE_N if K % n == 0]
+    if exact:
+        return max(exact)
+    return min((n for n in TUBE_TILE_N if n >= K), default=128)
+
+
+def tube_packed_shape(C: int, K: int) -> tuple[int, int, int, int]:
+    """The tube conv's packed weight: [tiles, steps, tile width, 64], one
+    step a (chunk of 64 channels, tap) pair, chunk-major."""
+    bn = tube_tile_n(K)
+    return -(-K // bn), 27 * -(-C // TUBE_CHUNK), bn, TUBE_CHUNK
+
+
+def tube_conv_forward(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Launch the tube conv (`csrc/conv3d.cu::tube_conv_kernel`): the 3x3x3
+    SAME conv of x `[N, T, 7, 7, C]` bf16 rows (`row_stride`: a channel
+    slice is read in place; C a multiple of 8, x 16-byte aligned) with the
+    tile-packed weight of `ops/conv3d.py::pack_tube_weight`, bias `[K]`
+    f32, then the ReLU, into out `[N, T, 7, 7, K]` bf16 rows (a channel
+    slice of a wider tensor or dense)."""
+    _need_cuda(x, "tube_conv")
+    dev = x.device
+    N, T, H, W, C = x.shape
+    K = out.shape[-1]
+    if (H, W) != (TUBE_GRID, TUBE_GRID) or C % 8:
+        raise ValueError(f"tube_conv takes [N, T, 7, 7, C] with C a multiple of 8, got "
+                         f"{tuple(x.shape)}")
+    ldx, ldo = row_stride(x, "x"), row_stride(out, "out")
+    _check(x, "x", torch.bfloat16, x.shape, dev, contiguous=False)
+    _check(out, "out", torch.bfloat16, (N, T, H, W, K), dev, contiguous=False)
+    _check(bias, "bias", torch.float32, (K,), dev)
+    _check(w, "w", torch.bfloat16, tube_packed_shape(C, K), dev)
+    if ldx % 8 or x.data_ptr() % 16:
+        raise ValueError(f"tube_conv: x's row stride {ldx} must be a multiple of 8 and x "
+                         "16-byte aligned")
+    with torch.cuda.device(dev):
+        err = library().step_conv3x3x3_tube_bf16(
+            x.data_ptr(), ldx, w.data_ptr(), bias.data_ptr(), out.data_ptr(), ldo, N, T, C, K,
+            tube_tile_n(K), _stream(dev))
+    _raise_on(err, "tube_conv kernel launch")
 
 
 # The stem conv kernel (csrc/stem_conv.cu): input channels it takes, and its

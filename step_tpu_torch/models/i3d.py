@@ -38,7 +38,12 @@ Inference variants, as in the JAX package:
   * `fused_inception` (BN folded): an Inception block's three 1x1x1 branch
     convs run as one conv "b012", then split; `fused_inception3` also runs
     the two 3x3x3 branch convs as one block-diagonal conv "b12" (weights
-    from `models/optimize.py`).
+    from `models/optimize.py`);
+  * the heads' tail (`I3DTail`) of BN-folded, fused blocks (not
+    `fused_inception3`) on a bf16 CUDA tensor with autograd off runs each
+    block as one `ops/inception.py::inception_block`: every conv adds its
+    bias and applies the ReLU in its epilogue and stores into its channel
+    slice of the block's output. The stem's blocks keep the module path.
 
 Weights are kept in whatever dtype the module was moved to and cast to the
 activation dtype at each call (the JAX package keeps float32 parameters and
@@ -54,6 +59,7 @@ import torch.nn.functional as F
 
 from step_tpu_torch.ops.conv3d import conv3x3x3_bn_relu
 from step_tpu_torch.ops.fused_bn_relu import bn_scale_bias, fused_scale_bias_relu
+from step_tpu_torch.ops.inception import block_kernel_weights, inception_block, kernel_takes
 from step_tpu_torch.ops.pool import max_pool3d_same_plain, max_pool_same, same_padding
 from step_tpu_torch.ops.pool_grad import max_pool_3d_s1_sepgrad
 from step_tpu_torch.ops.stem_conv import stem_conv, stem_kernel_takes
@@ -282,7 +288,9 @@ class InceptionBlock(nn.Module):
             self.b1b = u(c[1], c[2], (3, 3, 3))
             self.b2b = u(c[3], c[4], (3, 3, 3))
         self.b3b = u(cin, c[5], (1, 1, 1))
+        self.cin = cin
         self.out_channels = c[0] + c[2] + c[4] + c[5]
+        self._kernel_weights = {}   # the operator's weight layouts, reused
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         c = self.channels
@@ -296,6 +304,15 @@ class InceptionBlock(nn.Module):
         else:
             b0, b1, b2 = self.b0(x, train), self.b1a(x, train), self.b2a(x, train)
         return torch.cat([b0, self.b1b(b1, train), self.b2b(b2, train), b3], dim=1)
+
+    def forward_kernel(self, x: torch.Tensor) -> torch.Tensor:
+        """The same block, BN-folded and fused, in inference, as one
+        `step::inception_block` (`ops/inception.py`): the block's kernels on
+        the card, `forward`'s math on the CPU."""
+        units = (self.b012, self.b1b, self.b2b, self.b3b)
+        tensors = [t for u in units for t in (u.conv.weight, u.conv.bias)]
+        weights = block_kernel_weights(tensors, x.dtype, self._kernel_weights)
+        return inception_block(x, weights, self.channels)
 
 
 class I3DStem(nn.Module):
@@ -355,7 +372,14 @@ class I3DTail(nn.Module):
     refinement step's head on pooled tube features (:381-414). The heads
     skip the classifier's MaxPool_5a, keeping the 7x7 ROI grid; the
     classifier passes `pool_5a=True` for the 2x2x2 stride-2 SAME max pool
-    before the blocks."""
+    before the blocks.
+
+    The tail owns the served form of its blocks (`block_kernel`): in
+    inference on a bf16 CUDA tensor with autograd off, BN-folded blocks
+    fused by `fused_inception` (and not `fused_inception3`) run as one
+    `step::inception_block` each. Training, autograd, float32, the CPU, the
+    unfolded kernel configuration and `fused_inception3` run `forward` of
+    each block."""
 
     def __init__(self, cin: int, depth: str = "full", bn_folded: bool = False,
                  fused_bn_relu: bool = False, fused_inception: bool = False,
@@ -376,11 +400,24 @@ class I3DTail(nn.Module):
             raise ValueError(f"unknown backbone depth {depth!r}")
         self.out_channels = self.Mixed_5c.out_channels
 
+    def block_kernel(self, x: torch.Tensor, train: bool = False) -> bool:
+        """Whether the blocks run as `step::inception_block` on input x."""
+        blocks = [getattr(self, name) for name in self.blocks]
+        if train or not all(b.fused_inception and not b.fused_inception3
+                            and b.b012.bn is None for b in blocks):
+            return False
+        if torch.is_grad_enabled() and (
+                x.requires_grad or any(p.requires_grad for p in self.parameters())):
+            return False
+        return all(kernel_takes(x, b.cin, b.channels) for b in blocks)
+
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        kernel = self.block_kernel(x, train)
         if self.pool_5a:
             x = max_pool_3d(x, (2, 2, 2), (2, 2, 2))
         for name in self.blocks:
-            x = getattr(self, name)(x, train)
+            block = getattr(self, name)
+            x = block.forward_kernel(x) if kernel else block(x, train)
         return x
 
 

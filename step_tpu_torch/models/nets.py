@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from step_tpu_torch.models.i3d import I3DStem, I3DTail, Unit3D
+from step_tpu_torch.ops.inception import conv1x1x1_bias_relu
 
 EPS = 1e-6
 CONTEXT_DIM = 256
@@ -137,6 +138,10 @@ class TwoBranchHead(nn.Module):
     w, c) order, dropout, one Dense to all 4·T deltas; no resize. Its input
     width T'·7·7·64 is fixed at construction, so it takes `num_tprime`, the
     feature map's T' (flax infers it at init).
+
+    Where the tail runs its blocks as `step::inception_block`
+    (`I3DTail.block_kernel`), the reduction and its ReLU run as one
+    `step::conv1x1x1_bias_relu` on the same GEMM (`ops/inception.py`).
     """
 
     def __init__(self, cin: int, num_cls_outputs: int, num_frames: int,
@@ -160,6 +165,7 @@ class TwoBranchHead(nn.Module):
         c = self.tail.out_channels
         self.cls = nn.Linear(c + ctx_dim, num_cls_outputs)
         self.reg_reduce = nn.Conv3d(c, REG_CHANNELS, (1, 1, 1))
+        self._reduce_weight = {}    # the GEMM's weight layout, reused
         grid = pooled_size * pooled_size * REG_CHANNELS
         self.reg = (nn.Linear(grid, 4) if reg_head == "grid"
                     else nn.Linear(num_tprime * grid, 4 * num_frames))
@@ -181,7 +187,9 @@ class TwoBranchHead(nn.Module):
         `draw_dropout_masks`), apply the dropouts."""
         N, Tp = pooled.shape[0], pooled.shape[1]
         keep_cls, keep_reg = keep_masks if keep_masks is not None else (None, None)
-        x = self.tail(pooled.permute(0, 4, 1, 2, 3), train)   # [N, C, T', P, P]
+        x = pooled.permute(0, 4, 1, 2, 3)
+        kernel = self.tail.block_kernel(x, train)
+        x = self.tail(x, train)                                 # [N, C, T', P, P]
 
         spatial = x.mean(dim=(3, 4))                            # [N, C, T']
         if tprime_mask is None:
@@ -194,8 +202,12 @@ class TwoBranchHead(nn.Module):
             cls_feat = torch.cat([cls_feat, ctx.to(cls_feat.dtype)], dim=-1)
         cls_logits = _linear(self.cls, _dropout(cls_feat, keep_cls, self.dropout_rate))
 
-        r = F.relu(F.conv3d(x, self.reg_reduce.weight.to(x.dtype),
-                            self.reg_reduce.bias.to(x.dtype)))
+        if kernel:
+            r = conv1x1x1_bias_relu(x, self.reg_reduce.weight, self.reg_reduce.bias,
+                                    self._reduce_weight)
+        else:
+            r = F.relu(F.conv3d(x, self.reg_reduce.weight.to(x.dtype),
+                                self.reg_reduce.bias.to(x.dtype)))
         # The JAX head flattens each slice's grid in (h, w, c) order, so the
         # channels move last before the reshape.
         r = r.permute(0, 2, 3, 4, 1)

@@ -31,26 +31,64 @@ def conv3x3x3_bn_relu_plain(x: torch.Tensor, weight: torch.Tensor,
     return fused_scale_bias_relu_plain(y, scale, bias).to(x.dtype)
 
 
-def pack_conv3x3x3_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The bf16 kernel's weight layout: `[K, C, 3, 3, 3]` → a dense,
-    zero-padded `[Kw, Rpad]` matrix in `dtype`, output channels by
-    reduction index `tap * Cpad + c` (tap = 9*dt + 3*dh + dw), with C padded
+def pack_conv_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The bf16 tensor-core kernel's weight layout (`csrc/igemm.cuh`) of a
+    cubic conv with k^3 taps (k 3 or 1): `[K, C, k, k, k]` → a dense,
+    zero-padded `[Kw, Rpad]` matrix in `dtype`, output channels by reduction
+    index `tap * Cpad + c` (tap = 9*dt + 3*dh + dw for k = 3), with C padded
     to Cpad, the reduction to Rpad and K to Kw
     (`kernels.conv_packed_shape`). Each row is contiguous along the
     reduction, as the kernel's K-major B tiles read it."""
     from step_tpu_torch import kernels
 
     K, C = weight.shape[:2]
-    kw, rpad, cpad = kernels.conv_packed_shape(C, K)
+    taps = weight[0, 0].numel()
+    kw, rpad, cpad = kernels.conv_packed_shape(C, K, taps)
+    rows = weight.to(dtype).permute(0, 2, 3, 4, 1).reshape(K, taps, C)
+    rows = F.pad(rows, (0, cpad - C)).reshape(K, taps * cpad)
+    return F.pad(rows, (0, rpad - taps * cpad, 0, kw - K)).contiguous()
+
+
+def _swizzled(tiles: torch.Tensor) -> torch.Tensor:
+    """`[..., rows, 8, 8]` (16-byte pieces of 128-byte rows) with piece j of
+    row r moved to j ^ (r mod 8), wgmma's 128-byte swizzle; its own
+    inverse."""
+    rows = torch.arange(tiles.shape[-3], device=tiles.device)
+    piece = torch.arange(8, device=tiles.device)[None, :] ^ (rows[:, None] % 8)
+    return torch.gather(tiles, -2, piece[:, :, None].expand(tiles.shape))
+
+
+def pack_tube_weight(weight: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The tube conv's weight layout (`csrc/conv3d.cu::tube_conv_kernel`,
+    which takes bf16): `[K, C, 3, 3, 3]` → `[tiles, steps, tile width, 64]`
+    in `dtype` (`kernels.tube_packed_shape`): for each output-channel tile,
+    the B tile of each step (a chunk of 64 channels, then a tap) in the
+    order the kernel reads them, zero past C and K, each tile's 128-byte
+    rows already in wgmma's 128-byte swizzle (`_swizzled`), so one bulk copy
+    lands a step's tile as the tensor cores read it."""
+    from step_tpu_torch import kernels
+
+    K, C = weight.shape[:2]
+    tiles, steps, bn, chunk = kernels.tube_packed_shape(C, K)
     taps = weight.to(dtype).permute(0, 2, 3, 4, 1).reshape(K, 27, C)
-    taps = F.pad(taps, (0, cpad - C)).reshape(K, 27 * cpad)
-    return F.pad(taps, (0, rpad - 27 * cpad, 0, kw - K)).contiguous()
+    taps = F.pad(taps, (0, steps // 27 * chunk - C, 0, 0, 0, tiles * bn - K))
+    taps = taps.reshape(tiles, bn, 27, steps // 27, 8, 8).permute(0, 3, 2, 1, 4, 5)
+    return _swizzled(taps).reshape(tiles, steps, bn, chunk).contiguous()
+
+
+def unpack_tube_weight(w: torch.Tensor, C: int, K: int) -> torch.Tensor:
+    """`pack_tube_weight`'s layout back to OIDHW `[K, C, 3, 3, 3]` in its
+    dtype, contiguous."""
+    tiles, steps, bn, chunk = w.shape
+    taps = _swizzled(w.reshape(tiles, steps // 27, 27, bn, 8, 8)).permute(0, 3, 2, 1, 4, 5)
+    taps = taps.reshape(tiles * bn, 27, -1)[:K, :, :C]
+    return taps.reshape(K, 3, 3, 3, C).permute(0, 4, 1, 2, 3).contiguous()
 
 
 def kernel_weight(weight: torch.Tensor, dtype: torch.dtype,
                   cache: dict | None = None) -> torch.Tensor:
     """The weight as the kernel reads it for activations of `dtype`: packed
-    by `pack_conv3x3x3_weight` for bfloat16, tap-major `[27, C, K]` for
+    by `pack_conv_weight` for bfloat16, tap-major `[27, C, K]` for
     float32.
 
     With a `cache` (a dict its owner keeps, one per weight), the layout is
@@ -61,20 +99,23 @@ def kernel_weight(weight: torch.Tensor, dtype: torch.dtype,
         if dtype == torch.float32:
             K, C = weight.shape[:2]
             return weight.to(dtype).permute(2, 3, 4, 1, 0).reshape(27, C, K).contiguous()
-        return pack_conv3x3x3_weight(weight, dtype)
+        return pack_conv_weight(weight, dtype)
 
     return make() if cache is None else derived(cache, (weight,), make, dtype)
 
 
-def unpack_kernel_weight(w: torch.Tensor, C: int, K: int) -> torch.Tensor:
-    """`kernel_weight`'s layout back to OIDHW `[K, C, 3, 3, 3]`, in the
-    layout's dtype: tap-major `[27, C, K]` (float32) or the packed
-    `[Kw, Rpad]` matrix, whose padding is dropped."""
+def unpack_kernel_weight(w: torch.Tensor, C: int, K: int, k: int = 3) -> torch.Tensor:
+    """`kernel_weight`'s layout back to OIDHW `[K, C, k, k, k]`, in the
+    layout's dtype: tap-major `[27, C, K]` (float32, k = 3) or the packed
+    `[Kw, Rpad]` matrix of `pack_conv_weight`, whose padding is dropped;
+    contiguous, as the module's weight is, so that a CPU convolution takes
+    the same path on either."""
     if w.dim() == 3:
-        return w.permute(2, 1, 0).reshape(K, C, 3, 3, 3)
+        return w.permute(2, 1, 0).reshape(K, C, 3, 3, 3).contiguous()
+    taps = k ** 3
     cpad = -(-C // 8) * 8                    # as `kernels.conv_packed_shape`
-    taps = w[:K, :27 * cpad].reshape(K, 27, cpad)[:, :, :C]
-    return taps.reshape(K, 3, 3, 3, C).permute(0, 4, 1, 2, 3)
+    rows = w[:K, :taps * cpad].reshape(K, taps, cpad)[:, :, :C]
+    return rows.reshape(K, k, k, k, C).permute(0, 4, 1, 2, 3).contiguous()
 
 
 def _conv3x3x3_bn_relu_cpu(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,

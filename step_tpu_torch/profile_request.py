@@ -52,8 +52,11 @@ more with `torch.profiler` and prints that request's wall time (the
 profiler adds to it), the summed device time, the busy share (device time
 / wall time), the number of kernels, how many max pools ran on each
 hand-written pool kernel and on PyTorch and how many inputs the pool
-kernels had to copy into `channels_last_3d` (`kernels.ndhwc.copies`), the
-device time by layer (each hand-written kernel, cuDNN convolutions,
+kernels had to copy into `channels_last_3d` (`kernels.ndhwc.copies`), how
+many Inception blocks ran as `step::inception_block` and head reductions
+as `step::conv1x1x1_bias_relu` (`kernel_op.LAUNCHES`), the
+device time by layer (each hand-written kernel, the tube conv and the
+1x1x1 GEMM of the heads' blocks among them, cuDNN convolutions,
 PyTorch pools, layout conversions, copies, other elementwise work), the
 device time launched under each of the port's spans (`utils/spans.SPANS`, which any profiler
 session turns on: a span's time holds the spans nested in it) beside the
@@ -81,8 +84,9 @@ LAYERS = (
     ("K1 nms (csrc/nms.cu)", ("nms_groups_kernel", "nms_many_kernel")),
     ("K2 roi_align (csrc/roi_align.cu)", ("tube_roi_align_kernel",)),
     ("stem conv (csrc/stem_conv.cu)", ("stem_conv_kernel",)),
-    ("K3 conv3x3x3 (csrc/conv3d.cu)", ("conv_bf16_kernel", "conv_f32_kernel",
-                                       "conv3x3x3_bn_relu_kernel")),
+    ("tube conv (csrc/conv3d.cu)", ("tube_conv_kernel",)),
+    ("1x1x1 GEMM (csrc/gemm.cu)", ("true, 1>",)),
+    ("K3 conv3x3x3 (csrc/conv3d.cu)", ("igemm_kernel", "conv_f32_kernel")),
     ("K4 bn_relu (csrc/bn_relu.cu)", ("scale_bias_relu_kernel",)),
     ("K5 max_pool3x3 (csrc/pool3d.cu)", ("max_pool3x3_kernel",)),
     ("strided max pool (csrc/pool3d_same.cu)", ("max_pool3d_same_kernel",)),
@@ -246,7 +250,8 @@ def main(argv=None) -> int:
     from step_tpu_torch.ops.kernel_op import LAUNCHES
 
     def pool_counts():
-        return LAUNCHES["max_pool3x3_same"], LAUNCHES["max_pool3d_same"], ndhwc.copies
+        return (LAUNCHES["max_pool3x3_same"], LAUNCHES["max_pool3d_same"], ndhwc.copies,
+                LAUNCHES["inception_block"], LAUNCHES["conv1x1x1_bias_relu"])
 
     from step_tpu_torch import PRESETS
 
@@ -303,11 +308,12 @@ def main(argv=None) -> int:
     for name, (ms, n) in kernels.items():
         ms0, n0 = layers.get(layer_of(name), (0.0, 0))
         layers[layer_of(name)] = (ms0 + ms, n0 + n)
-    k5, strided, copies = (a - b for a, b in zip(after, before))
+    k5, strided, copies, blocks, reductions = (a - b for a, b in zip(after, before))
     pools = {"max_pool3x3_same": k5, "max_pool3d_same": strided,
              "pytorch": sum(n for name, (_, n) in kernels.items()
                             if layer_of(name) == "PyTorch pools"),
              "ndhwc_copies": copies}
+    operators = {"inception_block": blocks, "conv1x1x1_bias_relu": reductions}
     result = {
         "device": torch.cuda.get_device_name(0), "path": args.path, "backbone": cfg.backbone,
         "batch": args.batch, "request_ms": request_ms,
@@ -316,6 +322,7 @@ def main(argv=None) -> int:
         "busy_share": device_ms / wall_ms,
         "kernels": sum(n for _, n in kernels.values()),
         "pools": pools,
+        "operators": operators,
         "backwards": {k: {"ms": ms, "calls": n} for k, (ms, n) in backwards.items()},
         "spans": {k: {"ms": spans[k][0], "host_ms": spans[k][1], "calls": spans[k][2]}
                   for k in SPANS if k in spans},
@@ -333,7 +340,9 @@ def main(argv=None) -> int:
           f"busy {result['busy_share']:.1%}, {result['kernels']} kernels")
     print(f"  max pools of the request: {pools['max_pool3x3_same']} on K5, "
           f"{pools['max_pool3d_same']} on the strided kernel, {pools['pytorch']} on PyTorch; "
-          f"{pools['ndhwc_copies']} inputs copied into channels_last_3d for a kernel")
+          f"{pools['ndhwc_copies']} inputs copied into channels_last_3d for a kernel; "
+          f"{blocks} Inception blocks on step::inception_block, {reductions} head "
+          f"reductions on step::conv1x1x1_bias_relu")
     for layer, v in result["layers"].items():
         print(f"  {v['ms']:9.3f} ms {v['share']:6.1%} {v['calls']:5d}  {layer}")
     for fn, v in result["backwards"].items():

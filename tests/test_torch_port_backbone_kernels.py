@@ -255,7 +255,7 @@ def test_conv_weight_packing_is_the_kernels_contraction(C, K):
     weight = torch.from_numpy((rng.randn(K, C, 3, 3, 3) / np.sqrt(27 * C)).astype(np.float32))
     scale = torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32))
     bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32))
-    packed = conv3d.pack_conv3x3x3_weight(weight, torch.float32)
+    packed = conv3d.pack_conv_weight(weight, torch.float32)
     kw, rpad, cpad = kernels.conv_packed_shape(C, K)
     assert packed.shape == (kw, rpad) and packed.is_contiguous()
     assert kw % kernels.conv_tile_n(K) == 0 and rpad % kernels.CONV_TILE_K == 0
@@ -295,7 +295,7 @@ def test_kernel_weight_is_cached_until_the_weight_changes(dtype):
     assert second is not first
     assert torch.equal(second, conv3d.kernel_weight(state["conv.weight"], dtype))
     if dtype == torch.bfloat16:
-        assert torch.equal(second, conv3d.pack_conv3x3x3_weight(state["conv.weight"], dtype))
+        assert torch.equal(second, conv3d.pack_conv_weight(state["conv.weight"], dtype))
     else:
         assert second.shape == (27, 8, 16)
     other = torch.nn.Parameter(unit.conv.weight.detach().clone())

@@ -832,6 +832,164 @@ def test_stem_kernel_launches_once_a_ucf_request_and_never_in_vit_or_training(cu
     assert LAUNCHES["stem_conv"] == before and torch.isfinite(metrics["loss"])
 
 
+# ---- the heads' served Inception block (ops/inception.py) -----------------
+# The operator against a float32 model of its own arithmetic (each conv's
+# sum, bias and ReLU in float32, rounded once; b1 and b2 read b012's
+# rounded output): one bf16 step of the output, 2^-15, and one bf16 step of
+# each term |y| * |w| that a b1/b2 output adds up, where b012's own rounding
+# of a y may fall the other way (its float32 sum taken in another order).
+# The served shapes: Mixed_5b and 5c of a B=32 I3D request's heads (512
+# tubes, T' = 5), the ViT cell's Mixed_5b (C = 768, T' = 9), the
+# classifier's tail after MaxPool_5a, a B=1 request's chunk-stem heads
+# (T' = 6), live B=1 (16 tubes) and a ragged N.
+INCEPTION_SHAPES = {"5b_b32": (512, 832, 5, "Mixed_5b"), "5c_b32": (512, 832, 5, "Mixed_5c"),
+                    "vit_b32": (512, 768, 9, "Mixed_5b"),
+                    "classifier": (1, 832, 8, "Mixed_5b"),
+                    "chunk_stem": (16, 832, 6, "Mixed_5b"), "live": (16, 832, 5, "Mixed_5c"),
+                    "ragged": (3, 832, 7, "Mixed_5c")}
+
+
+def _served_block(cin, name, seed, device):
+    from step_tpu_torch.models.i3d import INCEPTION_CHANNELS, InceptionBlock
+
+    torch.manual_seed(seed)
+    block = InceptionBlock(cin, INCEPTION_CHANNELS[name], bn_folded=True,
+                           fused_inception=True).eval()
+    with torch.no_grad():
+        for p in block.parameters():
+            p.normal_(0, 1.0 / max(p[0].numel(), 1) ** 0.5)
+    return block.to(device, torch.bfloat16).requires_grad_(False)
+
+
+def _block_model(block, x):
+    """The operator's arithmetic in float32 from bf16 x and weights: each
+    unit's sum, bias and ReLU, rounded once; and the terms |y| * |w| of
+    the b1 and b2 outputs, zero elsewhere."""
+    c0, c1, c2, c3, c4, c5 = block.channels
+    f = lambda t: t.float()  # noqa: E731
+    unit = lambda t, u: torch.relu(F.conv3d(t, f(u.conv.weight), f(u.conv.bias), 1,  # noqa: E731
+                                            u.conv.weight.shape[2] // 2))
+    xf = f(x)
+    y = unit(xf, block.b012).to(torch.bfloat16).float()
+    b1, b2 = y[:, c0: c0 + c1], y[:, c0 + c1:]
+    out = torch.cat([y[:, :c0], unit(b1, block.b1b), unit(b2, block.b2b),
+                     unit(F.max_pool3d(xf, 3, 1, 1), block.b3b)], dim=1)
+    terms = torch.zeros_like(out)
+    terms[:, c0: c0 + c2] = F.conv3d(b1.abs(), f(block.b1b.conv.weight).abs(), None, 1, 1)
+    terms[:, c0 + c2: c0 + c2 + c4] = F.conv3d(b2.abs(), f(block.b2b.conv.weight).abs(),
+                                               None, 1, 1)
+    return out, terms
+
+
+def block_close(got, want, terms) -> bool:
+    err = (got.float() - want).abs()
+    return bool((err <= BF16_RTOL * (want.abs() + terms) + 2.0 ** -15).all())
+
+
+@pytest.mark.parametrize("label", list(INCEPTION_SHAPES))
+def test_inception_block_kernels_match_their_arithmetic_at_served_shapes(cuda, label):
+    N, cin, T, name = INCEPTION_SHAPES[label]
+    block = _served_block(cin, name, 31, cuda)
+    x = torch.relu(_ncdhw(32, (N, cin, T, 7, 7), torch.bfloat16))
+    before = (LAUNCHES["inception_block"], LAUNCHES["max_pool3x3_same"])
+    with torch.no_grad():
+        got = block.forward_kernel(x)
+        today = block(x)
+    assert (LAUNCHES["inception_block"], LAUNCHES["max_pool3x3_same"]) == (
+        before[0] + 1, before[1] + 2)                # the operator's pool and today's
+    want, terms = _block_model(block, x)
+    torch.cuda.synchronize()
+    assert got.shape == today.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last_3d)
+    assert block_close(got, want, terms)
+    assert float(want.abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("kernel", ["gemm", "k3", "tube"])
+def test_conv_kernels_read_a_channel_slice_and_write_two_places(cuda, kernel):
+    """On the same bf16 inputs, against F.conv3d in float32 rounded once:
+    the GEMM's split epilogue (columns below the split into a slice of a
+    wider output, the rest into a dense scratch); K3's gather at 27 taps on
+    the last 48 of 240 channels, read in place, with an affine and the same
+    split; the tube conv on that slice into one slice of the output."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.ops.conv3d import pack_conv_weight, pack_tube_weight
+
+    rng = np.random.RandomState(33 + len(kernel))
+    wide = torch.relu(_ncdhw(34, (16, 240, 6, 7, 7), torch.bfloat16))
+    taps = 1 if kernel == "gemm" else 27
+    x = wide if kernel == "gemm" else wide[:, 192:]
+    C = x.shape[1]
+    K = 624 if kernel == "gemm" else 128
+    w = torch.from_numpy((rng.randn(K, C, *(3,) * 3 if taps == 27 else (1, 1, 1))
+                          / np.sqrt(taps * C)).astype(np.float32)).to(cuda, torch.bfloat16)
+    scale = (torch.from_numpy((rng.rand(K) + 0.5).astype(np.float32)).cuda()
+             if kernel == "k3" else None)
+    bias = torch.from_numpy((rng.randn(K) * 0.1).astype(np.float32)).cuda()
+    big = torch.full((16, 6, 7, 7, 1024), 3.0, device=cuda, dtype=torch.bfloat16)
+    xr = x.permute(0, 2, 3, 4, 1)
+    split = 384 if kernel == "gemm" else 64
+    scratch = torch.empty((16, 6, 7, 7, K - split), device=cuda, dtype=torch.bfloat16)
+    if kernel == "tube":
+        kernels.tube_conv_forward(xr, pack_tube_weight(w, torch.bfloat16), bias,
+                                  big[..., 384:512])
+        got = big[..., 384:512]
+        untouched = torch.cat([big[..., :384], big[..., 512:]], dim=-1)
+    else:
+        kernels.igemm_forward(xr, pack_conv_weight(w, torch.bfloat16), scale, bias,
+                              (big[..., 384: 384 + split], scratch), taps)
+        got = torch.cat([big[..., 384: 384 + split], scratch], dim=-1)
+        untouched = torch.cat([big[..., :384], big[..., 384 + split:]], dim=-1)
+    y = F.conv3d(x.float(), w.float(), None, 1, w.shape[2] // 2)
+    if scale is not None:
+        y = y * scale.view(1, -1, 1, 1, 1)
+    want = torch.relu(y + bias.view(1, -1, 1, 1, 1))
+    torch.cuda.synchronize()
+    _close(got.permute(0, 4, 1, 2, 3), want.to(torch.bfloat16), torch.bfloat16, None)
+    assert bool((untouched == 3.0).all())
+
+
+# A B=32 request of each cell's configuration: six blocks on the operator
+# (two a head, three heads) and three head reductions on the GEMM; the pools
+# on K5 as before (13 I3D, 6 ViT), no K3 or K4.
+CELL_LAUNCHES = {"ucf_3step": {"inception_block": 6, "conv1x1x1_bias_relu": 3,
+                               "max_pool3x3_same": 13, "conv3x3x3_bn_relu": 0,
+                               "scale_bias_relu": 0},
+                 "ava_3step": {"inception_block": 6, "conv1x1x1_bias_relu": 3,
+                               "max_pool3x3_same": 13, "conv3x3x3_bn_relu": 0,
+                               "scale_bias_relu": 0},
+                 "ava_videomae_b16": {"inception_block": 6, "conv1x1x1_bias_relu": 3,
+                                      "max_pool3x3_same": 6, "conv3x3x3_bn_relu": 0,
+                                      "scale_bias_relu": 0}}
+
+
+@pytest.mark.parametrize("config", list(CELL_LAUNCHES))
+def test_a_cells_b32_request_runs_six_blocks_on_the_operator(cuda, config):
+    import json
+    import os
+
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+    with open(os.path.join(root, "configs", f"{config}.json")) as f:
+        fields = json.load(f)["config"]
+    server = Server(fields, work.make_weights(reference.config(fields), 35, cuda), cuda)
+    cfg = server.cfg
+    props, pmask = server.proposals(32)
+    rgb = torch.from_numpy(np.random.RandomState(36).randint(
+        0, 256, (32, cfg.total_frames, cfg.image_size, cfg.image_size, 3))
+        .astype(np.uint8)).to(cuda)
+    server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    before = {k: LAUNCHES[k] for k in CELL_LAUNCHES[config]}
+    out = server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    assert {k: LAUNCHES[k] - before[k] for k in before} == CELL_LAUNCHES[config]
+    assert bool(torch.isfinite(out["tubes"]).all())
+
+
 def test_bn_affine_cache_on_the_card(cuda):
     """A fused Unit3D's BN affine is computed once on the card and made
     anew after load_state_dict; the kernels then give the new result."""
