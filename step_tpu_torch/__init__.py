@@ -15,8 +15,8 @@ Layers, entry point first:
   inference.py     detect_clip → class scores → nms_surface; late fusion,
                    the video and streaming forms
   models/          STEPDetector, FeatureNet / ContextNet / TwoBranchHead,
-                   I3D, the VideoMAE ViT-B/16 backbone (vit.py), BN
-                   folding (optimize.py)
+                   I3D, the VideoMAE ViT-B/16 backbone (vit.py), the
+                   MViTv2-B backbone (mvit.py), BN folding (optimize.py)
   ops/             tube ROI-align, batched NMS and the backbone kernels:
                    each a plain PyTorch version plus a CUDA kernel
                    (kernels.py, csrc/); the pool backward (pool_grad.py)

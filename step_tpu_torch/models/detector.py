@@ -30,9 +30,11 @@ through a second stem and the fusion unit (`nets.FeatureNet`). Each input
 is normalized in float32 and then cast to `cfg.compute_dtype`.
 
 `cfg.backbone` picks the backbone (`BACKBONES`): "i3d", `nets.FeatureNet`
-with every variant above, or "videomae_vit_b16", the ViT-B/16 of
-`models/vit.py` (joint attention over the whole clip, so no chunk stems, no
-second stream and no flow input); an unknown name is refused. The heads'
+with every variant above, "videomae_vit_b16", the ViT-B/16 of
+`models/vit.py`, or "mvitv2_b", MViTv2-B to its stride-16 stage
+(`models/mvit.py`); the two transformers attend over the whole clip, so
+they take no chunk stems, no second stream and no flow input. An unknown
+name is refused. The heads'
 I3D tails take the backbone's channels on its T' slices (`feature_frames`).
 
 `forward` is `stem` (normalize, backbone) then `refine` (context, the S
@@ -59,7 +61,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from step_tpu_torch.config import StepConfig
-from step_tpu_torch.models import vit
+from step_tpu_torch.models import mvit, vit
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
                                         TwoBranchHead, draw_dropout_masks)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
@@ -95,19 +97,26 @@ def _i3d(cfg: StepConfig) -> nn.Module:
                       3 if cfg.input_stream == "rgb" else 2)
 
 
-def _vit(cfg: StepConfig) -> nn.Module:
-    for refused, why in ((cfg.chunk_stem, "chunk_stem"), (cfg.two_stream, "two_stream"),
-                         (cfg.input_stream != "rgb", f"input_stream={cfg.input_stream!r}")):
-        if refused:
-            raise ValueError(f"{vit.NAME} attends jointly over one whole RGB clip: "
-                             f"{why} is refused")
-    return vit.VideoMAEViT(cfg.backbone_depth, cfg.feature_stride, cfg.total_frames,
-                           cfg.image_size)
+def _whole_clip(net):
+    """The constructor of a transformer `net` (`vit.VideoMAEViT`,
+    `mvit.MViTv2`): attention over one whole RGB clip has no per-chunk
+    form and no second stream."""
+    def build(cfg: StepConfig) -> nn.Module:
+        for refused, why in ((cfg.chunk_stem, "chunk_stem"), (cfg.two_stream, "two_stream"),
+                             (cfg.input_stream != "rgb", f"input_stream={cfg.input_stream!r}")):
+            if refused:
+                raise ValueError(f"{cfg.backbone} attends jointly over one whole RGB clip: "
+                                 f"{why} is refused")
+        return net(cfg.backbone_depth, cfg.feature_stride, cfg.total_frames, cfg.image_size)
+    return build
 
 
 # `cfg.backbone` → (the builder of the shared feature map's backbone, its T')
 BACKBONES = {"i3d": (_i3d, _i3d_frames),
-             vit.NAME: (_vit, lambda cfg: vit.feature_frames(cfg.total_frames))}
+             vit.NAME: (_whole_clip(vit.VideoMAEViT),
+                        lambda cfg: vit.feature_frames(cfg.total_frames)),
+             mvit.NAME: (_whole_clip(mvit.MViTv2),
+                         lambda cfg: mvit.feature_frames(cfg.total_frames))}
 
 
 def feature_frames(cfg: StepConfig) -> int:
@@ -115,7 +124,8 @@ def feature_frames(cfg: StepConfig) -> int:
     temporal stride. I3D halves time twice (Conv3d_1a and MaxPool_4a,
     TF-SAME), on the whole clip or on each chunk under `chunk_stem` (5 on
     `ucf_3step`, 6 with chunk stems); the ViT takes one slice a tubelet of
-    2 frames (9 of 18)."""
+    2 frames (9 of 18); MViTv2's patch embedding strides 2 over the clip
+    padded by a frame at each end, (T + 2 − 3) // 2 + 1 (9 of 18)."""
     return BACKBONES[cfg.backbone][1](cfg)
 
 

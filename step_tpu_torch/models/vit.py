@@ -67,7 +67,8 @@ def sinusoid_table(n: int, dim: int, device=None) -> torch.Tensor:
     return torch.where(i % 2 == 0, torch.sin(angle), torch.cos(angle)).to(torch.float32)
 
 
-def _norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+def layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """`layer` in the activations' dtype, at the ViT's eps."""
     return F.layer_norm(x, layer.normalized_shape, layer.weight.to(x.dtype),
                         layer.bias.to(x.dtype), LN_EPS)
 
@@ -129,8 +130,8 @@ class Block(nn.Module):
         self.mlp = Mlp(dim, hidden)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(_norm(self.norm1, x))
-        return x + self.mlp(_norm(self.norm2, x))
+        x = x + self.attn(layer_norm(self.norm1, x))
+        return x + self.mlp(layer_norm(self.norm2, x))
 
 
 class VideoMAEViT(nn.Module):
@@ -167,5 +168,5 @@ class VideoMAEViT(nn.Module):
         x = tokens + self.pos_embed.to(tokens.dtype)
         for block in self.blocks:
             x = block(x)
-        x = _norm(self.norm, x)
+        x = layer_norm(self.norm, x)
         return x.reshape(B, feature_frames(T), H // p, W // p, x.shape[-1])

@@ -13,14 +13,19 @@ exported program holds no profiler node.
 
   model.preprocess  `STEPDetector.stem`: the input's normalization and the
                     cast to the compute dtype
-  model.backbone    `STEPDetector.stem`: the backbone's call (`FeatureNet`
-                    or `vit.VideoMAEViT`)
+  model.backbone    `STEPDetector.stem`: the backbone's call (`FeatureNet`,
+                    `vit.VideoMAEViT` or `mvit.MViTv2`)
   model.stem        inside `model.backbone`, an I3D stem's first unit
-                    (`I3DStem.forward`: Conv3d_1a_7x7), one a stem
+                    (`I3DStem.forward`: Conv3d_1a_7x7), one a stem; or
+                    MViTv2's patch embedding, one a call
+  model.attn_pool   inside `model.backbone`, an MViTv2 block's depthwise
+                    pools of q, k and v and their LayerNorms, one a block
   model.attention   inside `model.backbone`, a ViT block's attention call
-                    (`F.scaled_dot_product_attention`), one a block
-  model.mlp         inside `model.backbone`, a ViT block's fc1, GELU and
-                    fc2, one a block
+                    (`F.scaled_dot_product_attention`), or an MViTv2
+                    block's relative-position bias, attention call and
+                    residual `+ q`; one a block
+  model.mlp         inside `model.backbone`, a ViT or MViTv2 block's fc1,
+                    GELU and fc2 (`vit.Mlp`), one a block
   model.refine      all of `STEPDetector.refine`, the context included
   model.context     `STEPDetector.refine`: the `ContextNet` call
   model.head        a refinement step's `TwoBranchHead` call (its I3D tail
@@ -49,8 +54,9 @@ import contextlib
 
 import torch
 
-SPANS = ("model.preprocess", "model.backbone", "model.stem", "model.attention", "model.mlp",
-         "model.refine", "model.context", "model.head", "model.boxes", "detect.nms",
+SPANS = ("model.preprocess", "model.backbone", "model.stem", "model.attn_pool",
+         "model.attention", "model.mlp", "model.refine", "model.context", "model.head",
+         "model.boxes", "detect.nms",
          "train.forward", "train.loss", "train.backward", "train.reduce",
          "train.optimizer", "train.bn_commit", "loader.wait")
 

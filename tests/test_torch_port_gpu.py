@@ -1321,6 +1321,48 @@ def test_vit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
     assert ok, checks
 
 
+def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
+    """The benchmark's `ava_mvitv2_b` detector at published widths
+    (MViTv2-B blocks 0-20, `models/mvit.py`), built and served as the
+    benchmark serves it (`benchmark/program.py::Server`: BN-folded heads,
+    the tree in bfloat16, K1, K2, K5 and `step::inception_block` on the
+    C = 384 tails at T' = 9) on a B=32 request of 224 px clips; the heads'
+    six tail blocks of a request run on the operator, and its first 2 clips
+    are judged by the float32 reference (`benchmark/check.py`) under the
+    cell's limits."""
+    import json
+    import os
+
+    from benchmark import check, work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+    with open(os.path.join(root, "configs", "ava_mvitv2_b.json")) as f:
+        fields = json.load(f)["config"]
+    with open(os.path.join(root, "workloads", "ava_mvitv2_b.offline_b32.json")) as f:
+        limits = json.load(f)["limits"]
+    rc = reference.config(fields)
+    weights = work.make_weights(rc, 2 ** 31 + 5, cuda)
+    server = Server(fields, weights, cuda)
+    props, pmask = server.proposals(32)
+    rgb = torch.from_numpy(np.random.RandomState(9).randint(
+        0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
+    server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    before = LAUNCHES["inception_block"]
+    out = server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    assert LAUNCHES["inception_block"] - before == 6
+    assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
+    served = {k: v[:2].cpu() for k, v in out.items()}
+    del server, out
+    readings, _ = check.serve_readings(weights, rc, [(rgb[:2].cpu(), props[:2].cpu(),
+                                                      pmask[:2].cpu(), served)], cuda)
+    ok, checks = check.verdict(readings, limits)
+    assert ok, checks
+
+
 # ---- the I3D classifier's shapes and the int8 optimizer --------------------
 
 # `I3DClassifier` on 64 frames at 224 px (B=1): the stem at T = 32 and 16,
