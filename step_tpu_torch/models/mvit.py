@@ -49,15 +49,26 @@ parameter names are SlowFast's under `features.` (`patch_embed.proj`,
 `attn.norm_q|k|v`, `attn.rel_pos_h|w|t`, `norm2`, `mlp.fc1`, `mlp.fc2`,
 `blocks.{i}.proj` at a transition), and `out_norm`, the map's LayerNorm.
 
-Attention: Rel(q) is the sum of three broadcast products of q with the
-gathered tables, in the compute dtype, passed as `attn_mask` to
-`F.scaled_dot_product_attention` at its default scale, whichever backend
-PyTorch picks; then `+ q`. The pools run as `F.conv3d(groups=d)` on the
-heads' contiguous `[B·h, d, T, H, W]`, each of q, k and v made in that
-order by its own GEMM of the qkv weight's rows, and `F.layer_norm`; the skip
-pool is `F.max_pool3d` (symmetric padding, not TF-SAME). Spans: `model.stem`
+Attention: Rel(q) rides in the channels, with no `[B, h, Nq, Nkv]` bias.
+Each term depends on one query and one coordinate of the key, so q′ = [q,
+√d·(q·R_t rows, q·R_h rows), √d·(q·R_w rows), 0] and k′ = [k, one-hot(t′),
+one-hot(i′), one-hot(j′), 0] give q′·k′ᵀ/√d = q·kᵀ/√d + Rel(q) exactly:
+one `F.scaled_dot_product_attention` call with no mask at the scale 1/√d of
+q's width, v as it is (cuDNN's attention on the card takes a narrower v),
+then `+ q`. The t and h terms of a query are one batched GEMM of q in place
+against its (t, i)'s gathered table rows, the w terms one of q read as the
+`[W, B·h·T·H, d]` batch its strides are; their channels are rounded up to 8
+and the whole width to d + a multiple of 32 (128, and 160 at the two
+transitions), on an H100 faster than the narrowest widths (120, 136). The
+keys' one-hots are a buffer made once; `LAUNCHES["packed_attention"]`
+(`ops/kernel_op.py`) counts the calls.
+
+The pools run as `F.conv3d(groups=d)` on the heads' contiguous
+`[B·h, d, T, H, W]`, each of q, k and v made in that order by its own GEMM
+of the qkv weight's rows, and `F.layer_norm`; the skip pool is
+`F.max_pool3d` (symmetric padding, not TF-SAME). Spans: `model.stem`
 (the patch embedding), and a block's `model.attn_pool` (the three pools and
-their norms), `model.attention` (Rel, the attention call, `+ q`) and
+their norms), `model.attention` (the packing, the attention call, `+ q`) and
 `model.mlp` (`vit.Mlp`). Weights follow the activations' dtype (cast per
 use), so a float32 tree computes in bfloat16 when its input is.
 """
@@ -72,6 +83,7 @@ import torch.nn.functional as F
 
 from step_tpu_torch.models.nets import _linear
 from step_tpu_torch.models.vit import LN_EPS, Mlp, layer_norm
+from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.utils.spans import span
 
 NAME = "mvitv2_b"
@@ -118,16 +130,93 @@ def rel_index(q: int, k: int) -> torch.Tensor:
     return dist.long()
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _th_channels(k_size) -> int:
+    """The channels of the t and h terms side by side: kt + kh rounded up
+    to 8, where the w terms start."""
+    return _round_up(k_size[0] + k_size[1], 8)
+
+
+def term_rows(index, lengths, k_size, channels: int) -> tuple:
+    """Rows of the joined table `[R_t; R_h; R_w; 0]` (the tables of
+    `lengths` rows, then one zero row) that give each query its terms: the
+    t and h terms side by side, `[T, H, ct]` for ct = kt + kh rounded up to
+    8, and the w terms `[W, channels − ct]`, padded with the zero row;
+    `index` the tables' (t, h, w) row maps."""
+    (kt, kh, kw), (it, ih, iw) = k_size, index
+    zero, ct = sum(lengths), _th_channels(k_size)
+    th = torch.cat([it[:, None].expand(-1, len(ih), -1),
+                    ih[None].expand(len(it), -1, -1) + lengths[0]], -1)
+    return (F.pad(th, (0, ct - kt - kh), value=zero),
+            F.pad(iw + lengths[0] + lengths[1], (0, channels - ct - kw), value=zero))
+
+
+def rel_terms(q: torch.Tensor, q_size, tables, rows, scale: float = 1.0) -> tuple:
+    """Rel(q)'s terms of q `[B, h, Nq, d]` on the query grid `q_size`, times
+    `scale`: q·R_t[index_t[t]] and q·R_h[index_h[i]] side by side, and
+    q·R_w[index_w[j]], for the query at (t, i, j), `[B, h, Nq, ct]` and
+    `[B, h, Nq, cw]` with zeros after the terms; `rows` their `term_rows`
+    in the joined `tables` (scaled in the tables' dtype before the cast to
+    q's, one rounding). The t and h terms are one batched product of q in
+    place, `[B·h·T·H, W, d]`, against its (t, i)'s rows; the w term, whose
+    rows change along the innermost axis, reads q as the `[W, B·h·T·H, d]`
+    batch its strides already are."""
+    B, heads, n, d = q.shape
+    T, H, W = q_size
+    joined = (torch.cat([*tables, tables[0].new_zeros(1, d)]) * scale).to(q.dtype)
+    th = torch.matmul(q.reshape(B * heads, T, H, W, d), joined[rows[0]].transpose(-1, -2))
+    w = torch.bmm(q.reshape(-1, W, d).transpose(0, 1), joined[rows[1]].transpose(-1, -2))
+    return th.reshape(B, heads, n, -1), w.transpose(0, 1).reshape(B, heads, n, -1)
+
+
 def rel_pos_bias(q: torch.Tensor, q_size, k_size, tables, index) -> torch.Tensor:
     """Rel(q) `[B, h, Nq, Nkv]` of q `[B, h, Nq, d]` on the query grid
     `q_size` and the key grid `k_size`, (t, h, w) each; `tables` and
-    `index` the (t, h, w) tables and their row maps."""
-    B, heads, _, d = q.shape
-    r = q.reshape(B, heads, *q_size, d)
-    rt, rh, rw = (torch.einsum(eq, r, table.to(q.dtype)[i]) for eq, table, i in zip(
-        ("bythwc,tkc->bythwk", "bythwc,hkc->bythwk", "bythwc,wkc->bythwk"), tables, index))
+    `index` the (t, h, w) tables and their row maps: the broadcast sum of
+    `rel_terms`, the plain form the packed attention is held against."""
+    B, heads, n, _ = q.shape
+    kt, kh, kw = k_size
+    rows = term_rows(index, [len(t) for t in tables], k_size, _th_channels(k_size) + kw)
+    th, w = rel_terms(q, q_size, tables, rows)
+    rt, rh, rw = th[..., :kt], th[..., kt:kt + kh], w[..., :kw]
     bias = (rt[..., :, None, None] + rh[..., None, :, None]) + rw[..., None, None, :]
-    return bias.reshape(B, heads, q.shape[2], math.prod(k_size))
+    return bias.reshape(B, heads, n, math.prod(k_size))
+
+
+def packed_width(d: int, k_size) -> int:
+    """The channels of the packed query and keys: d, then the t and h
+    terms (kt + kh rounded up to 8) and the w terms, rounded up to 32
+    together."""
+    return d + _round_up(_th_channels(k_size) + k_size[2], 32)
+
+
+def key_onehots(k_size, channels: int) -> torch.Tensor:
+    """`[Nkv, channels]`: the one-hots of the key (t', i', j') where
+    `rel_terms` puts the terms of that coordinate (columns t', kt + i' and
+    ct + j' for ct = kt + kh rounded up to 8), zeros elsewhere."""
+    grid = torch.stack(torch.meshgrid(*(torch.arange(n) for n in k_size), indexing="ij"), -1)
+    cols = grid.reshape(-1, 3) + torch.tensor([0, k_size[0], _th_channels(k_size)])
+    return F.one_hot(cols, channels).sum(1).float()
+
+
+def pack(q, k, q_size, tables, rows, onehots) -> tuple:
+    """q′ = [q, √d·Rel(q)'s terms, 0] and k′ = [k, `onehots`] of q, k
+    `[B, h, N, d]`, `[B, h, N, d + channels of onehots]` each, so that
+    q′·k′ᵀ/√d = q·kᵀ/√d + Rel(q)."""
+    B, heads, _, d = q.shape
+    terms = rel_terms(q, q_size, tables, rows, math.sqrt(d))
+    return (torch.cat([q, *terms], -1),
+            torch.cat([k, onehots.to(k.dtype).expand(B, heads, -1, -1)], -1))
+
+
+def packed_attention(q, k, v, q_size, tables, rows, onehots) -> torch.Tensor:
+    """softmax(q·kᵀ/√d + Rel(q))·v + q as one attention call with no mask:
+    `pack`'s q′ and k′, v as it is, at the scale 1/√d of q's width d."""
+    qp, kp = pack(q, k, q_size, tables, rows, onehots)
+    return F.scaled_dot_product_attention(qp, kp, v, scale=q.shape[-1] ** -0.5) + q
 
 
 def skip_pool(x: torch.Tensor, size, stride) -> torch.Tensor:
@@ -171,10 +260,13 @@ class MultiScaleAttention(nn.Module):
         self.rel_pos_h = nn.Parameter(torch.zeros(side, d))
         self.rel_pos_w = nn.Parameter(torch.zeros(side, d))
         self.rel_pos_t = nn.Parameter(torch.zeros(2 * size[0] - 1, d))
-        for axis, name in enumerate("thw"):
-            self.register_buffer(f"index_{name}", rel_index(self.q_size[axis],
-                                                            self.kv_size[axis]),
-                                 persistent=False)
+        self.width = packed_width(d, self.kv_size)
+        index = [rel_index(a, b) for a, b in zip(self.q_size, self.kv_size)]
+        rows = term_rows(index, (len(self.rel_pos_t), side, side), self.kv_size, self.width - d)
+        for name, r in zip(("th", "w"), rows):
+            self.register_buffer(f"rows_{name}", r, persistent=False)
+        self.register_buffer("onehots", key_onehots(self.kv_size, self.width - d),
+                             persistent=False)
 
     def _parts(self, x: torch.Tensor) -> list:
         """qkv of LN1's output `[B, N, dim]` as three channel-major parts,
@@ -204,10 +296,10 @@ class MultiScaleAttention(nn.Module):
         with span("model.attn_pool"):
             q, k, v = (self._pool(part, name) for part, name in zip(parts, "qkv"))
         with span("model.attention"):
-            bias = rel_pos_bias(q, self.q_size, self.kv_size,
-                                (self.rel_pos_t, self.rel_pos_h, self.rel_pos_w),
-                                (self.index_t, self.index_h, self.index_w))
-            out = F.scaled_dot_product_attention(q, k, v, attn_mask=bias) + q
+            out = packed_attention(q, k, v, self.q_size,
+                                   (self.rel_pos_t, self.rel_pos_h, self.rel_pos_w),
+                                   (self.rows_th, self.rows_w), self.onehots)
+        LAUNCHES["packed_attention"] += 1
         return _linear(self.proj, out.transpose(1, 2).reshape(B, q.shape[2], -1))
 
 

@@ -24,8 +24,10 @@ The dispatcher costs some 25-40 us of host time a call on an H100 machine,
 which a host-bound B=1 request would pay at each of its ~20 kernel calls.
 
 `LAUNCHES` counts the launches of every operator by its name, once a call
-of `launch` on either route, and `nms_many`'s (`ops/nms.py`, which no
-program holds) under "nms_many".
+of `launch` on either route, `nms_many`'s (`ops/nms.py`, which no program
+holds) under "nms_many", and MViTv2's attention calls on the packed query
+and keys (`models/mvit.py::packed_attention`, no kernel of its own) under
+"packed_attention".
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ exported program holds no profiler node.
                     pools of q, k and v and their LayerNorms, one a block
   model.attention   inside `model.backbone`, a ViT block's attention call
                     (`F.scaled_dot_product_attention`), or an MViTv2
-                    block's relative-position bias, attention call and
-                    residual `+ q`; one a block
+                    block's packing of its relative positions into the
+                    query's and keys' channels, its attention call with no
+                    mask and residual `+ q`; one a block
   model.mlp         inside `model.backbone`, a ViT or MViTv2 block's fc1,
                     GELU and fc2 (`vit.Mlp`), one a block
   model.refine      all of `STEPDetector.refine`, the context included

@@ -1321,15 +1321,57 @@ def test_vit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
     assert ok, checks
 
 
+@pytest.mark.parametrize("heads,q_size,kv_size", [(1, (9, 56, 56), (9, 7, 7)),
+                                                   (2, (9, 28, 28), (9, 14, 14)),
+                                                   (4, (9, 14, 14), (9, 7, 7))])
+def test_mvit_packed_attention_is_one_fused_kernel_and_the_biased_attention(
+        cuda, heads, q_size, kv_size):
+    """MViTv2-B's packed attention at B=32 in bfloat16, at stage 1, the
+    first transition and stage 3: one fused attention kernel (cuDNN's or
+    flash), no softmax of the math path, and within bfloat16's rounding of
+    the masked attention on Rel(q) in float32."""
+    import math
+
+    from step_tpu_torch.models import mvit
+
+    g = torch.Generator(device=cuda).manual_seed(61)
+    d = 96
+    q, k, v = (torch.nn.functional.layer_norm(
+        torch.randn((32, heads, math.prod(s), d), device=cuda, generator=g), (d,))
+        for s in (q_size, kv_size, kv_size))
+    side = 2 * max(q_size[1], kv_size[1]) - 1
+    tables = [0.1 * torch.randn((n, d), device=cuda, generator=g) for n in (17, side, side)]
+    index = [mvit.rel_index(a, b).to(cuda) for a, b in zip(q_size, kv_size)]
+    extra = mvit.packed_width(d, kv_size) - d
+    rows = [r.to(cuda) for r in mvit.term_rows(index, [len(t) for t in tables], kv_size, extra)]
+    onehots = mvit.key_onehots(kv_size, extra).to(cuda)
+    args = ([t.bfloat16() for t in (q, k, v)], q_size,
+            [t.bfloat16() for t in tables], rows, onehots.bfloat16())
+    mvit.packed_attention(*args[0], *args[1:])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        got = mvit.packed_attention(*args[0], *args[1:])
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    fused = [n for n in names if "sdpa" in n or "flash" in n or "fmha" in n]
+    assert len(fused) == 1 and not any("softmax" in n for n in names), names
+    bias = mvit.rel_pos_bias(q, q_size, kv_size, tables, index)
+    want = torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=bias) + q
+    # outputs of order one: bfloat16's step at 4 is 2^-5
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2.0 ** -4)
+    del bias
+
+
 def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
     """The benchmark's `ava_mvitv2_b` detector at published widths
     (MViTv2-B blocks 0-20, `models/mvit.py`), built and served as the
     benchmark serves it (`benchmark/program.py::Server`: BN-folded heads,
     the tree in bfloat16, K1, K2, K5 and `step::inception_block` on the
     C = 384 tails at T' = 9) on a B=32 request of 224 px clips; the heads'
-    six tail blocks of a request run on the operator, and its first 2 clips
-    are judged by the float32 reference (`benchmark/check.py`) under the
-    cell's limits."""
+    six tail blocks of a request run on the operator, its 21 blocks'
+    attention on the packed query and keys (no bias tensor), and its first
+    2 clips are judged by the float32 reference (`benchmark/check.py`)
+    under the cell's limits."""
     import json
     import os
 
@@ -1350,10 +1392,11 @@ def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda)
         0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
     server.detect(rgb, props, pmask)
     torch.cuda.synchronize()
-    before = LAUNCHES["inception_block"]
+    before = LAUNCHES["inception_block"], LAUNCHES["packed_attention"]
     out = server.detect(rgb, props, pmask)
     torch.cuda.synchronize()
-    assert LAUNCHES["inception_block"] - before == 6
+    assert LAUNCHES["inception_block"] - before[0] == 6
+    assert LAUNCHES["packed_attention"] - before[1] == 21
     assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
     served = {k: v[:2].cpu() for k, v in out.items()}
     del server, out

@@ -17,17 +17,22 @@ strides 4, 2 and 1, queries larger and smaller than their keys) and 32 px:
 
 On their own: Rel(q) against a loop over every (query, key) pair whose
 table rows come from the two grids' strides, at query/key size ratios of
-2, 4 and 1/2; the skip pool against `F.max_pool3d` with padding 1, which
+2, 4 and 1/2; at the same ratios in float64, the packed query's and keys'
+logits against the logits plus Rel(q), with zeros in the channels past the
+terms; each tiny block's packed attention against the masked attention on
+Rel(q) in float32, and a detection's count of packed calls; the skip pool against `F.max_pool3d` with padding 1, which
 the port's TF-SAME pool (`ops/pool.py::max_pool3d_same`) does not
 compute. At full depth, on the meta device: the state_dict's names and
 shapes are the reference's `parameter_shapes`, the published widths, heads
-and table lengths hold, and the map is `[B, 9, 14, 14, 384]`. The
+and table lengths hold, the packed widths are 128 and 160 at the
+transitions, and the map is `[B, 9, 14, 14, 384]`. The
 refusals (chunk stems, two streams, another stride at full depth, a clip
 the tables were not made for) and T' (`feature_frames`).
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
 import json
+import math
 import os
 import time
 
@@ -44,6 +49,7 @@ from step_tpu_torch.inference import detect_clip
 from step_tpu_torch.models import mvit
 from step_tpu_torch.models.detector import STEPDetector, feature_frames
 from step_tpu_torch.models.optimize import optimize_for_inference
+from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.ops.pool import max_pool3d_same
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -86,8 +92,8 @@ def test_the_feature_map_matches_the_reference_in_float32(setup):
         want = rc.net.forward(weights, rc, ref.preprocess(rgb, ref.FLOAT32), ref.Run())
     assert got.shape == want.shape == (B, 9, 4, 4, 64)
     # float32 sums in other orders (the fused attention against two matmuls
-    # and a softmax, the bias summed before it is added): map values of a
-    # few units agree to a few 1e-6
+    # and a softmax, Rel(q) summed inside the packed logits): map values of
+    # a few units agree to a few 1e-6
     torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
 
@@ -135,10 +141,11 @@ def test_the_served_form_in_bfloat16_matches_the_reference_rounded_to_bfloat16(s
     real = mask[..., None].expand_as(want["tube_scores"]) > 0
     logp = (torch.log(got["tube_scores"].float()) - torch.log(want["tube_scores"]))[real]
     # both sides round to bfloat16 at the same places and part by the
-    # summation orders, the bias summed in bfloat16 before the attention
-    # call and the call's rounding inside it: the readings are 0.0064 and
-    # 0.0017 of the side, the limits ~8x and ~6x that; the reference in
-    # float8 reads 0.083 and 0.032
+    # summation orders, the √d-scaled terms rounded to bfloat16 in the
+    # packed query and the call's rounding inside it: the readings are
+    # 0.0064 and 0.0013 of the side (0.0064 and 0.0017 with the bias summed
+    # in bfloat16), the limits ~8x and ~7.5x that; the reference in float8
+    # reads 0.083 and 0.032
     assert float(logp.abs().max()) < 0.05
     assert float((got["tubes"].float() - want["tubes"]).abs().max()) / 32 < 0.01
     surface = ref.nms_surface(got["tubes"].float(), got["tube_scores"].float(), mask, rc16)
@@ -207,6 +214,89 @@ def test_the_relative_position_bias_matches_a_loop_over_pairs(q_side, k_side):
     torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
 
 
+def _grids(q_side, k_side, d, dtype, seed):
+    """q, k `[1, 2, N, d]` on (3, q_side, q_side) and (3, k_side, k_side),
+    the three tables and their row maps."""
+    g = torch.Generator().manual_seed(seed)
+    q_grid, k_grid = (3, q_side, q_side), (3, k_side, k_side)
+    side = 2 * max(q_side, k_side) - 1
+    tables = [torch.randn((rows, d), generator=g, dtype=dtype) for rows in (5, side, side)]
+    q = torch.randn((1, 2, 3 * q_side * q_side, d), generator=g, dtype=dtype)
+    k = torch.randn((1, 2, 3 * k_side * k_side, d), generator=g, dtype=dtype)
+    index = [mvit.rel_index(a, b) for a, b in zip(q_grid, k_grid)]
+    return q, k, q_grid, k_grid, tables, index
+
+
+@pytest.mark.parametrize("q_side,k_side", [(8, 4), (8, 2), (4, 8)])
+def test_the_packed_logits_are_the_logits_plus_the_bias(q_side, k_side):
+    """q′·k′ᵀ/√d = q·kᵀ/√d + Rel(q) in float64: the query's √d-scaled terms
+    meet the keys' one-hots of their three coordinates."""
+    d = 8
+    q, k, q_grid, k_grid, tables, index = _grids(q_side, k_side, d, torch.float64, 33)
+    extra = mvit.packed_width(d, k_grid) - d
+    rows = mvit.term_rows(index, [len(t) for t in tables], k_grid, extra)
+    qp, kp = mvit.pack(q, k, q_grid, tables, rows, mvit.key_onehots(k_grid, extra).double())
+    assert qp.shape[-1] == kp.shape[-1] == d + extra and extra % 32 == 0
+    assert torch.equal(qp[..., :d], q) and torch.equal(kp[..., :d], k)
+    got = qp @ kp.transpose(-1, -2) / d ** 0.5
+    want = q @ k.transpose(-1, -2) / d ** 0.5 + mvit.rel_pos_bias(q, q_grid, k_grid, tables,
+                                                                  index)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+
+
+def test_the_packed_channels_past_the_terms_are_zero():
+    """q′ holds kt + kh terms, zeros to a multiple of 8, kw terms, zeros;
+    k′ a one-hot in each group and zeros elsewhere."""
+    d, k_grid = 8, (3, 2, 2)
+    q, k, q_grid, _, tables, index = _grids(4, 2, d, torch.float64, 35)
+    extra = mvit.packed_width(d, k_grid) - d
+    assert extra == 32
+    rows = mvit.term_rows(index, [len(t) for t in tables], k_grid, extra)
+    qp, kp = mvit.pack(q, k, q_grid, tables, rows, mvit.key_onehots(k_grid, extra).double())
+    used = [*range(d, d + 5), *range(d + 8, d + 10)]
+    unused = [c for c in range(d, d + extra) if c not in used]
+    assert qp[..., used].abs().min() > 0 and not qp[..., unused].any()
+    assert not kp[..., unused].any() and torch.equal(kp[..., used].sum(-1),
+                                                      torch.full(kp.shape[:-1], 3.0,
+                                                                 dtype=torch.float64))
+
+
+def test_the_keys_one_hots_mark_their_coordinates():
+    onehots = mvit.key_onehots((2, 3, 4), 32)
+    assert onehots.shape == (24, 32) and torch.equal(onehots.sum(1), torch.full((24,), 3.0))
+    # key (1, 2, 3) is the last: t' = 1, i' = 2 after the 2 t columns, j' = 3
+    # after the t and h columns rounded up to 8
+    assert onehots[-1].nonzero().flatten().tolist() == [1, 2 + 2, 8 + 3]
+    assert not onehots[:, 12:].any()
+
+
+@pytest.mark.parametrize("block", range(5))
+def test_a_blocks_packed_attention_is_the_biased_attention(setup, block):
+    """Every block of the tiny MViT (queries finer than, as fine as and
+    coarser than their keys) in float32: the packed call against the bias
+    form's masked attention, on the block's own tables made non-zero."""
+    attn = setup[2].features.blocks[block].attn
+    d = attn.pool_q.weight.shape[0]
+    g = torch.Generator().manual_seed(51 + block)
+    q, k, v = (torch.randn((B, attn.heads, math.prod(size), d), generator=g)
+               for size in (attn.q_size, attn.kv_size, attn.kv_size))
+    tables = [0.3 * torch.randn(t.shape, generator=g)
+              for t in (attn.rel_pos_t, attn.rel_pos_h, attn.rel_pos_w)]
+    got = mvit.packed_attention(q, k, v, attn.q_size, tables, (attn.rows_th, attn.rows_w),
+                                attn.onehots)
+    index = [mvit.rel_index(a, b) for a, b in zip(attn.q_size, attn.kv_size)]
+    bias = mvit.rel_pos_bias(q, attn.q_size, attn.kv_size, tables, index)
+    want = F.scaled_dot_product_attention(q, k, v, attn_mask=bias) + q
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_a_detection_takes_the_packed_attention_once_a_block(setup):
+    _, _, model, rgb, props, mask = setup
+    before = LAUNCHES["packed_attention"]
+    detect_clip(model, rgb, props, mask)
+    assert LAUNCHES["packed_attention"] - before == len(model.features.blocks) == 5
+
+
 def test_the_skip_pool_pads_symmetrically_unlike_the_tf_same_pool():
     g = torch.Generator().manual_seed(41)
     B, size, C = 2, (3, 8, 8), 5
@@ -242,6 +332,13 @@ def test_at_full_depth_the_names_shapes_and_widths_are_published():
     assert [a.kv_size for a in attn] == ([(9, 7, 7)] * 2 + [(9, 14, 14)] + [(9, 7, 7)] * 2
                                          + [(9, 14, 14)] + [(9, 7, 7)] * 15)
     assert [a.q_size[1] for a in attn] == [56] * 2 + [28] * 3 + [14] * 16
+    # the packed query's and keys' channels: 96 and the terms 9 + 7 (→ 16)
+    # + 7 → 128, or 9 + 14 (→ 24) + 14 → 160 at the transitions
+    widths = [a.width for a in attn]
+    assert widths == [128] * 2 + [160] + [128] * 2 + [160] + [128] * 15
+    assert all(w % 8 == 0 and w <= 256 for w in widths)
+    assert [tuple(a.onehots.shape) for a in attn] == [
+        (math.prod(a.kv_size), a.width - 96) for a in attn]
     assert {b.mlp.fc1.out_features // b.mlp.fc1.in_features for b in net.blocks} == {4}
     assert net(torch.empty((B, 18, 224, 224, 3), device="meta")).shape == (B, 9, 14, 14, 384)
     assert model.steps[0].tail.Mixed_5b.b0.conv.weight.shape[1] == 384
