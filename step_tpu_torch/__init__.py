@@ -16,7 +16,8 @@ Layers, entry point first:
                    the video and streaming forms
   models/          STEPDetector, FeatureNet / ContextNet / TwoBranchHead,
                    I3D, the VideoMAE ViT-B/16 backbone (vit.py), the
-                   MViTv2-B backbone (mvit.py), BN folding (optimize.py)
+                   MViTv2-B backbone (mvit.py), the Video Swin-B backbone
+                   (swin.py), BN folding (optimize.py)
   ops/             tube ROI-align, batched NMS and the backbone kernels:
                    each a plain PyTorch version plus a CUDA kernel
                    (kernels.py, csrc/); the pool backward (pool_grad.py)

@@ -31,8 +31,9 @@ is normalized in float32 and then cast to `cfg.compute_dtype`.
 
 `cfg.backbone` picks the backbone (`BACKBONES`): "i3d", `nets.FeatureNet`
 with every variant above, "videomae_vit_b16", the ViT-B/16 of
-`models/vit.py`, or "mvitv2_b", MViTv2-B to its stride-16 stage
-(`models/mvit.py`); the two transformers attend over the whole clip, so
+`models/vit.py`, "mvitv2_b", MViTv2-B to its stride-16 stage
+(`models/mvit.py`), or "swin3d_b", Video Swin-B to its stride-16 stage
+(`models/swin.py`); the three transformers attend over the whole clip, so
 they take no chunk stems, no second stream and no flow input. An unknown
 name is refused. The heads'
 I3D tails take the backbone's channels on its T' slices (`feature_frames`).
@@ -61,7 +62,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from step_tpu_torch.config import StepConfig
-from step_tpu_torch.models import mvit, vit
+from step_tpu_torch.models import mvit, swin, vit
 from step_tpu_torch.models.nets import (CONTEXT_DIM, ContextNet, FeatureNet,
                                         TwoBranchHead, draw_dropout_masks)
 from step_tpu_torch.ops.roi_align import feature_time_indices, tube_roi_align
@@ -99,8 +100,8 @@ def _i3d(cfg: StepConfig) -> nn.Module:
 
 def _whole_clip(net):
     """The constructor of a transformer `net` (`vit.VideoMAEViT`,
-    `mvit.MViTv2`): attention over one whole RGB clip has no per-chunk
-    form and no second stream."""
+    `mvit.MViTv2`, `swin.SwinTransformer3D`): attention over one whole RGB
+    clip has no per-chunk form and no second stream."""
     def build(cfg: StepConfig) -> nn.Module:
         for refused, why in ((cfg.chunk_stem, "chunk_stem"), (cfg.two_stream, "two_stream"),
                              (cfg.input_stream != "rgb", f"input_stream={cfg.input_stream!r}")):
@@ -116,7 +117,9 @@ BACKBONES = {"i3d": (_i3d, _i3d_frames),
              vit.NAME: (_whole_clip(vit.VideoMAEViT),
                         lambda cfg: vit.feature_frames(cfg.total_frames)),
              mvit.NAME: (_whole_clip(mvit.MViTv2),
-                         lambda cfg: mvit.feature_frames(cfg.total_frames))}
+                         lambda cfg: mvit.feature_frames(cfg.total_frames)),
+             swin.NAME: (_whole_clip(swin.SwinTransformer3D),
+                         lambda cfg: swin.feature_frames(cfg.total_frames))}
 
 
 def feature_frames(cfg: StepConfig) -> int:
@@ -125,7 +128,8 @@ def feature_frames(cfg: StepConfig) -> int:
     TF-SAME), on the whole clip or on each chunk under `chunk_stem` (5 on
     `ucf_3step`, 6 with chunk stems); the ViT takes one slice a tubelet of
     2 frames (9 of 18); MViTv2's patch embedding strides 2 over the clip
-    padded by a frame at each end, (T + 2 − 3) // 2 + 1 (9 of 18)."""
+    padded by a frame at each end, (T + 2 − 3) // 2 + 1 (9 of 18); Video
+    Swin's pads the clip to a multiple of 2 frames, ⌈T/2⌉ (9 of 18)."""
     return BACKBONES[cfg.backbone][1](cfg)
 
 

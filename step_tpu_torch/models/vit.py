@@ -68,9 +68,9 @@ def sinusoid_table(n: int, dim: int, device=None) -> torch.Tensor:
 
 
 def layer_norm(layer: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    """`layer` in the activations' dtype, at the ViT's eps."""
+    """`layer` in the activations' dtype, at its own eps."""
     return F.layer_norm(x, layer.normalized_shape, layer.weight.to(x.dtype),
-                        layer.bias.to(x.dtype), LN_EPS)
+                        layer.bias.to(x.dtype), layer.eps)
 
 
 class PatchEmbed(nn.Module):

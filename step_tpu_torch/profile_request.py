@@ -3,7 +3,8 @@ on the card.
 
     python3 -m step_tpu_torch.profile_request
         [--path main|kernel|video|stream|train|train_dp|train_two_stream|two_stream|ava]
-        [--backbone i3d|videomae_vit_b16|mvitv2_b] [--batch 8] [--requests 10] [--out profile.json]
+        [--backbone i3d|videomae_vit_b16|mvitv2_b|swin3d_b] [--batch 8] [--requests 10]
+        [--out profile.json]
 
 Builds the detector at full width and depth with seeded weights (seed 0),
 in bfloat16, in one of the serving configurations that `chip_smoke.py`
@@ -38,8 +39,10 @@ drives:
 
 `--backbone` swaps the path's preset's backbone (`cfg.backbone`): `--path
 ava --backbone videomae_vit_b16` is the benchmark's `ava_videomae_b16`
-detector, the ViT-B/16 of `models/vit.py` on the main path's tree, and
-`--backbone mvitv2_b` its `ava_mvitv2_b`, MViTv2-B of `models/mvit.py`.
+detector, the ViT-B/16 of `models/vit.py` on the main path's tree,
+`--backbone mvitv2_b` its `ava_mvitv2_b`, MViTv2-B of `models/mvit.py`,
+and `--backbone swin3d_b` its `ava_swin3d_b`, Video Swin-B of
+`models/swin.py`.
 
 A request of `main`, `kernel` and `ava` uploads `--batch` uint8 clips,
 one of `two_stream` the clips and their int8 flow, one of `video` and

@@ -14,19 +14,28 @@ exported program holds no profiler node.
   model.preprocess  `STEPDetector.stem`: the input's normalization and the
                     cast to the compute dtype
   model.backbone    `STEPDetector.stem`: the backbone's call (`FeatureNet`,
-                    `vit.VideoMAEViT` or `mvit.MViTv2`)
+                    `vit.VideoMAEViT`, `mvit.MViTv2` or
+                    `swin.SwinTransformer3D`)
   model.stem        inside `model.backbone`, an I3D stem's first unit
                     (`I3DStem.forward`: Conv3d_1a_7x7), one a stem; or
-                    MViTv2's patch embedding, one a call
+                    MViTv2's patch embedding, or Video Swin's with its
+                    norm, one a call
   model.attn_pool   inside `model.backbone`, an MViTv2 block's depthwise
                     pools of q, k and v and their LayerNorms, one a block
+  model.window      inside `model.backbone`, a Video Swin block's window
+                    moves, twice a block: LN1's output padded, rolled and
+                    cut into windows (one gather), and the windows put
+                    back, rolled back and cropped (one gather)
   model.attention   inside `model.backbone`, a ViT block's attention call
-                    (`F.scaled_dot_product_attention`), or an MViTv2
+                    (`F.scaled_dot_product_attention`), an MViTv2
                     block's packing of its relative positions into the
                     query's and keys' channels, its attention call with no
-                    mask and residual `+ q`; one a block
-  model.mlp         inside `model.backbone`, a ViT or MViTv2 block's fc1,
-                    GELU and fc2 (`vit.Mlp`), one a block
+                    mask and residual `+ q`, or a Video Swin block's qkv
+                    split into window-major heads, its summed bias and
+                    mask, the attention call and the heads' merge; one a
+                    block
+  model.mlp         inside `model.backbone`, a ViT, MViTv2 or Video Swin
+                    block's fc1, GELU and fc2 (`vit.Mlp`), one a block
   model.refine      all of `STEPDetector.refine`, the context included
   model.context     `STEPDetector.refine`: the `ContextNet` call
   model.head        a refinement step's `TwoBranchHead` call (its I3D tail
@@ -56,8 +65,8 @@ import contextlib
 import torch
 
 SPANS = ("model.preprocess", "model.backbone", "model.stem", "model.attn_pool",
-         "model.attention", "model.mlp", "model.refine", "model.context", "model.head",
-         "model.boxes", "detect.nms",
+         "model.window", "model.attention", "model.mlp", "model.refine", "model.context",
+         "model.head", "model.boxes", "detect.nms",
          "train.forward", "train.loss", "train.backward", "train.reduce",
          "train.optimizer", "train.bn_commit", "loader.wait")
 

@@ -1406,6 +1406,101 @@ def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda)
     assert ok, checks
 
 
+@pytest.mark.parametrize("stage,heads,grid", [(0, 4, (9, 56, 56)), (2, 16, (9, 14, 14))])
+def test_swin_window_attention_is_one_fused_kernel_and_the_biased_attention(
+        cuda, stage, heads, grid):
+    """A Video Swin-B SW-MSA block's attention at B=32 in bfloat16, at stage
+    1 (128 windows, 4 heads) and stage 3 (8 windows, 16 heads): the window
+    major call with the `[nW·h, 1, N, N]` bias and mask is one fused
+    attention kernel, no softmax of the math path, within bfloat16's
+    rounding of the same attention in float32 on the CPU's math path."""
+    from step_tpu_torch.models import swin
+
+    g = torch.Generator(device=cuda).manual_seed(63 + stage)
+    d, N = 32, 392
+    window, shift = swin.window_size(grid)
+    labels = swin.region_labels(grid, window, shift).to(cuda)
+    nW = labels.shape[0]
+    attn = swin.WindowAttention3D(heads * d, heads).to(cuda)
+    with torch.no_grad():
+        attn.relative_position_bias_table.copy_(
+            torch.randn(attn.relative_position_bias_table.shape, device=cuda, generator=g))
+    index = swin.relative_index().to(cuda)
+    q, k, v = (torch.nn.functional.layer_norm(
+        torch.randn((nW * heads, 32, N, d), device=cuda, generator=g), (d,)) for _ in range(3))
+    with torch.no_grad():
+        bias = attn.bias(index, labels, torch.bfloat16)
+        args = [t.bfloat16() for t in (q, k, v)]
+        torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=bias)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            got = torch.nn.functional.scaled_dot_product_attention(*args, attn_mask=bias)
+            torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    fused = [n for n in names if "sdpa" in n or "flash" in n or "fmha" in n or "attention" in n]
+    assert len(fused) == 1 and not any("softmax" in n for n in names), names
+    print(f"swin stage {stage + 1} attention kernels: {names}")
+    assert bias.shape == (nW * heads, 1, N, N)
+    scores = (q @ k.transpose(-1, -2)) * d ** -0.5 + bias.float()
+    want = scores.softmax(-1) @ v
+    # outputs of order one: bfloat16's step at 1 is 2^-7, the bias rounded
+    # to bfloat16 moves a logit by up to 2^-8 of it
+    torch.testing.assert_close(got.float(), want, rtol=0, atol=2.0 ** -5)
+
+
+def test_swin_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda):
+    """The benchmark's `ava_swin3d_b` detector at published widths (Video
+    Swin-B stages 1-3, `models/swin.py`), built and served as the
+    benchmark serves it (`benchmark/program.py::Server`: BN-folded heads,
+    the tree in bfloat16, K1, K2, K5 and `step::inception_block` on the
+    C = 512 tails at T' = 9) on a B=32 request of 224 px clips: the heads'
+    six tail blocks of a request run on the operator, the request's peak
+    memory is printed (and no `[B·nW, h, N, N]` tensor fits under its
+    bound), and its first 2 clips are judged by the float32 reference
+    (`benchmark/check.py`) under the cell's limits."""
+    import json
+    import os
+
+    from benchmark import check, work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "benchmark")
+    with open(os.path.join(root, "configs", "ava_swin3d_b.json")) as f:
+        fields = json.load(f)["config"]
+    with open(os.path.join(root, "workloads", "ava_swin3d_b.offline_b32.json")) as f:
+        limits = json.load(f)["limits"]
+    rc = reference.config(fields)
+    weights = work.make_weights(rc, 2 ** 31 + 7, cuda)
+    server = Server(fields, weights, cuda)
+    props, pmask = server.proposals(32)
+    rgb = torch.from_numpy(np.random.RandomState(10).randint(
+        0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
+    server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    before = LAUNCHES["inception_block"]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = server.detect(rgb, props, pmask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"swin B=32 request: peak {peak / 1e9:.3f} GB allocated, "
+          f"{(peak - base) / 1e9:.3f} GB above the weights, bias caches and input")
+    assert LAUNCHES["inception_block"] - before == 6
+    # stage 1's bias broadcast over the batch would be 32 x 128 x 4 x 392^2
+    # bfloat16 elements, 5.0 GB, on top of the request's own
+    assert peak - base < 6e9
+    assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
+    served = {k: v[:2].cpu() for k, v in out.items()}
+    del server, out
+    readings, _ = check.serve_readings(weights, rc, [(rgb[:2].cpu(), props[:2].cpu(),
+                                                      pmask[:2].cpu(), served)], cuda)
+    ok, checks = check.verdict(readings, limits)
+    print(f"swin B=32 checks: {checks}")
+    assert ok, checks
+
+
 # ---- the I3D classifier's shapes and the int8 optimizer --------------------
 
 # `I3DClassifier` on 64 frames at 224 px (B=1): the stem at T = 32 and 16,

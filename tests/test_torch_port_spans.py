@@ -13,7 +13,10 @@ depth in float32:
     `model.attention` and `model.mlp` once a block inside `model.backbone`;
     over MViTv2 (`models/mvit.py`) `model.stem` once (the patch embedding)
     and `model.attn_pool`, `model.attention` and `model.mlp` once a block,
-    in that order, inside `model.backbone`;
+    in that order, inside `model.backbone`; over Video Swin
+    (`models/swin.py`) `model.stem` once (the patch embedding and its
+    norm), and a block's `model.window`, `model.attention`,
+    `model.window` and `model.mlp`, in that order, inside `model.backbone`;
   * a `train_step` opens each `train.*` span once (`train.reduce` in the
     data-parallel step, which gives the step its reduction), and with
     `grad_accum_steps=2` `train.forward`, `train.loss` and
@@ -45,7 +48,7 @@ from step_tpu_torch.data.pipeline import build_model_batch
 from step_tpu_torch.data.synthetic import SyntheticConfig, make_batch
 from step_tpu_torch.inference import detect_clip
 from step_tpu_torch.models.detector import STEPDetector
-from step_tpu_torch.models import mvit
+from step_tpu_torch.models import mvit, swin
 from step_tpu_torch.models.vit import WIDTHS
 from step_tpu_torch.parallel import create_mesh
 from step_tpu_torch.train.trainer import (batch_to_device, create_train_state,
@@ -122,7 +125,8 @@ def opened(mesh):
     runs = {"ucf": _detect("ucf_3step")[1], "ava": _detect("ava_3step")[1],
             "no_context": _detect("ucf_3step", use_context=False)[1],
             "vit": _detect("ava_3step", backbone="videomae_vit_b16")[1],
-            "mvit": _detect("ava_3step", backbone=mvit.NAME)[1]}
+            "mvit": _detect("ava_3step", backbone=mvit.NAME)[1],
+            "swin": _detect("ava_3step", backbone=swin.NAME)[1]}
     for name, over in (("train", {}), ("accum2", {"grad_accum_steps": 2})):
         cfg, state, batch = _train(**over)
         runs[name] = (lambda s, b, c: lambda: train_step(s, b, c))(state, batch, cfg)
@@ -205,6 +209,25 @@ def test_an_mvit_detection_opens_the_pools_attention_and_mlp_once_a_block(opened
                    key=lambda e: e.time_range.start)
     assert [e.name for e in inner] == ["model.stem"] + ["model.attn_pool", "model.attention",
                                                         "model.mlp"] * blocks
+    assert all(backbone.start <= e.time_range.start <= e.time_range.end <= backbone.end
+               for e in inner)
+
+
+def test_a_swin_detection_opens_two_window_moves_attention_and_mlp_a_block(opened):
+    events = opened["swin"]
+    blocks = sum(swin.WIDTHS["tiny"][2])
+    steps = PRESETS["ava_3step"].num_steps
+    assert _counts(events) == {"model.preprocess": 1, "model.backbone": 1, "model.stem": 1,
+                               "model.refine": 1, "model.context": 1, "detect.nms": 1,
+                               "model.head": steps, "model.boxes": steps,
+                               "model.window": 2 * blocks, "model.attention": blocks,
+                               "model.mlp": blocks}
+    backbone = next(e.time_range for e in events if e.name == "model.backbone")
+    inner = sorted((e for e in events if e.name in ("model.stem", "model.window",
+                                                    "model.attention", "model.mlp")),
+                   key=lambda e: e.time_range.start)
+    assert [e.name for e in inner] == ["model.stem"] + ["model.window", "model.attention",
+                                                        "model.window", "model.mlp"] * blocks
     assert all(backbone.start <= e.time_range.start <= e.time_range.end <= backbone.end
                for e in inner)
 
