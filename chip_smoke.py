@@ -295,6 +295,17 @@ Phases, each fatal on failure (exit code 1, no result line):
      `benchmark/program.py::Server` builds them, every block held against
      the model at its call: 6 blocks and 3 head reductions a request
      (`INCEPTION_LAUNCHES`).
+ 37. MViTv2's attention pools (`attn_pool_phase`, `ops/attn_pool.py::
+     attn_pool`, `csrc/attn_pool.cu`; it replaces no TPU kernel): at each
+     block shape of a full-depth request at B=32 (and the first at B=2),
+     the three pools of a block held against the plain version and timed
+     beside the bound by the benchmark's bytes and by the bytes the taps
+     touch, the plain version and today's path before the kernel (the
+     depthwise conv on channel-major parts and the LayerNorm on the
+     transposed view), and the sums over a request's 21 blocks; then one
+     B=32 request of the benchmark's `ava_mvitv2_b` detector, every pool
+     held against the plain version at its call: 63 launches
+     (`ATTN_POOL_LAUNCHES`).
 
 At the end it checks that nothing of JAX or of the JAX package was
 imported. Each kernel's time `ms` is its own device time: 20 launches of
@@ -342,7 +353,9 @@ and `chunk_b1_shapes` (phase 33), and `vit_launches` and `vit_shapes`
 pool, which replaces no TPU kernel; `replaces` null) has no phase 1-11
 numbers; the entry `stem_conv` (the stem conv, `replaces` null) holds
 phase 35's alone: `launches` a request of each served detector, and
-`shapes`, each shape's numbers. The last
+`shapes`, each shape's numbers; the entry `attn_pool` (`replaces` null)
+phase 37's: `launches` in a B=32 MViTv2 request, `shapes` and `request`
+(the sums over its 21 blocks). The last
 is {"ok": true, "device": {...}}. Without a CUDA device, or run outside the
 repository, it exits non-zero and prints no result.
 """
@@ -1247,6 +1260,190 @@ def inception_phase(dev, rng, smi_line: str, n_hgmma: int) -> dict:
         torch.cuda.empty_cache()
     print(f"    phase 36 took {time.time() - t36:.1f} s", flush=True)
     return dict(launches=launches, hgmma=n_hgmma, shapes=shapes)
+
+
+ATTN_POOL_EPS = 1e-6            # models/vit.py::LN_EPS
+ATTN_POOL_LAUNCHES = 63         # 3 parts x 21 blocks of a full-depth request
+
+
+def attn_pool_blocks() -> dict:
+    """{(input grid, dim_out, heads, q stride, K/V stride): blocks} of a
+    full-depth MViTv2-B request at 224 px and 18 frames, in block order."""
+    from step_tpu_torch.models import mvit
+
+    size, blocks = (9, 56, 56), {}
+    for _, dim_out, heads, q_stride, kv_stride in mvit.block_plan("full"):
+        key = (size, dim_out, heads, q_stride, kv_stride)
+        blocks[key] = blocks.get(key, 0) + 1
+        size = mvit.pooled(size, q_stride)
+    return blocks
+
+
+def attn_pool_close(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """The kernel's bf16 output against the plain version's: each rounds a
+    float32 result that differs from the other's only by the order of its
+    sums, so they are one bf16 step apart at most, with 1e-4 absolute where
+    an output near 0 has steps finer than the sums' float32 error."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= BF16_RTOL * want.float().abs() + 1e-4).all())
+
+
+def attn_pool_case(B: int, key, gen: torch.Generator, dev) -> dict:
+    """One block's three pools at batch B, on a bf16 qkv of the block's
+    shape (a GEMM output: unit normal plus a per-channel offset, as its
+    bias gives) with bf16 weights: each part held against the plain version
+    (float32 conv and norm, TF32 off), then timed as the block runs them
+    (three launches): device ms, the bound by the benchmark's bytes (each
+    part's whole input, `benchmark/reference/backbones/mvitv2_b.py`) and by
+    the bytes the taps touch, the plain version, and today's path before
+    the kernel (the library yardstick, which the port no longer calls:
+    `F.conv3d(groups=d)` on channel-major parts, then `F.layer_norm` on the
+    transposed view)."""
+    from step_tpu_torch import kernels
+    from step_tpu_torch.models import mvit
+    from step_tpu_torch.ops.attn_pool import attn_pool_plain
+
+    grid, dim_out, heads, q_stride, kv_stride = key
+    d, N = dim_out // heads, math.prod(grid)
+    qkv = (torch.randn((B, N, 3 * dim_out), device=dev, generator=gen)
+           + torch.randn(3 * dim_out, device=dev, generator=gen)).bfloat16()
+    strides = (q_stride, kv_stride, kv_stride)
+    weights = [((0.2 * torch.randn((d, 1, 3, 3, 3), device=dev, generator=gen)).bfloat16(),
+                (1 + 0.2 * torch.randn(d, device=dev, generator=gen)).bfloat16(),
+                (0.1 * torch.randn(d, device=dev, generator=gen)).bfloat16()) for _ in range(3)]
+    outs = [torch.empty(kernels.attn_pool_shape(qkv.shape, heads, grid, s), device=dev,
+                        dtype=torch.bfloat16) for s in strides]
+
+    def launch():
+        for part in range(3):
+            kernels.attn_pool_forward(qkv, part, heads, grid, strides[part], *weights[part],
+                                      ATTN_POOL_EPS, outs[part])
+
+    def plain():
+        return [attn_pool_plain(qkv, part, heads, grid, strides[part], *weights[part],
+                                ATTN_POOL_EPS) for part in range(3)]
+
+    cm = [qkv[..., p * dim_out:(p + 1) * dim_out].transpose(1, 2).contiguous().view(
+        B * heads, d, *grid) for p in range(3)]
+
+    def library():
+        for part in range(3):
+            w, nw, nb = weights[part]
+            y = F.conv3d(cm[part], w, None, strides[part], 1, 1, d)
+            F.layer_norm(y.reshape(-1, heads, d, y[0, 0].numel()).transpose(2, 3), (d,), nw,
+                         nb, ATTN_POOL_EPS)
+
+    launch()
+    torch.cuda.synchronize()
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        wants = plain()
+    errs = []
+    for part, (got, want) in enumerate(zip(outs, wants)):
+        err = float((got.float() - want.float()).abs().max())
+        check(attn_pool_close(got, want), f"attn_pool part {'qkv'[part]} at B={B} {key} "
+              f"differs from plain: max |err| {err}")
+        errs.append(err)
+    del wants
+    sides = [mvit.pooled(grid, s) for s in strides]
+    n_out = [math.prod(s) for s in sides]
+    ref_bytes = (3 * N + sum(n_out)) * dim_out * B * 2
+    ops = 2 * 27 * sum(n_out) * dim_out * B
+
+    def touched(n, s):
+        rows = {s * i + k for i in range((n - 1) // s + 1) for k in (-1, 0, 1)} & set(range(n))
+        return len(rows)
+
+    read = sum(grid[0] * touched(grid[1], s[1]) * touched(grid[2], s[2]) for s in strides)
+    touched_bytes = (read + sum(n_out)) * dim_out * B * 2
+    r = dict(ms=device_ms(launch), max_abs_err=max(errs),
+             **bound(ref_bytes, ops, BF16_TENSOR_FLOPS),
+             touched_bound_ms=touched_bytes / HBM_BYTES_PER_S * 1e3,
+             plain_ms=cuda_ms(plain, iters=3, warmup=1),
+             library_ms=cuda_ms(library, iters=5, warmup=2))
+    del qkv, outs, cm
+    return r
+
+
+def attn_pool_phase(dev, rng, smi_line: str) -> dict:
+    """Phase 37, MViTv2's attention pools (`csrc/attn_pool.cu`, through
+    `ops/attn_pool.py::attn_pool`; it replaces no TPU kernel): each block
+    shape of a full-depth request (`attn_pool_blocks`) at B=32 and the
+    first at B=2, held and timed (`attn_pool_case`), and the request's sums
+    (blocks x each shape's numbers); then one B=32 request of the
+    benchmark's `ava_mvitv2_b` detector, built as `benchmark/program.py::
+    Server` builds it, every pool held against the plain version at its
+    call: 63 launches (`ATTN_POOL_LAUNCHES`). Returns the entry's `shapes`,
+    `request` and `launches`."""
+    from benchmark import work
+    from benchmark.program import Server
+    from benchmark.reference import detector as reference
+    from step_tpu_torch.ops import attn_pool as ap
+    from step_tpu_torch.ops.kernel_op import LAUNCHES
+
+    t37 = time.time()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 37)
+    blocks = attn_pool_blocks()
+    shapes, request = {}, dict(ms=0.0, bound_ms=0.0, touched_bound_ms=0.0, plain_ms=0.0,
+                               library_ms=0.0)
+    cases = [(32, key) for key in blocks] + [(2, next(iter(blocks)))]
+    for B, key in cases:
+        grid, dim_out, heads, q_stride, kv_stride = key
+        label = (f"B={B} {'x'.join(map(str, grid))} D={dim_out} h={heads} "
+                 f"q {q_stride[1]} kv {kv_stride[1]}")
+        r = shapes[label] = attn_pool_case(B, key, gen, dev)
+        torch.cuda.empty_cache()
+        if B == 32:
+            for k in request:
+                request[k] += blocks[key] * r[k]
+        print(f"[37] attn pools {label} (x{blocks[key]} a request): max |err| "
+              f"{r['max_abs_err']:.3g}; kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of "
+              f"the {r['bound_ms']:.4f} ms bound by the counted bytes, "
+              f"{r['touched_bound_ms'] / r['ms']:.1%} of {r['touched_bound_ms']:.4f} by the "
+              f"touched), plain {r['plain_ms']:.3f}, today's path (library) "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    print(f"[37] a B=32 request's 63 pools ({smi_line}): kernel {request['ms']:.4f} ms "
+          f"({request['bound_ms'] / request['ms']:.1%} of the {request['bound_ms']:.4f} ms "
+          f"bound; {request['touched_bound_ms'] / request['ms']:.1%} of "
+          f"{request['touched_bound_ms']:.4f} by the touched bytes), plain "
+          f"{request['plain_ms']:.2f}, today's path {request['library_ms']:.3f} ms", flush=True)
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "benchmark", "configs", "ava_mvitv2_b.json")) as f:
+        fields = json.load(f)["config"]
+    server = Server(fields, work.make_weights(reference.config(fields), SEED + 37, dev), dev)
+    cfg = server.cfg
+    props, pmask = server.proposals(32)
+    clips = [torch.from_numpy(rng.randint(0, 256, (32, cfg.total_frames, cfg.image_size,
+                                                   cfg.image_size, 3)).astype(np.uint8)).to(dev)
+             for _ in range(2)]
+    server.detect(clips[0], props, pmask)       # warm-up
+    torch.cuda.synchronize()
+    real, errors = ap.attn_pool, []
+
+    def hold(qkv, *args):
+        got = real(qkv, *args)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            want = ap.attn_pool_plain(qkv, *args)
+        err = float((got.float() - want.float()).abs().max())
+        check(attn_pool_close(got, want), f"a pool call at {list(qkv.shape)} differs from "
+              f"plain: max |err| {err}")
+        errors.append(err)
+        return got
+
+    before = LAUNCHES["attn_pool"]
+    with swapped(real, hold):
+        out = server.detect(clips[1], props, pmask)
+        torch.cuda.synchronize()
+    n = LAUNCHES["attn_pool"] - before
+    check(n == ATTN_POOL_LAUNCHES and len(errors) == n and bool(torch.isfinite(out["tubes"]).all()),
+          f"a B=32 request of ava_mvitv2_b launched {n} attention pools ({len(errors)} held), "
+          f"not {ATTN_POOL_LAUNCHES}")
+    print(f"[37] ava_mvitv2_b B=32: {n} pool launches a request, each held against plain "
+          f"(max |err| {max(errors):.3g})", flush=True)
+    del server, clips, out
+    torch.cuda.empty_cache()
+    print(f"    phase 37 took {time.time() - t37:.1f} s", flush=True)
+    return dict(launches=n, max_abs_err=max(errors), shapes=shapes, request=request)
 
 
 def bn_case(shape, gen: torch.Generator) -> dict:
@@ -5060,6 +5257,7 @@ def main() -> None:
     vit = vit_phase(dev, rng, smi.stdout.strip(), reset_counts, read_counts)
     stem = stem_phase(dev, rng, smi.stdout.strip(), n_stem_hgmma)
     blocks = inception_phase(dev, rng, smi.stdout.strip(), n_tube_hgmma)
+    pools = attn_pool_phase(dev, rng, smi.stdout.strip())
 
     launches = {**{k: main_launches[k] for k in ("nms_many", "tube_roi_align",
                                                  "max_pool3x3_same", "max_pool3d_same")},
@@ -5094,7 +5292,9 @@ def main() -> None:
          "replaces": None, **stem},
         {"name": "inception_block", "route": "cuda",
          "source": "step_tpu_torch/csrc/gemm.cu, step_tpu_torch/csrc/conv3d.cu",
-         "replaces": "step_tpu/ops/conv3d_pallas.py:45 (the 3x3x3 convs)", **blocks}]}))
+         "replaces": "step_tpu/ops/conv3d_pallas.py:45 (the 3x3x3 convs)", **blocks},
+        {"name": "attn_pool", "route": "cuda", "source": "step_tpu_torch/csrc/attn_pool.cu",
+         "replaces": None, **pools}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}))
 

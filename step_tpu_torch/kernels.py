@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "pool3d_same.cu", "bn_relu.cu",
-           "conv3d.cu", "gemm.cu", "stem_conv.cu", "errors.cu")
+           "conv3d.cu", "gemm.cu", "stem_conv.cu", "attn_pool.cu", "errors.cu")
 HEADERS = ("igemm.cuh", "wgmma.cuh", "sm_count.cuh", "max_merge.cuh")
 # -fmad=false: the NMS kernel must equal its plain version bit for bit, so
 # no multiply-add may be contracted into an FMA (the float32 conv and the
@@ -131,6 +131,8 @@ def library() -> ctypes.CDLL:
     lib.step_conv3x3x3_tube_bf16.restype = i
     lib.step_stem_conv.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
     lib.step_stem_conv.restype = i
+    lib.step_attn_pool.argtypes = [p, ll, ll, p, p, p, i, f, p, i, i, i, i, i, i, p]
+    lib.step_attn_pool.restype = i
     lib.step_cuda_error_string.argtypes = [i]
     lib.step_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -576,3 +578,83 @@ def stem_conv_forward(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor | No
         err = lib.step_stem_conv(x.data_ptr(), w.data_ptr(), ptr(scale), ptr(bias),
                                  out.data_ptr(), *x.shape, int(bool(relu)), _stream(dev))
     _raise_on(err, "stem_conv kernel launch")
+
+
+# MViTv2's attention pools (csrc/attn_pool.cu): the channels of a head it
+# takes, its spatial strides (the temporal stride is 1), its weights' dtypes.
+ATTN_POOL_D = 96
+ATTN_POOL_STRIDES = (1, 2, 4, 8)
+_ATTN_POOL_WEIGHT_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attn_pool_contract(qkv: torch.Tensor, part: int, heads: int, size, stride,
+                       weight: torch.Tensor, norm_weight: torch.Tensor,
+                       norm_bias: torch.Tensor) -> None:
+    """Raise unless `csrc/attn_pool.cu` takes this pool: qkv a contiguous
+    bf16 `[B, T·H·W, 3·dim_out]` (16-byte aligned) whose part `part` holds
+    `heads` heads of d = 96, stride (1, s, s) with s in 1, 2, 4, 8, the
+    weight `[96, 1, 3, 3, 3]` and the norm's weight and bias `[96]`, all
+    three contiguous and all float32 or all bf16. Shapes and dtypes only, so
+    it answers on any device."""
+    if qkv.dtype != torch.bfloat16:
+        raise ValueError(f"attn_pool takes bfloat16 activations, got {qkv.dtype}")
+    T, H, W = size
+    if qkv.dim() != 3 or qkv.shape[1] != T * H * W or qkv.shape[2] % 3:
+        raise ValueError(f"attn_pool: qkv {tuple(qkv.shape)} is not [B, T·H·W, 3·dim_out] "
+                         f"of the grid {tuple(size)}")
+    if not 0 <= part < 3:
+        raise ValueError(f"attn_pool: part {part} is not 0 (q), 1 (k) or 2 (v)")
+    dim_out = qkv.shape[2] // 3
+    if heads < 1 or dim_out != heads * ATTN_POOL_D:
+        raise ValueError(f"attn_pool takes heads of d = {ATTN_POOL_D}: {dim_out} channels "
+                         f"over {heads} heads")
+    if not qkv.is_contiguous() or qkv.data_ptr() % 16:
+        raise ValueError("attn_pool reads qkv in place: it must be contiguous and "
+                         "16-byte aligned")
+    if len(stride) != 3 or stride[0] != 1 or stride[1] != stride[2] \
+            or stride[1] not in ATTN_POOL_STRIDES:
+        raise ValueError(f"attn_pool takes strides (1, s, s) for s in {ATTN_POOL_STRIDES}, "
+                         f"got {tuple(stride)}")
+    d = ATTN_POOL_D
+    for name, t, shape in (("weight", weight, (d, 1, 3, 3, 3)), ("norm_weight", norm_weight, (d,)),
+                           ("norm_bias", norm_bias, (d,))):
+        if tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"attn_pool: {name} {tuple(t.shape)} is not a contiguous {shape}")
+        if t.dtype != weight.dtype or t.dtype not in _ATTN_POOL_WEIGHT_CODE:
+            raise ValueError(f"attn_pool: the weight and the norm's weight and bias must be "
+                             f"all float32 or all bfloat16, got {weight.dtype}, {norm_weight.dtype}, "
+                             f"{norm_bias.dtype}")
+
+
+def attn_pool_shape(qkv_shape, heads: int, size, stride) -> tuple:
+    """`[B, heads, T·Ho·Wo, d]`: the pooled part's shape, each side
+    `(n - 1) // s + 1` (a 3x3x3 window at padding 1)."""
+    B, _, C = qkv_shape
+    n = 1
+    for side, s in zip(size, stride):
+        n *= (side - 1) // s + 1
+    return (B, heads, n, C // 3 // heads)
+
+
+def attn_pool_forward(qkv: torch.Tensor, part: int, heads: int, size, stride,
+                      weight: torch.Tensor, norm_weight: torch.Tensor, norm_bias: torch.Tensor,
+                      eps: float, out: torch.Tensor) -> None:
+    """Launch `csrc/attn_pool.cu` on the part `part` of qkv `[B, T·H·W,
+    3·dim_out]` bf16 (`attn_pool_contract`): the depthwise 3x3x3 conv at
+    padding 1 and `stride`, then the LayerNorm over d at `eps`, into out
+    `[B, heads, T·Ho·Wo, 96]` bf16, contiguous."""
+    _need_cuda(qkv, "attn_pool")
+    dev = qkv.device
+    attn_pool_contract(qkv, part, heads, size, stride, weight, norm_weight, norm_bias)
+    for name, t in (("weight", weight), ("norm_weight", norm_weight), ("norm_bias", norm_bias)):
+        _check(t, name, weight.dtype, t.shape, dev)
+    _check(out, "out", torch.bfloat16, attn_pool_shape(qkv.shape, heads, size, stride), dev)
+    if out.data_ptr() % 16:
+        raise ValueError("attn_pool: out must be 16-byte aligned")
+    B, _, C = qkv.shape
+    with torch.cuda.device(dev):
+        err = library().step_attn_pool(
+            qkv.data_ptr(), C, part * (C // 3), weight.data_ptr(), norm_weight.data_ptr(),
+            norm_bias.data_ptr(), _ATTN_POOL_WEIGHT_CODE[weight.dtype], float(eps),
+            out.data_ptr(), B, heads, *size, stride[1], _stream(dev))
+    _raise_on(err, "attn_pool kernel launch")

@@ -63,9 +63,13 @@ transitions), on an H100 faster than the narrowest widths (120, 136). The
 keys' one-hots are a buffer made once; `LAUNCHES["packed_attention"]`
 (`ops/kernel_op.py`) counts the calls.
 
-The pools run as `F.conv3d(groups=d)` on the heads' contiguous
-`[B·h, d, T, H, W]`, each of q, k and v made in that order by its own GEMM
-of the qkv weight's rows, and `F.layer_norm`; the skip pool is
+The pools: one GEMM makes q, k and v as the token-major `[B, N, 3·dim_out]`
+(`_linear(qkv)`), and each part is pooled and normed by one call of
+`ops/attn_pool.py::attn_pool` (`step::attn_pool`, counted in
+`LAUNCHES["attn_pool"]`, 63 a full-depth request): on the card the
+hand-written `csrc/attn_pool.cu`, which reads the part in place and applies
+the LayerNorm to the conv's float32 sums; on the CPU its plain version,
+`F.conv3d(groups=d)` and `F.layer_norm` in float32. The skip pool is
 `F.max_pool3d` (symmetric padding, not TF-SAME). Spans: `model.stem`
 (the patch embedding), and a block's `model.attn_pool` (the three pools and
 their norms), `model.attention` (the packing, the attention call, `+ q`) and
@@ -83,6 +87,7 @@ import torch.nn.functional as F
 
 from step_tpu_torch.models.nets import _linear
 from step_tpu_torch.models.vit import LN_EPS, Mlp, layer_norm
+from step_tpu_torch.ops.attn_pool import attn_pool
 from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.utils.spans import span
 
@@ -268,33 +273,21 @@ class MultiScaleAttention(nn.Module):
         self.register_buffer("onehots", key_onehots(self.kv_size, self.width - d),
                              persistent=False)
 
-    def _parts(self, x: torch.Tensor) -> list:
-        """qkv of LN1's output `[B, N, dim]` as three channel-major parts,
-        `[B·h, d, T, H, W]` each, one GEMM of the weight's rows a part: the
-        depthwise convs then read contiguous NCDHW, which on the card takes
-        PyTorch's depthwise 3-D kernel, where a channels-last input takes
-        cuDNN's grouped path, one launch a channel."""
-        B, N, dim = x.shape
-        w = self.qkv.weight.to(x.dtype).view(3, -1, dim)
-        b = self.qkv.bias.to(x.dtype).view(3, -1, 1)
-        xt = x.transpose(1, 2)
-        return [torch.baddbmm(b[i], w[i].expand(B, -1, -1), xt).view(
-                    B * self.heads, -1, *self.size) for i in range(3)]
-
-    def _pool(self, part: torch.Tensor, name: str) -> torch.Tensor:
-        """`[B·h, d, T, H, W]` → pooled and normed `[B, h, N', d]`."""
+    def _pool(self, qkv: torch.Tensor, part: int) -> torch.Tensor:
+        """The part `part` (0 q, 1 k, 2 v) of qkv `[B, N, 3·dim_out]`, pooled
+        and normed: `[B, h, N', d]` (`ops/attn_pool.py::attn_pool`)."""
+        name = "qkv"[part]
         conv, norm = getattr(self, f"pool_{name}"), getattr(self, f"norm_{name}")
-        d = part.shape[1]
-        y = F.conv3d(part, conv.weight.to(part.dtype), None, conv.stride, conv.padding, 1, d)
-        return layer_norm(norm, y.reshape(-1, self.heads, d, y[0, 0].numel()).transpose(2, 3))
+        return attn_pool(qkv, part, self.heads, self.size, conv.stride, conv.weight,
+                         norm.weight, norm.bias, norm.eps)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """LN1's output `[B, N, dim]` on the grid `size` → `[B, Nq, dim_out]`
         on the grid `q_size`."""
         B = x.shape[0]
-        parts = self._parts(x)
+        qkv = _linear(self.qkv, x)
         with span("model.attn_pool"):
-            q, k, v = (self._pool(part, name) for part, name in zip(parts, "qkv"))
+            q, k, v = (self._pool(qkv, part) for part in range(3))
         with span("model.attention"):
             out = packed_attention(q, k, v, self.q_size,
                                    (self.rel_pos_t, self.rel_pos_h, self.rel_pos_w),

@@ -15,7 +15,9 @@ products), one bf16 step in bfloat16 (the tensor cores multiply bf16
 exactly and accumulate in float32, in another order than the plain conv).
 The stem conv: one bf16 step plus 2^-15 and 2^-20 of the sum of |x * w|
 an output adds up (`stem_close`: 1,029 float32 products summed in other
-orders).
+orders). MViTv2's attention pools: one bf16 step plus 1e-4
+(`attn_pool_close`: the conv's and the norm's float32 sums in another
+order than the plain version's, each rounded once).
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
@@ -1371,7 +1373,8 @@ def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda)
     six tail blocks of a request run on the operator, its 21 blocks'
     attention on the packed query and keys (no bias tensor), and its first
     2 clips are judged by the float32 reference (`benchmark/check.py`)
-    under the cell's limits."""
+    under the cell's limits; its 63 attention pools (3 a block) run on
+    `csrc/attn_pool.cu`."""
     import json
     import os
 
@@ -1392,11 +1395,12 @@ def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda)
         0, 256, (32, 18, 224, 224, 3)).astype(np.uint8)).to(cuda)
     server.detect(rgb, props, pmask)
     torch.cuda.synchronize()
-    before = LAUNCHES["inception_block"], LAUNCHES["packed_attention"]
+    before = LAUNCHES["inception_block"], LAUNCHES["packed_attention"], LAUNCHES["attn_pool"]
     out = server.detect(rgb, props, pmask)
     torch.cuda.synchronize()
     assert LAUNCHES["inception_block"] - before[0] == 6
     assert LAUNCHES["packed_attention"] - before[1] == 21
+    assert LAUNCHES["attn_pool"] - before[2] == 63
     assert out["tube_scores"].shape == (32, 16, 60) and torch.isfinite(out["tubes"]).all()
     served = {k: v[:2].cpu() for k, v in out.items()}
     del server, out
@@ -1404,6 +1408,139 @@ def test_mvit_detector_at_b32_meets_the_cells_limits_against_the_reference(cuda)
                                                       pmask[:2].cpu(), served)], cuda)
     ok, checks = check.verdict(readings, limits)
     assert ok, checks
+
+
+# MViTv2-B's attention pools at full depth, 224 px, 18 frames: (input grid,
+# dim_out, heads, q stride, K/V stride, blocks of a request), in block order.
+MVIT_POOL_BLOCKS = [((9, 56, 56), 96, 1, (1, 1, 1), (1, 8, 8), 2),
+                    ((9, 56, 56), 192, 2, (1, 2, 2), (1, 4, 4), 1),
+                    ((9, 28, 28), 192, 2, (1, 1, 1), (1, 4, 4), 2),
+                    ((9, 28, 28), 384, 4, (1, 2, 2), (1, 2, 2), 1),
+                    ((9, 14, 14), 384, 4, (1, 1, 1), (1, 2, 2), 15)]
+
+
+def mvit_pool_inputs(B, grid, dim_out, d, generator, device, dtype=torch.bfloat16):
+    """qkv `[B, T·H·W, 3·dim_out]` in bfloat16 as a GEMM makes it (unit
+    normal plus a per-channel offset, its bias) and a part's weights in
+    `dtype`: the conv weight `[d, 1, 3, 3, 3]`, the norm's weight (not 1)
+    and bias (not 0)."""
+    import math
+
+    def randn(*shape):
+        return torch.randn(shape, generator=generator, device=device)
+
+    qkv = (randn(B, math.prod(grid), 3 * dim_out) + randn(3 * dim_out)).bfloat16()
+    return qkv, ((0.2 * randn(d, 1, 3, 3, 3)).to(dtype), (1 + 0.2 * randn(d)).to(dtype),
+                 (0.1 * randn(d)).to(dtype))
+
+
+def attn_pool_close(got, want):
+    """Two roundings to bfloat16 of float32 results that differ only by the
+    order of their sums: one bf16 step apart at most, with 1e-4 absolute
+    where an output near 0 has steps finer than the sums' error."""
+    err = (got.float() - want.float()).abs()
+    return bool((err <= 2.0 ** -7 * want.float().abs() + 1e-4).all()), float(err.max())
+
+
+@pytest.mark.parametrize("case", [(row, 2, torch.bfloat16) for row in range(5)]
+                         + [(0, 32, torch.bfloat16), (4, 2, torch.float32)])
+@pytest.mark.parametrize("part", range(3))
+def test_attn_pool_kernel_is_its_plain_version_at_each_block_shape(cuda, case, part):
+    """`csrc/attn_pool.cu` through `step::attn_pool` at each block shape of
+    the full-depth plan, q at the block's q stride and k, v at its K/V
+    stride (1, 2, 4 and 8 among them), at B=2, at stage 1's B=32, and with
+    float32 weights (which the kernel rounds to bfloat16 itself): one launch,
+    within one bf16 step (and 1e-4) of the plain version, whose float32 conv
+    and norm run with TF32 off."""
+    from step_tpu_torch.ops.attn_pool import attn_pool, attn_pool_plain
+
+    row, B, dtype = case
+    grid, dim_out, heads, q_stride, kv_stride, _ = MVIT_POOL_BLOCKS[row]
+    stride = q_stride if part == 0 else kv_stride
+    g = torch.Generator(device=cuda).manual_seed(71 + 3 * row + part)
+    qkv, weights = mvit_pool_inputs(B, grid, dim_out, 96, g, cuda, dtype)
+    before = LAUNCHES["attn_pool"]
+    got = attn_pool(qkv, part, heads, grid, stride, *weights, 1e-6)
+    torch.cuda.synchronize()
+    assert LAUNCHES["attn_pool"] - before == 1
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = attn_pool_plain(qkv, part, heads, grid, stride, *weights, 1e-6)
+    assert got.shape == want.shape and got.is_contiguous() and got.dtype == torch.bfloat16
+    ok, err = attn_pool_close(got, want)
+    print(f"attn_pool B={B} {grid} D={dim_out} part {'qkv'[part]} stride {stride}: "
+          f"max |err| {err:.3g}")
+    assert ok, err
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4, 8])
+def test_attn_pool_kernel_on_an_odd_grid(cuda, stride):
+    """A 5x13x11 grid, whose sides no stride divides, at each spatial
+    stride: the tiles' ragged rows and columns, against the plain version."""
+    from step_tpu_torch.ops.attn_pool import attn_pool, attn_pool_plain
+
+    g = torch.Generator(device=cuda).manual_seed(80 + stride)
+    grid, strides = (5, 13, 11), (1, stride, stride)
+    qkv, weights = mvit_pool_inputs(3, grid, 192, 96, g, cuda)
+    got = attn_pool(qkv, 1, 2, grid, strides, *weights, 1e-6)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = attn_pool_plain(qkv, 1, 2, grid, strides, *weights, 1e-6)
+    ok, err = attn_pool_close(got, want)
+    assert ok, err
+
+
+def test_a_blocks_pools_launch_the_kernel_alone(cuda):
+    """The three pools of stage 1's first block at B=2, traced: three
+    launches of the kernel and no other device work (no depthwise conv, no
+    LayerNorm, no copy)."""
+    from step_tpu_torch.models import mvit
+    from step_tpu_torch.models.nets import _linear
+
+    attn = mvit.MultiScaleAttention(96, 96, 1, (1, 1, 1), (1, 8, 8), (9, 56, 56))
+    attn = attn.to(cuda, torch.bfloat16).eval()
+    g = torch.Generator(device=cuda).manual_seed(90)
+    x = torch.randn((2, 9 * 56 * 56, 96), device=cuda, generator=g).bfloat16()
+    with torch.no_grad():
+        qkv = _linear(attn.qkv, x)
+        [attn._pool(qkv, part) for part in range(3)]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            [attn._pool(qkv, part) for part in range(3)]
+            torch.cuda.synchronize()
+    work = [e for e in prof.key_averages() if e.device_time_total > 0]
+    assert [e.key for e in work if "attn_pool_kernel" not in e.key] == [], [e.key for e in work]
+    assert sum(e.count for e in work) == 3
+
+
+@pytest.mark.parametrize("what,match", [
+    ("float32 activations", "bfloat16 activations"),
+    ("d = 16", "d = 96"),
+    ("stride (1, 3, 3)", "strides"),
+    ("stride (2, 1, 1)", "strides"),
+    ("mixed weight dtypes", "all float32 or all bfloat16"),
+    ("a view of wider rows", "in place"),
+])
+def test_what_the_attn_pool_kernel_refuses(cuda, what, match):
+    """The wrapper on a CUDA tensor raises on what the kernel does not take,
+    launching nothing."""
+    from step_tpu_torch.ops.attn_pool import attn_pool
+
+    g = torch.Generator(device=cuda).manual_seed(91)
+    grid, dim_out, heads, stride = (3, 8, 8), 192, 2, (1, 1, 1)
+    qkv, (w, nw, nb) = mvit_pool_inputs(1, grid, dim_out, 96, g, cuda)
+    if what == "float32 activations":
+        qkv = qkv.float()
+    elif what == "d = 16":
+        qkv, (w, nw, nb) = mvit_pool_inputs(1, grid, 32, 16, g, cuda)
+    elif what.startswith("stride"):
+        stride = (1, 3, 3) if "3" in what else (2, 1, 1)
+    elif what == "mixed weight dtypes":
+        w = w.float()
+    else:
+        qkv = torch.cat([qkv, qkv[..., :8]], -1)[..., :3 * dim_out]
+    before = LAUNCHES["attn_pool"]
+    with pytest.raises(ValueError, match=match):
+        attn_pool(qkv, 0, heads, grid, stride, w, nw, nb, 1e-6)
+    assert LAUNCHES["attn_pool"] == before
 
 
 @pytest.mark.parametrize("stage,heads,grid", [(0, 4, (9, 56, 56)), (2, 16, (9, 14, 14))])

@@ -1,5 +1,5 @@
 """The seam between the model and the hand-written kernels
-(`step_tpu_torch/ops/kernel_op.py`), over the port's seven `step::`
+(`step_tpu_torch/ops/kernel_op.py`), over the port's eight `step::`
 operators, on the CPU. For each:
 
   * the operator's callable gives the plain version's bits on the CPU;
@@ -17,7 +17,8 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from step_tpu_torch import inference, kernels
-from step_tpu_torch.ops import conv3d, fused_bn_relu, kernel_op, pool, roi_align, stem_conv
+from step_tpu_torch.ops import (attn_pool, conv3d, fused_bn_relu, kernel_op, pool, roi_align,
+                                stem_conv)
 from step_tpu_torch.ops.kernel_op import LAUNCHES
 
 
@@ -76,6 +77,13 @@ def _nms_surface():
     return inference.nms_surface_op, args, inference._surface_plain(*args)
 
 
+def _attn_pool():
+    qkv = torch.randn(2, 3 * 4 * 5, 3 * 32)
+    w, nw, nb = torch.randn(16, 1, 3, 3, 3) * 0.2, torch.rand(16) + 0.5, torch.randn(16)
+    return (attn_pool.attn_pool_op, (qkv, w, nw, nb, 1, 2, [3, 4, 5], [1, 2, 2], 1e-6),
+            attn_pool.attn_pool_plain(qkv, 1, 2, (3, 4, 5), (1, 2, 2), w, nw, nb, 1e-6))
+
+
 OPERATORS = {
     "max_pool3x3_same": (_max_pool3x3_same, "max_pool3x3_forward"),
     "max_pool3d_same": (_max_pool3d_same, "max_pool3d_same_forward"),
@@ -84,6 +92,7 @@ OPERATORS = {
     "scale_bias_relu": (_scale_bias_relu, "scale_bias_relu_forward"),
     "tube_roi_align": (_tube_roi_align, "tube_roi_align_forward"),
     "nms_surface": (_nms_surface, "nms_many_forward"),
+    "attn_pool": (_attn_pool, "attn_pool_forward"),
 }
 
 

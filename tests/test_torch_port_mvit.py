@@ -22,7 +22,12 @@ logits against the logits plus Rel(q), with zeros in the channels past the
 terms; each tiny block's packed attention against the masked attention on
 Rel(q) in float32, and a detection's count of packed calls; the skip pool against `F.max_pool3d` with padding 1, which
 the port's TF-SAME pool (`ops/pool.py::max_pool3d_same`) does not
-compute. At full depth, on the meta device: the state_dict's names and
+compute. The attention pools' operator (`ops/attn_pool.py`): its plain
+version against the form it replaced (the depthwise conv on channel-major
+parts, then the LayerNorm on the transposed view) at every block shape of
+the full-depth plan and on an odd grid at strides 1, 2, 4 and 8, in
+float32; the kernel's contract (`kernels.attn_pool_contract`), its flop
+count, and a detection's count of pools. At full depth, on the meta device: the state_dict's names and
 shapes are the reference's `parameter_shapes`, the published widths, heads
 and table lengths hold, the packed widths are 128 and 160 at the
 transitions, and the map is `[B, 9, 14, 14, 384]`. The
@@ -49,6 +54,8 @@ from step_tpu_torch.inference import detect_clip
 from step_tpu_torch.models import mvit
 from step_tpu_torch.models.detector import STEPDetector, feature_frames
 from step_tpu_torch.models.optimize import optimize_for_inference
+from step_tpu_torch import kernels
+from step_tpu_torch.ops.attn_pool import attn_pool, attn_pool_plain
 from step_tpu_torch.ops.kernel_op import LAUNCHES
 from step_tpu_torch.ops.pool import max_pool3d_same
 
@@ -363,3 +370,151 @@ def test_a_clip_the_tables_were_not_made_for_is_refused(setup):
 def test_feature_frames_of_mvit():
     assert feature_frames(PRESETS["ava_3step"].replace(backbone=mvit.NAME)) == 9
     assert [mvit.feature_frames(t) for t in (6, 16, 17, 18, 32)] == [3, 8, 9, 9, 16]
+
+
+# The attention pools at full depth, 224 px, 18 frames: (input grid, dim_out,
+# heads, q stride, K/V stride, blocks of a request), in block order.
+POOL_BLOCKS = [((9, 56, 56), 96, 1, (1, 1, 1), (1, 8, 8), 2),
+               ((9, 56, 56), 192, 2, (1, 2, 2), (1, 4, 4), 1),
+               ((9, 28, 28), 192, 2, (1, 1, 1), (1, 4, 4), 2),
+               ((9, 28, 28), 384, 4, (1, 2, 2), (1, 2, 2), 1),
+               ((9, 14, 14), 384, 4, (1, 1, 1), (1, 2, 2), 15)]
+
+
+def _pool_inputs(B, grid, dim_out, d, seed):
+    """qkv `[B, T·H·W, 3·dim_out]` in float32 as a GEMM makes it (unit normal
+    plus a per-channel offset, its bias) and a part's weights: the conv
+    weight, the norm's weight (not 1) and bias (not 0)."""
+    g = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    qkv = randn(B, math.prod(grid), 3 * dim_out) + randn(3 * dim_out)
+    return qkv, (0.2 * randn(d, 1, 3, 3, 3), 1 + 0.2 * randn(d), 0.1 * randn(d))
+
+
+def _todays_pool(qkv, part, heads, size, stride, weight, norm_weight, norm_bias, eps):
+    """The form the operator replaced: the part channel-major `[B·h, d, T,
+    H, W]` (what a GEMM of the qkv weight's rows made), `F.conv3d(groups=d)`,
+    then the LayerNorm on the transposed `[B, h, N', d]` view."""
+    B, _, C = qkv.shape
+    dim_out = C // 3
+    d = dim_out // heads
+    part = qkv[..., part * dim_out:(part + 1) * dim_out].transpose(1, 2).contiguous()
+    y = F.conv3d(part.view(B * heads, d, *size), weight, None, stride, 1, 1, d)
+    return F.layer_norm(y.reshape(-1, heads, d, y[0, 0].numel()).transpose(2, 3), (d,),
+                        norm_weight, norm_bias, eps)
+
+
+def test_the_full_depth_plan_pools_at_these_shapes():
+    size, seen = (9, 56, 56), []
+    for _, dim_out, heads, q_stride, kv_stride in mvit.block_plan("full"):
+        seen.append((size, dim_out, heads, q_stride, kv_stride))
+        size = mvit.pooled(size, q_stride)
+    assert seen == [row[:5] for row in POOL_BLOCKS for _ in range(row[5])]
+
+
+@pytest.mark.parametrize("row", range(len(POOL_BLOCKS)))
+@pytest.mark.parametrize("part", range(3))
+def test_the_pools_plain_version_is_the_form_it_replaced(row, part):
+    grid, dim_out, heads, q_stride, kv_stride, _ = POOL_BLOCKS[row]
+    stride = q_stride if part == 0 else kv_stride
+    qkv, weights = _pool_inputs(1, grid, dim_out, 96, 30 + 3 * row + part)
+    got = attn_pool(qkv, part, heads, grid, stride, *weights, mvit.LN_EPS)
+    want = _todays_pool(qkv, part, heads, grid, stride, *weights, mvit.LN_EPS)
+    assert got.is_contiguous() and got.shape == (1, heads, math.prod(mvit.pooled(grid, stride)), 96)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("stride", [1, 2, 4, 8])
+def test_the_pools_plain_version_on_an_odd_grid(stride):
+    """9x13x11, whose sides no stride but 1 divides, two heads of d = 16 (the
+    plain version takes any d), every part."""
+    grid = (9, 13, 11)
+    qkv, weights = _pool_inputs(2, grid, 32, 16, 45 + stride)
+    for part in range(3):
+        got = attn_pool_plain(qkv, part, 2, grid, (1, stride, stride), *weights, 1e-6)
+        want = _todays_pool(qkv, part, 2, grid, (1, stride, stride), *weights, 1e-6)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_the_pools_plain_version_rounds_the_weights_and_the_output_once():
+    """In bfloat16 the weights round to bfloat16 and the conv's float32 sums
+    go into the norm unrounded: the float32 form on the rounded inputs,
+    rounded once at the end."""
+    grid = (3, 8, 8)
+    qkv, weights = _pool_inputs(1, grid, 96, 96, 60)
+    q16 = qkv.bfloat16()
+    got = attn_pool(q16, 0, 1, grid, (1, 2, 2), *weights, 1e-6)
+    rounded = [w.bfloat16().float() for w in weights]
+    want = _todays_pool(q16.float(), 0, 1, grid, (1, 2, 2), *rounded, 1e-6).bfloat16()
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("what,match", [
+    ("float32 activations", "bfloat16 activations"),
+    ("d = 16", "d = 96"),
+    ("stride (1, 3, 3)", "strides"),
+    ("stride (2, 1, 1)", "strides"),
+    ("stride (1, 2, 4)", "strides"),
+    ("mixed weight dtypes", "all float32 or all bfloat16"),
+    ("a view of wider rows", "in place"),
+    ("a grid of other tokens", "T·H·W"),
+    ("part 3", "part 3"),
+])
+def test_what_the_pool_kernel_refuses(what, match):
+    """`kernels.attn_pool_contract`, which the launcher applies before any
+    launch, holds shapes and dtypes only, so it answers here on CPU tensors
+    as on the card."""
+    grid, heads, stride, part = (3, 8, 8), 2, (1, 1, 1), 0
+    qkv, (w, nw, nb) = _pool_inputs(1, grid, 192, 96, 61)
+    qkv = qkv.bfloat16()
+    kernels.attn_pool_contract(qkv, part, heads, grid, stride, w, nw, nb)   # taken
+    kernels.attn_pool_contract(qkv, 2, heads, grid, (1, 8, 8), *(t.bfloat16() for t in (w, nw, nb)))
+    if what == "float32 activations":
+        qkv = qkv.float()
+    elif what == "d = 16":
+        qkv, heads = qkv[..., :96].contiguous(), 2
+    elif what.startswith("stride"):
+        stride = tuple(int(c) for c in what if c.isdigit())
+    elif what == "mixed weight dtypes":
+        nw = nw.bfloat16()
+    elif what == "a view of wider rows":
+        qkv = torch.cat([qkv, qkv[..., :8]], -1)[..., :3 * 192]
+    elif what == "a grid of other tokens":
+        grid = (3, 8, 7)
+    else:
+        part = 3
+    with pytest.raises(ValueError, match=match):
+        kernels.attn_pool_contract(qkv, part, heads, grid, stride, w, nw, nb)
+
+
+def test_the_pools_flop_count_is_the_depthwise_convs():
+    from torch.utils.flop_counter import FlopCounterMode
+
+    grid, stride = (3, 8, 8), (1, 2, 2)
+    qkv, weights = _pool_inputs(2, grid, 192, 96, 62)
+    with FlopCounterMode(display=False) as counter:
+        got = attn_pool(qkv, 1, 2, grid, stride, *weights, 1e-6)
+    assert counter.get_total_flops() == 2 * 27 * got.numel()
+    part = qkv[..., 192:384].transpose(1, 2).contiguous().view(4, 96, *grid)
+    with FlopCounterMode(display=False) as counter:
+        F.conv3d(part, weights[0], None, stride, 1, 1, 96)
+    assert counter.get_total_flops() == 2 * 27 * got.numel()
+
+
+def test_a_detection_pools_three_parts_a_block(setup, monkeypatch):
+    """One operator call a part, q then k then v, at the block's strides
+    (`LAUNCHES` counts the card's launches; here the calls are counted)."""
+    _, _, model, rgb, props, mask = setup
+    calls = []
+
+    def counted(qkv, part, heads, size, stride, *rest):
+        calls.append((part, tuple(stride)))
+        return attn_pool(qkv, part, heads, size, stride, *rest)
+
+    monkeypatch.setattr(mvit, "attn_pool", counted)
+    detect_clip(model, rgb, props, mask)
+    attn = [b.attn for b in model.features.blocks]
+    assert calls == [(p, a.pool_q.stride if p == 0 else a.pool_k.stride)
+                     for a in attn for p in range(3)]
+    assert len(calls) == 15
