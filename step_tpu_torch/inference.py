@@ -178,7 +178,8 @@ def detect_clip(model, rgb: torch.Tensor, proposals: torch.Tensor,
       frame_boxes  `[B, T, C, K, 4]`, frame_scores `[B, T, C, K]`,
       frame_mask   `[B, T, C, K]`    — per-frame per-class NMS survivors
     """
-    return _detections(model(rgb, proposals, flow), prop_mask, model.cfg)
+    with span("detect.clip"):
+        return _detections(model(rgb, proposals, flow), prop_mask, model.cfg)
 
 
 @torch.inference_mode()

@@ -28,6 +28,8 @@ from pathlib import Path
 
 import torch
 
+from step_tpu_torch.utils.spans import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("nms.cu", "roi_align.cu", "pool3d.cu", "pool3d_same.cu", "bn_relu.cu",
@@ -77,7 +79,7 @@ def build() -> tuple[Path, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     log = []
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with span("setup.kernels.build"), tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for name in SOURCES:
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(Path(tmp) / f"{name}.o"),
@@ -106,7 +108,13 @@ def build() -> tuple[Path, str]:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+    """The loaded kernel library, built first if needed, inside the span
+    `setup.kernels` (`build()`'s compile inside `setup.kernels.build`)."""
+    with span("setup.kernels"):
+        return _load()
+
+
+def _load() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -63,9 +63,13 @@ device time by layer (each hand-written kernel, the tube conv and the
 1x1x1 GEMM of the heads' blocks among them, cuDNN convolutions,
 PyTorch pools, layout conversions, copies, other elementwise work), the
 device time launched under each of the port's spans (`utils/spans.SPANS`, which any profiler
-session turns on: a span's time holds the spans nested in it) beside the
-host ms it was open, and the heaviest kernels by name. Needs a CUDA device; without one it exits
-non-zero.
+session turns on: a span's time holds the spans nested in it; a kernel belongs to the
+spans open when its launch was made, so a ctypes launch counts too) beside the
+host ms it was open, and the heaviest kernels by name. Last it serves one
+more request under the profiler of the device alone with the spans recorded
+(`spans.recording()`), a host that runs as an unprofiled one does, and prints
+that request's idle device time by the innermost span the host was in
+(`idle_gaps_untraced`). Needs a CUDA device; without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -76,11 +80,14 @@ import itertools
 import json
 import os
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
 import torch
 
+from step_tpu_torch.utils import spans as program_spans
 from step_tpu_torch.utils.spans import SPANS
 
 # Kernel name fragments → layer, first match wins.
@@ -118,24 +125,103 @@ def layer_of(name: str) -> str:
     return "other elementwise / reductions"
 
 
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+def chrome_trace(prof) -> tuple[list, int]:
+    """(events, baseTimeNanoseconds) of a finished profile's chrome trace:
+    an event's `ts` is µs after the base."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    finally:
+        os.remove(path)
+    return data["traceEvents"], int(data.get("baseTimeNanoseconds", 0))
+
+
 def span_ms(events, names=SPANS) -> dict:
     """{span: (device ms, host ms, times opened)} of the spans `names` in a
-    profile's `events()`: the device time of the work launched, on any
-    thread, while each was open (so a backward's, which autograd runs on a
-    thread of its own), that of the spans nested in it included; and the
-    time it was open on the host (a wait launches nothing, so only its
-    host ms tells)."""
-    cpu = torch.autograd.DeviceType.CPU
-    launched = [(e.time_range.start, sum(k.duration for k in e.kernels))
-                for e in events if e.device_type == cpu and e.kernels]
+    chrome trace's `events`: the device time of the work launched (the
+    runtime call of the same correlation id), on any thread, while each was
+    open (so a backward's, which autograd runs on a thread of its own, and a
+    ctypes launch's, which no operator holds), that of the spans nested in
+    it included; and the time it was open on the host (a wait launches
+    nothing, so only its host ms tells)."""
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
+    launched = [(launch[c], e["dur"]) for e in events if e.get("cat") in DEVICE_CATS
+                and (c := e.get("args", {}).get("correlation")) in launch]
     out = {}
     for s in events:
-        if s.name in names and s.device_type == cpu:
-            a, b = s.time_range.start, s.time_range.end
-            ms, host, n = out.get(s.name, (0.0, 0.0, 0))
-            out[s.name] = (ms + sum(us for t, us in launched if a <= t <= b) / 1e3,
-                           host + (b - a) / 1e3, n + 1)
+        if s.get("cat") == "user_annotation" and s["name"] in names:
+            a, b = s["ts"], s["ts"] + s["dur"]
+            ms, host, n = out.get(s["name"], (0.0, 0.0, 0))
+            out[s["name"]] = (ms + sum(us for t, us in launched if a <= t <= b) / 1e3,
+                              host + (b - a) / 1e3, n + 1)
     return out
+
+
+def idle_by_span(spans, gaps) -> dict:
+    """{name: time} of `gaps` (disjoint `(start, end)` pairs) put down to the
+    innermost of `spans` (`(name, start, end)` of one thread, so nested, on
+    the gaps' clock) open over each part of them, "outside spans" where
+    none is."""
+    bounds = sorted({t for _, a, b in spans for t in (a, b)} | {t for g in gaps for t in g})
+    opened = sorted(spans, key=lambda s: (s[1], -s[2]))
+    gaps = sorted(gaps)
+    out, stack, i, k = {}, [], 0, 0
+    for a, b in zip(bounds, bounds[1:]):
+        while i < len(opened) and opened[i][1] <= a:
+            stack.append(opened[i])
+            i += 1
+        while stack and stack[-1][2] <= a:
+            stack.pop()
+        while k < len(gaps) and gaps[k][1] <= a:
+            k += 1
+        if k < len(gaps) and gaps[k][0] <= a:
+            inside = [s for s in stack if s[2] > a]
+            name = inside[-1][0] if inside else "outside spans"
+            out[name] = out.get(name, 0) + (b - a)
+    return out
+
+
+def recorded_idle(run, x, dev: torch.device) -> dict:
+    """{span: idle device ms} of one request `run(x)` under the profiler of
+    the device alone, its spans recorded on this thread: the window runs
+    from a marker operation on the idle device to another after the
+    request, and each idle stretch in it goes to the innermost span the
+    host was in."""
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, device=dev)
+    torch.cuda.synchronize(dev)
+    with program_spans.recording() as recorded:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.add_(1)
+            run(x)
+            torch.cuda.synchronize(dev)
+            marker.add_(1)
+            torch.cuda.synchronize(dev)
+    events, base = chrome_trace(prof)
+    device = sorted(((e["ts"], e["ts"] + e["dur"]) for e in events
+                     if e.get("cat") in DEVICE_CATS), key=lambda ab: ab[0])
+    start, end = device[0][0], max(b for _, b in device)
+    gaps, t = [], start
+    for a, b in device:
+        if a > t:
+            gaps.append((t, a))
+        t = max(t, b)
+    main = threading.get_native_id()
+    spans = [(n, (a - base) / 1e3, (b - base) / 1e3) for n, a, b, tid in recorded
+             if tid == main]
+    idle = idle_by_span(spans, gaps)
+    return {"window_ms": (end - start) / 1e3,
+            "idle_gaps_untraced": {k: v / 1e3 for k, v in
+                                   sorted(idle.items(), key=lambda kv: -kv[1])}}
 
 
 def build(path: str, dev: torch.device, cfg=None):
@@ -283,6 +369,8 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         after = pool_counts()
+        spans = span_ms(chrome_trace(prof)[0])     # before another profile clears it
+        recorded = recorded_idle(run, inputs[2], dev)
 
     kernels = {}
     for evt in prof.key_averages():
@@ -307,7 +395,6 @@ def main(argv=None) -> int:
     if device_ms == 0.0:
         print("the profiler recorded no device time", file=sys.stderr)
         return 1
-    spans = span_ms(prof.events())
     layers = {}
     for name, (ms, n) in kernels.items():
         ms0, n0 = layers.get(layer_of(name), (0.0, 0))
@@ -334,6 +421,7 @@ def main(argv=None) -> int:
                    for k, (ms, n) in sorted(layers.items(), key=lambda kv: -kv[1][0])},
         "top": [{"name": k[:120], "ms": ms, "calls": n}
                 for k, (ms, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:args.top]],
+        "recorded": recorded,
     }
     if request_ms:
         print(f"{args.path} path, B={args.batch}: request wall ms "
@@ -359,6 +447,11 @@ def main(argv=None) -> int:
     print("  heaviest kernels:")
     for k in result["top"]:
         print(f"  {k['ms']:9.3f} ms {k['calls']:5d}  {k['name']}")
+    idle = recorded["idle_gaps_untraced"]
+    print(f"  one request with the spans recorded, no host profiled: window "
+          f"{recorded['window_ms']:.3f} ms, idle {sum(idle.values()):.3f} ms by innermost span:")
+    for name, ms in idle.items():
+        print(f"  {ms:9.3f} ms  {name}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -21,6 +21,8 @@ order than the plain version's, each rounded once).
 """
 
 import _torch_threads  # noqa: F401  (first: caps torch's threads)
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +43,7 @@ from step_tpu_torch.ops.pool import (max_pool3d_same, max_pool3x3_same,
                                     max_pool3x3_same_plain, same_padding)
 from step_tpu_torch.ops.roi_align import tube_roi_align, tube_roi_align_plain
 from step_tpu_torch.tubes.linking import link_tubes_multiclass_k
+from step_tpu_torch.utils import spans
 from step_tpu_torch.utils.init import init_detector_
 
 pytestmark = pytest.mark.gpu
@@ -378,7 +381,7 @@ def test_program_spans_split_a_main_path_request(cuda):
     launched under `model.preprocess`, `model.backbone`, `model.refine` and
     `detect.nms` sums to that launched under a span around the call, within
     2%, and each of them launched work."""
-    from step_tpu_torch.profile_request import build, span_ms
+    from step_tpu_torch.profile_request import build, chrome_trace, span_ms
 
     cfg, model = build("main", cuda)
     props, pmask = STEPDetector.initial_proposals(cfg, 2, device=cuda)
@@ -393,9 +396,100 @@ def test_program_spans_split_a_main_path_request(cuda):
             detect_clip(model, rgb, props, pmask)
         torch.cuda.synchronize()
     stages = ("model.preprocess", "model.backbone", "model.refine", "detect.nms")
-    ms = span_ms(prof.events(), stages + ("request",))
-    assert all(ms[s][0] > 0 and ms[s][2] == 1 for s in stages), ms
+    ms = span_ms(chrome_trace(prof)[0], stages + ("request", "model.stem"))
+    assert all(ms[s][0] > 0 and ms[s][2] == 1 for s in stages + ("model.stem",)), ms
     assert sum(ms[s][0] for s in stages) == pytest.approx(ms["request"][0], rel=0.02), ms
+
+
+def test_a_recorded_request_puts_its_idle_down_to_the_program_spans(cuda):
+    """A B=2 main-path request under the profiler of the device alone with
+    the spans recorded (`profile_request.recorded_idle`): its idle time,
+    split by the innermost span, lies inside the window, and the request's
+    stages are among the spans it names."""
+    from step_tpu_torch.profile_request import build, recorded_idle, request_fn
+
+    cfg, model = build("main", cuda)
+    run, make = request_fn("main", cfg, model, 2, cuda)
+    x = make()
+    run(x)
+    out = recorded_idle(run, x, cuda)
+    idle = out["idle_gaps_untraced"]
+    print("recorded main-path B=2 request:", out)
+    assert 0 < sum(idle.values()) < out["window_ms"]
+    assert {"detect.clip", "model.backbone", "model.refine"} & set(idle), idle
+
+
+def test_recorded_spans_share_the_device_traces_clock(cuda):
+    """The host's `time.time_ns()`, on which `spans.recording()` keeps its
+    spans, against the chrome trace's clock (`baseTimeNanoseconds + ts *
+    1000`) under the profiler of the device alone. The offset is measured
+    from launches bracketed by two readings of `time_ns()` with nothing
+    else between them: each runtime launch call lies inside its bracket, so
+    the trace's clock runs ahead of the host's by no less than the largest
+    `launch end - bracket end` and no more than the least `launch start -
+    bracket start`; both bounds lie within 20 µs. Then spans recorded
+    around one launch each: no kernel starts on the device before its span
+    opened, and each launch call lies inside its span, beyond that offset.
+    Prints (with -s) the offset and a span's cost, off, recording, and
+    recording under the device's profiler, in ns."""
+    from step_tpu_torch.profile_request import chrome_trace
+
+    x = torch.zeros(1 << 16, device=cuda)
+    n = 200
+    x.add_(1)
+    torch.cuda.synchronize()
+    brackets = []
+    with spans.recording() as kept:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                t0 = time.time_ns()
+                x.add_(1)
+                brackets.append((t0, time.time_ns()))
+                time.sleep(1e-4)
+            for _ in range(n):
+                with spans.span("detect.clip"):
+                    x.add_(1)
+                time.sleep(1e-4)
+            torch.cuda.synchronize()
+    events, base = chrome_trace(prof)
+    kernels = sorted((e for e in events if e.get("cat") == "kernel"), key=lambda e: e["ts"])
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})}
+    us = lambda t: (t - base) / 1e3  # noqa: E731
+    opened = sorted((us(a), us(b)) for _, a, b, _ in kept)
+    assert base > 0 and len(kernels) == 2 * n and len(opened) == n
+    bare, inside = kernels[:n], kernels[n:]
+    report = {"kernel_before_span_us": max(a - k["ts"] for (a, _), k in zip(opened, inside))}
+    pairs = [((us(a), us(b)), launches.get(k.get("args", {}).get("correlation")))
+             for (a, b), k in zip(brackets, bare)]
+    if all(e is not None for _, e in pairs):
+        lo = max(e["ts"] + e["dur"] - b for (_, b), e in pairs)
+        hi = min(e["ts"] - a for (a, _), e in pairs)
+        spanned = [(ab, launches[k["args"]["correlation"]]) for ab, k in zip(opened, inside)]
+        outside = max(max(a + lo - e["ts"], e["ts"] + e["dur"] - b - hi) for (a, b), e in spanned)
+        report.update(offset_us=(lo, hi), launch_outside_span_us=outside)
+        assert -20.0 <= lo <= hi <= 20.0, report
+        assert outside <= 1.0, report
+        assert report["kernel_before_span_us"] <= max(0.0, -lo), report
+    else:       # no runtime events: a kernel starts after its launch, so after its bracket opened
+        report["offset_us"] = (None, min(k["ts"] - us(a) for (a, _), k in zip(brackets, bare)))
+        assert report["offset_us"][1] >= -20.0, report
+        assert report["kernel_before_span_us"] <= 20.0, report
+
+    def cost(k=100_000):
+        t0 = time.perf_counter_ns()
+        for _ in range(k):
+            with spans.span("detect.clip"):
+                pass
+        return (time.perf_counter_ns() - t0) / k
+
+    off = cost()
+    with spans.recording():
+        recording = cost()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]):
+            profiled = cost(20_000)
+    report.update(span_ns_off=off, span_ns_recording=recording, span_ns_recording_profiled=profiled)
+    print("recorded spans against the device trace:", report)
 
 
 def _ncdhw(seed, shape, dtype, channels_last=True):
